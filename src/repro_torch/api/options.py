@@ -1,0 +1,111 @@
+"""`SolveOptions` — every knob of a MIS solve (counterpart of
+`repro.api.options`, same fields, defaults and validation).
+
+Fields that select work this package has not ported yet are accepted and
+validated like the reference's, and resolved by the reference's own rules:
+the port's engines support neither hybrid routing nor the packed-word
+frontier, so `hybrid` plans "off" and `frontier` resolves to "dense";
+`placement="sharded"` and `telemetry=True` raise at solve time; `repair`,
+`repair_threshold`, `bitpack`, `shard_threshold` and `cache_dir` have no
+effect yet (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+PLACEMENTS = ("auto", "local", "sharded")
+STORAGES = ("auto", "int8", "bitpack")
+REPAIRS = ("auto", "cold", "incremental")
+FRONTIERS = ("auto", "dense", "bitwise")
+HYBRIDS = ("auto", "off", "forced")
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveOptions:
+    """How to solve: algorithm, engine, preprocessing, and placement.
+
+    Algorithm / engine:
+      heuristic:  h1 | h2 | h3 | ecl
+      engine:     segment | tiled_ref | tiled_pallas | fused_pallas
+                  (`repro_torch.core.engine` registry; the last two run the
+                  Hopper kernels)
+      phase1:     segment (paper-faithful) | tiled (beyond-paper)
+      lanes:      RHS lane count (≥ 2: lane 0 = candidates, lane 1 = alive)
+      skip_dma:   accepted for parity; the Hopper kernels never load a
+                  gated slab, so it changes nothing
+      max_rounds: convergence-loop bound
+      frontier:   auto | dense | bitwise (resolves to dense here)
+
+    Preprocessing (the `Plan` build policy):
+      tile_size:  BSR tile edge T, power of two ≥ 8; None = auto-T
+                  (`repro_torch.api.plan.choose_tile_size`)
+      reorder:    None | 'rcm'
+      storage:    'int8' | 'bitpack' | 'auto' (bitpack once the worst-case
+                  int8 payload reaches `BITPACK_AUTO_THRESHOLD` bytes)
+      hybrid:     auto | off | forced (plans off on this package's engines)
+      hybrid_threshold: nnz cut for the hybrid classifier
+
+    Placement: placement (auto | local | sharded), shard_threshold, bitpack.
+    Dynamic graphs: repair, repair_threshold.  Observability: telemetry.
+    Reproducibility / caching: seed (seeds the `torch.Generator` of
+    `Solver.solve`), cache_dir, plan_cache_entries.
+    """
+
+    heuristic: str = "h3"
+    engine: str = "fused_pallas"
+    phase1: str = "segment"
+    lanes: int = 8
+    skip_dma: bool = False
+    max_rounds: int = 1024
+    frontier: str = "auto"
+
+    tile_size: Optional[int] = None
+    reorder: Optional[str] = None
+    storage: str = "auto"
+    hybrid: str = "auto"
+    hybrid_threshold: Optional[int] = None
+
+    placement: str = "auto"
+    shard_threshold: int = 1 << 15
+    bitpack: bool = True
+
+    repair: str = "auto"
+    repair_threshold: float = 0.25
+
+    telemetry: bool = False
+
+    seed: int = 0
+    cache_dir: Optional[str] = None
+    plan_cache_entries: int = 256
+
+    def __post_init__(self):
+        if self.placement not in PLACEMENTS:
+            raise ValueError(
+                f"unknown placement {self.placement!r}; options {PLACEMENTS}"
+            )
+        if self.storage not in STORAGES:
+            raise ValueError(
+                f"unknown storage {self.storage!r}; valid: {STORAGES}"
+            )
+        if self.repair not in REPAIRS:
+            raise ValueError(
+                f"unknown repair {self.repair!r}; valid: {REPAIRS}"
+            )
+        if self.frontier not in FRONTIERS:
+            raise ValueError(
+                f"unknown frontier {self.frontier!r}; valid: {FRONTIERS}"
+            )
+        if self.hybrid not in HYBRIDS:
+            raise ValueError(
+                f"unknown hybrid {self.hybrid!r}; valid: {HYBRIDS}"
+            )
+        if self.hybrid_threshold is not None and self.hybrid_threshold < 1:
+            raise ValueError(
+                f"hybrid_threshold must be >= 1, got {self.hybrid_threshold}"
+            )
+
+    @property
+    def backend(self) -> str:
+        """The reference's engine-layer spelling of `engine`."""
+        return self.engine

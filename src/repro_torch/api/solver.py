@@ -1,0 +1,129 @@
+"""`Solver` — plan, route and solve one graph (counterpart of
+`repro.api.solver`, local route only).
+
+`Solver(options, device="cuda")` runs on the CUDA device and raises where
+there is none; `device="cpu"` must be asked for.  A graph handed to
+`solve` is moved to the solver's device.  `solve_many`, `update`,
+`profile` and the sharded route are not ported yet (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.api.options import SolveOptions
+from repro_torch.api.plan import Plan, PlanCache, choose_tile_size, resolve_storage
+from repro_torch.core.engine import get_engine
+from repro_torch.core.tc_mis import run_tc_mis
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.graphs.graph import Graph
+
+GraphLike = Union[Graph, Plan]
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveResult:
+    """One graph's solution, in ORIGINAL vertex numbering."""
+    in_mis: np.ndarray          # (n_nodes,) bool, original vertex ids
+    rounds: int
+    converged: bool
+    placement: str              # local
+    plan: Plan
+    stats: Dict[str, object] = dataclasses.field(default_factory=dict)
+
+    @property
+    def mis_size(self) -> int:
+        return int(np.asarray(self.in_mis).sum())
+
+    @property
+    def in_mis_plan(self) -> np.ndarray:
+        """The solution in plan-id numbering (what validators over
+        `plan.g` expect)."""
+        return self.plan.to_plan_ids(self.in_mis)
+
+
+class Solver:
+    """Plan → route → execute on one device."""
+
+    def __init__(
+        self,
+        options: SolveOptions = SolveOptions(),
+        *,
+        device: DeviceLike = "cuda",
+        plans: Optional[PlanCache] = None,
+    ):
+        get_engine(options.engine)   # fail fast, before any graph is planned
+        self.device = resolve_device(device)
+        self.options = options
+        self.plans = plans if plans is not None else PlanCache(
+            tile_size=options.tile_size or 32,
+            reorder=options.reorder,
+            storage=options.storage,
+            max_mem_entries=options.plan_cache_entries,
+        )
+
+    def plan(self, graph: GraphLike) -> Plan:
+        """Plan a graph on the solver's device through the cache (a `Plan`
+        passes through).  Auto-T and auto-storage resolve per graph.  The
+        reference's Solver plans hybrid "off" for engines without
+        `supports_hybrid`, which is every engine of this package."""
+        if isinstance(graph, Plan):
+            return graph
+        graph = graph.to(self.device)
+        tile_size = self.options.tile_size or choose_tile_size(
+            graph.n_nodes, graph.n_edges
+        )
+        storage = resolve_storage(
+            self.options.storage, graph.n_nodes, graph.n_edges, tile_size
+        )
+        # no engine here has `supports_hybrid`, so `options.hybrid` plans off
+        plan, _ = self.plans.plan(graph, tile_size=tile_size, storage=storage)
+        return plan
+
+    def route(self, plan: Plan) -> str:
+        """The placement policy.  Only the local route exists here, so
+        "auto" always resolves to it."""
+        if self.options.placement != "auto":
+            return self.options.placement
+        return "local"
+
+    def solve(
+        self,
+        graph: GraphLike,
+        *,
+        generator: Optional[torch.Generator] = None,
+    ) -> SolveResult:
+        """Solve one graph.  Priorities draw from `generator`, by default a
+        `torch.Generator` on the solver's device seeded with
+        `options.seed`."""
+        plan = self.plan(graph)
+        if plan.device != self.device:
+            raise ValueError(
+                f"plan lives on {plan.device}, solver on {self.device}"
+            )
+        if self.route(plan) != "local":
+            raise NotImplementedError(
+                "placement='sharded' is not ported yet (ROADMAP.md, Queue 1 item 16)"
+            )
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(
+                self.options.seed
+            )
+        t0 = time.perf_counter()
+        result = run_tc_mis(plan.g, plan.tiled, generator, self.options)
+        in_mis_plan = result.in_mis.cpu().numpy().astype(bool)
+        rounds = int(result.rounds)
+        converged = bool(result.converged)
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        return SolveResult(
+            in_mis=plan.to_original(in_mis_plan).astype(bool),
+            rounds=rounds,
+            converged=converged,
+            placement="local",
+            plan=plan,
+            stats={"solve_ms": solve_ms, "device": str(self.device)},
+        )

@@ -1,0 +1,260 @@
+"""Block-tiled adjacency (counterpart of `repro.core.tiling`, dense half).
+
+The adjacency matrix is cut into T×T tiles; only non-empty tiles are
+stored, sorted by block-row then block-column (BSR order), with
+`row_starts` the CSR pointer over block-rows.  The Hopper kernels walk
+`row_starts[r]..row_starts[r+1]` with one CTA per block-row.
+
+Tiles come in two storages:
+
+  int8      (nt, T, T) int8, one byte per cell.
+  bitpack   (nt, T, W) int32 words with W = max(T // 32, 1), 1 bit per
+            cell: bit j of word w of row v is column 32·w + j; when T < 32
+            only the low T bits are live.  The words hold the reference's
+            uint32 bits (see `repro_torch.device`).
+
+`build_block_tiles` mirrors the reference array for array: the same tile order,
+the same pad-to-8 zero tiles pinned to the last real block-row at column
+0, and the single zero tile of an empty graph.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.device import to_torch
+from repro_torch.graphs.graph import Graph
+
+STORAGES = ("int8", "bitpack")
+_BITS = 32
+
+
+def packed_words(tile_size: int) -> int:
+    """Words per packed tile row: ceil over 32, floor 1."""
+    return max(int(tile_size) // _BITS, 1)
+
+
+def pack_tile_bits(tiles: torch.Tensor) -> torch.Tensor:
+    """(..., T, T) 0/1 -> (..., T, W) int32 words, bits packed along columns.
+
+    Bit j of word w takes column 32·w + j.  One OR per bit position keeps
+    the intermediate at the packed size (no (..., T, W, 32) expansion)."""
+    T = tiles.shape[-1]
+    W = packed_words(T)
+    words = torch.zeros(tiles.shape[:-1] + (W,), dtype=torch.int32,
+                        device=tiles.device)
+    for j in range(min(T, _BITS)):
+        # columns j, 32 + j, 64 + j, ... are bit j of words 0, 1, 2, ...
+        words |= (tiles[..., j::_BITS] != 0).to(torch.int32) << j
+    return words
+
+
+def unpack_tile_mask(packed: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """(..., T, W) int32 words -> (..., T, T) bool edge mask."""
+    shifts = torch.arange(_BITS, dtype=torch.int32, device=packed.device)
+    # `& 1` after the arithmetic shift: the sign fill lands above bit 0
+    bits = (packed[..., None] >> shifts) & 1
+    full = bits.reshape(packed.shape[:-1] + (packed.shape[-1] * _BITS,))
+    return full[..., : int(tile_size)] != 0
+
+
+def unpack_tile_bits(packed: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """(..., T, W) int32 words -> (..., T, T) int8 — inverse of
+    `pack_tile_bits`."""
+    return unpack_tile_mask(packed, tile_size).to(torch.int8)
+
+
+def dense_tile_mask(tiles: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """Either storage -> (nt, T, T) bool edge mask (the plain-torch tile
+    operators' input; the kernels unpack per tile in shared memory)."""
+    if tiles.dtype == torch.int32:
+        return unpack_tile_mask(tiles, tile_size)
+    return tiles != 0
+
+
+def padded_tile_count(n_real: int, pad_tiles_to: int | None = None) -> int:
+    """Stored tile count for `n_real` real tiles: floor 1 (an empty graph
+    still stores one zero tile), optional caller floor, aligned up to 8."""
+    stored = max(int(n_real), 1)
+    target = max(pad_tiles_to or stored, stored)
+    return ((target + 7) // 8) * 8
+
+
+def next_pow2(x: int) -> int:
+    """Smallest power of two ≥ x (≥ 1)."""
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTiledGraph:
+    """BSR adjacency: only non-empty T×T tiles, row-major block order.
+
+    Attributes:
+      tiles:      (n_tiles_pad, T, T) int8 or (n_tiles_pad, T, W) int32.
+      tile_rows:  (n_tiles_pad,) int32 block-row of each tile (padding
+                  tiles carry the last real block-row).
+      tile_cols:  (n_tiles_pad,) int32 block-column of each tile.
+      row_starts: (n_block_rows + 1,) int32 CSR pointer over block-rows;
+                  it covers real tiles only, so a kernel that walks it
+                  never visits padding.
+      n_tiles, n_nodes, tile_size, n_block_rows, n_block_cols, storage:
+                  static metadata.
+    """
+    tiles: torch.Tensor
+    tile_rows: torch.Tensor
+    tile_cols: torch.Tensor
+    row_starts: torch.Tensor
+    n_tiles: int
+    n_nodes: int
+    tile_size: int
+    n_block_rows: int
+    n_block_cols: int
+    storage: str = "int8"
+
+    @property
+    def n_tiles_pad(self) -> int:
+        return int(self.tiles.shape[0])
+
+    @property
+    def n_padded(self) -> int:
+        """Vertex count rounded up to a whole number of tiles."""
+        return self.n_block_rows * self.tile_size
+
+    @property
+    def device(self) -> torch.device:
+        return self.tiles.device
+
+    def to_storage(self, storage: str) -> "BlockTiledGraph":
+        """Convert between tile storage formats (exact)."""
+        if storage not in STORAGES:
+            raise ValueError(f"unknown storage {storage!r}; valid: {STORAGES}")
+        if storage == self.storage:
+            return self
+        if storage == "bitpack":
+            tiles = pack_tile_bits(self.tiles)
+        else:
+            tiles = unpack_tile_bits(self.tiles, self.tile_size)
+        return dataclasses.replace(self, tiles=tiles, storage=storage)
+
+
+def rcm_ordering(g: Graph) -> np.ndarray:
+    """Reverse Cuthill–McKee vertex permutation: perm[new_id] = old_id."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    s = g.senders[: g.n_edges].cpu().numpy()
+    r = g.receivers[: g.n_edges].cpu().numpy()
+    adj = coo_matrix(
+        (np.ones(len(s), np.int8), (s, r)), shape=(g.n_nodes, g.n_nodes)
+    ).tocsr()
+    return np.asarray(reverse_cuthill_mckee(adj, symmetric_mode=True))
+
+
+def build_block_tiles(
+    g: Graph,
+    tile_size: int = 128,
+    *,
+    pad_tiles_to: int | None = None,
+    reorder: str | None = None,   # None | 'rcm'
+    storage: str = "int8",        # 'int8' | 'bitpack'
+) -> BlockTiledGraph:
+    """Tile `g`'s adjacency matrix on the host; the tiling lives on `g`'s
+    device (bitpack words are packed there).
+
+    With reorder='rcm' the tiling indexes PERMUTED vertex ids, exactly as
+    the reference's `build_block_tiles` does."""
+    T = int(tile_size)
+    if T < 8 or (T & (T - 1)):
+        raise ValueError(f"tile_size must be a power of two >= 8, got {T}")
+    if storage not in STORAGES:
+        raise ValueError(f"unknown storage {storage!r}; valid: {STORAGES}")
+    s = g.senders[: g.n_edges].cpu().numpy().astype(np.int64)
+    r = g.receivers[: g.n_edges].cpu().numpy().astype(np.int64)
+    if reorder == "rcm":
+        perm = rcm_ordering(g)                 # perm[new_id] = old_id
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(g.n_nodes)
+        s, r = inv[s], inv[r]
+        order = np.lexsort((r, s))
+        s, r = s[order], r[order]
+    elif reorder is not None:
+        raise ValueError(f"unknown reorder {reorder!r} (None or 'rcm')")
+    nb = -(-g.n_nodes // T)  # ceil
+    tr, tc = s // T, r // T
+    key = tr * nb + tc
+    uniq, inv = np.unique(key, return_inverse=True)
+    n_tiles = int(uniq.shape[0])
+
+    tiles = np.zeros((max(n_tiles, 1), T, T), dtype=np.int8)
+    tiles[inv, s % T, r % T] = 1
+    tile_rows = (uniq // nb).astype(np.int32)
+    tile_cols = (uniq % nb).astype(np.int32)
+    if n_tiles == 0:   # an empty graph stores one zero tile at (0, 0)
+        tile_rows = np.zeros(1, dtype=np.int32)
+        tile_cols = np.zeros(1, dtype=np.int32)
+
+    counts = np.bincount(tile_rows[:n_tiles], minlength=nb)
+    row_starts = np.zeros(nb + 1, dtype=np.int32)
+    np.cumsum(counts, out=row_starts[1:])
+
+    # pad: zero tiles pinned to the last real block-row at column 0
+    stored = tiles.shape[0]
+    target = padded_tile_count(n_tiles, pad_tiles_to)
+    if target > stored:
+        last_row = tile_rows[-1] if n_tiles else 0
+        tiles = np.concatenate(
+            [tiles, np.zeros((target - stored, T, T), dtype=np.int8)], axis=0
+        )
+        tile_rows = np.concatenate(
+            [tile_rows, np.full(target - stored, last_row, dtype=np.int32)]
+        )
+        tile_cols = np.concatenate(
+            [tile_cols, np.zeros(target - stored, dtype=np.int32)]
+        )
+
+    dev = g.device
+    tiles_t = to_torch(tiles, dev)
+    if storage == "bitpack":
+        tiles_t = pack_tile_bits(tiles_t)
+    return BlockTiledGraph(
+        tiles=tiles_t,
+        tile_rows=to_torch(tile_rows, dev),
+        tile_cols=to_torch(tile_cols, dev),
+        row_starts=to_torch(row_starts, dev),
+        n_tiles=n_tiles,
+        n_nodes=g.n_nodes,
+        tile_size=T,
+        n_block_rows=int(nb),
+        n_block_cols=int(nb),
+        storage=storage,
+    )
+
+
+def pack_vertex_vector(x: torch.Tensor, tiled: BlockTiledGraph) -> torch.Tensor:
+    """(n_nodes,) -> (n_padded,) zero-padded to whole tiles."""
+    pad = tiled.n_padded - x.shape[0]
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
+def tiling_from_arrays(
+    arrays: dict, *, n_tiles: int, n_nodes: int, tile_size: int,
+    n_block_rows: int, n_block_cols: int, storage: str, device,
+) -> BlockTiledGraph:
+    """A tiling from the reference's numpy arrays (tiles as stored: int8,
+    or uint32 words, which arrive as int32 with the same bits)."""
+    if storage not in STORAGES:
+        raise ValueError(f"unknown storage {storage!r}; valid: {STORAGES}")
+    return BlockTiledGraph(
+        tiles=to_torch(arrays["tiles"], device),
+        tile_rows=to_torch(arrays["tile_rows"], device),
+        tile_cols=to_torch(arrays["tile_cols"], device),
+        row_starts=to_torch(arrays["row_starts"], device),
+        n_tiles=int(n_tiles),
+        n_nodes=int(n_nodes),
+        tile_size=int(tile_size),
+        n_block_rows=int(n_block_rows),
+        n_block_cols=int(n_block_cols),
+        storage=storage,
+    )

@@ -24,3 +24,11 @@ def run_multidevice(script: str, n_devices: int = 8, timeout: int = 600) -> str:
     )
     assert proc.returncode == 0, f"subprocess failed:\n{proc.stdout}\n{proc.stderr}"
     return proc.stdout
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the Hopper kernels have no CPU mode); "
+        "the test skips itself without one",
+    )

@@ -1,0 +1,160 @@
+"""The port's tiled SpMV (`repro_torch.hopper.tc_spmv`) against the JAX
+reference's Pallas kernels, run as the reference's own tests run them on
+the CPU (`interpret=True`).  On CPU tensors the port's wrappers take their
+plain-torch versions; the CUDA kernels themselves are held against those
+plain versions on the card (the `gpu`-marked test here, and chip_smoke.py).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.engine import tile_spmv as ref_tile_spmv
+from repro.core.tiling import build_block_tiles as ref_build_block_tiles
+from repro.graphs.graph import from_edges as ref_from_edges
+from repro.kernels import ops
+from repro_torch.core.engine import block_col_flags
+from repro_torch.core.tiling import build_block_tiles, tiling_from_arrays
+from repro_torch.graphs.graph import from_edges
+from repro_torch.hopper import tc_spmv as K
+
+LANES = 8
+# Split SpMV on a random f32 RHS: XLA's per-tile dot and torch's bmm +
+# index_add_ sum the same terms in different orders, so results differ in
+# the last bits of f32 (ε = 1.2e-7) on sums of up to a few dozen O(1)
+# terms; 1e-6 absolute and relative covers that with margin.
+SPLIT_TOL = 1e-6
+
+
+def _edges(kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "clustered":
+        # the reference test_engine graph: edges confined to [0, n//3), so
+        # most block-rows store no tiles and vertices >= n//3 are isolated
+        n, hi = 100, 33
+        return rng.integers(0, hi, 4 * hi), rng.integers(0, hi, 4 * hi), n
+    n = 160
+    m = 3 * n
+    return rng.integers(0, n, m), rng.integers(0, n, m), n
+
+
+def _tilings(kind, T, storage, seed=0):
+    """The reference tiling and the port's copy of its arrays."""
+    src, dst, n = _edges(kind, seed)
+    ref = ref_build_block_tiles(ref_from_edges(src, dst, n), tile_size=T, storage=storage)
+    arrays = {k: np.asarray(getattr(ref, k))
+              for k in ("tiles", "tile_rows", "tile_cols", "row_starts")}
+    t = tiling_from_arrays(
+        arrays, n_tiles=ref.n_tiles, n_nodes=ref.n_nodes, tile_size=T,
+        n_block_rows=ref.n_block_rows, n_block_cols=ref.n_block_cols,
+        storage=storage, device="cpu",
+    )
+    return ref, t
+
+
+def _frontier(n_padded, T, seed, gated):
+    rng = np.random.default_rng(seed)
+    alive = rng.random(n_padded) < 0.7
+    cand = alive & (rng.random(n_padded) < 0.3)
+    flags = None
+    if gated:
+        gate = rng.random(n_padded // T) >= 1 / 3
+        flags = (cand.reshape(-1, T).any(axis=1) & gate).astype(np.int32)
+    return cand, alive, flags
+
+
+def _covered_rows(ref):
+    rs = np.asarray(ref.row_starts)
+    return np.repeat(rs[1:] > rs[:-1], ref.tile_size)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 32])
+@pytest.mark.parametrize("kind", ["random", "clustered"])
+def test_fused_matches_pallas_exactly(kind, T, storage, gated):
+    ref, t = _tilings(kind, T, storage)
+    cand, alive, flags = _frontier(ref.n_padded, T, seed=T, gated=gated)
+    rng = np.random.default_rng(1)
+    rhs = (rng.random((ref.n_padded, LANES)) < 0.5).astype(np.float32)
+    rhs[:, 0], rhs[:, 1] = cand, alive
+    want = ops.tc_spmv_fused(
+        ref, jnp.asarray(rhs), jnp.asarray(cand), jnp.asarray(alive),
+        col_flags=None if flags is None else jnp.asarray(flags), interpret=True,
+    )
+    got = K.tc_spmv_fused(
+        t, torch.from_numpy(rhs), torch.from_numpy(cand), torch.from_numpy(alive),
+        col_flags=None if flags is None else torch.from_numpy(flags),
+    )
+    assert got[1].dtype == torch.bool and got[2].dtype == torch.bool
+    for name, a, b in zip(("n_c", "new_alive", "mis_add"), got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 32])
+@pytest.mark.parametrize("kind", ["random", "clustered"])
+def test_split_matches_pallas(kind, T, storage, gated):
+    ref, t = _tilings(kind, T, storage)
+    _, _, flags = _frontier(ref.n_padded, T, seed=T + 1, gated=gated)
+    rhs = np.random.default_rng(2).standard_normal((ref.n_padded, LANES)).astype(np.float32)
+    jflags = None if flags is None else jnp.asarray(flags)
+    tflags = None if flags is None else torch.from_numpy(flags)
+    got = K.tc_spmv(t, torch.from_numpy(rhs), col_flags=tflags).numpy()
+    pallas = np.asarray(ops.tc_spmv(ref, jnp.asarray(rhs), col_flags=jflags, interpret=True))
+    # the Pallas kernel never writes block-rows that own no tile (the
+    # reference masks them downstream); the port writes 0 there, like the
+    # reference's jnp oracle, so those rows are held against the oracle
+    covered = _covered_rows(ref)
+    np.testing.assert_allclose(got[covered], pallas[covered],
+                               rtol=SPLIT_TOL, atol=SPLIT_TOL)
+    oracle = np.asarray(ref_tile_spmv(
+        ref.tiles, ref.tile_rows, ref.tile_cols, jnp.asarray(rhs),
+        ref.n_block_rows, T, col_flags=jflags,
+    ))
+    np.testing.assert_allclose(got, oracle, rtol=SPLIT_TOL, atol=SPLIT_TOL)
+
+
+def test_wrapper_rejects_mixed_devices_and_plain_counts_nothing():
+    _, t = _tilings("random", 16, "int8")
+    rhs = torch.zeros((t.n_padded, LANES))
+    before = (K.tc_spmv.launches, K.tc_spmv_fused.launches)
+    K.tc_spmv(t, rhs)
+    assert (K.tc_spmv.launches, K.tc_spmv_fused.launches) == before
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        K._launch(t, rhs, None, None)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 32, 64, 128])
+def test_kernel_matches_plain_on_card(cuda_device, T, storage):
+    rng = np.random.default_rng(T)
+    n = 700
+    g = from_edges(rng.integers(0, n, 4 * n), rng.integers(0, n, 4 * n), n,
+                   device=cuda_device)
+    t = build_block_tiles(g, tile_size=T, storage=storage)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    alive = torch.rand(t.n_padded, generator=gen, device=cuda_device) < 0.7
+    cand = alive & (torch.rand(t.n_padded, generator=gen, device=cuda_device) < 0.3)
+    flags = block_col_flags(cand, T)
+    rhs = (torch.rand((t.n_padded, LANES), generator=gen, device=cuda_device) < 0.5).float()
+    launches = K.tc_spmv_fused.launches
+    got = K.tc_spmv_fused(t, rhs, cand, alive, col_flags=flags)
+    assert K.tc_spmv_fused.launches == launches + 1
+    want = K.tc_spmv_fused_plain(t, rhs, cand, alive, col_flags=flags)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    rhs = torch.randn((t.n_padded, LANES), generator=gen, device=cuda_device)
+    torch.testing.assert_close(
+        K.tc_spmv(t, rhs, col_flags=flags), K.tc_spmv_plain(t, rhs, col_flags=flags),
+        rtol=1e-5, atol=1e-5,
+    )
