@@ -9,33 +9,51 @@ Phases, each fatal on failure:
 
   1. build   every csrc/*.cu with nvcc (one process per source, in parallel);
              print the build seconds and the card's name and power limit.
-  2. kernels hold each Hopper kernel against its plain-torch version on the
-             card, on the G2 stand-in (grid2d(1044, 1044): 1,089,936
-             vertices) planned four ways, {int8, bitpack} × T ∈ {16, 128},
-             with seeded random cand/alive and about a third of the
-             block-columns gated off: the fused kernel must agree exactly,
-             the split kernel on a random f32 RHS within rtol=atol=1e-5
-             (summation order differs).
-  3. paths   the main path, `Solver(SolveOptions(hybrid="off")).solve(G2)`
-             (fused engine, auto-T=16, bitpack), must converge to a valid MIS
-             equal, with equal rounds, to an `engine="tiled_ref"` solve on the
-             card, with the fused kernel launched exactly once per round; the
-             same with storage="int8"; and the `tiled_pallas` path, whose
-             split kernel must launch once per round.  Launch counts are set
-             to 0 just before each path and read just after it.
-  4. timing  CUDA-event times per launch at the main path's round-1 inputs:
-             each kernel, its plain version, and one
-             `torch.sparse_bsr_tensor @ rhs` as the library yardstick (never
-             used by the port); the bound from this run's bytes and
-             operations; the whole solve.
+  2. kernels hold each of the six Hopper kernels against its plain-torch
+             version on the card, on the G2 stand-in (grid2d(1044, 1044):
+             1,089,936 vertices) planned four ways, {int8, bitpack} × T ∈
+             {16, 128}, with seeded random frontiers and about a third of
+             the block-columns gated off.  The dense fused SpMV, both
+             neighbour maxes and both packed SpMVs must agree exactly; the
+             split SpMV on a random f32 RHS within rtol=atol=1e-5
+             (summation order differs).  The packed kernels run on the
+             bitpack plans, the plane scan on H3's unsigned select keys and
+             sign-biased resolve keys.
+  3. paths   each path is one `Solver.solve(G2)`, with every launch count
+             set to 0 just before it and read just after it:
+             - `SolveOptions(hybrid="off")` (fused engine, auto-T = 16,
+               bitpack, segment phase ①): fused SpMV once per round; also
+               with storage="int8"; and `tiled_pallas` on int8: split SpMV
+               once per round;
+             - the packed-frontier path `SolveOptions(hybrid="off",
+               phase1="tiled")`, which must resolve to the bitwise
+               frontier: plane scan 2× per round (H3), fused packed SpMV
+               once; with `engine="tiled_pallas"`: split packed SpMV once;
+             - `phase1="tiled", frontier="dense"`: dense neighbour max 2×
+               per round, dense fused SpMV once.
+             Every other count must stay 0.  Each path converges to a valid
+             MIS equal, in set and rounds, to the plain-torch `tiled_ref`
+             engine's on the card with the same options and priorities, and
+             all paths give the same MIS.
+  4. timing  CUDA-event times per launch (in the order plain, kernel,
+             kernel, plain; the stream kept busy while a window's calls are
+             enqueued) of each kernel and its plain version, at the round-1
+             inputs of the path that runs it; the bound from this run's
+             bytes and operations; a library yardstick (never used by the
+             port) where one PyTorch call computes the same function; the
+             median of 5 warm solves of the segment and the packed path,
+             and a torch.profiler breakdown of one more solve of each.
 
-The line before the last is a JSON object with one record per kernel; the
-last line is `{"ok": true, "device": {...}}`.
+The last three lines of standard output are, in order: the kernels JSON
+object (one record per kernel), the card's name and power limit as
+nvidia-smi gives them, and `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -45,11 +63,18 @@ sys.path.insert(0, str(ROOT / "src"))
 
 G2_SHAPE = (1044, 1044)          # roadNet-PA stand-in, full size
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
-KERNEL_SOURCE = "src/repro_torch/csrc/tc_spmv.cu"
-REPLACES = {
-    "tc_spmv_fused": "src/repro/kernels/tc_spmv.py:137",
-    "tc_spmv": "src/repro/kernels/tc_spmv.py:54",
+F32_OPS_PER_S = 67e12            # H100 SXM 32-bit rate outside the tensor cores
+CSRC = "src/repro_torch/csrc/"
+# name -> (CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "tc_spmv_fused": (CSRC + "tc_spmv.cu", "src/repro/kernels/tc_spmv.py:137"),
+    "tc_spmv": (CSRC + "tc_spmv.cu", "src/repro/kernels/tc_spmv.py:54"),
+    "tc_neighbor_max": (CSRC + "tc_neighbor_max.cu",
+                        "src/repro/kernels/tc_neighbor_max.py:43"),
+    "tc_spmv_fused_bits": (CSRC + "tc_spmv_bits.cu", "src/repro/kernels/tc_spmv.py:321"),
+    "tc_spmv_bits": (CSRC + "tc_spmv_bits.cu", "src/repro/kernels/tc_spmv.py:246"),
+    "tc_neighbor_max_bits": (CSRC + "tc_neighbor_max.cu",
+                             "src/repro/kernels/tc_neighbor_max.py:96"),
 }
 
 
@@ -71,8 +96,28 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def wrappers() -> dict:
+    """Kernel name -> its wrapper (which carries the `.launches` count)."""
+    from repro_torch.hopper import tc_neighbor_max as N
+    from repro_torch.hopper import tc_spmv as S
+
+    return {
+        "tc_spmv_fused": S.tc_spmv_fused, "tc_spmv": S.tc_spmv,
+        "tc_neighbor_max": N.tc_neighbor_max,
+        "tc_spmv_fused_bits": S.tc_spmv_fused_bits, "tc_spmv_bits": S.tc_spmv_bits,
+        "tc_neighbor_max_bits": N.tc_neighbor_max_bits,
+    }
+
+
+# cycles the stream spins before a timed window: ~50 ms at the H100's
+# clock, longer than the host takes to enqueue the window's calls
+QUEUE_AHEAD_CYCLES = 100_000_000
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean ms per call from CUDA events, after warm-up."""
+    """Mean ms per call from CUDA events, after warm-up.  The stream is
+    kept busy while the calls are enqueued, so a kernel shorter than its
+    wrapper's host overhead is timed on the card, not on the host."""
     import torch
 
     for _ in range(warmup):
@@ -80,6 +125,7 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -121,66 +167,109 @@ def random_frontier(tiled, gen):
     return cand, alive, flags.contiguous()
 
 
+def int_err(a, b) -> int:
+    """max |a - b| over integer (or bool, or word) outputs."""
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def exact(errs: dict, name: str, got, want, what: str) -> None:
+    """Hold integer outputs equal, and record the max |err| (0)."""
+    import torch
+
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b),
+              f"{name} kernel != plain (output {i}, {what}): max |err| {int_err(a, b)}")
+        errs[name] = max(errs.get(name, 0.0), float(int_err(a, b)))
+
+
 def phase_kernels(g2) -> dict:
     """Kernel vs plain on the four G2 plans; returns max |err| per kernel."""
     import torch
     from repro_torch.api import Plan
+    from repro_torch.core.heuristics import make_priorities
+    from repro_torch.core.tiling import pack_frontier_words, pack_priority_planes
+    from repro_torch.hopper import tc_neighbor_max as N
     from repro_torch.hopper import tc_spmv as K
 
-    errs = {"tc_spmv_fused": 0.0, "tc_spmv": 0.0}
+    errs = {}
     for T in (16, 128):
+        gen = torch.Generator(device="cuda").manual_seed(T)
+        pri = make_priorities("h3", gen, g2.n_nodes, g2.degrees())
         for storage in ("int8", "bitpack"):
             t0 = time.perf_counter()
             plan = Plan.build(g2, tile_size=T, storage=storage)
             tiled = plan.tiled
-            gen = torch.Generator(device="cuda").manual_seed(T)
+            gen = torch.Generator(device="cuda").manual_seed(T + 1)
             cand, alive, flags = random_frontier(tiled, gen)
+            what = f"T={T}, {storage}"
             lanes = 8
             rhs01 = (torch.rand((tiled.n_padded, lanes), generator=gen,
                                 device="cuda") < 0.5).float()
             rhs01[:, 0] = cand.float()
             rhs01[:, 1] = alive.float()
             for fl in (flags, None):
-                got = K.tc_spmv_fused(tiled, rhs01, cand, alive, col_flags=fl)
-                want = K.tc_spmv_fused_plain(tiled, rhs01, cand, alive, col_flags=fl)
-                torch.cuda.synchronize()
-                for name, a, b in zip(("n_c", "new_alive", "mis_add"), got, want):
-                    check(torch.equal(a, b),
-                          f"fused kernel != plain ({name}, T={T}, {storage}, "
-                          f"flags={'on' if fl is not None else 'off'})")
+                exact(errs, "tc_spmv_fused",
+                      K.tc_spmv_fused(tiled, rhs01, cand, alive, col_flags=fl),
+                      K.tc_spmv_fused_plain(tiled, rhs01, cand, alive, col_flags=fl),
+                      f"{what}, flags {'on' if fl is not None else 'off'}")
             rhs = torch.randn((tiled.n_padded, lanes), generator=gen, device="cuda")
             got = K.tc_spmv(tiled, rhs, col_flags=flags)
             want = K.tc_spmv_plain(tiled, rhs, col_flags=flags)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
-                  f"split kernel != plain (T={T}, {storage}): max |err| {err}")
-            errs["tc_spmv"] = max(errs["tc_spmv"], err)
-            print(f"[kernels] T={T} {storage}: tiles={tiled.n_tiles} "
-                  f"active_cols={int(flags.sum())}/{tiled.n_block_cols} "
-                  f"fused exact, split max|err|={err:.3g} "
+                  f"split kernel != plain ({what}): max |err| {err}")
+            errs["tc_spmv"] = max(errs.get("tc_spmv", 0.0), err)
+
+            n = g2.n_nodes
+            p = torch.nn.functional.pad(pri.select, (0, tiled.n_padded - n), value=-(1 << 30))
+            exact(errs, "tc_neighbor_max", N.tc_neighbor_max(tiled, p, alive),
+                  N.tc_neighbor_max_plain(tiled, p, alive), what)
+            if storage == "bitpack":
+                cand_w, alive_w = (pack_frontier_words(x, T) for x in (cand, alive))
+                for fl in (flags, None):
+                    how = f"{what}, flags {'on' if fl is not None else 'off'}"
+                    exact(errs, "tc_spmv_fused_bits",
+                          K.tc_spmv_fused_bits(tiled, cand_w, alive_w, col_flags=fl),
+                          K.tc_spmv_fused_bits_plain(tiled, cand_w, alive_w, col_flags=fl),
+                          how)
+                    exact(errs, "tc_spmv_bits", K.tc_spmv_bits(tiled, cand_w, col_flags=fl),
+                          K.tc_spmv_bits_plain(tiled, cand_w, col_flags=fl), how)
+                res = torch.nn.functional.pad(pri.resolve, (0, tiled.n_padded - n))
+                for key, n_bits, signed in ((p, 31, False), (res, 32, True)):
+                    planes = pack_priority_planes(key, T, n_bits, signed=signed)
+                    exact(errs, "tc_neighbor_max_bits",
+                          N.tc_neighbor_max_bits(tiled, planes, alive_w, signed=signed),
+                          N.tc_neighbor_max_bits_plain(tiled, planes, alive_w, signed=signed),
+                          f"{what}, {'signed' if signed else 'unsigned'} planes")
+            torch.cuda.synchronize()
+            print(f"[kernels] {what}: tiles={tiled.n_tiles} "
+                  f"active_cols={int(flags.sum())}/{tiled.n_block_cols} all exact "
+                  f"but the split SpMV, max|err|={err:.3g} "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
             del plan, tiled
+    check(sorted(errs) == sorted(KERNELS), f"kernels held: {sorted(errs)}")
     return errs
 
 
-def solve_path(g2, options, label: str):
+def solve_path(g2, options, label: str, plans):
     """One `Solver.solve` with every launch count set to 0 just before it;
-    returns (result, {kernel: launches}) read just after."""
+    returns (solver, plan, result, {kernel: launches}) read just after."""
     import torch
     from repro_torch.api import Solver
-    from repro_torch.hopper import tc_spmv as K
 
-    solver = Solver(options, device="cuda")
+    solver = Solver(options, device="cuda", plans=plans)
     plan = solver.plan(g2)
-    K.tc_spmv_fused.launches = 0
-    K.tc_spmv.launches = 0
+    for w in wrappers().values():
+        w.launches = 0
     res = solver.solve(plan)
     torch.cuda.synchronize()
-    counts = {"tc_spmv_fused": K.tc_spmv_fused.launches, "tc_spmv": K.tc_spmv.launches}
+    counts = {name: w.launches for name, w in wrappers().items()}
     print(f"[paths] {label}: T={plan.tile_size} {plan.storage} "
           f"tiles={plan.tiled.n_tiles} rounds={res.rounds} "
-          f"converged={res.converged} mis={res.mis_size} launches={counts} "
+          f"converged={res.converged} mis={res.mis_size} "
+          f"launches={ {k: v for k, v in counts.items() if v} } "
           f"solve_ms={res.stats['solve_ms']:.3f}", flush=True)
     return solver, plan, res, counts
 
@@ -188,78 +277,200 @@ def solve_path(g2, options, label: str):
 def phase_paths(g2) -> dict:
     import numpy as np
     import torch
-    from repro_torch.api import SolveOptions
+    from repro_torch.api import PlanCache, SolveOptions
+    from repro_torch.core.engine import get_engine, resolve_frontier
     from repro_torch.core.validate import is_valid_mis
 
+    plans = PlanCache()
     launches = {}
     out = {}
-    for storage in ("auto", "int8"):
-        opts = SolveOptions(hybrid="off", storage=storage)
-        solver, plan, res, counts = solve_path(g2, opts, f"main storage={storage}")
-        if storage == "auto":
-            check(plan.tile_size == 16 and plan.storage == "bitpack",
-                  f"main path planned T={plan.tile_size} {plan.storage}")
-            launches["tc_spmv_fused"] = counts["tc_spmv_fused"]
-            out["main"] = (solver, plan, res)
-        check(res.converged, f"main path ({storage}) did not converge")
+    mis = {}
+    refs = {}   # tiled_ref results by options
+
+    def run(label, opts, expect, *, key=None):
+        """Solve, hold validity, launch counts (kernel -> launches per
+        round; every other kernel 0) and equality with `tiled_ref`."""
+        solver, plan, res, counts = solve_path(g2, opts, label, plans)
+        check(res.converged, f"{label} did not converge")
         check(is_valid_mis(plan.g, torch.from_numpy(res.in_mis_plan).cuda()),
-              f"main path ({storage}) MIS is not valid")
-        check(counts["tc_spmv_fused"] == res.rounds and counts["tc_spmv"] == 0,
-              f"main path ({storage}) launches {counts} for {res.rounds} rounds")
-        _, _, ref, _ = solve_path(
-            g2, SolveOptions(hybrid="off", storage=storage, engine="tiled_ref"),
-            f"tiled_ref storage={storage}")
+              f"{label}: MIS is not valid")
+        want = {k: expect.get(k, 0) * res.rounds for k in KERNELS}
+        check(counts == want, f"{label}: launches {counts}, expected {want}")
+        for k, per_round in expect.items():
+            launches.setdefault(k, counts[k])
+        ref_opts = dataclasses.replace(opts, engine="tiled_ref")
+        if ref_opts not in refs:
+            refs[ref_opts] = solve_path(g2, ref_opts, f"tiled_ref for {label}", plans)[2]
+        ref = refs[ref_opts]
         check(ref.rounds == res.rounds and np.array_equal(ref.in_mis, res.in_mis),
-              f"main path ({storage}) differs from tiled_ref")
-        ref_mis = ref.in_mis
-    _, plan, res, counts = solve_path(
-        g2, SolveOptions(hybrid="off", storage="int8", engine="tiled_pallas"),
-        "tiled_pallas storage=int8")
-    check(res.converged and np.array_equal(res.in_mis, ref_mis),
-          "tiled_pallas path differs from tiled_ref")
-    check(counts["tc_spmv"] == res.rounds and counts["tc_spmv_fused"] == 0,
-          f"tiled_pallas launches {counts} for {res.rounds} rounds")
-    launches["tc_spmv"] = counts["tc_spmv"]
+              f"{label} differs from tiled_ref with the same options")
+        mis[label] = (res.in_mis, res.rounds)
+        if key:
+            out[key] = (solver, plan, res)
+        return plan
+
+    main = run("main", SolveOptions(hybrid="off"), {"tc_spmv_fused": 1}, key="main")
+    check(main.tile_size == 16 and main.storage == "bitpack",
+          f"main path planned T={main.tile_size} {main.storage}")
+    run("main storage=int8", SolveOptions(hybrid="off", storage="int8"),
+        {"tc_spmv_fused": 1})
+    run("tiled_pallas storage=int8",
+        SolveOptions(hybrid="off", storage="int8", engine="tiled_pallas"), {"tc_spmv": 1})
+
+    slice_opts = SolveOptions(hybrid="off", phase1="tiled")
+    sl = run("packed", slice_opts,
+             {"tc_neighbor_max_bits": 2, "tc_spmv_fused_bits": 1}, key="packed")
+    frontier = resolve_frontier(slice_opts, get_engine(slice_opts.engine), storage=sl.storage)
+    check(sl.tile_size == 16 and sl.storage == "bitpack" and frontier == "bitwise",
+          f"packed path planned T={sl.tile_size} {sl.storage}, frontier {frontier}")
+    run("packed tiled_pallas",
+        SolveOptions(hybrid="off", phase1="tiled", engine="tiled_pallas"),
+        {"tc_neighbor_max_bits": 2, "tc_spmv_bits": 1})
+    run("dense tiled phase 1", SolveOptions(hybrid="off", phase1="tiled", frontier="dense"),
+        {"tc_neighbor_max": 2, "tc_spmv_fused": 1})
+
+    base_mis, base_rounds = mis["main"]
+    for label, (m, r) in mis.items():
+        check(r == base_rounds and np.array_equal(m, base_mis),
+              f"{label} differs from the main path (rounds {r} vs {base_rounds})")
+    print(f"[paths] all {len(mis)} paths: the same MIS of {int(base_mis.sum())} "
+          f"vertices in {base_rounds} rounds", flush=True)
     out["launches"] = launches
     return out
 
 
-def _bound(tiled, flags, lanes: int, fused: bool):
-    """Least time for one launch on this run's inputs: (ms, "bytes"|
-    "operations", bytes, ops).  Bytes: each input the launch needs read
-    once (tiles and RHS slabs of active columns only), each output written
-    once; operations: one multiply-add per nonzero of an active tile per
-    lane."""
-    import torch
+def _active_tiles(tiled, flags):
+    nt = tiled.n_tiles
+    return flags[tiled.tile_cols[:nt].long()] != 0
+
+
+def _nnz(tiled, active=None) -> int:
+    """Nonzeros of the (active) real tiles, counted in chunks."""
     from repro_torch.core.tiling import dense_tile_mask
 
-    nt, T = tiled.n_tiles, tiled.tile_size
-    cols = tiled.tile_cols[:nt].long()
-    active = flags[cols] != 0
-    tile_bytes = tiled.tiles[0].numel() * tiled.tiles.element_size()
-    n_active_cols = int(torch.unique(cols[active]).numel())
-    n_pad = tiled.n_padded
-    nbytes = (
-        int(active.sum()) * tile_bytes
-        + tiled.tile_cols.numel() * 4 + tiled.row_starts.numel() * 4
-        + flags.numel() * 4
-        + n_active_cols * T * lanes * 4           # RHS slabs read
-        + n_pad * lanes * 4                        # n_c written
-        + (4 * n_pad if fused else 0)              # cand, alive in; 2 masks out
-    )
-    nnz = 0
-    for lo in range(0, nt, 1 << 16):               # chunked: bounded memory
+    nt, nnz = tiled.n_tiles, 0
+    for lo in range(0, nt, 1 << 16):
         hi = min(lo + (1 << 16), nt)
-        m = dense_tile_mask(tiled.tiles[lo:hi], T)
-        a = active[lo:hi]
-        nnz += int(m[a].sum())
-    ops = 2 * nnz * lanes
+        m = dense_tile_mask(tiled.tiles[lo:hi], tiled.tile_size)
+        nnz += int((m if active is None else m[active[lo:hi]]).sum())
+    return nnz
+
+
+def _meta_bytes(tiled) -> int:
+    return tiled.tile_cols.numel() * 4 + tiled.row_starts.numel() * 4
+
+
+def _bound(nbytes: int, ops: int):
+    """(ms, "bytes"|"operations", bytes, ops): the larger of the two times."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes, ops)
 
 
-def phase_timing(main, launches: dict, errs: dict) -> list:
+def bound_spmv(tiled, flags, lanes: int, fused: bool):
+    """Dense SpMV: tiles and RHS slabs of active columns read once, n_c
+    written once (+ cand, alive in and two masks out when fused); one
+    multiply-add per nonzero of an active tile per lane."""
+    import torch
+
+    active = _active_tiles(tiled, flags)
+    tile_bytes = tiled.tiles[0].numel() * tiled.tiles.element_size()
+    n_cols = int(torch.unique(tiled.tile_cols[: tiled.n_tiles][active]).numel())
+    n_pad, T = tiled.n_padded, tiled.tile_size
+    nbytes = (int(active.sum()) * tile_bytes + _meta_bytes(tiled) + flags.numel() * 4
+              + n_cols * T * lanes * 4 + n_pad * lanes * 4 + (4 * n_pad if fused else 0))
+    return _bound(nbytes, 2 * _nnz(tiled, active) * lanes)
+
+
+def bound_spmv_bits(tiled, words, flags, fused: bool):
+    """Packed SpMV: word tiles and candidate words of active columns read
+    once, hit words written (+ own cand and alive words in, two word
+    outputs when fused); one AND and one test per active tile word."""
+    import torch
+
+    active = _active_tiles(tiled, flags)
+    n_active = int(active.sum())
+    T, W, nbr = tiled.tile_size, words.shape[-1], tiled.n_block_rows
+    n_cols = int(torch.unique(tiled.tile_cols[: tiled.n_tiles][active]).numel())
+    nbytes = (n_active * T * W * 4 + _meta_bytes(tiled) + flags.numel() * 4
+              + n_cols * W * 4 + nbr * W * 4 + (4 * nbr * W * 4 if fused else 0))
+    return _bound(nbytes, 2 * n_active * T * W)
+
+
+def bound_nbr_max(tiled):
+    """Dense neighbour max: every real tile, the priority and mask vectors
+    read once, the (nbr·T,) int32 max written; a test and a max per
+    nonzero."""
+    nt, n_pad = tiled.n_tiles, tiled.n_padded
+    tile_bytes = tiled.tiles[0].numel() * tiled.tiles.element_size()
+    nbytes = nt * tile_bytes + _meta_bytes(tiled) + 5 * n_pad + 4 * n_pad
+    return _bound(nbytes, 2 * _nnz(tiled))
+
+
+def bound_plane_scan(tiled, words, planes, mask_w):
+    """Plane scan: every real word tile and the mask words read once, the
+    plane words of each column that some tile row has a live neighbour in,
+    the (nbr·T,) int32 max written; per such tile row an AND, a test and a
+    select per plane word."""
+    import torch
+
+    nt, T, W = tiled.n_tiles, tiled.tile_size, words.shape[-1]
+    cols = tiled.tile_cols[:nt].long()
+    live_rows = ((words[:nt] & mask_w[cols][:, None, :]) != 0).any(dim=2)   # (nt, T)
+    n_cols = int(torch.unique(cols[live_rows.any(dim=1)]).numel())
+    n_bits = planes.shape[0]
+    nbytes = (nt * T * W * 4 + _meta_bytes(tiled) + mask_w.numel() * 4
+              + n_bits * n_cols * W * 4 + tiled.n_padded * 4)
+    return _bound(nbytes, 3 * n_bits * W * int(live_rows.sum()))
+
+
+def yardstick_segment_max(g, p, mask):
+    """The library yardstick of both neighbour maxes: one scatter_reduce
+    ("amax") over the real half-edges with the masked priorities
+    pre-gathered — the call the segment phase ① reduces to."""
+    import torch
+    from repro_torch.core.spmv import INT32_MIN, _NEG
+
+    E, n = g.n_edges, g.n_nodes
+    recv = g.receivers[:E].long()
+    contrib = torch.where(mask[g.senders[:E].long()], p[g.senders[:E].long()], _NEG)
+    contrib = contrib.to(torch.int32)
+
+    def call():
+        return torch.full((n,), INT32_MIN, dtype=torch.int32, device=p.device).scatter_reduce_(
+            0, recv, contrib, "amax")
+
+    return call
+
+
+def time_pair(kern, plain) -> tuple:
+    """plain, kernel, kernel, plain: (kernel ms, plain ms, the four)."""
+    p1 = time_ms(plain)
+    k1 = time_ms(kern)
+    k2 = time_ms(kern)
+    p2 = time_ms(plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
+
+
+def record(name, launches, errs, timing, bound, library_ms):
+    ms, plain_ms, (p1, k1, k2, p2) = timing
+    bound_ms, bound_by, nbytes, ops = bound
+    lib = "—" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"[timing] {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+          f"library {lib}, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, {ops} ops)",
+          flush=True)
+    source, replaces = KERNELS[name]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+def timing_dense(main, launches: dict, errs: dict) -> list:
+    """The two dense SpMV kernels at the main path's round-1 inputs, with
+    one `torch.sparse_bsr_tensor @ rhs` as their yardstick."""
     import torch
     from repro_torch.core.tc_mis import _setup
     from repro_torch.core.tiling import dense_tile_mask
@@ -274,63 +485,140 @@ def phase_timing(main, launches: dict, errs: dict) -> list:
     alive = state0.alive
     rhs = engine._pack_rhs(ctx, cand, alive)
     lanes = rhs.shape[1]
-    print(f"[timing] round-1 inputs: T={tiled.tile_size} {tiled.storage} "
+    print(f"[timing] main path round-1 inputs: T={tiled.tile_size} {tiled.storage} "
           f"tiles={tiled.n_tiles} cand={int(cand.sum())} "
-          f"active_cols={int(flags.sum())}/{tiled.n_block_cols} lanes={lanes}",
-          flush=True)
+          f"active_cols={int(flags.sum())}/{tiled.n_block_cols} lanes={lanes}", flush=True)
 
-    # library yardstick: one BSR @ dense product over every stored tile
     nt = tiled.n_tiles
     values = dense_tile_mask(tiled.tiles[:nt], tiled.tile_size).to(torch.float32)
     bsr = torch.sparse_bsr_tensor(
         tiled.row_starts.long(), tiled.tile_cols[:nt].long(), values,
         size=(tiled.n_padded, tiled.n_padded), check_invariants=True,
     )
-    lib_out = bsr @ rhs
-    check(torch.allclose(lib_out, K.tc_spmv_plain(tiled, rhs), atol=1e-5),
+    check(torch.allclose(bsr @ rhs, K.tc_spmv_plain(tiled, rhs), atol=1e-5),
           "BSR library product disagrees with the plain SpMV")
     library_ms = time_ms(lambda: bsr @ rhs)
-    del lib_out
-
-    records = []
-    cases = {
-        "tc_spmv_fused": (
+    del values, bsr
+    return [
+        record("tc_spmv_fused", launches, errs, time_pair(
             lambda: K.tc_spmv_fused(tiled, rhs, cand, alive, col_flags=flags),
-            lambda: K.tc_spmv_fused_plain(tiled, rhs, cand, alive, col_flags=flags),
-            True,
-        ),
-        "tc_spmv": (
+            lambda: K.tc_spmv_fused_plain(tiled, rhs, cand, alive, col_flags=flags)),
+            bound_spmv(tiled, flags, lanes, True), library_ms),
+        record("tc_spmv", launches, errs, time_pair(
             lambda: K.tc_spmv(tiled, rhs, col_flags=flags),
-            lambda: K.tc_spmv_plain(tiled, rhs, col_flags=flags),
-            False,
-        ),
-    }
-    for name, (kern, plain, fused) in cases.items():
-        # plain, kernel, kernel, plain: compare within one call, in turns
-        p1 = time_ms(plain)
-        k1 = time_ms(kern)
-        k2 = time_ms(kern)
-        p2 = time_ms(plain)
-        bound_ms, bound_by, nbytes, ops = _bound(tiled, flags, lanes, fused)
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"[timing] {name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-              f"{p1:.4f}/{p2:.4f} ms, library {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {ops} ops)",
-              flush=True)
-        records.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-        })
+            lambda: K.tc_spmv_plain(tiled, rhs, col_flags=flags)),
+            bound_spmv(tiled, flags, lanes, False), library_ms),
+    ]
 
-    t0 = time.perf_counter()
-    res = solver.solve(plan)
-    torch.cuda.synchronize()
-    print(f"[timing] solve (warm, plan cached): "
-          f"{(time.perf_counter() - t0) * 1e3:.3f} ms, rounds={res.rounds}",
+
+def timing_packed(packed, launches: dict, errs: dict) -> list:
+    """The four phase-① / packed kernels at the packed path's round-1
+    inputs (G2, T = 16, bitpack): the select plane scan and the dense max
+    on the all-alive mask, the packed SpMVs on round 1's candidates."""
+    import torch
+    from repro_torch.core.tc_mis import _setup
+    from repro_torch.core.tiling import pack_frontier_words, unpack_frontier_words
+    from repro_torch.hopper import tc_neighbor_max as N
+    from repro_torch.hopper import tc_spmv as K
+
+    solver, plan, _ = packed
+    tiled, T = plan.tiled, plan.tile_size
+    gen = torch.Generator(device="cuda").manual_seed(solver.options.seed)
+    engine, ctx, pri, state0 = _setup(plan.g, tiled, gen, solver.options)
+    b = ctx.bits
+    words, alive_w = b.tiles_bits, state0.alive
+    cand_w = engine.phase1_candidates_bits(ctx, pri, alive_w)
+    flags = engine.col_flags_bits(ctx, cand_w).contiguous()
+    alive = unpack_frontier_words(alive_w, T)
+    max_np = N.tc_neighbor_max_bits(tiled, b.select_planes, alive_w, tiles_words=words)
+    pending_w = pack_frontier_words(pri.select >= max_np, T) & alive_w
+    print(f"[timing] packed path round-1 inputs: T={T} {tiled.storage} "
+          f"tiles={tiled.n_tiles} alive={int(alive.sum())} "
+          f"pending={int(unpack_frontier_words(pending_w, T).sum())} "
+          f"cand={int(unpack_frontier_words(cand_w, T).sum())} "
+          f"active_cols={int(flags.sum())}/{tiled.n_block_cols}", flush=True)
+
+    seg_max = yardstick_segment_max(plan.g, pri.select, alive)
+    check(torch.equal(seg_max()[plan.g.degrees() > 0],
+                      N.tc_neighbor_max(tiled, pri.select, alive)[: plan.g.n_nodes][
+                          plan.g.degrees() > 0]),
+          "the scatter_reduce yardstick disagrees with the neighbour max")
+    library_ms = time_ms(seg_max)
+    res_t = time_pair(
+        lambda: N.tc_neighbor_max_bits(tiled, b.resolve_planes, pending_w,
+                                       tiles_words=words, signed=True),
+        lambda: N.tc_neighbor_max_bits_plain(tiled, b.resolve_planes, pending_w,
+                                             tiles_words=words, signed=True))
+    print(f"[timing] tc_neighbor_max_bits, the round's 2nd launch (32 resolve "
+          f"planes, pending mask): kernel {res_t[2][1]:.4f}/{res_t[2][2]:.4f} ms, "
+          f"plain {res_t[2][0]:.4f}/{res_t[2][3]:.4f} ms, bound "
+          f"{bound_plane_scan(tiled, words, b.resolve_planes, pending_w)[0]:.4f} ms",
           flush=True)
-    return records
+    return [
+        record("tc_neighbor_max", launches, errs, time_pair(
+            lambda: N.tc_neighbor_max(tiled, pri.select, alive),
+            lambda: N.tc_neighbor_max_plain(tiled, pri.select, alive)),
+            bound_nbr_max(tiled), library_ms),
+        record("tc_spmv_fused_bits", launches, errs, time_pair(
+            lambda: K.tc_spmv_fused_bits(tiled, cand_w, alive_w, tiles_words=words,
+                                         col_flags=flags),
+            lambda: K.tc_spmv_fused_bits_plain(tiled, cand_w, alive_w, tiles_words=words,
+                                               col_flags=flags)),
+            bound_spmv_bits(tiled, words, flags, True), None),
+        record("tc_spmv_bits", launches, errs, time_pair(
+            lambda: K.tc_spmv_bits(tiled, cand_w, tiles_words=words, col_flags=flags),
+            lambda: K.tc_spmv_bits_plain(tiled, cand_w, tiles_words=words, col_flags=flags)),
+            bound_spmv_bits(tiled, words, flags, False), None),
+        record("tc_neighbor_max_bits", launches, errs, time_pair(
+            lambda: N.tc_neighbor_max_bits(tiled, b.select_planes, alive_w, tiles_words=words),
+            lambda: N.tc_neighbor_max_bits_plain(tiled, b.select_planes, alive_w,
+                                                 tiles_words=words)),
+            bound_plane_scan(tiled, words, b.select_planes, alive_w), library_ms),
+    ]
+
+
+def profile_solve(solver, plan, label: str) -> None:
+    """One more warm solve under torch.profiler: device time by kernel (the
+    device-side events: kernels, copies, fills) and the device's busy share
+    of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.solve(plan)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    check(bool(events), f"profiler saw no device time in the {label} solve")
+    busy_us = sum(e.self_device_time_total for e in events)
+    print(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} %), idle "
+          f"{100 * (1 - busy_us / wall_us):.1f} %", flush=True)
+    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:8.4f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}", flush=True)
+
+
+def timing_solves(paths: dict) -> None:
+    """Median of 5 warm solves (plan cached, kernels loaded) per path, then
+    one profiled solve each."""
+    import torch
+
+    for key, label in (("main", "segment phase ① (main path)"),
+                       ("packed", "tiled phase ①, packed frontier")):
+        solver, plan, _ = paths[key]
+        took = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            res = solver.solve(plan)
+            torch.cuda.synchronize()
+            took.append((time.perf_counter() - t0) * 1e3)
+        print(f"[timing] warm solve, {label}: median {statistics.median(took):.3f} ms "
+              f"of {[round(x, 3) for x in took]}, rounds={res.rounds}", flush=True)
+        profile_solve(solver, plan, label)
 
 
 def main() -> None:
@@ -350,7 +638,10 @@ def main() -> None:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     errs = phase_kernels(g2)
     paths = phase_paths(g2)
-    records = phase_timing(paths["main"], paths["launches"], errs)
+    records = timing_dense(paths["main"], paths["launches"], errs)
+    records += timing_packed(paths["packed"], paths["launches"], errs)
+    timing_solves(paths)
+    check(sorted(r["name"] for r in records) == sorted(KERNELS), "a kernel has no record")
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(card_line())

@@ -3,8 +3,9 @@
 
 Fields that select work this package has not ported yet are accepted and
 validated like the reference's, and resolved by the reference's own rules:
-the port's engines support neither hybrid routing nor the packed-word
-frontier, so `hybrid` plans "off" and `frontier` resolves to "dense";
+the port's engines do not support hybrid routing, so `hybrid` plans
+"off"; `frontier` resolves as the reference resolves it (the packed words
+for a tile engine with `phase1="tiled"` on bitpack storage);
 `placement="sharded"` and `telemetry=True` raise at solve time; `repair`,
 `repair_threshold`, `bitpack`, `shard_threshold` and `cache_dir` have no
 effect yet (ROADMAP.md, Queue 1).
@@ -35,7 +36,7 @@ class SolveOptions:
       skip_dma:   accepted for parity; the Hopper kernels never load a
                   gated slab, so it changes nothing
       max_rounds: convergence-loop bound
-      frontier:   auto | dense | bitwise (resolves to dense here)
+      frontier:   auto | dense | bitwise (`core.engine.resolve_frontier`)
 
     Preprocessing (the `Plan` build policy):
       tile_size:  BSR tile edge T, power of two ≥ 8; None = auto-T

@@ -1,5 +1,4 @@
-"""The round-engine layer (counterpart of `repro.core.engine`, dense
-frontier only).
+"""The round-engine layer (counterpart of `repro.core.engine`).
 
 Every execution path is an engine that runs one MIS round; `core.tc_mis`
 owns only the convergence loop.  Registered engines, under
@@ -8,21 +7,26 @@ the reference's names:
   segment       gather/segment ops over the edge list (ECL-MIS analogue).
   tiled_ref     plain-torch BSR tile schedule — what the kernels are held
                 against.
-  tiled_pallas  phase ② on the Hopper split SpMV kernel
-                (`hopper.tc_spmv.tc_spmv`).
+  tiled_pallas  phase ② on the Hopper split SpMV kernels
+                (`hopper.tc_spmv.tc_spmv` / `tc_spmv_bits`).
   fused_pallas  phases ②+③ in one Hopper kernel pass
-                (`hopper.tc_spmv.tc_spmv_fused`); the default engine.
+                (`hopper.tc_spmv.tc_spmv_fused` / `tc_spmv_fused_bits`);
+                the default engine.
 
 The two Hopper engines keep the reference's names so `SolveOptions` reads
 the same in both packages; on CPU tensors their wrappers run the plain
-versions (only the CPU tests ask for that).
+versions (only the CPU tests ask for that).  With `phase1="tiled"` they
+run phase ① on the Hopper neighbour-max kernels
+(`hopper.tc_neighbor_max`): the masked max on the dense frontier, the
+priority-plane scan on the packed one.
 
-Every engine here declares `supports_bitwise = False` and
-`supports_hybrid = False`, so the reference's own rules resolve
-`frontier` to "dense" (`resolve_frontier`) and the Solver plans
-`hybrid="off"` for them.  Phase ① with `phase1="tiled"` runs in plain
-torch on `tiled_ref`; the Hopper engines raise until `_nbr_max_kernel` is
-ported (ROADMAP.md, Queue 2 item 3).
+Frontiers (`resolve_frontier`, the reference's rule): the tile engines
+declare `supports_bitwise`, so `phase1="tiled"` on bitpack storage runs
+the packed-word round body (`step_bits`): alive / in_mis / candidate sets
+ride as (n_blocks, W) int32 words, phase ② is a word AND, and phase ① is
+the plane scan (Hopper engines) or its collapsed clz form over
+priority-sorted slots (`tiled_ref`).  No engine here supports hybrid
+routing yet (`supports_hybrid = False`), so the Solver plans it off.
 
 Per-round metadata: tiled engines gate block-columns with no candidate off
 (`block_col_flags`, ANDed with the static `col_gate`); a gated column
@@ -37,7 +41,19 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.spmv import INT32_MIN, _NEG
-from repro_torch.core.tiling import BlockTiledGraph, dense_tile_mask, pack_vertex_vector
+from repro_torch.core.tiling import (
+    BlockTiledGraph,
+    dense_tile_mask,
+    pack_frontier_bits,
+    pack_frontier_words,
+    pack_priority_planes,
+    pack_vertex_vector,
+    sort_block_priorities,
+    sorted_frontier_words,
+    sorted_tile_bits,
+    tiles_as_words,
+    unpack_frontier_words,
+)
 from repro_torch.graphs.graph import Graph
 
 
@@ -98,13 +114,153 @@ def block_col_flags(x: torch.Tensor, tile_size: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# plain-torch packed-word tile operators (the bitwise round body's substrate)
+# --------------------------------------------------------------------------
+
+def live_bits(tile_size: int) -> int:
+    """The bits of a packed word that carry vertices: the low T when T < 32,
+    all 32 otherwise (as an int32 value)."""
+    return (1 << int(tile_size)) - 1 if tile_size < 32 else -1
+
+
+def _as_int32(v: int) -> int:
+    return v - (1 << 32) if v >= (1 << 31) else v
+
+
+# (shift, mask of the top `shift` bits) for the five-step leading-zero count
+_CLZ_STEPS = tuple((s, _as_int32(((1 << s) - 1) << (32 - s))) for s in (16, 8, 4, 2, 1))
+
+
+def clz32(x: torch.Tensor) -> torch.Tensor:
+    """Leading zeros of the uint32 words `x` holds as int32, by a binary
+    search on masked shifts (integer ops only; float log2 rounds wrongly
+    near powers of two).  A zero word gives 31: callers mask it."""
+    n = torch.zeros_like(x)
+    for shift, top in _CLZ_STEPS:
+        empty = (x & top) == 0
+        n = n + empty.to(x.dtype) * shift
+        x = torch.where(empty, x << shift, x)
+    return n
+
+
+def tile_spmv_bits(
+    tiles_bits: torch.Tensor,     # (nt, T, W) int32 words, standard layout
+    tile_rows: torch.Tensor,      # (nt,) int32, non-decreasing
+    tile_cols: torch.Tensor,      # (nt,) int32
+    rhs_words: torch.Tensor,      # (nbc, W) int32 packed candidate vector
+    n_block_rows: int,
+    tile_size: int,
+    *,
+    col_flags: torch.Tensor | None = None,   # (nbc,) int32; None = all active
+) -> torch.Tensor:
+    """② on words: row v is hit iff `tile_word & cand_word != 0` for some
+    tile and word.  Gated candidate words are zeroed first, so a skipped
+    column hits nothing.  Returns (n_block_rows, W) hit words; rows no tile
+    maps to are 0."""
+    T = int(tile_size)
+    cols = tile_cols.long()
+    gathered = rhs_words[cols]                                    # (nt, W)
+    if col_flags is not None:
+        gathered = gathered * col_flags[cols][:, None].to(torch.int32)
+    hit = ((tiles_bits & gathered[:, None, :]) != 0).any(dim=2)   # (nt, T)
+    acc = torch.zeros((n_block_rows, T), dtype=torch.int32, device=rhs_words.device)
+    index = tile_rows.long()[:, None].expand(-1, T)
+    acc.scatter_reduce_(0, index, hit.to(torch.int32), "amax")
+    return pack_frontier_bits(acc, T)
+
+
+def tile_neighbor_max_bits(
+    tiles_sorted: torch.Tensor,       # (nt, T, W) int32, MSB-first slot order
+    tile_rows: torch.Tensor,
+    tile_cols: torch.Tensor,
+    p_sorted: torch.Tensor,           # (nbc, T) int32, descending per block
+    mask_sorted_words: torch.Tensor,  # (nbc, W) int32, sorted-slot layout
+    n_block_rows: int,
+    tile_size: int,
+) -> torch.Tensor:
+    """① Max_Np on words, the plane scan collapsed to one pass: with each
+    block-column's slots sorted by descending priority, the max over a tile
+    row's live neighbours is the priority of the first set slot of
+    `tile_row & mask` (leading-zero count per word).  Exact for any int32
+    priorities.  Returns (n_block_rows·T,) int32: `_NEG` where a tile row
+    has no live neighbour, int32 min where no tile maps."""
+    T = int(tile_size)
+    cols = tile_cols.long()
+    m = tiles_sorted & mask_sorted_words[cols][:, None, :]        # (nt, T, W)
+    first = torch.full(m.shape[:2], T, dtype=torch.int32, device=m.device)
+    for w in range(m.shape[-1]):
+        word = m[..., w]
+        at = torch.where(word != 0, w * 32 + clz32(word), T)
+        first = torch.minimum(first, at)
+    idx = first.clamp(max=T - 1).long()
+    val = torch.gather(p_sorted[cols], 1, idx)
+    tile_max = torch.where(first < T, val, _NEG).to(torch.int32)
+    out = torch.full((n_block_rows, T), INT32_MIN, dtype=torch.int32, device=m.device)
+    out.scatter_reduce_(0, tile_rows.long()[:, None].expand(-1, T), tile_max, "amax")
+    return out.reshape(n_block_rows * T)
+
+
+class SortedPriorityTiles(NamedTuple):
+    """One priority key's clz-form set-up: the static block-column sort
+    and the adjacency re-packed in that slot order."""
+    order: torch.Tensor      # (nbc, T) int32 — descending-priority column order
+    p_sorted: torch.Tensor   # (nbc, T) int32 — priorities in slot order
+    tiles: torch.Tensor      # (nt, T, W) int32 — MSB-first sorted-slot layout
+
+
+class BitwiseContext(NamedTuple):
+    """What the packed-frontier round body precomputes per solve.
+
+    `tiles_bits` is the adjacency as standard-layout words (phase ②, and
+    the plane scan).  Phase ① takes one of two forms: the clz form reads
+    `select`/`resolve` (sorted tiles, built when `planes=False`), the
+    plane-scan kernel reads `*_planes` ((n_bits, nbc, W) stacks, built
+    when `planes=True`).  Only the form a run uses is built; the other
+    fields are None."""
+    tiles_bits: torch.Tensor
+    select: Optional[SortedPriorityTiles]
+    resolve: Optional[SortedPriorityTiles]
+    select_planes: Optional[torch.Tensor]
+    resolve_planes: Optional[torch.Tensor]
+
+
+# H3 select keys are (q << 23) ≥ 0 with q ≤ 255, and the other heuristics'
+# keys are non-negative too → 31 unsigned planes; resolve keys are negative
+# (-deg·n - id) → 32 sign-biased planes.
+SELECT_PLANE_BITS = 31
+RESOLVE_PLANE_BITS = 32
+
+
+def make_bitwise_context(tiled: BlockTiledGraph, pri, *, planes: bool = False) -> BitwiseContext:
+    """Build the per-solve packed structures from the (padded) priorities,
+    which stay fixed for the whole solve."""
+    T = tiled.tile_size
+    tiles_bits = tiles_as_words(tiled.tiles, T)
+    if planes:
+        sel = pack_priority_planes(pri.select, T, SELECT_PLANE_BITS, signed=False)
+        res = None if pri.resolve is None else pack_priority_planes(
+            pri.resolve, T, RESOLVE_PLANE_BITS, signed=True)
+        return BitwiseContext(tiles_bits, None, None, sel, res)
+
+    def _sorted_for(p):
+        order, p_sorted = sort_block_priorities(p, T)
+        tiles_sorted = sorted_tile_bits(tiled.tiles, tiled.tile_cols, order, T)
+        return SortedPriorityTiles(order, p_sorted, tiles_sorted)
+
+    select = _sorted_for(pri.select)
+    resolve = _sorted_for(pri.resolve) if pri.resolve is not None else None
+    return BitwiseContext(tiles_bits, select, resolve, None, None)
+
+
+# --------------------------------------------------------------------------
 # state + context
 # --------------------------------------------------------------------------
 
 def resolve_frontier(config, engine, *, storage: str, member_rounds: bool = False) -> str:
     """Resolve `SolveOptions.frontier` to the concrete mode a run uses —
-    the reference's rule verbatim.  No engine of this package supports the
-    packed-word frontier yet, so every run resolves to "dense"."""
+    the reference's rule verbatim.  "auto" picks "bitwise" for a tile
+    engine with the tiled phase ① on bitpack storage and a scalar round
+    counter; an explicit "bitwise" the engine cannot honour runs dense."""
     mode = getattr(config, "frontier", "auto") or "auto"
     if mode == "auto":
         if (
@@ -121,7 +277,8 @@ def resolve_frontier(config, engine, *, storage: str, member_rounds: bool = Fals
 
 
 class MISRoundState(NamedTuple):
-    """Per-round state; `alive`/`in_mis` are (n_padded,) bool.  `rnd` is a
+    """Per-round state; `alive`/`in_mis` are (n_padded,) bool, or
+    (n_blocks, W) int32 words when the frontier is bitwise.  `rnd` is a
     0-dim int32 round counter, or an (n_padded,) int32 per-vertex counter
     that advances only while its vertex is alive (`member_rounds`)."""
     alive: torch.Tensor
@@ -133,13 +290,15 @@ class MISRoundState(NamedTuple):
 class EngineContext:
     """What an engine closes over for one run: the graph in both
     representations, the options, the static (n_block_cols,) 0/1 column
-    gate (None = every column may carry candidates) and the resolved
-    frontier mode."""
+    gate (None = every column may carry candidates), the resolved
+    frontier mode ("dense" | "bitwise") and, when bitwise, the per-solve
+    packed structures."""
     g: Graph
     tiled: BlockTiledGraph
     cfg: Any   # anything with engine/heuristic/lanes/phase1/skip_dma/max_rounds
     col_gate: Optional[torch.Tensor] = None
     frontier: str = "dense"
+    bits: Optional[BitwiseContext] = None
 
 
 def round_increment(state: MISRoundState):
@@ -163,6 +322,20 @@ def phase3_update(
     )
 
 
+def phase3_update_bits(
+    state: MISRoundState,
+    cand_words: torch.Tensor,
+    hit_words: torch.Tensor,
+    rnd_inc=None,
+) -> MISRoundState:
+    """③ on packed words: the same three rules, 32 vertices per op."""
+    return MISRoundState(
+        alive=state.alive & ~cand_words & ~hit_words,
+        in_mis=state.in_mis | cand_words,
+        rnd=state.rnd + (round_increment(state) if rnd_inc is None else rnd_inc),
+    )
+
+
 # --------------------------------------------------------------------------
 # the engine interface
 # --------------------------------------------------------------------------
@@ -170,12 +343,16 @@ def phase3_update(
 class TorchRoundEngine:
     """One MIS round as pluggable pieces: `_nbr_max` (phase ①), and
     `phase2_counts` (split engines) or `fused_step` (fused engines).
-    `step` is the one round body every loop uses."""
+    `step` is the one round body every loop uses; it dispatches to
+    `step_bits` when the resolved frontier is bitwise."""
 
     name: str = "abstract"
     fused: bool = False
     supports_bitwise: bool = False
     supports_hybrid: bool = False
+    # wants the (n_bits, nbc, W) plane stacks built at set-up: the Hopper
+    # engines, whose bitwise phase ① runs the plane-scan kernel
+    plane_kernel_nbr_max: bool = False
 
     def _nbr_max(self, ctx: EngineContext, p: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -212,7 +389,15 @@ class TorchRoundEngine:
         """②+③ in one pass.  Returns (new_alive, mis_add) bool vectors."""
         raise NotImplementedError(f"{self.name} is a split engine")
 
+    def step_bits(self, ctx: EngineContext, pri, state: MISRoundState) -> MISRoundState:
+        raise NotImplementedError(
+            f"{self.name} has no packed-frontier round body "
+            f"(supports_bitwise={self.supports_bitwise})"
+        )
+
     def step(self, ctx: EngineContext, pri, state: MISRoundState) -> MISRoundState:
+        if ctx.frontier == "bitwise":
+            return self.step_bits(ctx, pri, state)
         cand = self.phase1_candidates(ctx, pri, state.alive)
         flags = self.col_flags(ctx, cand)
         inc = round_increment(state)
@@ -275,6 +460,13 @@ def _segment_nbr_max(ctx: EngineContext, p, mask) -> torch.Tensor:
     return pack_vertex_vector(out, ctx.tiled)
 
 
+def _segment_nbr_max_bits_oracle(ctx: EngineContext, p, mask_words) -> torch.Tensor:
+    """Phase ① for bitwise runs that pin `phase1="segment"`: the edge list
+    has no word form, so the mask words unpack here."""
+    mask = unpack_frontier_words(mask_words, ctx.tiled.tile_size)
+    return _segment_nbr_max(ctx, p, mask)
+
+
 class TorchSegmentEngine(TorchRoundEngine):
     """Paper-faithful CC baseline: every phase on the edge-list substrate."""
 
@@ -296,7 +488,10 @@ class TorchSegmentEngine(TorchRoundEngine):
 
 class TorchTiledEngine(TorchRoundEngine):
     """Shared phase-① policy for tile-schedule engines: `cfg.phase1` picks
-    the segment max or the tiled max."""
+    the segment max or the tiled max.  Also owns the packed-frontier round
+    body (`step_bits`)."""
+
+    supports_bitwise = True
 
     def _tiled_nbr_max(self, ctx, p, mask) -> torch.Tensor:
         t = ctx.tiled
@@ -309,6 +504,68 @@ class TorchTiledEngine(TorchRoundEngine):
         if ctx.cfg.phase1 != "tiled":
             return _segment_nbr_max(ctx, p, mask)
         return self._tiled_nbr_max(ctx, p, mask)
+
+    # -- packed-frontier round body ----------------------------------------
+    def _nbr_max_bits(self, ctx, st: SortedPriorityTiles, planes, mask_words) -> torch.Tensor:
+        """Bitwise Max_Np, clz form: remap the mask words into `st`'s
+        sorted-slot layout, then find the first set slot.  `planes` is
+        ignored here; the Hopper engines run the plane scan on it."""
+        t = ctx.tiled
+        mask_sorted = sorted_frontier_words(mask_words, st.order, t.tile_size)
+        return tile_neighbor_max_bits(
+            st.tiles, t.tile_rows, t.tile_cols, st.p_sorted, mask_sorted,
+            t.n_block_rows, t.tile_size,
+        )
+
+    def phase1_candidates_bits(self, ctx, pri, alive_words) -> torch.Tensor:
+        """① on packed frontiers.  Priorities stay dense (they are values);
+        the alive / pending / candidate sets stay packed.  Padded alive
+        bits are 0, so the `& alive_words` / `& pending` guards erase the
+        fills where the substrates differ."""
+        T = ctx.tiled.tile_size
+        b = ctx.bits
+        if ctx.cfg.phase1 != "tiled":
+            max_np = _segment_nbr_max_bits_oracle(ctx, pri.select, alive_words)
+        else:
+            max_np = self._nbr_max_bits(ctx, b.select, b.select_planes, alive_words)
+        if pri.resolve is None:
+            return pack_frontier_words(pri.select > max_np, T) & alive_words
+        # H3: conflicts resolved on the pending set before C is finalised
+        pending = pack_frontier_words(pri.select >= max_np, T) & alive_words
+        if ctx.cfg.phase1 != "tiled":
+            max_res = _segment_nbr_max_bits_oracle(ctx, pri.resolve, pending)
+        else:
+            max_res = self._nbr_max_bits(ctx, b.resolve, b.resolve_planes, pending)
+        return pack_frontier_words(pri.resolve > max_res, T) & pending
+
+    def col_flags_bits(self, ctx, cand_words) -> torch.Tensor:
+        """Active block-column flags straight from the words."""
+        flags = (cand_words != 0).any(dim=1).to(torch.int32)
+        if ctx.col_gate is not None:
+            flags = flags * ctx.col_gate.to(flags.dtype)
+        return flags
+
+    def phase2_hits(self, ctx, cand_words, alive_words, col_flags) -> torch.Tensor:
+        """② on words → (nbc, W) hit words."""
+        raise NotImplementedError(f"{self.name} is a fused engine")
+
+    def fused_step_bits(self, ctx, cand_words, alive_words, col_flags):
+        """②+③ on words → (new_alive_words, mis_add_words)."""
+        raise NotImplementedError(f"{self.name} is a split engine")
+
+    def step_bits(self, ctx, pri, state: MISRoundState) -> MISRoundState:
+        cand_w = self.phase1_candidates_bits(ctx, pri, state.alive)
+        flags = self.col_flags_bits(ctx, cand_w)
+        inc = round_increment(state)   # scalar: bitwise excludes member_rounds
+        if self.fused:
+            new_alive, mis_add = self.fused_step_bits(ctx, cand_w, state.alive, flags)
+            return MISRoundState(
+                alive=new_alive,
+                in_mis=state.in_mis | mis_add,
+                rnd=state.rnd + inc,
+            )
+        hit_w = self.phase2_hits(ctx, cand_w, state.alive, flags)
+        return phase3_update_bits(state, cand_w, hit_w, inc)
 
 
 class TorchTiledRefEngine(TorchTiledEngine):
@@ -325,19 +582,46 @@ class TorchTiledRefEngine(TorchTiledEngine):
         )
         return out[:, 0]
 
+    def phase2_hits(self, ctx, cand_words, alive_words, col_flags):
+        t = ctx.tiled
+        return tile_spmv_bits(
+            ctx.bits.tiles_bits, t.tile_rows, t.tile_cols, cand_words,
+            t.n_block_rows, t.tile_size, col_flags=col_flags,
+        )
+
 
 class HopperSpmvEngine(TorchTiledEngine):
-    """Phase ② on the Hopper split SpMV kernel (counterpart of the
-    reference's `tiled_pallas`)."""
+    """Phase ② on the Hopper split SpMV kernels, phase ① (`phase1="tiled"`)
+    on the Hopper neighbour-max kernels (counterpart of the reference's
+    `tiled_pallas`)."""
 
     name = "tiled_pallas"
+    plane_kernel_nbr_max = True
 
     def _tiled_nbr_max(self, ctx, p, mask):
-        raise NotImplementedError(
-            f"{self.name}: phase1='tiled' needs the Hopper port of "
-            "_nbr_max_kernel (ROADMAP.md, Queue 2 item 3); use "
-            "phase1='segment', or engine='tiled_ref' for the plain-torch "
-            "tiled phase ①"
+        from repro_torch.hopper.tc_neighbor_max import tc_neighbor_max
+
+        return tc_neighbor_max(ctx.tiled, p, mask)
+
+    def _nbr_max_bits(self, ctx, st, planes, mask_words):
+        if planes is None:
+            raise ValueError(
+                f"{self.name} runs the plane-scan kernel and needs the priority "
+                "planes: build the BitwiseContext with planes=True"
+            )
+        from repro_torch.hopper.tc_neighbor_max import tc_neighbor_max_bits
+
+        return tc_neighbor_max_bits(
+            ctx.tiled, planes, mask_words, tiles_words=ctx.bits.tiles_bits,
+            signed=planes.shape[0] == RESOLVE_PLANE_BITS,
+        )
+
+    def phase2_hits(self, ctx, cand_words, alive_words, col_flags):
+        from repro_torch.hopper.tc_spmv import tc_spmv_bits
+
+        return tc_spmv_bits(
+            ctx.tiled, cand_words, tiles_words=ctx.bits.tiles_bits,
+            col_flags=col_flags, skip_dma=ctx.cfg.skip_dma,
         )
 
     def phase2_counts(self, ctx, cand, alive, col_flags=None):
@@ -365,6 +649,15 @@ class HopperFusedEngine(HopperSpmvEngine):
 
         _, new_alive, mis_add = tc_spmv_fused(
             ctx.tiled, self._pack_rhs(ctx, cand, alive), cand, alive,
+            col_flags=col_flags, skip_dma=ctx.cfg.skip_dma,
+        )
+        return new_alive, mis_add
+
+    def fused_step_bits(self, ctx, cand_words, alive_words, col_flags):
+        from repro_torch.hopper.tc_spmv import tc_spmv_fused_bits
+
+        _, new_alive, mis_add = tc_spmv_fused_bits(
+            ctx.tiled, cand_words, alive_words, tiles_words=ctx.bits.tiles_bits,
             col_flags=col_flags, skip_dma=ctx.cfg.skip_dma,
         )
         return new_alive, mis_add

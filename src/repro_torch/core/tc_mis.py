@@ -8,7 +8,9 @@ owns the set-up, the loop and the epilogue.
 
 The reference runs the loop inside one `lax.while_loop`.  Here it is a
 Python loop that syncs once per round on `alive.any()`; it runs exactly
-the rounds the reference runs, so `rounds` is equal.
+the rounds the reference runs, so `rounds` is equal.  On the bitwise
+frontier the state rides as packed words through the whole loop and
+`in_mis` unpacks once, in `_result`.
 """
 from __future__ import annotations
 
@@ -18,12 +20,18 @@ from repro_torch.core.engine import (
     EngineContext,
     MISRoundState,
     get_engine,
+    make_bitwise_context,
     resolve_frontier,
 )
 from repro_torch.core.heuristics import Priorities, make_priorities
 from repro_torch.core.luby import MISResult
 from repro_torch.core.spmv import _NEG
-from repro_torch.core.tiling import BlockTiledGraph, pack_vertex_vector
+from repro_torch.core.tiling import (
+    BlockTiledGraph,
+    pack_frontier_words,
+    pack_vertex_vector,
+    unpack_frontier_words,
+)
 from repro_torch.graphs.graph import Graph
 
 
@@ -56,7 +64,12 @@ def _setup(
     `col_gate` pins block-columns off, `member_rounds` counts rounds per
     vertex, and `in_mis0` warm-starts the MIS set (callers guarantee it is
     independent and disjoint from `alive0`).  Vectors may be `n_nodes`- or
-    `n_padded`-long."""
+    `n_padded`-long; on the bitwise frontier `alive0` / `in_mis0` may also
+    arrive packed, as (n_blocks, W) int32 words, and pass through.
+
+    The Hopper engines get the priority bit planes their plane-scan kernel
+    reads, on any device (the reference builds them on a TPU only); the
+    other tile engines get the sorted tiles of the clz form."""
     engine = get_engine(config.engine)
     if priorities is None:
         if generator is None:
@@ -66,27 +79,43 @@ def _setup(
     frontier = resolve_frontier(
         config, engine, storage=tiled.storage, member_rounds=member_rounds
     )
+    bits = None
+    if frontier == "bitwise":
+        bits = make_bitwise_context(tiled, pri, planes=engine.plane_kernel_nbr_max)
     ctx = EngineContext(g=g, tiled=tiled, cfg=config, col_gate=col_gate,
-                        frontier=frontier)
+                        frontier=frontier, bits=bits)
     dev = tiled.device
     if alive0 is None:
         alive0 = torch.ones((g.n_nodes,), dtype=torch.bool, device=dev)
     if in_mis0 is None:
         in_mis0 = torch.zeros((g.n_nodes,), dtype=torch.bool, device=dev)
+
+    def as_state_vec(x: torch.Tensor) -> torch.Tensor:
+        """Vertex mask -> this run's state form: (n_padded,) bool, or
+        packed words on the bitwise frontier (packed input passes)."""
+        if x.ndim == 2 and x.dtype == torch.int32:
+            return x
+        padded = pack_vertex_vector(x.to(torch.bool), tiled)
+        if frontier == "bitwise":
+            return pack_frontier_words(padded, tiled.tile_size)
+        return padded
+
     rnd0 = torch.zeros((tiled.n_padded,) if member_rounds else (),
                        dtype=torch.int32, device=dev)
-    state0 = MISRoundState(
-        alive=pack_vertex_vector(alive0.to(torch.bool), tiled),
-        in_mis=pack_vertex_vector(in_mis0.to(torch.bool), tiled),
-        rnd=rnd0,
-    )
+    state0 = MISRoundState(alive=as_state_vec(alive0), in_mis=as_state_vec(in_mis0),
+                           rnd=rnd0)
     return engine, ctx, pri, state0
 
 
-def _result(final: MISRoundState, g: Graph) -> MISResult:
+def _result(final: MISRoundState, g: Graph, tiled: BlockTiledGraph) -> MISResult:
+    """Run epilogue; on the bitwise frontier the one place `in_mis`
+    unpacks, after the loop."""
+    in_mis = final.in_mis
+    if in_mis.ndim == 2 and in_mis.dtype == torch.int32:
+        in_mis = unpack_frontier_words(in_mis, tiled.tile_size)
     rounds = final.rnd[: g.n_nodes] if final.rnd.ndim else final.rnd
     return MISResult(
-        in_mis=final.in_mis[: g.n_nodes],
+        in_mis=in_mis[: g.n_nodes],
         rounds=rounds,
         converged=~final.alive.any(),
     )
@@ -125,4 +154,4 @@ def run_tc_mis(
     while rounds < config.max_rounds and bool(state.alive.any()):
         state = engine.step(ctx, pri, state)
         rounds += 1
-    return _result(state, g)
+    return _result(state, g, tiled)

@@ -1,4 +1,5 @@
-"""Block-tiled adjacency (counterpart of `repro.core.tiling`, dense half).
+"""Block-tiled adjacency and the packed-frontier substrate (counterpart of
+`repro.core.tiling`; the hybrid partition is not ported yet).
 
 The adjacency matrix is cut into T×T tiles; only non-empty tiles are
 stored, sorted by block-row then block-column (BSR order), with
@@ -16,6 +17,13 @@ Tiles come in two storages:
 `build_block_tiles` mirrors the reference array for array: the same tile order,
 the same pad-to-8 zero tiles pinned to the last real block-row at column
 0, and the single zero tile of an empty graph.
+
+Packed frontiers (the bitwise round body): a vertex vector rides as
+(n_blocks, W) int32 words in the same bit layout as a packed tile row, so
+a tile row ANDs straight against a frontier word.  The priority-sorted
+helpers below re-pack tiles and frontiers per block-column in descending
+priority order, MSB first, for the clz form of the bitwise phase ①; the
+bit planes feed the plane-scan kernel.
 """
 from __future__ import annotations
 
@@ -72,6 +80,15 @@ def dense_tile_mask(tiles: torch.Tensor, tile_size: int) -> torch.Tensor:
     if tiles.dtype == torch.int32:
         return unpack_tile_mask(tiles, tile_size)
     return tiles != 0
+
+
+def tiles_as_words(tiles: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """Tiles in the packed-word form whatever the storage: bitpack tiles
+    pass through, int8 tiles pack (the bitwise frontier needs word tiles
+    even when the plan stores int8)."""
+    if tiles.dtype == torch.int32:
+        return tiles
+    return pack_tile_bits(tiles)
 
 
 def padded_tile_count(n_real: int, pad_tiles_to: int | None = None) -> int:
@@ -236,6 +253,115 @@ def pack_vertex_vector(x: torch.Tensor, tiled: BlockTiledGraph) -> torch.Tensor:
     """(n_nodes,) -> (n_padded,) zero-padded to whole tiles."""
     pad = tiled.n_padded - x.shape[0]
     return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
+# --------------------------------------------------------------------------
+# packed frontiers: (n_blocks, W) int32 words, one bit per vertex
+# --------------------------------------------------------------------------
+
+def _pack_bits(bits: torch.Tensor, tile_size: int, *, msb_first: bool) -> torch.Tensor:
+    """(..., T) truthy -> (..., W) int32.  Slot s goes to word s // 32, at
+    bit s % 32 (standard layout) or bit 31 - s % 32 (`msb_first`).  The
+    bits of a word are disjoint, so an int32 sum is their OR."""
+    T = int(tile_size)
+    if bits.shape[-1] != T:
+        raise ValueError(f"last axis is {bits.shape[-1]}, expected T={T}")
+    per = min(T, _BITS)
+    b = (bits != 0).to(torch.int32).reshape(bits.shape[:-1] + (packed_words(T), per))
+    shifts = torch.arange(per, dtype=torch.int32, device=bits.device)
+    if msb_first:
+        shifts = (_BITS - 1) - shifts
+    return (b << shifts).sum(dim=-1, dtype=torch.int32)
+
+
+def pack_frontier_bits(bits: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """(..., T) truthy -> (..., W) int32 words, bit j of word w = slot
+    32·w + j: the layout of `pack_tile_bits`."""
+    return _pack_bits(bits, tile_size, msb_first=False)
+
+
+def unpack_frontier_bits(words: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """(..., W) int32 words -> (..., T) bool; inverse of
+    `pack_frontier_bits`."""
+    return unpack_tile_mask(words, tile_size)
+
+
+def pack_frontier_words(x: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """(n_blocks·T,) truthy vertex vector -> (n_blocks, W) int32 words."""
+    return pack_frontier_bits(x.reshape(-1, int(tile_size)), tile_size)
+
+
+def unpack_frontier_words(words: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """(n_blocks, W) int32 words -> (n_blocks·T,) bool."""
+    return unpack_frontier_bits(words, tile_size).reshape(-1)
+
+
+def sort_block_priorities(p: torch.Tensor, tile_size: int):
+    """(n_blocks·T,) int32 -> (order, p_sorted), both (n_blocks, T).
+
+    `order[b, s]` is the in-block column in descending-priority slot `s`.
+    The sort is stable (H3 select keys tie by design) and runs on `-p` in
+    int32, as the reference does: int32 min negates to itself and sorts
+    first."""
+    blocks = p.reshape(-1, int(tile_size))
+    order = torch.argsort(-blocks, dim=1, stable=True)
+    return order.to(torch.int32), torch.gather(blocks, 1, order)
+
+
+def pack_sorted_frontier_bits(bits_sorted: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """(..., T) truthy in sorted-slot order -> (..., W) int32 with slot s
+    at bit 31 − (s mod 32) of word s // 32: MSB first, so the count of
+    leading zeros of a word is its first occupied slot."""
+    return _pack_bits(bits_sorted, tile_size, msb_first=True)
+
+
+def sorted_tile_bits(
+    tiles: torch.Tensor,
+    tile_cols: torch.Tensor,
+    order: torch.Tensor,
+    tile_size: int,
+) -> torch.Tensor:
+    """Tiles (either storage) column-permuted into each block-column's
+    priority-slot order and packed MSB first: (nt, T, W) int32.  Built in
+    chunks of tiles, so the transient bool mask stays near 16 MB."""
+    T = int(tile_size)
+    nt = tiles.shape[0]
+    out = torch.empty((nt, T, packed_words(T)), dtype=torch.int32, device=tiles.device)
+    chunk = max((1 << 24) // (T * T), 1)
+    for lo in range(0, nt, chunk):
+        hi = min(lo + chunk, nt)
+        mask = dense_tile_mask(tiles[lo:hi], T)                   # (c, T, T)
+        g_order = order[tile_cols[lo:hi].long()].long()           # (c, T)
+        permuted = torch.gather(mask, 2, g_order[:, None, :].expand(-1, T, -1))
+        out[lo:hi] = pack_sorted_frontier_bits(permuted, T)
+    return out
+
+
+def sorted_frontier_words(
+    words: torch.Tensor, order: torch.Tensor, tile_size: int
+) -> torch.Tensor:
+    """Standard-layout frontier words -> sorted-slot words, per block
+    column (the per-round remap that feeds the clz scan)."""
+    bits = unpack_frontier_bits(words, tile_size)                 # (nbc, T)
+    bits_sorted = torch.gather(bits, 1, order.long())
+    return pack_sorted_frontier_bits(bits_sorted, tile_size)
+
+
+def pack_priority_planes(
+    p: torch.Tensor, tile_size: int, n_bits: int, *, signed: bool = False
+) -> torch.Tensor:
+    """(n_blocks·T,) int32 -> (n_bits, n_blocks, W) int32 bit planes in
+    the standard frontier layout: plane b holds bit b of every priority.
+    `signed` flips the sign bit (the order-preserving bias `^ 0x80000000`)
+    so two's-complement keys scan in order; the plane scan un-biases."""
+    u = p.to(torch.int32)
+    if signed:
+        u = u ^ -(1 << 31)
+    blocks = u.reshape(-1, int(tile_size))
+    b = torch.arange(int(n_bits), dtype=torch.int32, device=p.device)
+    # `& 1` after the arithmetic shift: the sign fill lands above bit 0
+    bits = (blocks[None] >> b[:, None, None]) & 1                 # (n_bits, nb, T)
+    return pack_frontier_bits(bits, tile_size)
 
 
 def tiling_from_arrays(

@@ -34,6 +34,7 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import repro_torch, repro_torch.api, repro_torch.core, repro_torch.graphs\n"
         "import repro_torch.hopper.tc_spmv, repro_torch.hopper.build\n"
+        "import repro_torch.hopper.tc_neighbor_max, repro_torch.hopper.launch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

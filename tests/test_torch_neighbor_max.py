@@ -1,0 +1,128 @@
+"""The port's tiled neighbour max (`repro_torch.hopper.tc_neighbor_max`)
+against the JAX reference's Pallas kernels, run as the reference's own
+tests run them on the CPU (`interpret=True`), and against the reference's
+oracles.  On CPU tensors the wrappers take their plain-torch versions; the
+CUDA kernels are held against those on the card (tests/test_torch_gpu.py,
+and chip_smoke.py).  All values are integers: every comparison is
+exact."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.engine import tile_neighbor_max as ref_tile_neighbor_max
+from repro.core.tiling import pack_frontier_words as ref_pack_frontier_words
+from repro.core.tiling import pack_priority_planes as ref_pack_priority_planes
+from repro.kernels import ops
+from repro.kernels import ref as ref_oracles
+from repro_torch.core.engine import tile_neighbor_max
+from repro_torch.core.spmv import INT32_MIN, _NEG
+from repro_torch.core.tiling import (
+    pack_frontier_words,
+    pack_priority_planes,
+    tiles_as_words,
+)
+from repro_torch.hopper import tc_neighbor_max as K
+from test_torch_spmv import _covered_rows, _tilings
+
+
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 32])
+@pytest.mark.parametrize("kind", ["random", "clustered"])
+def test_dense_neighbor_max_matches_pallas(kind, T, storage):
+    ref, t = _tilings(kind, T, storage)
+    rng = np.random.default_rng(T)
+    p = rng.integers(-(1 << 20), 1 << 20, ref.n_padded).astype(np.int32)
+    mask = rng.random(ref.n_padded) < 0.6
+    got = K.tc_neighbor_max(t, torch.from_numpy(p), torch.from_numpy(mask)).numpy()
+    assert got.dtype == np.int32
+    pallas = np.asarray(ops.tc_neighbor_max(ref, jnp.asarray(p), jnp.asarray(mask),
+                                            interpret=True))
+    # the Pallas kernel never writes block-rows that own no tile; the port
+    # writes int32 min there, as the jnp operator and the oracle do
+    covered = _covered_rows(ref)
+    np.testing.assert_array_equal(got[covered], pallas[covered])
+    pm = jnp.asarray(np.where(mask, p, _NEG).astype(np.int32))
+    np.testing.assert_array_equal(got, np.asarray(ref_tile_neighbor_max(
+        ref.tiles, ref.tile_rows, ref.tile_cols, pm, ref.n_block_rows, T)))
+    np.testing.assert_array_equal(got, np.asarray(ref_oracles.tc_neighbor_max_ref(
+        ref.tiles, ref.tile_rows, ref.tile_cols, pm, ref.n_block_rows)))
+    np.testing.assert_array_equal(got, tile_neighbor_max(
+        t.tiles, t.tile_rows, t.tile_cols, torch.from_numpy(np.array(pm)),
+        t.n_block_rows, T).numpy())
+    if kind == "clustered":
+        assert (~covered).any() and (got[~covered] == INT32_MIN).all()
+
+
+def _planes(p, T, signed):
+    return (ref_pack_priority_planes(jnp.asarray(p), T, 32 if signed else 31, signed=signed),
+            pack_priority_planes(torch.from_numpy(p), T, 32 if signed else 31, signed=signed))
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("T", [8, 16, 32])
+@pytest.mark.parametrize("kind", ["random", "clustered"])
+def test_plane_scan_matches_pallas_and_oracle(kind, T, signed):
+    ref, t = _tilings(kind, T, "bitpack", seed=T)
+    rng = np.random.default_rng(T + 5)
+    if signed:   # resolve-style keys: negative, distinct
+        p = (-rng.permutation(ref.n_padded) * 7 - 1).astype(np.int32)
+    else:        # select-style keys: q << 23 with many ties
+        p = (rng.integers(0, 16, ref.n_padded) << 23).astype(np.int32)
+    mask = rng.random(ref.n_padded) < 0.5
+    ref_mask_w = ref_pack_frontier_words(jnp.asarray(mask), T)
+    ref_planes, planes = _planes(p, T, signed)
+    got = K.tc_neighbor_max_bits(
+        t, planes, pack_frontier_words(torch.from_numpy(mask), T), signed=signed).numpy()
+    # the reference wrapper patches uncovered rows to int32 min, as the port's kernel
+    want = np.asarray(ops.tc_neighbor_max_bits(ref, ref_planes, ref_mask_w, signed=signed,
+                                               interpret=True))
+    np.testing.assert_array_equal(got, want)
+    oracle = np.asarray(ref_oracles.tc_neighbor_max_bits_ref(
+        ref.tiles, ref.tile_rows, ref.tile_cols, jnp.asarray(p), ref_mask_w,
+        ref.n_block_rows))
+    np.testing.assert_array_equal(got, oracle)
+    # the plane scan and the dense masked max are one function
+    np.testing.assert_array_equal(got, K.tc_neighbor_max_plain(
+        t, torch.from_numpy(p), torch.from_numpy(mask)).numpy())
+
+
+def test_plane_scan_takes_int8_tiles_as_words():
+    ref, t = _tilings("random", 16, "int8")
+    p = np.random.default_rng(0).integers(0, 1 << 30, ref.n_padded).astype(np.int32)
+    mask = torch.from_numpy(np.random.default_rng(1).random(ref.n_padded) < 0.5)
+    _, planes = _planes(p, 16, False)
+    words = tiles_as_words(t.tiles, 16)
+    got = K.tc_neighbor_max_bits(t, planes, pack_frontier_words(mask, 16))
+    assert torch.equal(got, K.tc_neighbor_max_bits(t, planes, pack_frontier_words(mask, 16),
+                                                   tiles_words=words))
+    assert torch.equal(got, K.tc_neighbor_max_plain(t, torch.from_numpy(p), mask))
+
+
+def test_plain_versions_count_no_launch_and_kernels_refuse_cpu():
+    _, t = _tilings("random", 16, "bitpack")
+    p = torch.zeros(t.n_padded, dtype=torch.int32)
+    mask = torch.ones(t.n_padded, dtype=torch.bool)
+    planes = pack_priority_planes(p, 16, 31)
+    words = pack_frontier_words(mask, 16)
+    before = (K.tc_neighbor_max.launches, K.tc_neighbor_max_bits.launches)
+    K.tc_neighbor_max(t, p, mask)
+    K.tc_neighbor_max_bits(t, planes, words)
+    assert (K.tc_neighbor_max.launches, K.tc_neighbor_max_bits.launches) == before
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        K._launch(t, p, mask)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        K._launch_bits(t, t.tiles, planes, words, False)
+
+
+@pytest.mark.parametrize("n_bits, signed", [(31, True), (32, False), (30, False), (16, True)])
+def test_plane_scan_takes_only_the_engines_plane_stacks(n_bits, signed):
+    """31 unsigned select planes or 32 sign-biased resolve planes: any other
+    stack is refused on every device, before the plain version or the
+    kernel runs."""
+    _, t = _tilings("random", 16, "bitpack")
+    p = torch.zeros(t.n_padded, dtype=torch.int32)
+    planes = pack_priority_planes(p, 16, n_bits, signed=signed)
+    words = pack_frontier_words(torch.ones(t.n_padded, dtype=torch.bool), 16)
+    with pytest.raises(ValueError, match="planes must be"):
+        K.tc_neighbor_max_bits(t, planes, words, signed=signed)

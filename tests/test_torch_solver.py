@@ -21,6 +21,7 @@ from repro.api.plan import choose_tile_size as ref_choose_tile_size
 from repro.api.plan import graph_content_key as ref_graph_content_key
 from repro.api.plan import plan_cache_key as ref_plan_cache_key
 from repro.api.plan import resolve_storage as ref_resolve_storage
+from repro.core import engine as ref_engine
 from repro.core import heuristics as ref_heur
 from repro.core import spmv as ref_spmv
 from repro.core.tc_mis import _tc_mis_impl
@@ -31,12 +32,14 @@ from repro_torch.core import engine as port_engine
 from repro_torch.core import heuristics as heur
 from repro_torch.core import spmv
 from repro_torch.core.heuristics import Priorities
-from repro_torch.core.tc_mis import run_tc_mis
+from repro_torch.core.tc_mis import _setup, run_tc_mis
 from repro_torch.core.validate import cardinality, is_independent, is_maximal, is_valid_mis
 from repro_torch.graphs.graph import from_edges
 
 PORT_ENGINES = ("segment", "tiled_ref", "tiled_pallas", "fused_pallas")
+TILE_ENGINES = PORT_ENGINES[1:]
 HEURISTICS = ("h1", "h2", "h3", "ecl")
+FRONTIERS = ("auto", "dense", "bitwise")
 
 
 def _edges(kind):
@@ -65,13 +68,14 @@ def _plan_arrays(ref_plan):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(kind, T, storage, heuristic, phase1="segment"):
+def _reference(kind, T, storage, heuristic, phase1="segment", frontier="auto"):
     """(ref plan, numpy priorities, ref in_mis, ref rounds) — the reference
     solved on its `tiled_ref` engine under jax.random.key(7)."""
     src, dst, n = _edges(kind)
     plan = RefPlan.build(ref_from_edges(src, dst, n), tile_size=T, storage=storage)
     pri = ref_heur.make_priorities(heuristic, jax.random.key(7), n, plan.g.degrees())
-    opts = RefOptions(engine="tiled_ref", heuristic=heuristic, phase1=phase1)
+    opts = RefOptions(engine="tiled_ref", heuristic=heuristic, phase1=phase1,
+                      frontier=frontier)
     res = _tc_mis_impl(plan.g, plan.tiled, jax.random.key(7), opts, priorities=pri)
     pri_np = (np.asarray(pri.select),
               None if pri.resolve is None else np.asarray(pri.resolve))
@@ -114,19 +118,124 @@ def test_clustered_graph_matches_reference(engine, T):
 
 @pytest.mark.parametrize("storage", ["int8", "bitpack"])
 def test_tiled_phase1_matches_reference_and_hopper_engines_refuse_it(storage):
+    """Parity of `phase1="tiled"` on every tile engine, on both frontiers,
+    against the reference on the clustered graph; the Hopper engines run
+    it on their neighbour-max kernels.  The name's "refuse" is historical
+    and kept so the test keeps its history; nothing refuses here."""
+    for frontier in ("dense", "auto"):
+        ref_plan, pri_np, want_mis, want_rounds = _reference(
+            "clustered", 16, storage, "h3", phase1="tiled", frontier=frontier
+        )
+        plan = plan_from_arrays(_plan_arrays(ref_plan), device="cpu")
+        pri = _port_priorities(pri_np)
+        for engine in TILE_ENGINES:
+            res = run_tc_mis(plan.g, plan.tiled, None,
+                             SolveOptions(engine=engine, phase1="tiled", frontier=frontier),
+                             priorities=pri)
+            np.testing.assert_array_equal(res.in_mis.numpy(), want_mis, err_msg=engine)
+            assert int(res.rounds) == want_rounds, engine
+
+
+@pytest.mark.parametrize("phase1", ["segment", "tiled"])
+@pytest.mark.parametrize("frontier", FRONTIERS)
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("engine", PORT_ENGINES)
+def test_every_engine_frontier_and_phase1_matches_reference(engine, storage, frontier, phase1):
     ref_plan, pri_np, want_mis, want_rounds = _reference(
-        "clustered", 16, storage, "h3", phase1="tiled"
-    )
+        "random", 16, storage, "h3", phase1=phase1, frontier=frontier)
     plan = plan_from_arrays(_plan_arrays(ref_plan), device="cpu")
-    pri = _port_priorities(pri_np)
-    res = run_tc_mis(plan.g, plan.tiled, None,
-                     SolveOptions(engine="tiled_ref", phase1="tiled"), priorities=pri)
+    opts = SolveOptions(engine=engine, phase1=phase1, frontier=frontier)
+    res = run_tc_mis(plan.g, plan.tiled, None, opts, priorities=_port_priorities(pri_np))
     np.testing.assert_array_equal(res.in_mis.numpy(), want_mis)
     assert int(res.rounds) == want_rounds
-    for engine in ("tiled_pallas", "fused_pallas"):
-        with pytest.raises(NotImplementedError, match="_nbr_max_kernel"):
-            run_tc_mis(plan.g, plan.tiled, None,
-                       SolveOptions(engine=engine, phase1="tiled"), priorities=pri)
+    assert bool(res.converged) and res.in_mis.dtype == torch.bool
+
+
+@pytest.mark.parametrize("heuristic", HEURISTICS)
+@pytest.mark.parametrize("engine", TILE_ENGINES)
+def test_bitwise_path_matches_reference_for_every_heuristic(engine, heuristic):
+    """The plane scan assumes select keys fit 31 unsigned bits: every
+    heuristic's keys go through it (Hopper engines) and the clz form."""
+    ref_plan, pri_np, want_mis, want_rounds = _reference(
+        "random", 16, "bitpack", heuristic, phase1="tiled")
+    plan = plan_from_arrays(_plan_arrays(ref_plan), device="cpu")
+    opts = SolveOptions(engine=engine, heuristic=heuristic, phase1="tiled")
+    _, ctx, _, _ = _setup(plan.g, plan.tiled, None, opts, _port_priorities(pri_np))
+    assert ctx.frontier == "bitwise"
+    assert (ctx.bits.select_planes is not None) == (engine != "tiled_ref")
+    assert pri_np[0].min() >= 0
+    res = run_tc_mis(plan.g, plan.tiled, None, opts, priorities=_port_priorities(pri_np))
+    np.testing.assert_array_equal(res.in_mis.numpy(), want_mis)
+    assert int(res.rounds) == want_rounds
+
+
+@pytest.mark.parametrize("T", [8, 32])
+@pytest.mark.parametrize("engine", TILE_ENGINES)
+def test_bitwise_path_on_clustered_graph_matches_reference(engine, T):
+    """Empty block-rows on the packed frontier: hit 0, Max_Np int32 min."""
+    ref_plan, pri_np, want_mis, want_rounds = _reference(
+        "clustered", T, "bitpack", "h3", phase1="tiled")
+    plan = plan_from_arrays(_plan_arrays(ref_plan), device="cpu")
+    res = run_tc_mis(plan.g, plan.tiled, None, SolveOptions(engine=engine, phase1="tiled"),
+                     priorities=_port_priorities(pri_np))
+    np.testing.assert_array_equal(res.in_mis.numpy(), want_mis)
+    assert int(res.rounds) == want_rounds
+
+
+def _warm_state(g, t):
+    """A prior independent set with its closed neighbourhood dead, and the
+    last block-column's vertices dead and gated off (as a batch bucket's
+    empty slots are): (alive0, in_mis0, col_gate) as numpy."""
+    n = g.n_nodes
+    rng = np.random.default_rng(3)
+    prior = np.zeros(n, bool)
+    prior[rng.choice(n, 20, replace=False)] = True
+    s, r = np.asarray(g.senders)[: g.n_edges], np.asarray(g.receivers)[: g.n_edges]
+    for v in np.flatnonzero(prior):
+        if prior[r[s == v]].any():
+            prior[v] = False
+    last = (t.n_block_cols - 1) * t.tile_size
+    prior[last:] = False
+    covered = prior.copy()
+    covered[r[np.isin(s, np.flatnonzero(prior))]] = True
+    covered[last:] = True
+    gate = np.ones(t.n_block_cols, np.int32)
+    gate[-1] = 0
+    return ~covered, prior, gate
+
+
+@pytest.mark.parametrize("engine", TILE_ENGINES)
+def test_packed_warm_start_seams_match_reference(engine):
+    """alive0 / in_mis0 handed over as packed words pass through `_setup`
+    on the bitwise frontier, as the reference's repair path hands them."""
+    from repro.core.tiling import pack_frontier_words as ref_pack_words
+    from repro.core.tiling import pack_vertex_vector as ref_pack_vertex
+
+    ref_plan, pri_np, _, _ = _reference("random", 16, "bitpack", "h3")
+    g, t = ref_plan.g, ref_plan.tiled
+    alive0, prior, gate = _warm_state(g, t)
+
+    def packed(x):
+        return ref_pack_words(ref_pack_vertex(jnp.asarray(x), t), 16)
+
+    pri = ref_heur.Priorities(jnp.asarray(pri_np[0]), jnp.asarray(pri_np[1]))
+    want = _tc_mis_impl(
+        g, t, jax.random.key(0), RefOptions(engine="tiled_ref", phase1="tiled"),
+        priorities=pri, alive0=packed(alive0), in_mis0=packed(prior),
+        col_gate=jnp.asarray(gate),
+    )
+    plan = plan_from_arrays(_plan_arrays(ref_plan), device="cpu")
+    words = [torch.from_numpy(np.array(packed(x)).view(np.int32)) for x in (alive0, prior)]
+    assert words[0].shape == (t.n_block_rows, 1) and words[0].dtype == torch.int32
+    got = run_tc_mis(
+        plan.g, plan.tiled, None, SolveOptions(engine=engine, phase1="tiled"),
+        priorities=_port_priorities(pri_np), alive0=words[0], in_mis0=words[1],
+        col_gate=torch.from_numpy(gate),
+    )
+    np.testing.assert_array_equal(got.in_mis.numpy(), np.asarray(want.in_mis))
+    assert int(got.rounds) == int(want.rounds)
+    assert bool(got.converged) == bool(want.converged)
+    assert got.in_mis.numpy()[prior].all()
 
 
 @pytest.mark.parametrize("engine", ["segment", "fused_pallas"])
@@ -135,26 +244,7 @@ def test_warm_start_and_batch_seams_match_reference(engine):
     reference's batch and warm-start seams give the same result."""
     ref_plan, pri_np, _, _ = _reference("random", 16, "int8", "h3")
     g, t = ref_plan.g, ref_plan.tiled
-    n = g.n_nodes
-    rng = np.random.default_rng(3)
-    # warm start: a prior independent set, its closed neighbourhood dead
-    prior = np.zeros(n, bool)
-    prior[rng.choice(n, 20, replace=False)] = True
-    s, r = np.asarray(g.senders)[: g.n_edges], np.asarray(g.receivers)[: g.n_edges]
-    for v in np.flatnonzero(prior):
-        if prior[r[s == v]].any():
-            prior[v] = False
-    T = t.tile_size
-    last = (t.n_block_cols - 1) * T
-    prior[last:] = False
-    covered = prior.copy()
-    covered[r[np.isin(s, np.flatnonzero(prior))]] = True
-    # the batcher's use of the gate: the last block-column's vertices start
-    # dead (as a bucket's empty slots do), and the gate keeps it dark
-    covered[last:] = True
-    alive0 = ~covered
-    gate = np.ones(t.n_block_cols, np.int32)
-    gate[-1] = 0
+    alive0, prior, gate = _warm_state(g, t)
     pri = ref_heur.Priorities(jnp.asarray(pri_np[0]), jnp.asarray(pri_np[1]))
     want = _tc_mis_impl(
         g, t, jax.random.key(0), RefOptions(engine="tiled_ref"), priorities=pri,
@@ -306,11 +396,17 @@ def test_registry_names_and_aliases():
         port_engine.get_engine("ref")
     with pytest.raises(ValueError, match="unknown engine"):
         port_engine.get_engine("cuda_warp")
-    for e in port_engine.ENGINES.values():
-        assert not e.supports_bitwise and not e.supports_hybrid
-        assert port_engine.resolve_frontier(
-            SolveOptions(phase1="tiled", frontier="bitwise"), e, storage="bitpack"
-        ) == "dense"
+    for name, e in port_engine.ENGINES.items():
+        ref = ref_engine.get_engine(name)
+        assert e.supports_bitwise == ref.supports_bitwise == (name != "segment")
+        assert not e.supports_hybrid
+        assert e.plane_kernel_nbr_max == ref.plane_kernel_nbr_max
+        for phase1 in ("segment", "tiled"):
+            got = port_engine.resolve_frontier(
+                SolveOptions(phase1=phase1), e, storage="bitpack")
+            assert got == ref_engine.resolve_frontier(
+                RefOptions(phase1=phase1), ref, storage="bitpack")
+            assert got == ("bitwise" if phase1 == "tiled" and name != "segment" else "dense")
 
 
 @pytest.mark.parametrize("reorder", [None, "rcm"])

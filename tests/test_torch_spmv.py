@@ -1,8 +1,9 @@
-"""The port's tiled SpMV (`repro_torch.hopper.tc_spmv`) against the JAX
-reference's Pallas kernels, run as the reference's own tests run them on
-the CPU (`interpret=True`).  On CPU tensors the port's wrappers take their
-plain-torch versions; the CUDA kernels themselves are held against those
-plain versions on the card (the `gpu`-marked test here, and chip_smoke.py).
+"""The port's tiled SpMV (`repro_torch.hopper.tc_spmv`), on the dense and
+the packed-word frontier, against the JAX reference's Pallas kernels, run
+as the reference's own tests run them on the CPU (`interpret=True`).  On
+CPU tensors the port's wrappers take their plain-torch versions; the CUDA
+kernels themselves are held against those plain versions on the card
+(tests/test_torch_gpu.py, and chip_smoke.py).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -11,11 +12,16 @@ import torch
 
 from repro.core.engine import tile_spmv as ref_tile_spmv
 from repro.core.tiling import build_block_tiles as ref_build_block_tiles
+from repro.core.tiling import pack_frontier_words as ref_pack_frontier_words
 from repro.graphs.graph import from_edges as ref_from_edges
 from repro.kernels import ops
-from repro_torch.core.engine import block_col_flags
-from repro_torch.core.tiling import build_block_tiles, tiling_from_arrays
-from repro_torch.graphs.graph import from_edges
+from repro.kernels import ref as ref_oracles
+from repro_torch.core.tiling import (
+    pack_frontier_words,
+    tiles_as_words,
+    tiling_from_arrays,
+)
+from repro_torch.device import to_torch, words_to_numpy
 from repro_torch.hopper import tc_spmv as K
 
 LANES = 8
@@ -116,45 +122,75 @@ def test_split_matches_pallas(kind, T, storage, gated):
     np.testing.assert_allclose(got, oracle, rtol=SPLIT_TOL, atol=SPLIT_TOL)
 
 
+def _words_frontier(ref, T, seed, gated):
+    """Packed cand / alive words (reference, port) and optional flags."""
+    cand, alive, flags = _frontier(ref.n_padded, T, seed=seed, gated=gated)
+    cand_w = ref_pack_frontier_words(jnp.asarray(cand), T)
+    alive_w = ref_pack_frontier_words(jnp.asarray(alive), T)
+    port = [to_torch(np.asarray(w), "cpu") for w in (cand_w, alive_w)]
+    return (cand_w, alive_w), port, flags
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("T", [8, 16, 32])
+@pytest.mark.parametrize("kind", ["random", "clustered"])
+def test_split_bits_matches_pallas_and_oracle(kind, T, gated):
+    ref, t = _tilings(kind, T, "bitpack")
+    (cand_w, _), (tcand, _), flags = _words_frontier(ref, T, seed=T + 2, gated=gated)
+    jflags = None if flags is None else jnp.asarray(flags)
+    got = K.tc_spmv_bits(t, tcand, col_flags=None if flags is None else torch.from_numpy(flags))
+    assert got.dtype == torch.int32 and got.shape == (ref.n_block_rows, t.tiles.shape[-1])
+    want = ops.tc_spmv_bits(ref, cand_w, col_flags=jflags, interpret=True)
+    np.testing.assert_array_equal(words_to_numpy(got), np.asarray(want))
+    oracle = ref_oracles.tc_spmv_bits_ref(ref.tiles, ref.tile_rows, ref.tile_cols, cand_w,
+                                          ref.n_block_rows, col_flags=jflags)
+    np.testing.assert_array_equal(words_to_numpy(got), np.asarray(oracle))
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 32])
+@pytest.mark.parametrize("kind", ["random", "clustered"])
+def test_fused_bits_matches_pallas_exactly(kind, T, storage, gated):
+    ref, t = _tilings(kind, T, storage)
+    (cand_w, alive_w), (tcand, talive), flags = _words_frontier(ref, T, seed=T, gated=gated)
+    tflags = None if flags is None else torch.from_numpy(flags)
+    got = K.tc_spmv_fused_bits(t, tcand, talive, col_flags=tflags)
+    want = ops.tc_spmv_fused_bits(ref, cand_w, alive_w,
+                                  col_flags=None if flags is None else jnp.asarray(flags),
+                                  interpret=True)
+    for name, a, b in zip(("hit", "new_alive", "mis_add"), got, want):
+        np.testing.assert_array_equal(words_to_numpy(a), np.asarray(b), err_msg=name)
+    oracle = ref_oracles.tc_spmv_bits_ref(
+        ref.tiles, ref.tile_rows, ref.tile_cols, cand_w, ref.n_block_rows,
+        col_flags=None if flags is None else jnp.asarray(flags))
+    np.testing.assert_array_equal(words_to_numpy(got[0]), np.asarray(oracle))
+    # the words agree with the dense fused kernel's masks on the same frontier
+    cand, alive = (torch.from_numpy(np.asarray(x)) for x in _frontier(
+        ref.n_padded, T, seed=T, gated=gated)[:2])
+    rhs = torch.zeros((ref.n_padded, LANES))
+    rhs[:, 0], rhs[:, 1] = cand.float(), alive.float()
+    _, dense_alive, dense_add = K.tc_spmv_fused(t, rhs, cand, alive, col_flags=tflags)
+    assert torch.equal(got[1], pack_frontier_words(dense_alive, T))
+    assert torch.equal(got[2], pack_frontier_words(dense_add, T))
+    assert torch.equal(got[0], K.tc_spmv_bits(t, tcand, tiles_words=tiles_as_words(t.tiles, T),
+                                              col_flags=tflags))
+
+
 def test_wrapper_rejects_mixed_devices_and_plain_counts_nothing():
     _, t = _tilings("random", 16, "int8")
     rhs = torch.zeros((t.n_padded, LANES))
-    before = (K.tc_spmv.launches, K.tc_spmv_fused.launches)
+    words = torch.zeros((t.n_block_cols, 1), dtype=torch.int32)
+    counts = lambda: (K.tc_spmv.launches, K.tc_spmv_fused.launches,  # noqa: E731
+                      K.tc_spmv_bits.launches, K.tc_spmv_fused_bits.launches)
+    before = counts()
     K.tc_spmv(t, rhs)
-    assert (K.tc_spmv.launches, K.tc_spmv_fused.launches) == before
+    K.tc_spmv_bits(t, words)
+    K.tc_spmv_fused_bits(t, words, words)
+    assert counts() == before
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         K._launch(t, rhs, None, None)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("storage", ["int8", "bitpack"])
-@pytest.mark.parametrize("T", [8, 16, 32, 64, 128])
-def test_kernel_matches_plain_on_card(cuda_device, T, storage):
-    rng = np.random.default_rng(T)
-    n = 700
-    g = from_edges(rng.integers(0, n, 4 * n), rng.integers(0, n, 4 * n), n,
-                   device=cuda_device)
-    t = build_block_tiles(g, tile_size=T, storage=storage)
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    alive = torch.rand(t.n_padded, generator=gen, device=cuda_device) < 0.7
-    cand = alive & (torch.rand(t.n_padded, generator=gen, device=cuda_device) < 0.3)
-    flags = block_col_flags(cand, T)
-    rhs = (torch.rand((t.n_padded, LANES), generator=gen, device=cuda_device) < 0.5).float()
-    launches = K.tc_spmv_fused.launches
-    got = K.tc_spmv_fused(t, rhs, cand, alive, col_flags=flags)
-    assert K.tc_spmv_fused.launches == launches + 1
-    want = K.tc_spmv_fused_plain(t, rhs, cand, alive, col_flags=flags)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    rhs = torch.randn((t.n_padded, LANES), generator=gen, device=cuda_device)
-    torch.testing.assert_close(
-        K.tc_spmv(t, rhs, col_flags=flags), K.tc_spmv_plain(t, rhs, col_flags=flags),
-        rtol=1e-5, atol=1e-5,
-    )
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        K._launch_bits(t, tiles_as_words(t.tiles, 16), words, words, None)
+    with pytest.raises(ValueError, match="mixed devices"):
+        K.tc_spmv_bits(t, words.to("meta"))
