@@ -9,7 +9,7 @@ Phases, each fatal on failure:
 
   1. build   every csrc/*.cu with nvcc (one process per source, in parallel);
              print the build seconds and the card's name and power limit.
-  2. kernels hold each of the six Hopper kernels against its plain-torch
+  2. kernels hold each of the six MIS kernels against its plain-torch
              version on the card, on the G2 stand-in (grid2d(1044, 1044):
              1,089,936 vertices) planned four ways, {int8, bitpack} × T ∈
              {16, 128}, with seeded random frontiers and about a third of
@@ -43,6 +43,27 @@ Phases, each fatal on failure:
              port) where one PyTorch call computes the same function; the
              median of 5 warm solves of the segment and the packed path,
              and a torch.profiler breakdown of one more solve of each.
+  5. deepfm  DeepFM serving at the full published CONFIG (39 fields,
+             33,889,984 rows, d = 10, MLP 400-400-400), weights drawn on
+             the card from seed 0, fields from `ClickStream(FIELD_VOCABS, B,
+             seed=0)`:
+             - the embedding-bag kernel against its plain version at
+               serve_bulk shapes (B = 262,144, K = 39): D = 10 and D = 1,
+               unweighted and with random weights, and a bf16 table; exact;
+             - serve_p99 (B = 512) and serve_bulk forwards and one
+               retrieval_cand sweep (1,000,448 candidates of field 13), each
+               with every launch count set to 0 just before it: 2 bag
+               launches each, every other count 0.  serve_p99 within 1e-4
+               of the same weights' CPU forward; serve_bulk within 1e-5 of
+               the card forward with both bags through the plain version;
+               256 sampled candidates within 1e-4 of the full model scored
+               one by one.  Float32 products without TF32 throughout;
+             - timing: the bag kernel per launch at serve_bulk (D = 10, D =
+               1, and D = 10 weighted) beside its plain version, its bound
+               (distinct rows read once; the 32-byte-sector count beside
+               it) and one torch.nn.functional.embedding_bag call; the
+               median of 5 warm forwards at serve_p99 and serve_bulk and of
+               5 retrieval sweeps; a profile of one serve_bulk forward.
 
 The last three lines of standard output are, in order: the kernels JSON
 object (one record per kernel), the card's name and power limit as
@@ -75,7 +96,12 @@ KERNELS = {
     "tc_spmv_bits": (CSRC + "tc_spmv_bits.cu", "src/repro/kernels/tc_spmv.py:246"),
     "tc_neighbor_max_bits": (CSRC + "tc_neighbor_max.cu",
                              "src/repro/kernels/tc_neighbor_max.py:96"),
+    "embedding_bag": (CSRC + "embedding_bag.cu", "src/repro/kernels/embedding_bag.py:24"),
 }
+# retrieval_cand scores the items of the first categorical field (10,000,000
+# rows); the 13 numeric fields hold 64 values each
+ITEM_FIELD = 13
+RETRIEVAL_CHECKED = 256     # candidates re-scored one by one with the full model
 
 
 def fail(msg: str) -> None:
@@ -98,6 +124,7 @@ def card_line() -> str:
 
 def wrappers() -> dict:
     """Kernel name -> its wrapper (which carries the `.launches` count)."""
+    from repro_torch.hopper import embedding_bag as E
     from repro_torch.hopper import tc_neighbor_max as N
     from repro_torch.hopper import tc_spmv as S
 
@@ -106,6 +133,7 @@ def wrappers() -> dict:
         "tc_neighbor_max": N.tc_neighbor_max,
         "tc_spmv_fused_bits": S.tc_spmv_fused_bits, "tc_spmv_bits": S.tc_spmv_bits,
         "tc_neighbor_max_bits": N.tc_neighbor_max_bits,
+        "embedding_bag": E.embedding_bag,
     }
 
 
@@ -167,20 +195,24 @@ def random_frontier(tiled, gen):
     return cand, alive, flags.contiguous()
 
 
-def int_err(a, b) -> int:
-    """max |a - b| over integer (or bool, or word) outputs."""
-    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+def max_err(a, b) -> float:
+    """max |a - b| over integer (or bool, or word) or float outputs."""
+    if not a.numel():
+        return 0.0
+    if a.is_floating_point():
+        return float((a.double() - b.double()).abs().max())
+    return float((a.long() - b.long()).abs().max())
 
 
 def exact(errs: dict, name: str, got, want, what: str) -> None:
-    """Hold integer outputs equal, and record the max |err| (0)."""
+    """Hold outputs equal, bit for bit, and record the max |err| (0)."""
     import torch
 
     got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
     for i, (a, b) in enumerate(zip(got, want)):
         check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b),
-              f"{name} kernel != plain (output {i}, {what}): max |err| {int_err(a, b)}")
-        errs[name] = max(errs.get(name, 0.0), float(int_err(a, b)))
+              f"{name} kernel != plain (output {i}, {what}): max |err| {max_err(a, b)}")
+        errs[name] = max(errs.get(name, 0.0), max_err(a, b))
 
 
 def phase_kernels(g2) -> dict:
@@ -249,23 +281,19 @@ def phase_kernels(g2) -> dict:
                   f"but the split SpMV, max|err|={err:.3g} "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
             del plan, tiled
-    check(sorted(errs) == sorted(KERNELS), f"kernels held: {sorted(errs)}")
+    check(sorted(errs) == sorted(k for k in KERNELS if k != "embedding_bag"),
+          f"kernels held: {sorted(errs)}")
     return errs
 
 
 def solve_path(g2, options, label: str, plans):
     """One `Solver.solve` with every launch count set to 0 just before it;
     returns (solver, plan, result, {kernel: launches}) read just after."""
-    import torch
     from repro_torch.api import Solver
 
     solver = Solver(options, device="cuda", plans=plans)
     plan = solver.plan(g2)
-    for w in wrappers().values():
-        w.launches = 0
-    res = solver.solve(plan)
-    torch.cuda.synchronize()
-    counts = {name: w.launches for name, w in wrappers().items()}
+    res, counts = counted(lambda: solver.solve(plan))
     print(f"[paths] {label}: T={plan.tile_size} {plan.storage} "
           f"tiles={plan.tiled.n_tiles} rounds={res.rounds} "
           f"converged={res.converged} mis={res.mis_size} "
@@ -577,22 +605,22 @@ def timing_packed(packed, launches: dict, errs: dict) -> list:
     ]
 
 
-def profile_solve(solver, plan, label: str) -> None:
-    """One more warm solve under torch.profiler: device time by kernel (the
-    device-side events: kernels, copies, fills) and the device's busy share
-    of the wall time."""
+def profile_call(fn, label: str) -> None:
+    """One more warm call of `fn` under torch.profiler: device time by
+    kernel (the device-side events: kernels, copies, fills) and the
+    device's busy share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver.solve(plan)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
-    check(bool(events), f"profiler saw no device time in the {label} solve")
+    check(bool(events), f"profiler saw no device time in the {label} call")
     busy_us = sum(e.self_device_time_total for e in events)
     print(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} %), idle "
@@ -605,20 +633,227 @@ def profile_solve(solver, plan, label: str) -> None:
 def timing_solves(paths: dict) -> None:
     """Median of 5 warm solves (plan cached, kernels loaded) per path, then
     one profiled solve each."""
-    import torch
-
     for key, label in (("main", "segment phase ① (main path)"),
                        ("packed", "tiled phase ①, packed frontier")):
-        solver, plan, _ = paths[key]
-        took = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            res = solver.solve(plan)
-            torch.cuda.synchronize()
-            took.append((time.perf_counter() - t0) * 1e3)
-        print(f"[timing] warm solve, {label}: median {statistics.median(took):.3f} ms "
+        solver, plan, res = paths[key]
+        med, took = median_ms(lambda: solver.solve(plan))
+        print(f"[timing] warm solve, {label}: median {med:.3f} ms "
               f"of {[round(x, 3) for x in took]}, rounds={res.rounds}", flush=True)
-        profile_solve(solver, plan, label)
+        profile_call(lambda: solver.solve(plan), f"{label} solve")
+
+
+def counted(fn):
+    """fn() with every launch count set to 0 just before it; returns its
+    output and {kernel: launches} read just after it."""
+    import torch
+
+    for w in wrappers().values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: w.launches for name, w in wrappers().items()}
+
+
+def retrieval_by_candidate(model, user, cands, item_field: int):
+    """Each candidate scored by the full DeepFM (plain gathers and sums, no
+    bag kernel) with the item's embedding zeroed in the deep tower only:
+    what the factorised retrieval sweep must equal."""
+    n = cands.numel()
+    fields = user[None, :].repeat(n, 1)
+    fields[:, item_field] = cands
+    flat = fields + model.offsets[None, :]
+    v = model.embed[flat]
+    lin = model.linear[flat].sum(1)
+    s = v.sum(1)
+    fm = 0.5 * ((s * s).sum(-1) - (v * v).sum(dim=(1, 2)))
+    v_deep = v.clone()
+    v_deep[:, item_field] = 0.0
+    deep = model.mlp(v_deep.reshape(n, -1))[:, 0]
+    return model.bias + lin + fm + deep
+
+
+def phase_deepfm(errs: dict) -> dict:
+    """DeepFM at full CONFIG on the card: the bag kernel against its plain
+    version at serve_bulk shapes (exact), then the three serve shapes, each
+    driven once with the launch counts set to 0 just before it."""
+    import copy
+
+    import torch
+    from repro_torch.configs.deepfm import (
+        CONFIG, FIELD_VOCABS, RETRIEVAL_CANDIDATES, SHAPES, retrieval_step, serve_step)
+    from repro_torch.data.pipeline import ClickStream
+    from repro_torch.hopper import embedding_bag as E
+    from repro_torch.models import deepfm as M
+
+    t0 = time.perf_counter()
+    model = M.DeepFM(CONFIG, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    V = CONFIG.total_vocab
+    print(f"[deepfm] CONFIG: {CONFIG.n_fields} fields, {V} rows, d={CONFIG.embed_dim}, "
+          f"MLP {CONFIG.mlp_dims}, {CONFIG.param_count()} parameters, built on the card "
+          f"from seed 0 ({time.perf_counter() - t0:.1f} s)", flush=True)
+    fields = {shape: torch.from_numpy(
+        ClickStream(FIELD_VOCABS, SHAPES[shape]["batch"], seed=0).batch_at(0)[0]).cuda()
+        for shape in ("serve_p99", "serve_bulk")}
+    flat = fields["serve_bulk"] + model.offsets[None, :]
+    cpu_model = copy.deepcopy(model).cpu()     # the same weights, for serve_p99
+
+    with torch.inference_mode():
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        w = torch.rand(flat.shape, generator=gen, device="cuda")
+        tables = {"D=10 f32": model.embed, "D=1 f32": model.linear.view(V, 1),
+                  "D=10 bf16": model.embed.to(torch.bfloat16)}
+        for what, table in tables.items():
+            for weights in (None, w):
+                how = f"serve_bulk {tuple(flat.shape)}, {what}, " + (
+                    "unweighted" if weights is None else "random weights")
+                exact(errs, "embedding_bag", E.embedding_bag(table, flat, weights),
+                      E.embedding_bag_plain(table, flat, weights), how)
+        del tables
+        # the other two paths' bag shapes: serve_p99's (512, 39) bags, and
+        # retrieval's one (1, 39) bag weighted by the 0/1 user mask
+        mask = (torch.arange(CONFIG.n_fields, device="cuda") != ITEM_FIELD).float()[None, :]
+        small = {f"serve_p99 {tuple(fields['serve_p99'].shape)}, unweighted":
+                 (fields["serve_p99"] + model.offsets[None, :], None),
+                 "retrieval_cand (1, 39), user-mask weights":
+                 ((fields["serve_p99"][0] + model.offsets)[None, :], mask)}
+        for how, (idx, weights) in small.items():
+            for what, table in (("D=10", model.embed), ("D=1", model.linear.view(V, 1))):
+                exact(errs, "embedding_bag", E.embedding_bag(table, idx, weights),
+                      E.embedding_bag_plain(table, idx, weights), f"{how}, {what} f32")
+        torch.cuda.synchronize()
+        print("[kernels] embedding_bag at serve_bulk (D ∈ {10, 1} f32 and D = 10 bf16, "
+              "unweighted and weighted), serve_p99 and retrieval_cand (D ∈ {10, 1}): "
+              "all exact", flush=True)
+
+        want_launches = {k: 0 for k in KERNELS}
+        want_launches["embedding_bag"] = 2
+        logits, launches = {}, {}
+        for shape, batch in fields.items():
+            out, counts = counted(lambda: serve_step(model, batch))
+            check(counts == want_launches, f"{shape}: launches {counts}, expected {want_launches}")
+            launches[shape] = counts["embedding_bag"]
+            check(out.shape == (batch.shape[0],) and out.dtype == torch.float32
+                  and bool(torch.isfinite(out).all()), f"{shape}: logits not finite of shape (B,)")
+            logits[shape] = out
+
+        want = cpu_model(fields["serve_p99"].cpu())
+        del cpu_model
+        err_p99 = max_err(logits["serve_p99"].cpu(), want)
+        check(torch.allclose(logits["serve_p99"].cpu(), want, rtol=1e-4, atol=1e-4),
+              f"serve_p99 logits != the CPU forward: max |err| {err_p99}")
+        want = M.deepfm_logits(model, fields["serve_bulk"], bag=E.embedding_bag_plain)
+        err_bulk = max_err(logits["serve_bulk"], want)
+        check(torch.allclose(logits["serve_bulk"], want, rtol=1e-5, atol=1e-5),
+              f"serve_bulk logits != the forward through plain bags: max |err| {err_bulk}")
+        print(f"[deepfm] serve_p99 B={fields['serve_p99'].shape[0]}: 2 bag launches, "
+              f"max |err| vs the CPU forward {err_p99:.3g} (tol 1e-4); serve_bulk "
+              f"B={fields['serve_bulk'].shape[0]}: 2 bag launches, max |err| vs the card "
+              f"forward through plain bags {err_bulk:.3g} (tol 1e-5)", flush=True)
+
+        user = fields["serve_p99"][0]
+        cands = torch.randint(0, FIELD_VOCABS[ITEM_FIELD], (RETRIEVAL_CANDIDATES,),
+                              generator=gen, device="cuda", dtype=torch.int32)
+        scores, counts = counted(lambda: retrieval_step(model, user, cands, ITEM_FIELD))
+        check(counts == want_launches, f"retrieval_cand: launches {counts}")
+        check(scores.shape == (RETRIEVAL_CANDIDATES,) and bool(torch.isfinite(scores).all()),
+              "retrieval_cand: scores not finite of shape (N,)")
+        pick = torch.randperm(RETRIEVAL_CANDIDATES, generator=gen, device="cuda")
+        pick = pick[:RETRIEVAL_CHECKED]
+        want = retrieval_by_candidate(model, user, cands[pick], ITEM_FIELD)
+        err_ret = max_err(scores[pick], want)
+        check(torch.allclose(scores[pick], want, rtol=1e-4, atol=1e-4),
+              f"retrieval_cand != per-candidate DeepFM: max |err| {err_ret}")
+        print(f"[deepfm] retrieval_cand: {RETRIEVAL_CANDIDATES} candidates of field "
+              f"{ITEM_FIELD}, 2 bag launches; {RETRIEVAL_CHECKED} re-scored one by one, "
+              f"max |err| {err_ret:.3g} (tol 1e-4)", flush=True)
+    return {"model": model, "fields": fields, "flat": flat, "user": user, "cands": cands,
+            "weights": w, "launches": {"embedding_bag": launches["serve_bulk"]}}
+
+
+def bound_bag(table, idx, weights):
+    """Bag sum: each distinct table row the bags touch read once, the
+    indices (and weights) read once, the (B, D) f32 output written once; an
+    add (and a multiply) per gathered element.  Returns the bound and the
+    byte counts: all gathered rows, the distinct rows (useful bytes), and
+    the distinct 32-byte sectors those rows cover."""
+    import torch
+
+    D, (B, K) = table.shape[1], idx.shape
+    row_bytes = D * table.element_size()
+    rows = torch.unique(idx).long()
+    io = idx.numel() * 4 + (0 if weights is None else weights.numel() * 4) + B * D * 4
+    first = rows * row_bytes // 32
+    last = (rows * row_bytes + row_bytes - 1) // 32
+    span = int((last - first).max()) + 1
+    sectors = torch.unique(torch.cat([torch.minimum(first + s, last) for s in range(span)]))
+    useful = rows.numel() * row_bytes
+    ops = B * K * D * (1 if weights is None else 2)
+    return _bound(useful + io, ops), {
+        "distinct_rows": rows.numel(), "gathered_row_bytes": B * K * row_bytes,
+        "useful_row_bytes": useful, "index_weight_output_bytes": io,
+        "sector_bytes": sectors.numel() * 32,
+        "sector_bound_ms": (sectors.numel() * 32 + io) / HBM_BYTES_PER_S * 1e3,
+    }
+
+
+def median_ms(fn, n: int = 5):
+    """Median and all of n host-clock times (ms) of fn() + synchronize."""
+    import torch
+
+    took = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        took.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(took), took
+
+
+def timing_deepfm(state: dict, errs: dict) -> list:
+    """The bag kernel per launch at serve_bulk (the forward's two bags: D =
+    10 and D = 1, unweighted; D = 10 weighted besides), beside its plain
+    version, its bound and one `torch.nn.functional.embedding_bag` call;
+    then the medians of 5 warm forwards and retrieval sweeps, and a profile
+    of one serve_bulk forward.  The kernels line carries the D = 10 bag."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.deepfm import retrieval_step, serve_step
+    from repro_torch.hopper import embedding_bag as E
+
+    model, flat, w = state["model"], state["flat"], state["weights"]
+    V = model.embed.shape[0]
+    records = {}
+    with torch.inference_mode():
+        for what, table, weights in (("D=10", model.embed, None),
+                                     ("D=1", model.linear.view(V, 1), None),
+                                     ("D=10 weighted", model.embed, w)):
+            def library(table=table, weights=weights):
+                return F.embedding_bag(flat, table, mode="sum", per_sample_weights=weights)
+
+            check(torch.allclose(library(), E.embedding_bag(table, flat, weights),
+                                 rtol=1e-5, atol=1e-5),
+                  f"torch.nn.functional.embedding_bag disagrees with the bag ({what})")
+            library_ms = time_ms(library)
+            timing = time_pair(lambda: E.embedding_bag(table, flat, weights),
+                               lambda: E.embedding_bag_plain(table, flat, weights))
+            bound, extra = bound_bag(table, flat, weights)
+            print(f"[timing] embedding_bag {what} at serve_bulk {tuple(flat.shape)}: "
+                  f"{json.dumps(extra)}", flush=True)
+            records[what] = record("embedding_bag", state["launches"], errs, timing, bound,
+                                   library_ms)
+
+        for shape, batch in state["fields"].items():
+            med, took = median_ms(lambda: serve_step(model, batch))
+            print(f"[timing] warm forward, {shape} (B={batch.shape[0]}): median {med:.3f} ms "
+                  f"of {[round(x, 3) for x in took]}", flush=True)
+        med, took = median_ms(lambda: retrieval_step(model, state["user"], state["cands"],
+                                                     ITEM_FIELD))
+        print(f"[timing] warm retrieval sweep, retrieval_cand ({state['cands'].numel()} "
+              f"candidates): median {med:.3f} ms of {[round(x, 3) for x in took]}", flush=True)
+        profile_call(lambda: serve_step(model, state["fields"]["serve_bulk"]),
+                     "serve_bulk forward")
+    return [records["D=10"]]
 
 
 def main() -> None:
@@ -641,6 +876,9 @@ def main() -> None:
     records = timing_dense(paths["main"], paths["launches"], errs)
     records += timing_packed(paths["packed"], paths["launches"], errs)
     timing_solves(paths)
+    del paths, g2
+    deepfm = phase_deepfm(errs)
+    records += timing_deepfm(deepfm, errs)
     check(sorted(r["name"] for r in records) == sorted(KERNELS), "a kernel has no record")
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))

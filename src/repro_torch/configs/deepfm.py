@@ -1,0 +1,75 @@
+"""deepfm [arXiv:1703.04247]: 39 sparse fields (13 binned numerics + 26
+categoricals, Criteo-style vocabulary skew, 33,889,984 rows in all),
+embed_dim=10, MLP 400-400-400, FM interaction.  The counterpart of
+`repro.configs.deepfm`, serving half: the same vocabularies, configs,
+shapes and FLOP count, and one step per serve shape.
+
+Shapes: train_batch 65 536 / serve_p99 512 / serve_bulk 262 144 /
+retrieval_cand 1×1 000 000 candidates (padded to 1 000 448, a multiple of
+512, as the reference's cell pads them).  The train step waits for the
+training slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import DeviceLike
+from repro_torch.models.deepfm import DeepFM, DeepFMConfig
+
+# Criteo-style skewed vocabularies (sum ≈ 33.9M, padded per-field to /16)
+_CAT = [10_000_000, 8_000_000, 5_000_000, 4_000_000, 2_000_000, 1_500_000,
+        1_000_000, 800_000, 500_000, 400_000, 300_000, 200_000, 100_000,
+        50_000, 20_000, 10_000, 5_000, 2_000, 1_000, 500, 200, 100, 100,
+        100, 50, 16]
+FIELD_VOCABS = tuple([64] * 13 + [(v + 15) // 16 * 16 for v in _CAT])
+
+CONFIG = DeepFMConfig(field_vocabs=FIELD_VOCABS, embed_dim=10,
+                      mlp_dims=(400, 400, 400))
+SMOKE_CONFIG = DeepFMConfig(field_vocabs=tuple([32] * 39), embed_dim=10,
+                            mlp_dims=(64, 64))
+
+SHAPES = {
+    "train_batch": dict(batch=65_536, kind="train"),
+    "serve_p99": dict(batch=512, kind="serve"),
+    "serve_bulk": dict(batch=262_144, kind="serve"),
+    "retrieval_cand": dict(batch=1, n_candidates=1_000_000, kind="serve"),
+}
+RETRIEVAL_CANDIDATES = -(-SHAPES["retrieval_cand"]["n_candidates"] // 512) * 512
+
+
+def _fwd_flops(cfg: DeepFMConfig, batch: int) -> float:
+    d = cfg.n_fields * cfg.embed_dim
+    f = 2.0 * batch * cfg.n_fields * cfg.embed_dim    # FM term
+    for o in cfg.mlp_dims + (1,):
+        f += 2.0 * batch * d * o
+        d = o
+    return f
+
+
+def serve_step(model: DeepFM, fields: torch.Tensor) -> torch.Tensor:
+    """serve_p99 / serve_bulk: (B, 39) int32 fields -> (B,) logits."""
+    with torch.inference_mode():
+        return model(fields)
+
+
+def retrieval_step(model: DeepFM, user_fields: torch.Tensor, cand_ids: torch.Tensor,
+                   item_field: int = 0) -> torch.Tensor:
+    """retrieval_cand: one user's (39,) fields against (N,) candidate ids of
+    `item_field` -> (N,) scores."""
+    with torch.inference_mode():
+        return model.retrieval_score(user_fields, cand_ids, item_field)
+
+
+def smoke(device: DeviceLike = "cuda") -> None:
+    """Forward and retrieval of the smoke config: finite, of the right
+    shapes."""
+    model = DeepFM(SMOKE_CONFIG, seed=0, device=device)
+    dev = model.embed.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    fields = torch.randint(0, 32, (16, 39), generator=gen, device=dev, dtype=torch.int32)
+    logits = serve_step(model, fields)
+    if logits.shape != (16,) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"smoke logits: shape {tuple(logits.shape)}, not all finite")
+    sc = retrieval_step(model, fields[0], torch.arange(32, dtype=torch.int32, device=dev))
+    if sc.shape != (32,) or not bool(torch.isfinite(sc).all()):
+        raise AssertionError(f"smoke retrieval: shape {tuple(sc.shape)}, not all finite")

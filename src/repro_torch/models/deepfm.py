@@ -1,0 +1,155 @@
+"""DeepFM (Guo et al., arXiv:1703.04247), serving half: the counterpart of
+`repro.models.deepfm` (`DeepFMConfig`, `deepfm_init`, `deepfm_logits`,
+`retrieval_score`).
+
+Layout as in the reference: the fields' vocabularies are packed into ONE
+embedding table (and one first-order table) with per-field offsets.  The
+two bag sums of a forward, the first-order term `Σ_f linear[id_f]` and the
+FM field sum `Σ_f v_f`, run through the Hopper embedding-bag kernel
+(`hopper.embedding_bag`); the reference computes the same sums as
+gather-then-sum.  The per-field rows `v` for `Σ‖v‖²` and the deep tower
+stay a plain gather, as in the reference.
+
+FM pairwise term by the O(N·d) identity  Σ_{i<j}⟨v_i,v_j⟩ = ½(‖Σv‖² − Σ‖v‖²).
+
+`retrieval_score` scores one user context against N candidate items of
+`item_field` as one matvec over the candidates' rows.  Training
+(`deepfm_loss`, gradients) is not ported yet: the bag kernel has no
+backward.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.hopper.embedding_bag import embedding_bag
+from repro_torch.models.gnn.common import MLP
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepFMConfig:
+    field_vocabs: Tuple[int, ...]      # per-field vocabulary sizes (39 fields)
+    embed_dim: int = 10
+    mlp_dims: Tuple[int, ...] = (400, 400, 400)
+
+    @property
+    def n_fields(self) -> int:
+        return len(self.field_vocabs)
+
+    @property
+    def total_vocab(self) -> int:
+        return int(sum(self.field_vocabs))
+
+    @property
+    def offsets(self) -> torch.Tensor:
+        """(F,) int32 exclusive cumsum of the vocabularies: field f's rows
+        start at offsets[f] in the packed table."""
+        return torch.tensor(np.cumsum((0,) + tuple(self.field_vocabs[:-1])),
+                            dtype=torch.int32)
+
+    def param_count(self) -> int:
+        n = self.total_vocab * (self.embed_dim + 1)    # embeddings + linear
+        d = self.n_fields * self.embed_dim
+        for o in self.mlp_dims:
+            n += d * o + o
+            d = o
+        n += d + 1
+        return n
+
+
+class DeepFM(nn.Module):
+    """`embed` (V, d), `linear` (V,), `bias` () and the deep tower
+    `mlp` (F·d → mlp_dims → 1, ReLU), all f32, drawn as the reference's
+    `deepfm_init` draws them (normal · 0.01 tables, zero bias, He-scaled
+    MLP) from a generator seeded with `seed` on `device` (the card unless
+    the caller asks for the CPU)."""
+
+    def __init__(self, cfg: DeepFMConfig, *, seed: int = 0, device: DeviceLike = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        V, d = cfg.total_vocab, cfg.embed_dim
+        self.cfg = cfg
+
+        def normal(shape):
+            return torch.randn(shape, generator=generator, device=dev) * 0.01
+
+        self.embed = nn.Parameter(normal((V, d)))
+        self.linear = nn.Parameter(normal((V,)))
+        self.bias = nn.Parameter(torch.zeros((), device=dev))
+        self.mlp = MLP((cfg.n_fields * d,) + tuple(cfg.mlp_dims) + (1,),
+                       generator=generator, device=dev)
+        self.register_buffer("offsets", cfg.offsets.to(dev), persistent=False)
+
+    def forward(self, fields: torch.Tensor) -> torch.Tensor:
+        return deepfm_logits(self, fields)
+
+    def retrieval_score(self, user_fields: torch.Tensor, cand_ids: torch.Tensor,
+                        item_field: int = 0) -> torch.Tensor:
+        return retrieval_score(self, user_fields, cand_ids, item_field)
+
+
+Bag = Callable[..., torch.Tensor]
+
+
+def deepfm_logits(model: DeepFM, fields: torch.Tensor, *, bag: Bag = embedding_bag) -> torch.Tensor:
+    """(B, F) int32 per-field ids -> (B,) f32 logits.  `bag` computes the
+    two bag sums (the kernel's wrapper; its plain version to hold the path
+    against it)."""
+    B, F = fields.shape
+    V, d = model.embed.shape
+    flat = fields.to(torch.int32) + model.offsets[None, :]
+    lin = bag(model.linear.view(V, 1), flat)[:, 0]          # first order (B,)
+    s = bag(model.embed, flat)                               # Σ_f v_f (B, d)
+    v = model.embed[flat]                                    # (B, F, d)
+    fm = 0.5 * ((s * s).sum(dim=-1) - (v * v).sum(dim=(1, 2)))
+    deep = model.mlp(v.reshape(B, F * d))[:, 0]
+    return model.bias + lin + fm + deep
+
+
+def retrieval_score(model: DeepFM, user_fields: torch.Tensor, cand_ids: torch.Tensor,
+                    item_field: int = 0, *, bag: Bag = embedding_bag) -> torch.Tensor:
+    """Score ONE user context against N candidates of `item_field`:
+
+        score(c) = const_user + ⟨v_c, Σ_user v⟩ + w_c
+
+    with the deep tower on the user side only (the two-tower deployment of
+    FM models).  The user sums are bags of one row whose weights are the
+    user mask (0 on `item_field`).  user_fields (F,), with
+    user_fields[item_field] ignored; cand_ids (N,) -> (N,) f32 scores."""
+    V, d = model.embed.shape
+    F = model.cfg.n_fields
+    user_mask = torch.arange(F, device=model.embed.device) != item_field
+    flat = (user_fields.to(torch.int32) + model.offsets)[None, :]     # (1, F)
+    w = user_mask.float()[None, :]
+    s_user = bag(model.embed, flat, w)[0]                                # (d,)
+    lin_user = bag(model.linear.view(V, 1), flat, w)[0, 0]
+    v_user = torch.where(user_mask[:, None], model.embed[flat[0]], 0.0)  # (F, d)
+    fm_user = 0.5 * ((s_user * s_user).sum() - (v_user * v_user).sum())
+    deep_user = model.mlp(v_user.reshape(1, F * d))[0, 0]
+    const = model.bias + lin_user + fm_user + deep_user
+
+    cand_rows = model.offsets[item_field] + cand_ids.to(torch.int32)
+    v_c = model.embed[cand_rows]                                         # (N, d)
+    w_c = model.linear[cand_rows]                                        # (N,)
+    return const + v_c @ s_user + w_c
+
+
+def deepfm_params_from_numpy(params) -> Dict[str, torch.Tensor]:
+    """The reference's `deepfm_init` output, as numpy arrays
+    ({embed, linear, bias, mlp: MLP(ws, bs)}), as a `DeepFM` state dict.
+    The reference applies `ws[i]` (in, out) as `x @ w`; `nn.Linear` holds
+    (out, in), so each weight is transposed."""
+    ws, bs = params["mlp"]
+    state = {k: torch.from_numpy(np.array(params[k], dtype=np.float32))
+             for k in ("embed", "linear", "bias")}
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        state[f"mlp.layers.{i}.weight"] = torch.from_numpy(
+            np.array(np.asarray(w, dtype=np.float32).T, order="C"))
+        state[f"mlp.layers.{i}.bias"] = torch.from_numpy(np.array(b, dtype=np.float32))
+    return state

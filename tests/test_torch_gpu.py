@@ -7,7 +7,10 @@ machine that has only PyTorch and the CUDA toolkit:
 
 All outputs but the split SpMV's f32 sums are integers or bits, and are
 held exactly; the split SpMV on a random f32 RHS within 1e-5 (the kernel
-and the plain version sum in different orders)."""
+and the plain version sum in different orders).  The embedding bag sums in
+the plain version's order with no FMA contraction, so it too is held
+exactly, and the DeepFM forward through it equals the forward through the
+plain version."""
 import numpy as np
 import pytest
 import torch
@@ -15,6 +18,7 @@ import torch
 from repro_torch.core.engine import block_col_flags
 from repro_torch.core.tiling import build_block_tiles, pack_frontier_words, pack_priority_planes
 from repro_torch.graphs.graph import from_edges
+from repro_torch.hopper import embedding_bag as E
 from repro_torch.hopper import tc_neighbor_max as N
 from repro_torch.hopper import tc_spmv as K
 
@@ -130,3 +134,97 @@ def test_packed_solve_matches_tiled_ref_on_card(cuda_device, engine):
     want = Solver(SolveOptions(engine="tiled_ref", **opts), device=cuda_device).solve(g)
     assert got.converged and got.rounds == want.rounds
     assert np.array_equal(got.in_mis, want.in_mis)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K_", [1, 39])
+@pytest.mark.parametrize("D", [1, 8, 10, 32, 64])
+def test_embedding_bag_matches_plain_on_card(cuda_device, D, K_, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(D * 100 + K_)
+    V, B = 5000, 777
+    table = torch.randn((V, D), generator=gen, device=cuda_device).to(dtype)
+    idx = torch.randint(0, V, (B, K_), generator=gen, device=cuda_device, dtype=torch.int32)
+    w = torch.rand((B, K_), generator=gen, device=cuda_device)
+    w[:, 0] = 0.0
+    for weights in (None, w):
+        launches = E.embedding_bag.launches
+        got = E.embedding_bag(table, idx, weights)
+        assert E.embedding_bag.launches == launches + 1
+        assert got.dtype == torch.float32 and got.shape == (B, D)
+        assert torch.equal(got, E.embedding_bag_plain(table, idx, weights))
+
+
+@pytest.mark.gpu
+def test_embedding_bag_row_offsets_past_2_31(cuda_device):
+    """A bf16 table of more than 2^31 elements: row · D must not wrap."""
+    V, D = (1 << 25) + 4096, 64
+    if torch.cuda.mem_get_info(cuda_device)[0] < 3 * V * D * 2:
+        pytest.skip("the card has no room for a 4.3 GB table")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    table = torch.empty((V, D), dtype=torch.bfloat16, device=cuda_device)
+    table[-8192:] = torch.randn((8192, D), generator=gen, device=cuda_device).to(torch.bfloat16)
+    table[:8192] = torch.randn((8192, D), generator=gen, device=cuda_device).to(torch.bfloat16)
+    top = torch.randint(V - 8192, V, (64, 13), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    low = torch.randint(0, 8192, (64, 13), generator=gen, device=cuda_device, dtype=torch.int32)
+    idx = torch.cat([top, low], dim=1)
+    assert int(idx.max()) * D >= 1 << 31
+    got = E.embedding_bag(table, idx)
+    assert torch.equal(got, E.embedding_bag_plain(table, idx))
+    del table
+
+
+@pytest.mark.gpu
+def test_embedding_bag_refuses_what_the_kernel_does_not_take(cuda_device):
+    table = torch.randn((10, 4), device=cuda_device)
+    idx = torch.zeros((3, 2), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        E.embedding_bag(table, idx.long())
+    with pytest.raises(TypeError, match="dtype"):
+        E.embedding_bag(table.half(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        E.embedding_bag(torch.randn((4, 10), device=cuda_device).t(), idx)
+    with pytest.raises(ValueError, match="shape"):
+        E.embedding_bag(table, idx, torch.ones((3, 3), device=cuda_device))
+    with pytest.raises(RuntimeError, match="no backward"):
+        E.embedding_bag(table.requires_grad_(), idx)
+
+
+@pytest.mark.gpu
+def test_deepfm_forward_on_card_equals_plain_and_cpu(cuda_device):
+    from repro_torch.configs.deepfm import retrieval_step, serve_step
+    from repro_torch.data.pipeline import ClickStream
+    from repro_torch.models import deepfm as M
+
+    vocabs = tuple([64] * 13 + [4000, 3000, 2000] + [500] * 23)
+    cfg = M.DeepFMConfig(field_vocabs=vocabs)
+    model = M.DeepFM(cfg, seed=0, device=cuda_device)
+    fields = torch.from_numpy(ClickStream(vocabs, 300, seed=0).batch_at(0)[0]).to(cuda_device)
+    launches = E.embedding_bag.launches
+    got = serve_step(model, fields)
+    assert E.embedding_bag.launches == launches + 2
+    with torch.inference_mode():
+        torch.testing.assert_close(
+            got, M.deepfm_logits(model, fields, bag=E.embedding_bag_plain), rtol=1e-5, atol=1e-5)
+        cpu = M.DeepFM(cfg, device="cpu")
+        cpu.load_state_dict(model.state_dict())
+        torch.testing.assert_close(got.cpu(), cpu(fields.cpu()), rtol=1e-5, atol=1e-5)
+    cands = torch.arange(4000, dtype=torch.int32, device=cuda_device)
+    launches = E.embedding_bag.launches
+    sc = retrieval_step(model, fields[0], cands, 13)
+    assert E.embedding_bag.launches == launches + 2
+    with torch.inference_mode():
+        want = M.retrieval_score(model, fields[0], cands, 13, bag=E.embedding_bag_plain)
+    torch.testing.assert_close(sc, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, D", [(0, 10), (5, 0)])
+def test_embedding_bag_empty_output_counts_no_launch(cuda_device, B, D):
+    table = torch.randn((10, D), device=cuda_device)
+    idx = torch.zeros((B, 3), dtype=torch.int32, device=cuda_device)
+    launches = E.embedding_bag.launches
+    got = E.embedding_bag(table, idx)
+    assert got.shape == (B, D) and got.dtype == torch.float32
+    assert E.embedding_bag.launches == launches

@@ -35,6 +35,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch, repro_torch.api, repro_torch.core, repro_torch.graphs\n"
         "import repro_torch.hopper.tc_spmv, repro_torch.hopper.build\n"
         "import repro_torch.hopper.tc_neighbor_max, repro_torch.hopper.launch\n"
+        "import repro_torch.hopper.embedding_bag, repro_torch.models.deepfm\n"
+        "import repro_torch.configs.deepfm, repro_torch.data.pipeline\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
