@@ -8,17 +8,25 @@ result, without them.  Imports nothing of JAX or of the reference package.
 Phases, each fatal on failure:
 
   1. build   every csrc/*.cu with nvcc (one process per source, in parallel);
-             print the build seconds and the card's name and power limit.
+             print the build seconds, each source's register range and
+             spilling kernels from -Xptxas -v, each tc_spmv instance's
+             registers and spill bytes, the count of HMMA (tensor-core)
+             instructions in the built tc_spmv library by cuobjdump (the
+             line says so where cuobjdump is missing; the main path's
+             instance must have some), and the card's name and power limit.
   2. kernels hold each of the six MIS kernels against its plain-torch
              version on the card, on the G2 stand-in (grid2d(1044, 1044):
              1,089,936 vertices) planned four ways, {int8, bitpack} × T ∈
-             {16, 128}, with seeded random frontiers and about a third of
-             the block-columns gated off.  The dense fused SpMV, both
-             neighbour maxes and both packed SpMVs must agree exactly; the
-             split SpMV on a random f32 RHS within rtol=atol=1e-5
-             (summation order differs).  The packed kernels run on the
-             bitpack plans, the plane scan on H3's unsigned select keys and
-             sign-biased resolve keys.
+             {16, 128}, with seeded random frontiers, with about a third of
+             the block-columns gated off and with no gating.  The dense
+             fused SpMV (0/1 RHS), both neighbour maxes and both packed
+             SpMVs must agree exactly; the split SpMV on a random f32 RHS
+             within rtol=atol=1e-5 (the tensor cores sum in another order
+             and rounding); both dense SpMVs exactly on a full-mantissa f32
+             RHS that puts one nonzero term in each output (the kernel's
+             three bf16 parts must give back all 24 bits).  The packed
+             kernels run on the bitpack plans, the plane scan on H3's
+             unsigned select keys and sign-biased resolve keys.
   3. paths   each path is one `Solver.solve(G2)`, with every launch count
              set to 0 just before it and read just after it:
              - `SolveOptions(hybrid="off")` (fused engine, auto-T = 16,
@@ -39,10 +47,12 @@ Phases, each fatal on failure:
              kernel, plain; the stream kept busy while a window's calls are
              enqueued) of each kernel and its plain version, at the round-1
              inputs of the path that runs it; the bound from this run's
-             bytes and operations; a library yardstick (never used by the
-             port) where one PyTorch call computes the same function; the
-             median of 5 warm solves of the segment and the packed path,
-             and a torch.profiler breakdown of one more solve of each.
+             bytes and operations (and, for the dense SpMVs, the slab bytes
+             the kernel reads once per active tile); a library yardstick
+             (never used by the port) where one PyTorch call computes the
+             same function; the median of 5 warm solves of the segment and
+             the packed path, and a torch.profiler breakdown of one more
+             solve of each.
   5. deepfm  DeepFM serving at the full published CONFIG (39 fields,
              33,889,984 rows, d = 10, MLP 400-400-400), weights drawn on
              the card from seed 0, fields from `ClickStream(FIELD_VOCABS, B,
@@ -74,6 +84,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -162,6 +173,63 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+# tc_spmv_rows<T, PACKED, FUSED, RT, LANES> as the Itanium ABI mangles it
+SPMV_INSTANCE = re.compile(
+    r"tc_spmv_rowsILi(\d+)ELb([01])ELb([01])E(f|13__nv_bfloat16)Li(\d+)E")
+MAIN_SPMV = "T=16 bitpack fused f32 L=8"     # the main path's instance
+
+
+def ptxas_kernels(log: str) -> dict:
+    """-Xptxas -v output -> {mangled kernel: {registers, spill stores and
+    loads in bytes}}."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def spmv_label(mangled: str) -> str:
+    m = SPMV_INSTANCE.search(mangled)
+    if m is None:
+        return mangled
+    T, packed, fused, rt, lanes = m.groups()
+    return (f"T={T} {'bitpack' if packed == '1' else 'int8'} "
+            f"{'fused' if fused == '1' else 'split'} {'f32' if rt == 'f' else 'bf16'} "
+            f"L={lanes if lanes != '0' else 'any'}")
+
+
+def hmma_line(build) -> str:
+    """HMMA instructions in the built tc_spmv library, by cuobjdump."""
+    import shutil
+
+    tool = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        return "tc_spmv SASS: cuobjdump not found beside nvcc or on PATH, HMMA not counted"
+    sass = subprocess.run([tool, "-sass", str(build.library_path("tc_spmv"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    per_fn, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = spmv_label(m.group(1))
+            per_fn[cur] = 0
+        elif cur is not None and "HMMA" in ln:
+            per_fn[cur] += 1
+    check(per_fn.get(MAIN_SPMV, 0) > 0, f"no HMMA in the {MAIN_SPMV} tc_spmv instance")
+    return (f"tc_spmv SASS: {sum(per_fn.values())} HMMA in {sum(v > 0 for v in per_fn.values())}"
+            f" of {len(per_fn)} kernels ({MAIN_SPMV}: {per_fn[MAIN_SPMV]})")
+
+
 def phase_build() -> None:
     from repro_torch.hopper import build
 
@@ -170,13 +238,19 @@ def phase_build() -> None:
     print(f"[build] {json.dumps({k: round(v, 3) for k, v in took.items()})} "
           f"wall {time.perf_counter() - t0:.3f} s", flush=True)
     for name in took:
-        log = build.build_log(name)
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        spills = [ln.strip() for ln in log.splitlines()
-                  if "spill" in ln and not ln.strip().startswith("0 bytes")
-                  and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
-        print(f"[build] {name}: {len(regs)} kernels; {regs[:1]}; "
-              f"spilling lines: {len(spills)}", flush=True)
+        kernels = ptxas_kernels(build.build_log(name))
+        spilling = [k for k, v in kernels.items() if v.get("spill_stores") or v.get("spill_loads")]
+        regs = sorted(v.get("registers", 0) for v in kernels.values())
+        print(f"[build] {name}: {len(kernels)} kernels, registers "
+              f"{regs[0] if regs else '?'}..{regs[-1] if regs else '?'}, "
+              f"{len(spilling)} spilling", flush=True)
+        if name == "tc_spmv":
+            check(len(kernels) > 0, "no -Xptxas -v report for tc_spmv")
+            for mangled, v in sorted(kernels.items(), key=lambda kv: spmv_label(kv[0])):
+                print(f"[build]   tc_spmv {spmv_label(mangled)}: {v.get('registers')} "
+                      f"registers, {v.get('spill_stores')} B spill stores, "
+                      f"{v.get('spill_loads')} B spill loads", flush=True)
+    print(f"[build] {hmma_line(build)}", flush=True)
     print(f"[card] {card_line()}", flush=True)
 
 
@@ -215,6 +289,32 @@ def exact(errs: dict, name: str, got, want, what: str) -> None:
         errs[name] = max(errs.get(name, 0.0), max_err(a, b))
 
 
+def full_mantissa_rhs(tiled, lanes: int, gen):
+    """A G2 RHS on which every output of the dense SpMV is a single term:
+    lane l holds ±(1 + k·2^-23)·2^e (k over all 23-bit mantissas, e in
+    [-20, 20]) on the lattice vertices (i, j) with (i mod 3, j mod 3) = (l //
+    3, l % 3), and 0 elsewhere.  Two such vertices lie 3 or more apart in i
+    or j, and an edge (lattice or diagonal shortcut) moves at most 1 in
+    each, so no vertex has two of them as neighbours; checked below with
+    the plain SpMV of their indicator."""
+    import torch
+    from repro_torch.hopper import tc_spmv as K
+
+    n_rows, n_cols = G2_SHAPE
+    v = torch.arange(tiled.n_padded, device="cuda")
+    cls = (v // n_cols % 3) * 3 + v % n_cols % 3
+    member = (cls[:, None] == torch.arange(lanes, device="cuda")) & (v < n_rows * n_cols)[:, None]
+    check(int(K.tc_spmv_plain(tiled, member.float()).max()) == 1,
+          "full-mantissa RHS: some row has two nonzero terms on a lane")
+    shape = (tiled.n_padded, lanes)
+    k = torch.randint(0, 1 << 23, shape, generator=gen, device="cuda")
+    k[::5] = (1 << 23) - 1          # rounds up to the next power of two in bf16
+    e = torch.randint(-20, 21, shape, generator=gen, device="cuda")
+    sign = torch.randint(0, 2, shape, generator=gen, device="cuda") * 2 - 1
+    x = torch.ldexp(1 + k.double() * 2.0 ** -23, e.double()) * sign
+    return torch.where(member, x, 0.0).float()
+
+
 def phase_kernels(g2) -> dict:
     """Kernel vs plain on the four G2 plans; returns max |err| per kernel."""
     import torch
@@ -240,18 +340,26 @@ def phase_kernels(g2) -> dict:
                                 device="cuda") < 0.5).float()
             rhs01[:, 0] = cand.float()
             rhs01[:, 1] = alive.float()
+            rhs = torch.randn((tiled.n_padded, lanes), generator=gen, device="cuda")
+            full = full_mantissa_rhs(tiled, lanes, gen)
+            err = 0.0
             for fl in (flags, None):
+                how = f"{what}, flags {'on' if fl is not None else 'off'}"
                 exact(errs, "tc_spmv_fused",
                       K.tc_spmv_fused(tiled, rhs01, cand, alive, col_flags=fl),
-                      K.tc_spmv_fused_plain(tiled, rhs01, cand, alive, col_flags=fl),
-                      f"{what}, flags {'on' if fl is not None else 'off'}")
-            rhs = torch.randn((tiled.n_padded, lanes), generator=gen, device="cuda")
-            got = K.tc_spmv(tiled, rhs, col_flags=flags)
-            want = K.tc_spmv_plain(tiled, rhs, col_flags=flags)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
-                  f"split kernel != plain ({what}): max |err| {err}")
+                      K.tc_spmv_fused_plain(tiled, rhs01, cand, alive, col_flags=fl), how)
+                got = K.tc_spmv(tiled, rhs, col_flags=fl)
+                want = K.tc_spmv_plain(tiled, rhs, col_flags=fl)
+                torch.cuda.synchronize()
+                err = max(err, float((got - want).abs().max()))
+                check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+                      f"split kernel != plain ({how}): max |err| {err}")
+                how += ", full-mantissa RHS"
+                exact(errs, "tc_spmv_fused",
+                      K.tc_spmv_fused(tiled, full, cand, alive, col_flags=fl),
+                      K.tc_spmv_fused_plain(tiled, full, cand, alive, col_flags=fl), how)
+                exact(errs, "tc_spmv", K.tc_spmv(tiled, full, col_flags=fl),
+                      K.tc_spmv_plain(tiled, full, col_flags=fl), how)
             errs["tc_spmv"] = max(errs.get("tc_spmv", 0.0), err)
 
             n = g2.n_nodes
@@ -278,7 +386,8 @@ def phase_kernels(g2) -> dict:
             torch.cuda.synchronize()
             print(f"[kernels] {what}: tiles={tiled.n_tiles} "
                   f"active_cols={int(flags.sum())}/{tiled.n_block_cols} all exact "
-                  f"but the split SpMV, max|err|={err:.3g} "
+                  f"(both dense SpMVs on the full-mantissa RHS too) but the split "
+                  f"SpMV on randn, max|err|={err:.3g} "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
             del plan, tiled
     check(sorted(errs) == sorted(k for k in KERNELS if k != "embedding_bag"),
@@ -516,6 +625,10 @@ def timing_dense(main, launches: dict, errs: dict) -> list:
     print(f"[timing] main path round-1 inputs: T={tiled.tile_size} {tiled.storage} "
           f"tiles={tiled.n_tiles} cand={int(cand.sum())} "
           f"active_cols={int(flags.sum())}/{tiled.n_block_cols} lanes={lanes}", flush=True)
+    n_active = int(_active_tiles(tiled, flags).sum())
+    print(f"[timing] dense SpMV slab reads: {n_active} active tiles x "
+          f"{tiled.tile_size * lanes * 4} B = {n_active * tiled.tile_size * lanes * 4} B, "
+          f"mostly from L2 (the bound counts each needed slab once)", flush=True)
 
     nt = tiled.n_tiles
     values = dense_tile_mask(tiled.tiles[:nt], tiled.tile_size).to(torch.float32)

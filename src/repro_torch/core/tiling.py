@@ -4,7 +4,8 @@
 The adjacency matrix is cut into T×T tiles; only non-empty tiles are
 stored, sorted by block-row then block-column (BSR order), with
 `row_starts` the CSR pointer over block-rows.  The Hopper kernels walk
-`row_starts[r]..row_starts[r+1]` with one CTA per block-row.
+`row_starts[r]..row_starts[r+1]` within one block-row: the dense SpMV with
+a warp per 16-row strip, the others with a thread per row.
 
 Tiles come in two storages:
 
@@ -76,7 +77,7 @@ def unpack_tile_bits(packed: torch.Tensor, tile_size: int) -> torch.Tensor:
 
 def dense_tile_mask(tiles: torch.Tensor, tile_size: int) -> torch.Tensor:
     """Either storage -> (nt, T, T) bool edge mask (the plain-torch tile
-    operators' input; the kernels unpack per tile in shared memory)."""
+    operators' input; the kernels unpack per tile in registers)."""
     if tiles.dtype == torch.int32:
         return unpack_tile_mask(tiles, tile_size)
     return tiles != 0

@@ -46,7 +46,8 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _library_path(name: str) -> pathlib.Path:
+def library_path(name: str) -> pathlib.Path:
+    """Where the current build of csrc/<name>.cu lives (or will)."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -56,7 +57,7 @@ def _library_path(name: str) -> pathlib.Path:
 def _start(name: str):
     """Start nvcc for csrc/<name>.cu unless its library is current; returns
     (process or None, output path, temp path)."""
-    out = _library_path(name)
+    out = library_path(name)
     if out.exists():
         return None, out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -106,7 +107,7 @@ def build_all() -> Dict[str, float]:
 def build_log(name: str) -> str:
     """nvcc's output (register and shared-memory use, from -Xptxas -v) for
     the current build of csrc/<name>.cu; empty if it was not built here."""
-    log = _library_path(name).with_suffix(".log")
+    log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 

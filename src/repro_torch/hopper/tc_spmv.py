@@ -1,10 +1,20 @@
 """Block-tiled SpMV on Hopper: wrappers, plain versions, launch counts.
 
 Dense frontier (`csrc/tc_spmv.cu`, replacing the Pallas `_spmv_fused_kernel`
-and `_spmv_kernel`):
+and `_spmv_kernel`; the tile × slab product runs on the tensor cores,
+`mma.sync` m16n8k16 in bf16 with an f32 accumulator, a warp per 16-row
+strip of a block-row, registers only):
 
   tc_spmv_fused   phases ②+③ -> (n_c, new_alive, mis_add)
   tc_spmv         phase ②    -> n_c
+
+An f32 RHS enters the tensor cores as three bf16 parts (hi = rn(x), mid =
+rn(x - hi), lo = rn(x - hi - mid)) that sum back to x exactly for finite x
+with 2^-110 <= |x| < 2^128·(1 - 2^-9), or 0; the tiles are 0/1, so every
+product is exact and only the order and rounding of the sums differ from
+the plain version: 0/1 lanes come out exact, random f32 lanes within a few
+ulps of the sum.  The kernel holds no shared memory and takes the lanes 8
+at a time, so any L >= 2 runs (L = 8 on an instance compiled for it).
 
 Packed-word frontier (`csrc/tc_spmv_bits.cu`, replacing
 `_spmv_fused_bits_kernel` and `_spmv_bits_kernel`):
@@ -55,8 +65,6 @@ from repro_torch.hopper.launch import (
     raise_on_error,
     stream,
 )
-
-SMEM_LIMIT = 232_448     # dynamic shared memory one H100 block may use
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -134,10 +142,6 @@ def _launch(tiled: BlockTiledGraph, rhs: torch.Tensor, col_flags, fused_io) -> t
     check("rhs", rhs, (torch.float32, torch.bfloat16), (nbc * T, L), dev)
     if fused_io is not None and rhs.dtype != torch.float32:
         raise TypeError("the fused kernel takes a float32 rhs")
-    smem = 8 * T * L + (T * packed_words(T) * 4 if packed else T * T)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"T={T}, lanes={L} needs {smem} B of shared memory "
-                         f"(> {SMEM_LIMIT})")
     if col_flags is not None:
         check("col_flags", col_flags, torch.int32, (nbc,), dev)
 

@@ -6,8 +6,11 @@ machine that has only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
 All outputs but the split SpMV's f32 sums are integers or bits, and are
-held exactly; the split SpMV on a random f32 RHS within 1e-5 (the kernel
-and the plain version sum in different orders).  The embedding bag sums in
+held exactly; the split SpMV on a random f32 or bf16 RHS within 1e-5 (the
+kernel sums on the tensor cores, in another order and rounding than the
+plain version).  Where each output row has one nonzero term, the dense
+SpMVs are exact on any f32 RHS: the kernel's three bf16 parts of a value
+sum back to it.  The embedding bag sums in
 the plain version's order with no FMA contraction, so it too is held
 exactly, and the DeepFM forward through it equals the forward through the
 plain version."""
@@ -67,6 +70,134 @@ def test_kernel_matches_plain_on_card(cuda_device, T, storage):
         K.tc_spmv(t, rhs, col_flags=flags), K.tc_spmv_plain(t, rhs, col_flags=flags),
         rtol=1e-5, atol=1e-5,
     )
+
+
+def _check_dense(t, cand, alive, flags, rhs01, rhs):
+    """The fused kernel exactly on a 0/1 RHS, the split kernel within 1e-5
+    on `rhs`, each launched once."""
+    launches = (K.tc_spmv_fused.launches, K.tc_spmv.launches)
+    got = K.tc_spmv_fused(t, rhs01, cand, alive, col_flags=flags)
+    split = K.tc_spmv(t, rhs, col_flags=flags)
+    assert (K.tc_spmv_fused.launches, K.tc_spmv.launches) == (launches[0] + 1,
+                                                               launches[1] + 1)
+    for a, b in zip(got, K.tc_spmv_fused_plain(t, rhs01, cand, alive, col_flags=flags)):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(split, K.tc_spmv_plain(t, rhs, col_flags=flags),
+                               rtol=1e-5, atol=1e-5)
+    return got
+
+
+def _rhs_pair(t, gen, lanes, device):
+    rhs01 = (torch.rand((t.n_padded, lanes), generator=gen, device=device) < 0.5).float()
+    return rhs01, torch.randn((t.n_padded, lanes), generator=gen, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [2, 8, 11, 16])
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 32, 64, 128])
+def test_dense_spmv_lane_counts_on_card(cuda_device, T, storage, lanes):
+    """The kernel covers L lanes in 8-lane blocks: L = 2 and 11 leave part
+    of a block masked, 11 stores odd rows, 16 takes two passes."""
+    t = _card_tiling(cuda_device, T, storage)
+    gen, cand, alive = _frontier(t, cuda_device, 10 + lanes)
+    rhs01, rhs = _rhs_pair(t, gen, lanes, cuda_device)
+    for flags in (None, block_col_flags(cand, T)):
+        _check_dense(t, cand, alive, flags, rhs01, rhs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 32, 64, 128])
+def test_split_spmv_bf16_rhs_on_card(cuda_device, T, storage):
+    t = _card_tiling(cuda_device, T, storage)
+    gen, cand, _ = _frontier(t, cuda_device, 20)
+    rhs = torch.randn((t.n_padded, LANES), generator=gen, device=cuda_device)
+    rhs = rhs.to(torch.bfloat16)
+    for flags in (None, block_col_flags(cand, T)):
+        torch.testing.assert_close(
+            K.tc_spmv(t, rhs, col_flags=flags), K.tc_spmv_plain(t, rhs, col_flags=flags),
+            rtol=1e-5, atol=1e-5,
+        )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 32, 64, 128])
+def test_dense_spmv_empty_block_rows_on_card(cuda_device, T, storage):
+    """Edges only among the first 100 of 600 vertices: every later
+    block-row stores no tile, writes N_c = 0 and takes the trivial rule."""
+    rng = np.random.default_rng(T)
+    n, hi = 600, 100
+    g = from_edges(rng.integers(0, hi, 4 * hi), rng.integers(0, hi, 4 * hi), n,
+                   device=cuda_device)
+    t = build_block_tiles(g, tile_size=T, storage=storage)
+    empty = (t.row_starts[1:] == t.row_starts[:-1]).repeat_interleave(T)
+    assert bool(empty.any())
+    gen, cand, alive = _frontier(t, cuda_device, 21)
+    rhs01, rhs = _rhs_pair(t, gen, LANES, cuda_device)
+    for flags in (None, block_col_flags(cand, T)):
+        n_c, new_alive, mis_add = _check_dense(t, cand, alive, flags, rhs01, rhs)
+        assert not bool(n_c[empty].any())
+        assert torch.equal(new_alive[empty], (alive & ~cand)[empty])
+        assert torch.equal(mis_add, cand)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 128])
+def test_dense_spmv_block_row_past_32_tiles_on_card(cuda_device, T, storage):
+    """Block-row 0 has an edge into each of 48 block-columns, so its warp
+    walks its tile list in two 32-tile chunks, gated or not."""
+    rng = np.random.default_rng(T)
+    n = 48 * T
+    j = np.arange(n)
+    src = np.concatenate([(j + 1) % T, rng.integers(0, n, 2 * n)])   # no self-loop
+    dst = np.concatenate([j, rng.integers(0, n, 2 * n)])
+    t = build_block_tiles(from_edges(src, dst, n, device=cuda_device), tile_size=T,
+                          storage=storage)
+    gen, cand, alive = _frontier(t, cuda_device, 22)
+    gate = torch.ones(t.n_block_cols, dtype=torch.int32, device=cuda_device)
+    gate[::7] = 0
+    first = t.tile_cols[: int(t.row_starts[1])].long()
+    assert first.numel() == 48 and int(gate[first].sum()) > 32
+    rhs01, rhs = _rhs_pair(t, gen, LANES, cuda_device)
+    for flags in (None, gate):
+        _check_dense(t, cand, alive, flags, rhs01, rhs)
+
+
+def _full_mantissa(n, lanes, gen, device):
+    """±(1 + k·2^-23)·2^e with k uniform over all 23-bit mantissas (and the
+    largest, which rounds up to the next power in bf16), e in [-20, 20]."""
+    k = torch.randint(0, 1 << 23, (n, lanes), generator=gen, device=device)
+    k[::5] = (1 << 23) - 1
+    e = torch.randint(-20, 21, (n, lanes), generator=gen, device=device)
+    sign = torch.randint(0, 2, (n, lanes), generator=gen, device=device) * 2 - 1
+    x = torch.ldexp(1 + k.double() * 2.0 ** -23, e.double()) * sign
+    return x.float()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 32, 64, 128])
+def test_dense_spmv_full_mantissa_rhs_is_exact_on_card(cuda_device, T, storage):
+    """Every row has exactly one neighbour (a random perfect matching), so
+    each output is one RHS value: the three bf16 parts must give back all
+    24 bits of it through the tensor cores."""
+    rng = np.random.default_rng(T)
+    n = 1000
+    perm = rng.permutation(n)
+    t = build_block_tiles(from_edges(perm[0::2], perm[1::2], n, device=cuda_device),
+                          tile_size=T, storage=storage)
+    gen, cand, alive = _frontier(t, cuda_device, 23)
+    rhs = _full_mantissa(t.n_padded, LANES, gen, cuda_device)
+    for flags in (None, block_col_flags(cand, T)):
+        want = K.tc_spmv_plain(t, rhs, col_flags=flags)
+        assert torch.equal(K.tc_spmv(t, rhs, col_flags=flags), want)
+        got = K.tc_spmv_fused(t, rhs, cand, alive, col_flags=flags)
+        for a, b in zip(got, K.tc_spmv_fused_plain(t, rhs, cand, alive, col_flags=flags)):
+            assert torch.equal(a, b)
+        assert bool((want[: n] != 0).any())
 
 
 @pytest.mark.gpu

@@ -122,6 +122,33 @@ def test_split_matches_pallas(kind, T, storage, gated):
     np.testing.assert_allclose(got, oracle, rtol=SPLIT_TOL, atol=SPLIT_TOL)
 
 
+def test_three_way_bf16_split_gives_back_f32_exactly():
+    """The dense kernel feeds an f32 RHS to the tensor cores as three bf16
+    parts, hi = rn(x), mid = rn(x - hi), lo = rn(x - hi - mid), with
+    `__float2bfloat16_rn`; torch's bf16 cast rounds the same way (to nearest,
+    ties to even).  For finite x with 2^-110 <= |x| < 2^128·(1 - 2^-9), and
+    0, the parts sum back to x exactly, so each 0/1 × part product, and a
+    row with one nonzero term, is exact.  Seeded full 24-bit mantissas over
+    that exponent range, the mantissa that rounds up to the next power of
+    two, and the range's ends."""
+    rng = np.random.default_rng(0)
+    n = 1 << 16
+    mant = rng.integers(0, 1 << 23, n)
+    mant[::97] = (1 << 23) - 1
+    x = np.ldexp(1 + mant * 2.0 ** -23, rng.integers(-110, 127, n)) * rng.choice([-1, 1], n)
+    ends = [2.0 ** 127 * (2 - 2.0 ** -8 - 2.0 ** -23), 2.0 ** -110 * (2 - 2.0 ** -23),
+            2.0 ** -110, 0.0, -0.0]
+    x = torch.from_numpy(np.concatenate([x, ends, np.negative(ends)]).astype(np.float32))
+    assert bool(torch.isfinite(x).all())
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    assert torch.equal(lo.float(), rest - mid.float())      # nothing left over
+    assert torch.equal(hi.float() + mid.float() + lo.float(), x)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
+
+
 def _words_frontier(ref, T, seed, gated):
     """Packed cand / alive words (reference, port) and optional flags."""
     cand, alive, flags = _frontier(ref.n_padded, T, seed=seed, gated=gated)
