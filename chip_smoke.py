@@ -9,8 +9,9 @@ Phases, each fatal on failure:
 
   1. build   every csrc/*.cu with nvcc (one process per source, in parallel);
              print the build seconds, each source's register range and
-             spilling kernels from -Xptxas -v, each tc_spmv instance's
-             registers and spill bytes, the count of HMMA (tensor-core)
+             spilling kernels from -Xptxas -v, each tc_spmv and
+             tc_neighbor_max instance's registers and spill bytes, the
+             count of HMMA (tensor-core)
              instructions in the built tc_spmv library by cuobjdump (the
              line says so where cuobjdump is missing; the main path's
              instance must have some), and the card's name and power limit.
@@ -177,6 +178,8 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 SPMV_INSTANCE = re.compile(
     r"tc_spmv_rowsILi(\d+)ELb([01])ELb([01])E(f|13__nv_bfloat16)Li(\d+)E")
 MAIN_SPMV = "T=16 bitpack fused f32 L=8"     # the main path's instance
+# nbr_max_{tile,slot}_lanes<T, Kind, PACKED> as the Itanium ABI mangles it
+NBR_MAX_INSTANCE = re.compile(r"nbr_max_(tile|slot)_lanesILi(\d+)EL.*?KindE(\d)ELb([01])E")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -205,6 +208,15 @@ def spmv_label(mangled: str) -> str:
     return (f"T={T} {'bitpack' if packed == '1' else 'int8'} "
             f"{'fused' if fused == '1' else 'split'} {'f32' if rt == 'f' else 'bf16'} "
             f"L={lanes if lanes != '0' else 'any'}")
+
+
+def nbr_max_label(mangled: str) -> str:
+    m = NBR_MAX_INSTANCE.search(mangled)
+    if m is None:
+        return mangled
+    lanes, T, kind, packed = m.groups()
+    return (f"T={T} {('dense', 'select', 'resolve')[int(kind)]} "
+            f"{'bitpack' if packed == '1' else 'int8'} (a lane per {lanes})")
 
 
 def hmma_line(build) -> str:
@@ -244,10 +256,11 @@ def phase_build() -> None:
         print(f"[build] {name}: {len(kernels)} kernels, registers "
               f"{regs[0] if regs else '?'}..{regs[-1] if regs else '?'}, "
               f"{len(spilling)} spilling", flush=True)
-        if name == "tc_spmv":
-            check(len(kernels) > 0, "no -Xptxas -v report for tc_spmv")
-            for mangled, v in sorted(kernels.items(), key=lambda kv: spmv_label(kv[0])):
-                print(f"[build]   tc_spmv {spmv_label(mangled)}: {v.get('registers')} "
+        label = {"tc_spmv": spmv_label, "tc_neighbor_max": nbr_max_label}.get(name)
+        if label is not None:
+            check(len(kernels) > 0, f"no -Xptxas -v report for {name}")
+            for mangled, v in sorted(kernels.items(), key=lambda kv: label(kv[0])):
+                print(f"[build]   {name} {label(mangled)}: {v.get('registers')} "
                       f"registers, {v.get('spill_stores')} B spill stores, "
                       f"{v.get('spill_loads')} B spill loads", flush=True)
     print(f"[build] {hmma_line(build)}", flush=True)
@@ -690,11 +703,11 @@ def timing_packed(packed, launches: dict, errs: dict) -> list:
                                        tiles_words=words, signed=True),
         lambda: N.tc_neighbor_max_bits_plain(tiled, b.resolve_planes, pending_w,
                                              tiles_words=words, signed=True))
+    res_bound = bound_plane_scan(tiled, words, b.resolve_planes, pending_w)[0]
     print(f"[timing] tc_neighbor_max_bits, the round's 2nd launch (32 resolve "
           f"planes, pending mask): kernel {res_t[2][1]:.4f}/{res_t[2][2]:.4f} ms, "
-          f"plain {res_t[2][0]:.4f}/{res_t[2][3]:.4f} ms, bound "
-          f"{bound_plane_scan(tiled, words, b.resolve_planes, pending_w)[0]:.4f} ms",
-          flush=True)
+          f"plain {res_t[2][0]:.4f}/{res_t[2][3]:.4f} ms, bound {res_bound:.4f} ms "
+          f"(kernel {res_t[0] / res_bound:.2f}x its bound)", flush=True)
     return [
         record("tc_neighbor_max", launches, errs, time_pair(
             lambda: N.tc_neighbor_max(tiled, pri.select, alive),

@@ -100,6 +100,8 @@ def _launch(tiled: BlockTiledGraph, p: torch.Tensor, mask: torch.Tensor) -> torc
     check_aligned("tiles", tiled.tiles)
     check("p", p, torch.int32, (nbc * T,), dev)
     check("mask", mask, torch.bool, (nbc * T,), dev)
+    check_aligned("p", p)
+    check_aligned("mask", mask)
     out = torch.empty((nbr * T,), dtype=torch.int32, device=dev)
     fn = entry("tc_neighbor_max", "tc_nbr_max_launch",
                [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P])
@@ -125,6 +127,8 @@ def _launch_bits(tiled: BlockTiledGraph, tiles_words, planes, mask_words, signed
     check_aligned("tiles_words", tiles_words)
     check("planes", planes, torch.int32, (_plane_bits(signed), nbc, W), dev)
     check("mask_words", mask_words, torch.int32, (nbc, W), dev)
+    check_aligned("planes", planes)
+    check_aligned("mask_words", mask_words)
     out = torch.empty((nbr * T,), dtype=torch.int32, device=dev)
     fn = entry("tc_neighbor_max", "tc_nbr_max_bits_launch",
                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])

@@ -143,19 +143,26 @@ def test_dense_spmv_empty_block_rows_on_card(cuda_device, T, storage):
         assert torch.equal(mis_add, cand)
 
 
+def _past_32_tiles(device, T, storage):
+    """A tiling whose block-row 0 has an edge into each of 48 block-columns."""
+    rng = np.random.default_rng(T)
+    n = 48 * T
+    j = np.arange(n)
+    src = np.concatenate([(j + 1) % T, rng.integers(0, n, 2 * n)])   # no self-loop
+    dst = np.concatenate([j, rng.integers(0, n, 2 * n)])
+    t = build_block_tiles(from_edges(src, dst, n, device=device), tile_size=T,
+                          storage=storage)
+    assert int(t.row_starts[1]) == 48
+    return t
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("storage", ["int8", "bitpack"])
 @pytest.mark.parametrize("T", [8, 16, 128])
 def test_dense_spmv_block_row_past_32_tiles_on_card(cuda_device, T, storage):
     """Block-row 0 has an edge into each of 48 block-columns, so its warp
     walks its tile list in two 32-tile chunks, gated or not."""
-    rng = np.random.default_rng(T)
-    n = 48 * T
-    j = np.arange(n)
-    src = np.concatenate([(j + 1) % T, rng.integers(0, n, 2 * n)])   # no self-loop
-    dst = np.concatenate([j, rng.integers(0, n, 2 * n)])
-    t = build_block_tiles(from_edges(src, dst, n, device=cuda_device), tile_size=T,
-                          storage=storage)
+    t = _past_32_tiles(cuda_device, T, storage)
     gen, cand, alive = _frontier(t, cuda_device, 22)
     gate = torch.ones(t.n_block_cols, dtype=torch.int32, device=cuda_device)
     gate[::7] = 0
@@ -249,6 +256,143 @@ def test_plane_scan_matches_plain_on_card(cuda_device, T, signed):
     assert torch.equal(got, N.tc_neighbor_max_bits_plain(t, planes, mask_w, signed=signed))
     # the plane scan and the dense masked max are one function
     assert torch.equal(got, N.tc_neighbor_max_plain(t, p, mask))
+
+
+def _hold_maxes(t, mask, select_key, resolve_key):
+    """Both neighbour maxes, each launched once per call and bit-equal to
+    its plain version: the dense max of each key on the tiles as stored,
+    and the plane scan (on the tiles as words) of the select key's 31
+    unsigned planes and the resolve key's 32 sign-biased planes."""
+    T = t.tile_size
+    mask_w = pack_frontier_words(mask, T)
+    outs = []
+    for key, signed in ((select_key, False), (resolve_key, True)):
+        launches = (N.tc_neighbor_max.launches, N.tc_neighbor_max_bits.launches)
+        dense = N.tc_neighbor_max(t, key, mask)
+        planes = pack_priority_planes(key, T, 32 if signed else 31, signed=signed)
+        scan = N.tc_neighbor_max_bits(t, planes, mask_w, signed=signed)
+        assert (N.tc_neighbor_max.launches, N.tc_neighbor_max_bits.launches) == (
+            launches[0] + 1, launches[1] + 1)
+        assert torch.equal(dense, N.tc_neighbor_max_plain(t, key, mask))
+        assert torch.equal(scan, N.tc_neighbor_max_bits_plain(t, planes, mask_w, signed=signed))
+        outs.append((dense, scan))
+    return outs
+
+
+def _keys(n, gen, device, extremes=()):
+    """A select key (unsigned, 31 bits) and a resolve key (any int32), with
+    about half of each drawn from `extremes` when given."""
+    out = []
+    for lo, hi, values in ((0, 1 << 31, [v for v in extremes if v >= 0]),
+                           (-(1 << 31), 1 << 31, list(extremes))):
+        key = torch.randint(lo, hi, (n,), generator=gen, device=device, dtype=torch.int64)
+        if values:
+            pick = torch.rand(n, generator=gen, device=device) < 0.5
+            choice = torch.tensor(values, device=device)[
+                torch.randint(0, len(values), (n,), generator=gen, device=device)]
+            key = torch.where(pick, choice, key)
+        out.append(key.to(torch.int32))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 128])
+def test_neighbor_maxes_block_row_past_32_tiles_on_card(cuda_device, T, storage):
+    """Block-row 0's 48 tiles span two 32-tile chunks of its warp (T >=
+    32), or of the warp that owns it and its neighbours (T <= 16)."""
+    t = _past_32_tiles(cuda_device, T, storage)
+    gen, _, mask = _frontier(t, cuda_device, 30)
+    _hold_maxes(t, mask, *_keys(t.n_padded, gen, cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 32, 64, 128])
+def test_neighbor_maxes_empty_block_rows_on_card(cuda_device, T, storage):
+    """Edges only among the first 100 of 600 vertices: every later
+    block-row owns no tile and gets int32 min."""
+    rng = np.random.default_rng(T)
+    n, hi = 600, 100
+    g = from_edges(rng.integers(0, hi, 4 * hi), rng.integers(0, hi, 4 * hi), n,
+                   device=cuda_device)
+    t = build_block_tiles(g, tile_size=T, storage=storage)
+    empty = (t.row_starts[1:] == t.row_starts[:-1]).repeat_interleave(T)
+    assert bool(empty.any())
+    gen, _, mask = _frontier(t, cuda_device, 31)
+    for dense, scan in _hold_maxes(t, mask, *_keys(t.n_padded, gen, cuda_device)):
+        assert bool((dense[empty] == -(1 << 31)).all() and (scan[empty] == -(1 << 31)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 32, 64, 128])
+def test_neighbor_maxes_all_dead_and_all_live_masks_on_card(cuda_device, T, storage):
+    t = _card_tiling(cuda_device, T, storage)
+    gen = torch.Generator(device=cuda_device).manual_seed(32)
+    keys = _keys(t.n_padded, gen, cuda_device)
+    covered = (t.row_starts[1:] > t.row_starts[:-1]).repeat_interleave(T)
+    dead = torch.zeros(t.n_padded, dtype=torch.bool, device=cuda_device)
+    for dense, scan in _hold_maxes(t, dead, *keys):
+        assert bool((dense[covered] == -(1 << 30)).all() and (scan[covered] == -(1 << 30)).all())
+    _hold_maxes(t, ~dead, *keys)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+def test_neighbor_maxes_many_set_bits_at_T128_on_card(cuda_device, storage):
+    """About 50 neighbours per row inside one 128-wide tile: the rows'
+    set-bit loops run long and uneven across the warp."""
+    rng = np.random.default_rng(33)
+    n = 512
+    src = rng.integers(0, n, 50 * n)
+    dst = (src // 128) * 128 + rng.integers(0, 128, 50 * n)
+    t = build_block_tiles(from_edges(src, dst, n, device=cuda_device), tile_size=128,
+                          storage=storage)
+    gen, _, mask = _frontier(t, cuda_device, 34)
+    _hold_maxes(t, mask, *_keys(t.n_padded, gen, cuda_device))
+    _hold_maxes(t, torch.ones_like(mask), *_keys(t.n_padded, gen, cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 32, 64, 128])
+def test_neighbor_maxes_extreme_keys_on_card(cuda_device, T, storage):
+    """Keys at the edges of the order: unsigned 0 and 2^31 - 1, signed
+    int32 min, -1 and 0.  Blocks 0 and 1 are joined completely, so with
+    all vertices live every tile row of block 0 is all live edges, and the
+    dense max of keys below _NEG is not floored there (as its plain
+    version); the plane scan floors every row at _NEG."""
+    rng = np.random.default_rng(T)
+    n = 8 * T
+    a, b = np.meshgrid(np.arange(T), np.arange(T, 2 * T))
+    src = np.concatenate([a.ravel(), rng.integers(2 * T, n, 3 * n)])
+    dst = np.concatenate([b.ravel(), rng.integers(2 * T, n, 3 * n)])
+    t = build_block_tiles(from_edges(src, dst, n, device=cuda_device), tile_size=T,
+                          storage=storage)
+    gen, _, mask = _frontier(t, cuda_device, 35)
+    extremes = (0, (1 << 31) - 1, -(1 << 31), -1)
+    for m in (mask, torch.ones_like(mask)):
+        _hold_maxes(t, m, *_keys(t.n_padded, gen, cuda_device, extremes))
+    low = torch.full((t.n_padded,), -(1 << 31), dtype=torch.int32, device=cuda_device)
+    _, (dense, scan) = _hold_maxes(t, torch.ones_like(mask), low, low)
+    assert bool((dense[:T] == -(1 << 31)).all() and (scan[:T] == -(1 << 30)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [8, 16, 128])
+def test_neighbor_maxes_warps_take_several_groups_on_card(cuda_device, T):
+    """More groups of block-rows than the card holds warps (at most 64 per
+    SM), so each warp of the resident grid strides over several groups
+    and carries its prefetched bounds and columns from one to the next."""
+    from repro_torch.graphs import grid2d
+
+    t = build_block_tiles(grid2d(1100, 1100, device=cuda_device), tile_size=T,
+                          storage="bitpack")
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert t.n_block_rows // max(64 // T, 1) > 64 * sms
+    gen, _, mask = _frontier(t, cuda_device, 36)
+    _hold_maxes(t, mask, *_keys(t.n_padded, gen, cuda_device))
 
 
 @pytest.mark.gpu

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from repro.core.engine import tile_neighbor_max as ref_tile_neighbor_max
+from repro.core.tiling import build_block_tiles as ref_build_block_tiles
+from repro.graphs.graph import from_edges as ref_from_edges
 from repro.core.tiling import pack_frontier_words as ref_pack_frontier_words
 from repro.core.tiling import pack_priority_planes as ref_pack_priority_planes
 from repro.kernels import ops
@@ -21,9 +23,28 @@ from repro_torch.core.tiling import (
     pack_frontier_words,
     pack_priority_planes,
     tiles_as_words,
+    tiling_from_arrays,
 )
 from repro_torch.hopper import tc_neighbor_max as K
 from test_torch_spmv import _covered_rows, _tilings
+
+# keys at the edges of the order: select-style (unsigned, 31 planes) and
+# resolve-style (signed, 32 sign-biased planes)
+EXTREMES = {False: (0, (1 << 31) - 1), True: (INT32_MIN, -1, 0)}
+
+
+def _extreme_keys(n, signed, seed):
+    """About half the keys from EXTREMES[signed], the rest drawn over the
+    whole unsigned or signed range."""
+    rng = np.random.default_rng(seed)
+    p = rng.integers(-(1 << 31) if signed else 0, 1 << 31, n)
+    pick = rng.random(n) < 0.5
+    p[pick] = rng.choice(EXTREMES[signed], int(pick.sum()))
+    return p.astype(np.int32)
+
+
+def _mask(n, kind, seed):
+    return np.random.default_rng(seed).random(n) < 0.5 if kind == "random" else np.zeros(n, bool)
 
 
 @pytest.mark.parametrize("storage", ["int8", "bitpack"])
@@ -85,6 +106,71 @@ def test_plane_scan_matches_pallas_and_oracle(kind, T, signed):
     # the plane scan and the dense masked max are one function
     np.testing.assert_array_equal(got, K.tc_neighbor_max_plain(
         t, torch.from_numpy(p), torch.from_numpy(mask)).numpy())
+
+
+@pytest.mark.parametrize("mask_kind", ["random", "dead"])
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 32])
+def test_dense_neighbor_max_extreme_keys_and_dead_masks_match_pallas(T, storage, mask_kind):
+    ref, t = _tilings("random", T, storage)
+    covered = _covered_rows(ref)
+    mask = _mask(ref.n_padded, mask_kind, T)
+    for signed in (False, True):
+        p = _extreme_keys(ref.n_padded, signed, T + signed)
+        got = K.tc_neighbor_max(t, torch.from_numpy(p), torch.from_numpy(mask)).numpy()
+        pallas = np.asarray(ops.tc_neighbor_max(ref, jnp.asarray(p), jnp.asarray(mask),
+                                                interpret=True))
+        np.testing.assert_array_equal(got[covered], pallas[covered])
+        pm = jnp.asarray(np.where(mask, p, _NEG).astype(np.int32))
+        np.testing.assert_array_equal(got, np.asarray(ref_tile_neighbor_max(
+            ref.tiles, ref.tile_rows, ref.tile_cols, pm, ref.n_block_rows, T)))
+        if mask_kind == "dead":
+            assert (got[covered] == _NEG).all() and (got[~covered] == INT32_MIN).all()
+
+
+@pytest.mark.parametrize("mask_kind", ["random", "dead"])
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("T", [8, 16, 32])
+def test_plane_scan_extreme_keys_and_dead_masks_match_pallas(T, signed, mask_kind):
+    ref, t = _tilings("random", T, "bitpack", seed=T)
+    p = _extreme_keys(ref.n_padded, signed, T)
+    mask = _mask(ref.n_padded, mask_kind, T + 1)
+    ref_mask_w = ref_pack_frontier_words(jnp.asarray(mask), T)
+    ref_planes, planes = _planes(p, T, signed)
+    got = K.tc_neighbor_max_bits(
+        t, planes, pack_frontier_words(torch.from_numpy(mask), T), signed=signed).numpy()
+    want = np.asarray(ops.tc_neighbor_max_bits(ref, ref_planes, ref_mask_w, signed=signed,
+                                               interpret=True))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.asarray(ref_oracles.tc_neighbor_max_bits_ref(
+        ref.tiles, ref.tile_rows, ref.tile_cols, jnp.asarray(p), ref_mask_w,
+        ref.n_block_rows)))
+    if mask_kind == "dead":
+        covered = _covered_rows(ref)
+        assert (got[covered] == _NEG).all() and (got[~covered] == INT32_MIN).all()
+
+
+@pytest.mark.parametrize("T", [8, 16])
+def test_dense_neighbor_max_keeps_keys_below_neg_on_all_live_rows(T):
+    """Blocks 0 and 1 joined completely, every vertex live, every key int32
+    min: each tile row of blocks 0 and 1 is T live edges, so the masked
+    max over its cells is int32 min, not _NEG, in the port's plain version
+    as in the reference's `tile_neighbor_max` (the Hopper kernel is held to
+    the plain version on the card)."""
+    a, b = np.meshgrid(np.arange(T), np.arange(T, 2 * T))
+    n = 4 * T
+    ref = ref_build_block_tiles(ref_from_edges(a.ravel(), b.ravel(), n), tile_size=T)
+    t = tiling_from_arrays(
+        {k: np.asarray(getattr(ref, k)) for k in ("tiles", "tile_rows", "tile_cols", "row_starts")},
+        n_tiles=ref.n_tiles, n_nodes=n, tile_size=T, n_block_rows=ref.n_block_rows,
+        n_block_cols=ref.n_block_cols, storage="int8", device="cpu")
+    p = np.full(ref.n_padded, INT32_MIN, dtype=np.int32)
+    got = K.tc_neighbor_max(t, torch.from_numpy(p), torch.ones(ref.n_padded, dtype=torch.bool))
+    nt = ref.n_tiles   # the real tiles: a zero padding tile adds _NEG to its block-row
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref_tile_neighbor_max(
+        ref.tiles[:nt], ref.tile_rows[:nt], ref.tile_cols[:nt], jnp.asarray(p),
+        ref.n_block_rows, T)))
+    assert (got[: 2 * T] == INT32_MIN).all()
 
 
 def test_plane_scan_takes_int8_tiles_as_words():
