@@ -9,9 +9,9 @@ Phases, each fatal on failure:
 
   1. build   every csrc/*.cu with nvcc (one process per source, in parallel);
              print the build seconds, each source's register range and
-             spilling kernels from -Xptxas -v, each tc_spmv and
-             tc_neighbor_max instance's registers and spill bytes, the
-             count of HMMA (tensor-core)
+             spilling kernels from -Xptxas -v, each tc_spmv,
+             tc_neighbor_max, tc_spmv_bits and embedding_bag instance's
+             registers and spill bytes, the count of HMMA (tensor-core)
              instructions in the built tc_spmv library by cuobjdump (the
              line says so where cuobjdump is missing; the main path's
              instance must have some), and the card's name and power limit.
@@ -47,13 +47,17 @@ Phases, each fatal on failure:
   4. timing  CUDA-event times per launch (in the order plain, kernel,
              kernel, plain; the stream kept busy while a window's calls are
              enqueued) of each kernel and its plain version, at the round-1
-             inputs of the path that runs it; the bound from this run's
-             bytes and operations (and, for the dense SpMVs, the slab bytes
-             the kernel reads once per active tile); a library yardstick
-             (never used by the port) where one PyTorch call computes the
-             same function; the median of 5 warm solves of the segment and
-             the packed path, and a torch.profiler breakdown of one more
-             solve of each.
+             inputs of the path that runs it, each call with L2 flushed
+             just before it (cold: the inputs come from HBM, as the byte
+             bound assumes), and the kernel's warm time besides (20 calls
+             back to back, inputs that fit staying in L2); the bound from
+             this run's bytes and operations (and, for the dense SpMVs, the
+             slab bytes the kernel reads once per active tile); a library
+             yardstick (never used by the port, timed cold) where one
+             PyTorch call computes the same function; the median of 5 warm
+             solves of the segment and the packed path, and a
+             torch.profiler breakdown of one more solve of each, with every
+             launch of the port's kernels in it.
   5. deepfm  DeepFM serving at the full published CONFIG (39 fields,
              33,889,984 rows, d = 10, MLP 400-400-400), weights drawn on
              the card from seed 0, fields from `ClickStream(FIELD_VOCABS, B,
@@ -70,7 +74,8 @@ Phases, each fatal on failure:
                256 sampled candidates within 1e-4 of the full model scored
                one by one.  Float32 products without TF32 throughout;
              - timing: the bag kernel per launch at serve_bulk (D = 10, D =
-               1, and D = 10 weighted) beside its plain version, its bound
+               1, and D = 10 weighted), cold and warm as in phase 4, beside
+               its plain version, its bound
                (distinct rows read once; the 32-byte-sector count beside
                it) and one torch.nn.functional.embedding_bag call; the
                median of 5 warm forwards at serve_p99 and serve_bulk and of
@@ -152,26 +157,38 @@ def wrappers() -> dict:
 # cycles the stream spins before a timed window: ~50 ms at the H100's
 # clock, longer than the host takes to enqueue the window's calls
 QUEUE_AHEAD_CYCLES = 100_000_000
+# bytes written between cold calls: five times the H100's 50 MB L2
+L2_FLUSH_BYTES = 256 << 20
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, reps: int = 20, warmup: int = 3, cold: bool = False) -> float:
     """Mean ms per call from CUDA events, after warm-up.  The stream is
     kept busy while the calls are enqueued, so a kernel shorter than its
-    wrapper's host overhead is timed on the card, not on the host."""
+    wrapper's host overhead is timed on the card, not on the host.
+
+    Warm: one window over `reps` calls back to back, so inputs that fit in
+    L2 stay there from one call to the next.  Cold: each call in a window
+    of its own, with L2_FLUSH_BYTES written just before it, so each call
+    reads its inputs from HBM, as the byte bounds assume."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    calls_per_window = 1 if cold else reps
+    windows = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+               for _ in range(reps // calls_per_window)]
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda") if cold else None
     torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+    for start, end in windows:
+        if cold:
+            flush.zero_()
+        start.record()
+        for _ in range(calls_per_window):
+            fn()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return sum(start.elapsed_time(end) for start, end in windows) / reps
 
 
 # tc_spmv_rows<T, PACKED, FUSED, RT, LANES> as the Itanium ABI mangles it
@@ -180,6 +197,10 @@ SPMV_INSTANCE = re.compile(
 MAIN_SPMV = "T=16 bitpack fused f32 L=8"     # the main path's instance
 # nbr_max_{tile,slot}_lanes<T, Kind, PACKED> as the Itanium ABI mangles it
 NBR_MAX_INSTANCE = re.compile(r"nbr_max_(tile|slot)_lanesILi(\d+)EL.*?KindE(\d)ELb([01])E")
+# spmv_bits_tile_lanes<T> and spmv_bits_rows<T, FUSED>
+SPMV_BITS_INSTANCE = re.compile(r"spmv_bits_(tile_lanes|rows)ILi(\d+)E(?:Lb([01])E)?")
+# bag_groups<T, VEC, CH, WEIGHTED>
+BAG_INSTANCE = re.compile(r"bag_groupsI(f|13__nv_bfloat16)Li(\d)ELi(\d+)ELb([01])E")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -219,6 +240,30 @@ def nbr_max_label(mangled: str) -> str:
             f"{'bitpack' if packed == '1' else 'int8'} (a lane per {lanes})")
 
 
+def spmv_bits_label(mangled: str) -> str:
+    m = SPMV_BITS_INSTANCE.search(mangled)
+    if m is None:
+        return mangled
+    form, T, fused = m.groups()
+    if form == "tile_lanes":
+        return f"T={T} fused (a lane per tile)"
+    return f"T={T} {'fused' if fused == '1' else 'split'} (a thread per row)"
+
+
+def bag_label(mangled: str) -> str:
+    m = BAG_INSTANCE.search(mangled)
+    if m is None:
+        return mangled
+    dtype, vec, chunk, weighted = m.groups()
+    return (f"{'f32' if dtype == 'f' else 'bf16'} {'pairs' if vec == '2' else 'scalars'} "
+            f"chunk {chunk} {'weighted' if weighted == '1' else 'unweighted'}")
+
+
+# source -> the label of each of its kernel instances in the build phase
+INSTANCE_LABELS = {"tc_spmv": spmv_label, "tc_neighbor_max": nbr_max_label,
+                   "tc_spmv_bits": spmv_bits_label, "embedding_bag": bag_label}
+
+
 def hmma_line(build) -> str:
     """HMMA instructions in the built tc_spmv library, by cuobjdump."""
     import shutil
@@ -256,7 +301,7 @@ def phase_build() -> None:
         print(f"[build] {name}: {len(kernels)} kernels, registers "
               f"{regs[0] if regs else '?'}..{regs[-1] if regs else '?'}, "
               f"{len(spilling)} spilling", flush=True)
-        label = {"tc_spmv": spmv_label, "tc_neighbor_max": nbr_max_label}.get(name)
+        label = INSTANCE_LABELS.get(name)
         if label is not None:
             check(len(kernels) > 0, f"no -Xptxas -v report for {name}")
             for mangled, v in sorted(kernels.items(), key=lambda kv: label(kv[0])):
@@ -594,21 +639,22 @@ def yardstick_segment_max(g, p, mask):
 
 
 def time_pair(kern, plain) -> tuple:
-    """plain, kernel, kernel, plain: (kernel ms, plain ms, the four)."""
-    p1 = time_ms(plain)
-    k1 = time_ms(kern)
-    k2 = time_ms(kern)
-    p2 = time_ms(plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
+    """plain, kernel, kernel, plain, cold; then the kernel twice warm:
+    (kernel ms, plain ms, the four, the kernel's warm ms)."""
+    p1 = time_ms(plain, cold=True)
+    k1 = time_ms(kern, cold=True)
+    k2 = time_ms(kern, cold=True)
+    p2 = time_ms(plain, cold=True)
+    return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2), (time_ms(kern) + time_ms(kern)) / 2
 
 
 def record(name, launches, errs, timing, bound, library_ms):
-    ms, plain_ms, (p1, k1, k2, p2) = timing
+    ms, plain_ms, (p1, k1, k2, p2), warm_ms = timing
     bound_ms, bound_by, nbytes, ops = bound
     lib = "—" if library_ms is None else f"{library_ms:.4f} ms"
-    print(f"[timing] {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
-          f"library {lib}, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, {ops} ops)",
-          flush=True)
+    print(f"[timing] {name}: kernel {k1:.4f}/{k2:.4f} ms (warm {warm_ms:.4f} ms), "
+          f"plain {p1:.4f}/{p2:.4f} ms, library {lib}, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({nbytes} B, {ops} ops)", flush=True)
     source, replaces = KERNELS[name]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -651,7 +697,7 @@ def timing_dense(main, launches: dict, errs: dict) -> list:
     )
     check(torch.allclose(bsr @ rhs, K.tc_spmv_plain(tiled, rhs), atol=1e-5),
           "BSR library product disagrees with the plain SpMV")
-    library_ms = time_ms(lambda: bsr @ rhs)
+    library_ms = time_ms(lambda: bsr @ rhs, cold=True)
     del values, bsr
     return [
         record("tc_spmv_fused", launches, errs, time_pair(
@@ -697,7 +743,7 @@ def timing_packed(packed, launches: dict, errs: dict) -> list:
                       N.tc_neighbor_max(tiled, pri.select, alive)[: plan.g.n_nodes][
                           plan.g.degrees() > 0]),
           "the scatter_reduce yardstick disagrees with the neighbour max")
-    library_ms = time_ms(seg_max)
+    library_ms = time_ms(seg_max, cold=True)
     res_t = time_pair(
         lambda: N.tc_neighbor_max_bits(tiled, b.resolve_planes, pending_w,
                                        tiles_words=words, signed=True),
@@ -705,7 +751,8 @@ def timing_packed(packed, launches: dict, errs: dict) -> list:
                                              tiles_words=words, signed=True))
     res_bound = bound_plane_scan(tiled, words, b.resolve_planes, pending_w)[0]
     print(f"[timing] tc_neighbor_max_bits, the round's 2nd launch (32 resolve "
-          f"planes, pending mask): kernel {res_t[2][1]:.4f}/{res_t[2][2]:.4f} ms, "
+          f"planes, pending mask): kernel {res_t[2][1]:.4f}/{res_t[2][2]:.4f} ms "
+          f"(warm {res_t[3]:.4f} ms), "
           f"plain {res_t[2][0]:.4f}/{res_t[2][3]:.4f} ms, bound {res_bound:.4f} ms "
           f"(kernel {res_t[0] / res_bound:.2f}x its bound)", flush=True)
     return [
@@ -731,10 +778,15 @@ def timing_packed(packed, launches: dict, errs: dict) -> list:
     ]
 
 
+# the port's own kernels (csrc/*.cu) among the profiler's device events
+PORT_KERNEL = re.compile(r"\b(tc_spmv_rows|nbr_max_\w+_lanes|spmv_bits_\w+|bag_groups)<")
+
+
 def profile_call(fn, label: str) -> None:
     """One more warm call of `fn` under torch.profiler: device time by
-    kernel (the device-side events: kernels, copies, fills) and the
-    device's busy share of the wall time."""
+    kernel (the device-side events: kernels, copies, fills), the ten
+    largest and every one of the port's kernels, and the device's busy
+    share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -751,9 +803,11 @@ def profile_call(fn, label: str) -> None:
     print(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f} %), idle "
           f"{100 * (1 - busy_us / wall_us):.1f} %", flush=True)
-    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
-        print(f"[profile]   {e.self_device_time_total / 1e3:8.4f} ms  x{e.count:<4d} "
-              f"{e.key[:90]}", flush=True)
+    ranked = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
+    for i, e in enumerate(ranked):
+        if i < 10 or PORT_KERNEL.search(e.key):
+            print(f"[profile]   {e.self_device_time_total / 1e3:8.4f} ms  x{e.count:<4d} "
+                  f"{e.key[:90]}", flush=True)
 
 
 def timing_solves(paths: dict) -> None:
@@ -960,7 +1014,7 @@ def timing_deepfm(state: dict, errs: dict) -> list:
             check(torch.allclose(library(), E.embedding_bag(table, flat, weights),
                                  rtol=1e-5, atol=1e-5),
                   f"torch.nn.functional.embedding_bag disagrees with the bag ({what})")
-            library_ms = time_ms(library)
+            library_ms = time_ms(library, cold=True)
             timing = time_pair(lambda: E.embedding_bag(table, flat, weights),
                                lambda: E.embedding_bag_plain(table, flat, weights))
             bound, extra = bound_bag(table, flat, weights)

@@ -12,73 +12,234 @@
 // index map, and accumulates in a VMEM-resident output block that starts at
 // zero; the sum runs k = 0 .. K-1.
 //
-// Design.  One thread per output element (b, d): it walks its bag's K slots
-// in the same order, so the D threads of one bag read one table row side by
-// side (coalesced as far as a D-float row allows) and the bag's K indices
-// and weights are the same few addresses for those D threads (from L1).
-// Every output has one writer: no atomics, no shared memory, no barrier.
-// Each step is `acc = acc + w · v` rounded twice (__fmul_rn, __fadd_rn: no
-// FMA contraction), exactly what the plain version's `out += w[:, k] * row`
-// does, so kernel and plain agree bit for bit.  Unweighted bags add `v`
-// itself, which equals `1 · v` exactly.
+// Bound.  Bytes: one bag sum does one add (and one multiply) per gathered
+// element, far below the card's operations-per-byte line.  The least
+// traffic is each distinct table row read once plus the indices, weights
+// and output.  At DeepFM's serve_bulk bags (262,144 × 39 into 33.9 M rows)
+// the indices are 40.9 MB, most of the D = 1 bag's bytes.
+//
+// Design.  The form before this one ran a thread per output element: at
+// D = 1 neighbouring lanes read indices 156 bytes apart (32 sectors per
+// warp-wide load), a 40-byte D = 10 row took 10 scalar loads, and a
+// thread could not have many row loads in flight.  Here a CTA owns a run
+// of NB consecutive bags:
+// * It stages their indices (and weights) through shared memory first.
+//   When every slot of the run fits and K is odd, the (NB, K) block is one
+//   contiguous piece, read with 16-byte loads by the whole CTA and stored
+//   at the same offset modulo 16 bytes, so the stores are 16 bytes too.
+//   Otherwise (K even, or too many slots) each warp copies whole bags into
+//   rows of an odd stride, in chunks of slots.  An odd stride keeps the
+//   lanes' reads of the staged slots free of bank conflicts.
+// * A group of G lanes owns a bag: a lane per element, or per aligned pair
+//   of elements as one float2 where D is even on an f32 table.  G is the
+//   row's element count in those units, at most 32, so at D = 1 a lane
+//   owns a bag (NB = 128) and at D = 10 five lanes do (NB = 25).
+// * Each lane issues a chunk of row loads before it sums them (16 where a
+//   lane owns a bag, 8 in a group: at serve_bulk's D = 10 fewer registers
+//   and more resident lanes beat longer chunks), then writes its outputs;
+//   the lanes of a CTA cover consecutive outputs, so the stores are
+//   coalesced.
+// Exactness: each output keeps the plain version's order and rounding,
+// k = 0 .. K-1, `acc = __fadd_rn(acc, __fmul_rn(w, v))` (unweighted `+ v`,
+// which equals `+ 1 · v` exactly), from 0.  Loads are issued early; the
+// sum order is not changed.  When the slots come in several chunks a lane
+// carries its sum through its own output element (a float written and read
+// back unchanged).  Every output has one writer: no atomics.
 //
 // Traps.  Row offsets are 64-bit (idx · D passes 2^31 at 33.9 M rows and
-// D = 64).  Rows of D = 10 floats start 40 bytes apart, so loads are scalar:
-// any D >= 1 works, D = 1 (the first-order table) included.  Indices are
-// not range-checked here; the caller keeps them in [0, V).
-//
-// Bound.  Bytes: one bag sum does one add (and one multiply) per gathered
-// element against 4-byte loads, far below the card's operations-per-byte
-// line.  The least traffic is each distinct table row read once plus the
-// indices, weights and output; a thread's K loads are independent, so the
-// unrolled loop keeps several in flight.  Not yet done: a warp per bag with
-// vector loads where D allows, and staging indices in shared memory.
+// D = 64).  A float2 load needs the table 8-byte aligned; the launch checks
+// the pointer and otherwise loads scalars.  K = 0 writes zeros.  Indices
+// are not range-checked here; the caller keeps them in [0, V).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;    // a CTA
+constexpr int kMaxGroup = 32;    // lanes per bag, at most
+// row loads a lane issues before it sums them: where a lane owns a bag
+// (D = 1) it needs many in flight; where a group shares one, fewer
+// registers keep more lanes resident, which serve_bulk's bags favour
+constexpr int kChunkBag = 16;
+constexpr int kChunkGroup = 8;
+constexpr int kStageWords = 5120;  // staged slots per CTA (indices; weights as many)
 
 __device__ __forceinline__ float as_f32(float x) { return x; }
 __device__ __forceinline__ float as_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T, bool WEIGHTED>
-__global__ void bag_rows(const T* __restrict__ table, const int32_t* __restrict__ idx,
-                         const float* __restrict__ w, float* __restrict__ out,
-                         int64_t n_out, int K, int D) {
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n_out) return;
-  const int64_t b = g / D;
-  const int d = (int)(g - b * D);
-  const int32_t* ib = idx + b * K;
-  float acc = 0.0f;
-#pragma unroll 8
-  for (int k = 0; k < K; ++k) {
-    const float v = as_f32(table[(int64_t)ib[k] * D + d]);
-    if constexpr (WEIGHTED) {
-      acc = __fadd_rn(acc, __fmul_rn(w[b * K + k], v));
+template <int VEC>
+struct Vals {
+  float x[VEC];
+};
+
+// VEC consecutive elements of a row, as floats
+template <typename T, int VEC>
+__device__ __forceinline__ Vals<VEC> load_vec(const T* p) {
+  Vals<VEC> v;
+  if constexpr (VEC == 2) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    v.x[0] = q.x;
+    v.x[1] = q.y;
+  } else {
+    v.x[0] = as_f32(p[0]);
+  }
+  return v;
+}
+
+// The misalignment of a word pointer, in words modulo 4.
+__device__ __forceinline__ int words_past_16(const uint32_t* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// src[0 .. n) -> dst[0 .. n), by participant `id` of `cnt`: a scalar head
+// up to src's first 16-byte boundary, 16-byte loads, a scalar tail.  When
+// dst has src's alignment modulo 16 bytes, the body is stored 16 bytes at
+// a time too.
+__device__ __forceinline__ void copy_words(const uint32_t* __restrict__ src, int n,
+                                           uint32_t* dst, int id, int cnt) {
+  const int head = min((4 - words_past_16(src)) & 3, n);
+  for (int i = id; i < head; i += cnt) dst[i] = __ldg(src + i);
+  const int body = (n - head) / 4;
+  const uint4* q = reinterpret_cast<const uint4*>(src + head);
+  const bool aligned = words_past_16(dst + head) == 0;
+  for (int i = id; i < body; i += cnt) {
+    const uint4 x = __ldg(q + i);
+    uint32_t* d = dst + head + 4 * i;
+    if (aligned) {
+      *reinterpret_cast<uint4*>(d) = x;
     } else {
-      acc = __fadd_rn(acc, v);
+      d[0] = x.x; d[1] = x.y; d[2] = x.z; d[3] = x.w;
     }
   }
-  out[g] = acc;
+  for (int i = head + 4 * body + id; i < n; i += cnt) dst[i] = __ldg(src + i);
+}
+
+// Slots k0 .. k0 + kc - 1 of bags b0 .. b0 + nb - 1 of a (n_bags, K) array
+// of words -> buf[pad + bag · KS + k - k0]; returns pad.  When the chunk is
+// every slot and KS == K the run is one contiguous piece, copied by the
+// whole CTA with pad = src's misalignment (so buf + pad shares it);
+// otherwise each warp copies whole bags, pad = 0.
+__device__ __forceinline__ int stage_slots(const uint32_t* __restrict__ src, int64_t b0,
+                                           int nb, int K, int k0, int kc, int KS,
+                                           uint32_t* buf) {
+  if (kc == K && KS == K) {
+    const uint32_t* run = src + b0 * K;
+    const int pad = words_past_16(run);
+    copy_words(run, nb * K, buf + pad, threadIdx.x, blockDim.x);
+    return pad;
+  }
+  for (int r = threadIdx.x >> 5; r < nb; r += blockDim.x >> 5)
+    copy_words(src + (b0 + r) * K + k0, kc, buf + r * KS, threadIdx.x & 31, 32);
+  return 0;
+}
+
+// Words of shared memory that NB bags' slots at stride KS take: room for
+// a pad of up to 3, and a multiple of 4 so the weights start 16-byte aligned.
+__host__ __device__ __forceinline__ int stage_words(int NB, int KS) {
+  return (NB * KS + 3 + 3) & ~3;
+}
+
+template <typename T, int VEC, int CH, bool WEIGHTED>
+__global__ void __launch_bounds__(kThreads)
+bag_groups(const T* __restrict__ table, const int32_t* __restrict__ idx,
+           const float* __restrict__ w, float* __restrict__ out, int64_t n_bags,
+           int K, int D, int G, int KC, int KS) {
+  extern __shared__ uint4 stage_s[];   // stage_words(NB, KS) index words, then weights
+  const int NB = kThreads / G;
+  const int bag = threadIdx.x / G, lane = threadIdx.x - bag * G;
+  const int64_t b0 = (int64_t)blockIdx.x * NB;
+  const int nb = (int)min((int64_t)NB, n_bags - b0);
+  const bool owner = bag < nb;
+  const int units = D / VEC + (D % VEC != 0);
+  uint32_t* idx_buf = reinterpret_cast<uint32_t*>(stage_s);
+  uint32_t* w_buf = idx_buf + stage_words(NB, KS);
+  float* out_b = out + (b0 + bag) * D;
+
+  for (int k0 = 0; k0 == 0 || k0 < K; k0 += KC) {
+    const int kc = min(KC, K - k0);
+    __syncthreads();   // every lane has read the previous chunk's slots
+    const uint32_t* idx_s = idx_buf + bag * KS +
+        stage_slots(reinterpret_cast<const uint32_t*>(idx), b0, nb, K, k0, kc, KS, idx_buf);
+    const uint32_t* w_s = w_buf + bag * KS;
+    if constexpr (WEIGHTED)
+      w_s += stage_slots(reinterpret_cast<const uint32_t*>(w), b0, nb, K, k0, kc, KS, w_buf);
+    __syncthreads();
+    if (!owner) continue;
+    for (int u = lane; u < units; u += G) {
+      const int e = u * VEC;
+      float acc[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] = k0 == 0 ? 0.0f : out_b[e + i];
+      for (int k = 0; k < kc; k += CH) {
+        Vals<VEC> v[CH];
+#pragma unroll
+        for (int j = 0; j < CH; ++j) {
+          if (k + j < kc) {
+            const int64_t row = idx_s[k + j];
+            v[j] = load_vec<T, VEC>(table + row * D + e);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < CH; ++j) {
+          if (k + j >= kc) continue;
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            if constexpr (WEIGHTED) {
+              acc[i] = __fadd_rn(acc[i], __fmul_rn(__uint_as_float(w_s[k + j]), v[j].x[i]));
+            } else {
+              acc[i] = __fadd_rn(acc[i], v[j].x[i]);
+            }
+          }
+        }
+      }
+      if constexpr (VEC == 2) {
+        *reinterpret_cast<float2*>(out_b + e) = make_float2(acc[0], acc[1]);
+      } else {
+        out_b[e] = acc[0];
+      }
+    }
+  }
+}
+
+template <typename T, int VEC, bool WEIGHTED>
+cudaError_t launch_groups(const T* table, const int32_t* idx, const float* w, float* out,
+                          int64_t n_bags, int K, int D, cudaStream_t s) {
+  const int units = D / VEC + (D % VEC != 0);
+  const int G = min(units, kMaxGroup);
+  const int NB = kThreads / G;
+  // the whole run of slots in one contiguous piece where K is odd and it
+  // fits; else chunks of slots in rows of an odd stride
+  int KC = K, KS = K;
+  if (K % 2 == 0 || (int64_t)NB * K > kStageWords) {
+    KC = max(1, min(K, kStageWords / NB - 1));
+    KS = KC | 1;
+  }
+  const int64_t blocks = (n_bags + NB - 1) / NB;
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)stage_words(NB, KS) * 4 * (WEIGHTED ? 2 : 1);
+  if (G == 1)
+    bag_groups<T, VEC, kChunkBag, WEIGHTED><<<(unsigned)blocks, kThreads, smem, s>>>(
+        table, idx, w, out, n_bags, K, D, G, KC, KS);
+  else
+    bag_groups<T, VEC, kChunkGroup, WEIGHTED><<<(unsigned)blocks, kThreads, smem, s>>>(
+        table, idx, w, out, n_bags, K, D, G, KC, KS);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_bag(const void* table, const int32_t* idx, const float* w, float* out,
                        int64_t n_bags, int K, int D, cudaStream_t s) {
-  const int64_t n_out = n_bags * D;
-  const int64_t blocks = (n_out + kThreads - 1) / kThreads;
-  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
   auto t = static_cast<const T*>(table);
-  if (w != nullptr) {
-    bag_rows<T, true><<<(unsigned)blocks, kThreads, 0, s>>>(t, idx, w, out, n_out, K, D);
-  } else {
-    bag_rows<T, false><<<(unsigned)blocks, kThreads, 0, s>>>(t, idx, w, out, n_out, K, D);
+  if constexpr (std::is_same<T, float>::value) {
+    if (D % 2 == 0 && reinterpret_cast<uintptr_t>(table) % 8 == 0)
+      return w != nullptr ? launch_groups<T, 2, true>(t, idx, w, out, n_bags, K, D, s)
+                          : launch_groups<T, 2, false>(t, idx, w, out, n_bags, K, D, s);
   }
-  return cudaGetLastError();
+  return w != nullptr ? launch_groups<T, 1, true>(t, idx, w, out, n_bags, K, D, s)
+                      : launch_groups<T, 1, false>(t, idx, w, out, n_bags, K, D, s);
 }
 
 }  // namespace

@@ -6,9 +6,10 @@
 //                       dense frontier, row v of a block-row takes, over its
 //                       tiles, the max over the T cells u of the tile row of
 //                       (cell(v, u) && mask[u] ? p[u] : _NEG); tiles int8 or
-//                       packed words, as stored.  A tile row whose T cells
-//                       are all live edges adds no _NEG (as the plain
-//                       version's masked max over the cells).
+//                       packed words, as stored.  Every row of a
+//                       block-row that owns a tile starts at _NEG, as the
+//                       Pallas kernel's does, so even a row whose T cells
+//                       are all live edges is floored there.
 //   plane scan          `_nbr_max_bits_kernel` (tc_neighbor_max.py:96): on
 //   (SELECT, RESOLVE)   the packed frontier, the max over v's live
 //                       neighbours of the key the priority planes spell (31
@@ -208,7 +209,6 @@ __global__ void __launch_bounds__(WARPS * 32)
 nbr_max_tile_lanes(const Args a) {
   constexpr int RB = ROWS_PER_WARP / T;   // block-rows per group
   __shared__ int32_t acc_s[WARPS][ROWS_PER_WARP];
-  __shared__ uint32_t floor_s[WARPS][RB];     // dense: rows with a _NEG cell
   __shared__ int32_t key_s[WARPS][32][T + 1]; // a row of keys per lane
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int groups = (a.nbr + RB - 1) / RB, stride = gridDim.x * WARPS;
@@ -230,7 +230,6 @@ nbr_max_tile_lanes(const Args a) {
     const int gn = g + stride;
     const int bound_next = gn < groups ? __ldg(a.row_starts + min(gn * RB + min(lane, RB), a.nbr)) : 0;
     for (int e = lane; e < ROWS_PER_WARP; e += 32) acc_s[warp][e] = kInt32Min;
-    if (lane < RB) floor_s[warp][lane] = 0u;
     __syncwarp();
 
     for (int base = edge[0]; base < edge[RB]; base += 32) {
@@ -245,14 +244,12 @@ nbr_max_tile_lanes(const Args a) {
       else live = __ldg(a.mask_words + col) & Words<T>::LIVE;
       uint32_t cur[T];
       tile_rows<T, PACKED>(a.tiles, t, cur);
-      uint32_t any = 0u, open = 0u;   // open: rows with a cell that is no live edge
+      uint32_t any = 0u;
 #pragma unroll
       for (int v = 0; v < T; ++v) {
         cur[v] &= live;
         any |= cur[v];
-        open |= (uint32_t)(cur[v] != Words<T>::LIVE) << v;
       }
-      if constexpr (K == DENSE) atomicOr(&floor_s[warp][rr], open);
       if (!any) continue;
       int32_t* keys = key_s[warp][lane];
       if constexpr (K == DENSE) {
@@ -288,12 +285,14 @@ nbr_max_tile_lanes(const Args a) {
     const int next = __shfl_sync(FULL, bound_next, 0) + lane;
     if (next < __shfl_sync(FULL, bound_next, RB)) col_first = __ldg(a.tile_cols + next);
     __syncwarp();
+    // The shared load stays outside the `hi > lo` select: inside it, nvcc
+    // branches around each pass's load and store and no longer overlaps
+    // the two passes, which cost the plane scans 3-8 % at G2.
     for (int e = lane; e < ROWS_PER_WARP; e += 32) {
-      const int rr = e / T, v = e % T;
+      const int rr = e / T;
       const int lo = __shfl_sync(FULL, bound, rr), hi = __shfl_sync(FULL, bound, rr + 1);
       if (r0 + rr >= a.nbr) continue;
-      int32_t m = acc_s[warp][e];
-      if (K != DENSE || (floor_s[warp][rr] >> v & 1u)) m = max(m, kNeg);
+      const int32_t m = max(acc_s[warp][e], kNeg);
       a.out[(size_t)r0 * T + e] = hi > lo ? m : kInt32Min;
     }
     __syncwarp();
@@ -345,10 +344,9 @@ nbr_max_slot_lanes(const Args a) {
   for (; r < a.nbr; r += stride) {
     const int t0 = __shfl_sync(FULL, span, 0), t1 = __shfl_sync(FULL, span, 1);
     if (r + stride < a.nbr) span = __ldg(a.row_starts + r + stride + min(lane, 1));
-    int32_t m[W];       // rows 32·j + lane
-    uint32_t open = 0u; // dense: bit j, row 32·j + lane has a cell that is no live edge
+    int32_t m[W];       // rows 32·j + lane, floored at _NEG
 #pragma unroll
-    for (int j = 0; j < W; ++j) m[j] = kInt32Min;
+    for (int j = 0; j < W; ++j) m[j] = kNeg;
 
     for (int base = t0; base < t1; base += 32) {
       int col_l = 0;
@@ -398,16 +396,9 @@ nbr_max_slot_lanes(const Args a) {
         }
 #pragma unroll
         for (int j = 0; j < W; ++j) {
-          bool full = true;
 #pragma unroll
           for (int w = 0; w < W; ++w) {
-            cur[j][w] &= live[w];
-            full &= cur[j][w] == FULL;
-          }
-          if constexpr (K == DENSE) open |= (uint32_t)!full << j;
-#pragma unroll
-          for (int w = 0; w < W; ++w) {
-            uint32_t bits = cur[j][w];
+            uint32_t bits = cur[j][w] & live[w];
             while (__any_sync(FULL, bits)) {
               const int32_t k = __shfl_sync(FULL, key[w], bits ? __ffs(bits) - 1 : 0);
               if (bits) m[j] = max(m[j], k);
@@ -418,11 +409,7 @@ nbr_max_slot_lanes(const Args a) {
       }
     }
 #pragma unroll
-    for (int j = 0; j < W; ++j) {
-      int32_t x = m[j];
-      if (K != DENSE || (open >> j & 1u)) x = max(x, kNeg);
-      a.out[(size_t)r * T + 32 * j + lane] = t1 > t0 ? x : kInt32Min;
-    }
+    for (int j = 0; j < W; ++j) a.out[(size_t)r * T + 32 * j + lane] = t1 > t0 ? m[j] : kInt32Min;
   }
 }
 

@@ -48,12 +48,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def tc_neighbor_max_plain(tiled: BlockTiledGraph, p: torch.Tensor,
                           mask: torch.Tensor) -> torch.Tensor:
     """Plain-torch masked max over the real tiles (the kernel walks
-    `row_starts`, which never reaches the zero padding tiles)."""
-    nt = tiled.n_tiles
-    return tile_neighbor_max(
+    `row_starts`, which never reaches the zero padding tiles), each covered
+    row floored at `_NEG` as the Pallas kernel's rows start there."""
+    T, nt = tiled.tile_size, tiled.n_tiles
+    out = tile_neighbor_max(
         tiled.tiles[:nt], tiled.tile_rows[:nt], tiled.tile_cols[:nt],
-        torch.where(mask, p, _NEG), tiled.n_block_rows, tiled.tile_size,
+        torch.where(mask, p, _NEG), tiled.n_block_rows, T,
     )
+    covered = (tiled.row_starts[1:] > tiled.row_starts[:-1]).repeat_interleave(T)
+    return torch.where(covered, out.clamp(min=_NEG), out)
 
 
 def tc_neighbor_max_bits_plain(

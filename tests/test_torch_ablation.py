@@ -1,6 +1,8 @@
 """The ablation tools time copies of a kernel with parts of its work
 taken out by replacing text (tools/spmv_ablation.py on csrc/tc_spmv.cu,
-tools/nbr_max_ablation.py on csrc/tc_neighbor_max.cu).  Every replaced
+tools/nbr_max_ablation.py on csrc/tc_neighbor_max.cu,
+tools/bag_ablation.py on csrc/embedding_bag.cu, tools/spmv_bits_ablation.py
+on csrc/tc_spmv_bits.cu).  Every replaced
 text must occur exactly once in the current source, so that no copy can
 time an unchanged kernel.  Needs no card: the copies are built only on
 one."""
@@ -12,8 +14,10 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tools"))
 
+import bag_ablation  # noqa: E402
 import nbr_max_ablation  # noqa: E402
 import spmv_ablation  # noqa: E402
+import spmv_bits_ablation  # noqa: E402
 
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
 
@@ -28,15 +32,15 @@ def test_spmv_ablation_texts_occur_once(copy):
 @pytest.mark.parametrize("part", ["keys", "max", "tile", "line", "wait"])
 def test_nbr_max_ablation_texts_occur_once(part):
     src = (CSRC / "tc_neighbor_max.cu").read_text()
-    form = nbr_max_ablation.form_of(src)
+    form = spmv_ablation.form_of(src, nbr_max_ablation.FORMS)
     assert form == "lane per tile or slot"
-    for old, new in nbr_max_ablation.FORMS[form][part]:
+    for old, new in nbr_max_ablation.PARTS[form][part]:
         assert src.count(old) == 1 and new != old
 
 
 def test_nbr_max_ablation_copies_all_differ_from_the_kernel():
     src = (CSRC / "tc_neighbor_max.cu").read_text()
-    copies = nbr_max_ablation.copies(src)
+    copies = spmv_ablation.copies_of(src, nbr_max_ablation.FORMS)
     assert copies.pop("full") == src
     assert set(copies) == {"no keys", "no max", "no tile", "heads", "one line", "no wait"}
     assert all(text != src for text in copies.values())
@@ -45,4 +49,46 @@ def test_nbr_max_ablation_copies_all_differ_from_the_kernel():
 
 def test_nbr_max_ablation_refuses_a_source_of_no_known_form():
     with pytest.raises(SystemExit, match="no known form"):
-        nbr_max_ablation.form_of("__global__ void k() {}")
+        spmv_ablation.form_of("__global__ void k() {}", nbr_max_ablation.FORMS)
+
+
+# the tools that keep their copies per form of the source: the form the
+# current source has, and the source
+FORM_TOOLS = {
+    "bag": (bag_ablation, "lane group per bag", "embedding_bag.cu"),
+    "spmv_bits": (spmv_bits_ablation, "lane per tile", "tc_spmv_bits.cu"),
+}
+
+
+@pytest.mark.parametrize("copy", ["no index", "no row", "both out"])
+def test_bag_ablation_texts_occur_once(copy):
+    tool, form, source = FORM_TOOLS["bag"]
+    src = (CSRC / source).read_text()
+    assert spmv_ablation.form_of(src, tool.FORMS) == form
+    for old, new in tool.FORMS[form][copy]:
+        assert src.count(old) == 1 and new != old
+
+
+@pytest.mark.parametrize("copy", ["no tile", "no cand", "heads"])
+def test_spmv_bits_ablation_texts_occur_once(copy):
+    tool, form, source = FORM_TOOLS["spmv_bits"]
+    src = (CSRC / source).read_text()
+    assert spmv_ablation.form_of(src, tool.FORMS) == form
+    for old, new in tool.FORMS[form][copy]:
+        assert src.count(old) == 1 and new != old
+
+
+@pytest.mark.parametrize("tool", sorted(FORM_TOOLS))
+def test_form_tools_copies_all_differ_from_the_kernel(tool):
+    module, _, source = FORM_TOOLS[tool]
+    src = (CSRC / source).read_text()
+    copies = spmv_ablation.copies_of(src, module.FORMS)
+    assert copies.pop("full") == src
+    assert set(copies) == set(next(iter(module.FORMS.values())))
+    assert all(text != src for text in copies.values())
+    assert len(set(copies.values())) == len(copies)
+
+
+def test_form_tools_refuse_a_source_of_no_known_form():
+    with pytest.raises(SystemExit, match="no known form"):
+        spmv_ablation.form_of("__global__ void k() {}", bag_ablation.FORMS)

@@ -225,6 +225,69 @@ def test_bits_kernels_match_plain_on_card(cuda_device, T):
         assert torch.equal(hit, want[0])
 
 
+def _hold_fused_bits(t, cand, alive, flags):
+    """The fused packed SpMV, launched once per call, bit-equal to its plain
+    version; returns its (hit, new_alive, mis_add) words."""
+    T = t.tile_size
+    cand_w, alive_w = pack_frontier_words(cand, T), pack_frontier_words(alive, T)
+    launches = K.tc_spmv_fused_bits.launches
+    got = K.tc_spmv_fused_bits(t, cand_w, alive_w, col_flags=flags)
+    assert K.tc_spmv_fused_bits.launches == launches + 1
+    for a, b in zip(got, K.tc_spmv_fused_bits_plain(t, cand_w, alive_w, col_flags=flags)):
+        assert torch.equal(a, b)
+    return got
+
+
+def _gated_flags(t, cand, gen):
+    """Column flags of the candidates with about a third of the
+    block-columns gated off besides."""
+    gate = torch.rand(t.n_block_cols, generator=gen, device=cand.device) >= 1 / 3
+    return (block_col_flags(cand, t.tile_size) * gate.to(torch.int32)).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [8, 16, 32, 64, 128])
+def test_fused_bits_kernel_gated_columns_and_empty_block_rows_on_card(cuda_device, T):
+    """Block-row 0 owns 48 tiles (two 32-tile chunks of the lane-per-tile
+    warp at T <= 16), the vertices past 48·T have no edge (empty block-rows:
+    hit 0, the trivial rule), and columns are ungated, gated by the
+    candidates, or with a third gated off besides."""
+    rng = np.random.default_rng(T)
+    n = 64 * T
+    j = np.arange(48 * T)
+    src = np.concatenate([(j + 1) % T, rng.integers(0, 48 * T, 96 * T)])   # no self-loop
+    dst = np.concatenate([j, rng.integers(0, 48 * T, 96 * T)])
+    t = build_block_tiles(from_edges(src, dst, n, device=cuda_device), tile_size=T,
+                          storage="bitpack")
+    assert int(t.row_starts[1]) == 48
+    empty = t.row_starts[1:] == t.row_starts[:-1]
+    assert bool(empty[48:].all())
+    gen, cand, alive = _frontier(t, cuda_device, 40)
+    for flags in (None, block_col_flags(cand, T), _gated_flags(t, cand, gen)):
+        hit, new_alive, mis_add = _hold_fused_bits(t, cand, alive, flags)
+        assert not bool(hit[empty].any())
+    assert bool(hit.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [8, 16, 128])
+def test_fused_bits_kernel_warps_take_several_groups_on_card(cuda_device, T):
+    """More groups of block-rows than the card holds warps (at most 64 per
+    SM), so each warp of the resident lane-per-tile grid strides over
+    several groups and carries its prefetched bounds and columns from one
+    to the next (T = 128 runs the thread-per-row kernel, on the same
+    graph)."""
+    from repro_torch.graphs import grid2d
+
+    t = build_block_tiles(grid2d(1100, 1100, device=cuda_device), tile_size=T,
+                          storage="bitpack")
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert t.n_block_rows // max(64 // T, 1) > 64 * sms
+    gen, cand, alive = _frontier(t, cuda_device, 41)
+    for flags in (None, _gated_flags(t, cand, gen)):
+        _hold_fused_bits(t, cand, alive, flags)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("storage", ["int8", "bitpack"])
 @pytest.mark.parametrize("T", [8, 16, 32, 64, 128])
@@ -360,9 +423,9 @@ def test_neighbor_maxes_many_set_bits_at_T128_on_card(cuda_device, storage):
 def test_neighbor_maxes_extreme_keys_on_card(cuda_device, T, storage):
     """Keys at the edges of the order: unsigned 0 and 2^31 - 1, signed
     int32 min, -1 and 0.  Blocks 0 and 1 are joined completely, so with
-    all vertices live every tile row of block 0 is all live edges, and the
-    dense max of keys below _NEG is not floored there (as its plain
-    version); the plane scan floors every row at _NEG."""
+    all vertices live every tile row of block 0 is all live edges; both
+    maxes still floor every covered row at _NEG, as the Pallas kernels
+    (and the plain versions) do."""
     rng = np.random.default_rng(T)
     n = 8 * T
     a, b = np.meshgrid(np.arange(T), np.arange(T, 2 * T))
@@ -376,7 +439,7 @@ def test_neighbor_maxes_extreme_keys_on_card(cuda_device, T, storage):
         _hold_maxes(t, m, *_keys(t.n_padded, gen, cuda_device, extremes))
     low = torch.full((t.n_padded,), -(1 << 31), dtype=torch.int32, device=cuda_device)
     _, (dense, scan) = _hold_maxes(t, torch.ones_like(mask), low, low)
-    assert bool((dense[:T] == -(1 << 31)).all() and (scan[:T] == -(1 << 30)).all())
+    assert bool((dense[:T] == -(1 << 30)).all() and (scan[:T] == -(1 << 30)).all())
 
 
 @pytest.mark.gpu
@@ -428,6 +491,73 @@ def test_embedding_bag_matches_plain_on_card(cuda_device, D, K_, dtype):
         assert E.embedding_bag.launches == launches + 1
         assert got.dtype == torch.float32 and got.shape == (B, D)
         assert torch.equal(got, E.embedding_bag_plain(table, idx, weights))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K_", [0, 1, 39, 100])
+@pytest.mark.parametrize("D", [1, 2, 3, 8, 10, 16, 64])
+def test_embedding_bag_runs_of_bags_match_plain_on_card(cuda_device, D, K_, dtype):
+    """A CTA owns a run of 128 / G bags (G lanes per bag: a lane per
+    element, or per pair of elements where D is even on an f32 table, at
+    most 32): numbers of bags below one run, at it, above it and not a
+    multiple of it; K odd (one staged block), even (rows of an odd stride)
+    and past one chunk of staged slots at small D; K = 0 gives zeros."""
+    gen = torch.Generator(device=cuda_device).manual_seed(D * 1000 + K_)
+    V = 3000
+    table = torch.randn((V, D), generator=gen, device=cuda_device).to(dtype)
+    for B in (1, 4, 5, 25, 26, 128, 129, 1001):
+        idx = torch.randint(0, V, (B, K_), generator=gen, device=cuda_device, dtype=torch.int32)
+        w = torch.rand((B, K_), generator=gen, device=cuda_device) - 0.25
+        for weights in (None, w):
+            launches = E.embedding_bag.launches
+            got = E.embedding_bag(table, idx, weights)
+            assert E.embedding_bag.launches == launches + 1
+            assert torch.equal(got, E.embedding_bag_plain(table, idx, weights)), (B, weights)
+            if K_ == 0:
+                assert not bool(got.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 10])
+def test_embedding_bag_unaligned_views_on_card(cuda_device, D):
+    """A table, indices and weights that start 4 bytes past a 16-byte
+    boundary: the f32 pair loads give way to scalar ones, and the staging
+    copies take a scalar head before their 16-byte loads."""
+    gen = torch.Generator(device=cuda_device).manual_seed(D)
+    V, B, K_ = 2000, 300, 39
+    table = torch.randn((V * D + 1,), generator=gen, device=cuda_device)[1:].view(V, D)
+    idx = torch.randint(0, V, (B * K_ + 1,), generator=gen, device=cuda_device,
+                        dtype=torch.int32)[1:].view(B, K_)
+    w = torch.rand((B * K_ + 1,), generator=gen, device=cuda_device)[1:].view(B, K_)
+    assert table.data_ptr() % 8 == 4 and idx.data_ptr() % 16 == 4 and w.data_ptr() % 16 == 4
+    for weights in (None, w):
+        assert torch.equal(E.embedding_bag(table, idx, weights),
+                           E.embedding_bag_plain(table, idx, weights))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_last_row_of_a_table_past_2_31_on_card(cuda_device, dtype):
+    """Indices at V - 1 and V - 2 of a table of more than 2^31 elements,
+    weighted and unweighted: the 64-bit row offset reaches the last row."""
+    V, D = (1 << 25) + 4096, 64
+    nbytes = V * D * torch.empty((), dtype=dtype).element_size()
+    if torch.cuda.mem_get_info(cuda_device)[0] < 2 * nbytes:
+        pytest.skip("the card has no room for the table")
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    table = torch.empty((V, D), dtype=dtype, device=cuda_device)
+    table[-16:] = torch.randn((16, D), generator=gen, device=cuda_device).to(dtype)
+    table[:16] = torch.randn((16, D), generator=gen, device=cuda_device).to(dtype)
+    idx = torch.randint(0, 16, (37, 5), generator=gen, device=cuda_device, dtype=torch.int32)
+    idx[:, 0] = V - 1
+    idx[::2, 3] = V - 2
+    assert (V - 1) * D >= 1 << 31
+    w = torch.rand(idx.shape, generator=gen, device=cuda_device)
+    for weights in (None, w):
+        assert torch.equal(E.embedding_bag(table, idx, weights),
+                           E.embedding_bag_plain(table, idx, weights))
+    del table
 
 
 @pytest.mark.gpu

@@ -153,10 +153,12 @@ def test_plane_scan_extreme_keys_and_dead_masks_match_pallas(T, signed, mask_kin
 @pytest.mark.parametrize("T", [8, 16])
 def test_dense_neighbor_max_keeps_keys_below_neg_on_all_live_rows(T):
     """Blocks 0 and 1 joined completely, every vertex live, every key int32
-    min: each tile row of blocks 0 and 1 is T live edges, so the masked
-    max over its cells is int32 min, not _NEG, in the port's plain version
-    as in the reference's `tile_neighbor_max` (the Hopper kernel is held to
-    the plain version on the card)."""
+    min: each tile row of blocks 0 and 1 is T live edges.  The Hopper
+    wrapper's plain version floors every covered row at _NEG, as the Pallas
+    `_nbr_max_kernel` (interpret mode) starts each row there (the kernel is
+    held to the plain version on the card).  The jnp rule keeps the keys
+    below _NEG: the port's `tile_neighbor_max`, which its `tiled_ref`
+    engine runs, gives int32 min there, as the reference's does."""
     a, b = np.meshgrid(np.arange(T), np.arange(T, 2 * T))
     n = 4 * T
     ref = ref_build_block_tiles(ref_from_edges(a.ravel(), b.ravel(), n), tile_size=T)
@@ -165,12 +167,20 @@ def test_dense_neighbor_max_keeps_keys_below_neg_on_all_live_rows(T):
         n_tiles=ref.n_tiles, n_nodes=n, tile_size=T, n_block_rows=ref.n_block_rows,
         n_block_cols=ref.n_block_cols, storage="int8", device="cpu")
     p = np.full(ref.n_padded, INT32_MIN, dtype=np.int32)
-    got = K.tc_neighbor_max(t, torch.from_numpy(p), torch.ones(ref.n_padded, dtype=torch.bool))
+    mask = np.ones(ref.n_padded, dtype=bool)
+    got = K.tc_neighbor_max(t, torch.from_numpy(p), torch.from_numpy(mask)).numpy()
+    pallas = np.asarray(ops.tc_neighbor_max(ref, jnp.asarray(p), jnp.asarray(mask),
+                                            interpret=True))
+    covered = _covered_rows(ref)
+    np.testing.assert_array_equal(got[covered], pallas[covered])
+    assert (got[: 2 * T] == _NEG).all() and (got[~covered] == INT32_MIN).all()
     nt = ref.n_tiles   # the real tiles: a zero padding tile adds _NEG to its block-row
-    np.testing.assert_array_equal(got.numpy(), np.asarray(ref_tile_neighbor_max(
+    jnp_rule = tile_neighbor_max(t.tiles[:nt], t.tile_rows[:nt], t.tile_cols[:nt],
+                                 torch.from_numpy(p), t.n_block_rows, T).numpy()
+    np.testing.assert_array_equal(jnp_rule, np.asarray(ref_tile_neighbor_max(
         ref.tiles[:nt], ref.tile_rows[:nt], ref.tile_cols[:nt], jnp.asarray(p),
         ref.n_block_rows, T)))
-    assert (got[: 2 * T] == INT32_MIN).all()
+    assert (jnp_rule[: 2 * T] == INT32_MIN).all()
 
 
 def test_plane_scan_takes_int8_tiles_as_words():

@@ -7,6 +7,7 @@ tests/test_engine.py holds the reference's Pallas engines to those, and
 test_torch_spmv.py holds the port's kernels' plain versions to the Pallas
 kernels in interpret mode."""
 import functools
+import importlib
 import warnings
 
 import jax
@@ -180,6 +181,67 @@ def test_bitwise_path_on_clustered_graph_matches_reference(engine, T):
                      priorities=_port_priorities(pri_np))
     np.testing.assert_array_equal(res.in_mis.numpy(), want_mis)
     assert int(res.rounds) == want_rounds
+
+
+class _PlanePathJax:
+    """`jax` as `repro.core.tc_mis` sees it, with `default_backend()`
+    saying "tpu": the reference then builds the priority planes and its
+    Pallas engines run their plane-scan kernel.  Every other attribute is
+    jax's own, and `repro.kernels.ops` keeps the real module, so the
+    Pallas calls still run in interpret mode."""
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+    @staticmethod
+    def default_backend():
+        return "tpu"
+
+
+def _complete_bipartite_probe():
+    """K_{16,16} (vertices 0-15 x 16-31), H3 keys select 0 and resolve
+    -2^30 - 1 - id: every vertex ties on select, and every resolve key lies
+    below _NEG, on tile rows whose 16 cells are all live edges."""
+    a, b = np.meshgrid(np.arange(16), np.arange(16, 32))
+    n = 32
+    sel = np.zeros(n, np.int32)
+    res = (-(1 << 30) - 1 - np.arange(n)).astype(np.int32)
+    return a.ravel(), b.ravel(), n, sel, res
+
+
+@pytest.mark.parametrize("storage, frontier", [("int8", "dense"), ("bitpack", "bitwise")])
+@pytest.mark.parametrize("engine", PORT_ENGINES)
+def test_phase1_floor_matches_reference_engine_of_the_same_name(engine, storage, frontier,
+                                                                monkeypatch):
+    """Each port engine against the reference engine of the same name on
+    the K_{16,16} probe, tiled phase ①, at most 8 rounds.  The Pallas
+    neighbour maxes start every covered row at _NEG, so under the Pallas
+    engines no resolve key beats its neighbours' max and nothing joins
+    the MIS in 8 rounds; `segment` and `tiled_ref` keep the keys below
+    _NEG and finish in one round.
+
+    On the packed frontier the reference is run on its plane path, the
+    path of the `_nbr_max_bits_kernel` that the port's plane scan ports:
+    on the CPU the reference takes its clz form instead, which builds no
+    planes and keeps the keys below _NEG like `tiled_ref`, so there its
+    Pallas engines would finish in one round."""
+    from repro.core.heuristics import Priorities as RefPriorities
+
+    src, dst, n, sel, res = _complete_bipartite_probe()
+    ref_plan = RefPlan.build(ref_from_edges(src, dst, n), tile_size=16, storage=storage)
+    kw = dict(engine=engine, heuristic="h3", phase1="tiled", frontier=frontier, max_rounds=8)
+    if frontier == "bitwise":
+        monkeypatch.setattr(importlib.import_module("repro.core.tc_mis"), "jax",
+                            _PlanePathJax())
+    want = _tc_mis_impl(ref_plan.g, ref_plan.tiled, jax.random.key(0), RefOptions(**kw),
+                        priorities=RefPriorities(jnp.asarray(sel), jnp.asarray(res)))
+    plan = plan_from_arrays(_plan_arrays(ref_plan), device="cpu")
+    got = run_tc_mis(plan.g, plan.tiled, None, SolveOptions(**kw),
+                     priorities=Priorities(torch.tensor(sel), torch.tensor(res)))
+    np.testing.assert_array_equal(got.in_mis.numpy(), np.asarray(want.in_mis))
+    assert int(got.rounds) == int(want.rounds)
+    pallas = engine in ("tiled_pallas", "fused_pallas")
+    assert (int(got.in_mis.sum()), int(got.rounds)) == ((0, 8) if pallas else (16, 1))
 
 
 def _warm_state(g, t):

@@ -24,11 +24,11 @@ each part is replaced; the copies compute wrong maxes and are only timed):
 The replaced texts are held per form of the source (a thread per vertex
 row, the earlier form; a lane per tile or per key slot, the form that
 replaced it); a source must hold every text of one form exactly once, or
-the tool stops.  Each copy is timed (CUDA events, as chip_smoke.py's
-timing phase) as the select plane scan, the resolve plane scan and the
-dense max at the packed path's round-1 inputs (grid2d(1044, 1044), T =
-16, bitpack), in the order listed and back; the full kernel is first held
-equal to its plain versions.
+the tool stops.  Each copy is timed (CUDA events, warm and cold, as
+chip_smoke.py's timing phase) as the select plane scan, the resolve
+plane scan and the dense max at the packed path's round-1 inputs
+(grid2d(1044, 1044), T = 16, bitpack), in the order listed and back;
+the full kernel is first held equal to its plain versions.
 Prints one line per copy, then the card's name and power limit.
 
 With --against, it builds this kernel and another source of the same C
@@ -45,10 +45,11 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-from spmv_ablation import build_copies  # noqa: E402
+from spmv_ablation import (  # noqa: E402
+    build_copies, copies_of, form_of, time_calls, turns_line)
 
 # (old text, new text) per part, per form of the source
-FORMS = {
+PARTS = {
     "thread per row": {
         "keys": [("inter[w] = cur[w] & pw[w];",
                   "inter[w] = cur[w] & (uint32_t)((col + b) * 0x9E3779B9u);"),
@@ -84,32 +85,13 @@ FORMS = {
                   "m = max(m, (int32_t)(bits * 0x9E3779B9u));")],
     },
 }
-COPIES = {"full": [], "no keys": ["keys"], "no max": ["max"], "no tile": ["tile"],
+COPIES = {"no keys": ["keys"], "no max": ["max"], "no tile": ["tile"],
           "heads": ["keys", "max", "tile"], "one line": ["line"], "no wait": ["wait"]}
-
-
-def form_of(src: str) -> str:
-    """The form whose every replaced text occurs exactly once in `src`."""
-    for name, parts in FORMS.items():
-        if all(src.count(old) == 1 for edits in parts.values() for old, _ in edits):
-            return name
-    raise SystemExit("the source holds the replaced texts of no known form exactly once")
-
-
-def copies(src: str) -> dict:
-    """{copy name: source text} for the form of `src` (the copies whose
-    parts the form has)."""
-    parts = FORMS[form_of(src)]
-    out = {}
-    for name, taken in COPIES.items():
-        if not all(part in parts for part in taken):
-            continue
-        text = src
-        for part in taken:
-            for old, new in parts[part]:
-                text = text.replace(old, new)
-        out[name] = text
-    return out
+# {form: {copy: [(old text, new text), ...]}}, as the shared helpers take
+# them: the copies whose parts the form has
+FORMS = {form: {copy: [edit for part in taken for edit in parts[part]]
+                for copy, taken in COPIES.items() if all(part in parts for part in taken)}
+         for form, parts in PARTS.items()}
 
 
 def round1_inputs(g2, tile_size: int):
@@ -156,37 +138,6 @@ def calls(x: dict) -> dict:
     }
 
 
-def time_copies(libs: dict, order: list, x: dict) -> dict:
-    """{name: [{what: ms}, ...]} in `order`, each of the full, this and
-    other kernels held equal to the plain versions at its first turn."""
-    import torch
-
-    import chip_smoke as cs
-    from repro_torch.hopper import build
-
-    fns = calls(x)
-    want = {what: plain() for what, (_, plain) in fns.items()}
-    load = build.library
-    times = {}
-    try:
-        for name in order:
-            build.library = lambda n, lib=libs[name]: lib if n == "tc_neighbor_max" else load(n)
-            if name not in times and name in ("full", "this", "other"):
-                for what, (kern, _) in fns.items():
-                    cs.check(torch.equal(kern(), want[what]),
-                             f"the {name} kernel differs from its plain version ({what})")
-            times.setdefault(name, []).append(
-                {what: cs.time_ms(kern) for what, (kern, _) in fns.items()})
-    finally:
-        build.library = load
-    return times
-
-
-def line(name: str, turns: list) -> str:
-    return f"{name:8s} " + "  ".join(
-        f"{what} {turns[0][what]:.4f}/{turns[1][what]:.4f} ms" for what in turns[0])
-
-
 def main() -> None:
     import torch
 
@@ -203,19 +154,20 @@ def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "--against":
         libs = build_copies(out, {"this": this, "other": pathlib.Path(sys.argv[2]).read_text()})
         for T in (16, 128):
-            times = time_copies(libs, ["other", "this", "this", "other"], round1_inputs(g2, T))
+            times = time_calls(libs, ["other", "this", "this", "other"], "tc_neighbor_max",
+                               calls(round1_inputs(g2, T)))
             for name, turns in times.items():
-                print(f"T={T:<3d} {line(name, turns)}", flush=True)
+                print(f"T={T:<3d} {turns_line(name, turns)}", flush=True)
     elif len(sys.argv) <= 2:
         src = pathlib.Path(sys.argv[1]).read_text() if len(sys.argv) == 2 else this
-        print(f"form: {form_of(src)}", flush=True)
-        libs = build_copies(out, copies(src))
+        print(f"form: {form_of(src, FORMS)}", flush=True)
+        libs = build_copies(out, copies_of(src, FORMS))
         x = round1_inputs(g2, 16)
-        times = time_copies(libs, list(libs) + list(libs)[::-1], x)
+        times = time_calls(libs, list(libs) + list(libs)[::-1], "tc_neighbor_max", calls(x))
         print(f"G2 round-1 inputs: T=16 bitpack tiles={x['tiled'].n_tiles} "
               f"block_rows={x['tiled'].n_block_rows}", flush=True)
         for name, turns in times.items():
-            print(line(name, turns), flush=True)
+            print(turns_line(name, turns), flush=True)
     else:
         raise SystemExit(__doc__)
     print(cs.card_line())

@@ -15,7 +15,8 @@ the copies compute wrong sums and are only timed):
              tile_cols, col_flags, the ballot), the f32 split and the stores
 
 and times each (CUDA events, the same calls as chip_smoke.py's timing
-phase) as the fused and the split kernel at the G2 main path's round-1
+phase, warm and then cold: L2 flushed before every call) as the fused and
+the split kernel at the G2 main path's round-1
 inputs (grid2d(1044, 1044), T = 16, bitpack, L = 8), in the order listed
 and back.  The full kernel is first held equal to its plain version.
 Prints one line per copy, then the card's name and power limit.
@@ -69,6 +70,67 @@ def build_copies(out: pathlib.Path, sources: dict) -> dict:
     return libs
 
 
+def form_of(src: str, forms: dict) -> str:
+    """The form (a key of `forms`: {form: {copy: [(old, new), ...]}}) whose
+    every replaced text occurs exactly once in `src`."""
+    for name, copies in forms.items():
+        if all(src.count(old) == 1 for edits in copies.values() for old, _ in edits):
+            return name
+    raise SystemExit("the source holds the replaced texts of no known form exactly once")
+
+
+def copies_of(src: str, forms: dict) -> dict:
+    """{"full": src, copy: src with that copy's texts replaced} for the
+    form of `src`."""
+    out = {"full": src}
+    for name, edits in forms[form_of(src, forms)].items():
+        text = src
+        for old, new in edits:
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
+def time_calls(libs: dict, order: list, library: str, fns: dict) -> dict:
+    """{name: [{what: ms, what cold: ms}, ...]} in `order`, with
+    csrc/<library>.cu's library swapped for each copy's; `fns` is {what:
+    (kernel call, plain call)}; each call timed warm and cold (L2 flushed
+    before every call), as by `chip_smoke.time_ms`.  The full, this and
+    other kernels are held equal to the plain versions at their first
+    turn."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.hopper import build
+
+    want = {what: plain() for what, (_, plain) in fns.items()}
+    load = build.library
+    times = {}
+    try:
+        for name in order:
+            build.library = lambda n, lib=libs[name]: lib if n == library else load(n)
+            if name not in times and name in ("full", "this", "other"):
+                for what, (kern, _) in fns.items():
+                    got, exp = kern(), want[what]
+                    got, exp = (got, exp) if isinstance(got, tuple) else ((got,), (exp,))
+                    cs.check(all(torch.equal(a, b) for a, b in zip(got, exp)),
+                             f"the {name} kernel differs from its plain version ({what})")
+            turn = {}
+            for what, (kern, _) in fns.items():
+                turn[what] = cs.time_ms(kern)
+                turn[f"{what} cold"] = cs.time_ms(kern, cold=True)
+            times.setdefault(name, []).append(turn)
+    finally:
+        build.library = load
+    return times
+
+
+def turns_line(name: str, turns: list) -> str:
+    """One copy's times: `what first/second ms` per timed call."""
+    return f"{name:8s} " + "  ".join(
+        f"{what} {turns[0][what]:.4f}/{turns[1][what]:.4f} ms" for what in turns[0])
+
+
 def round1_inputs(g2, tile_size: int, storage: str):
     """The G2 plan and the fused engine's round-1 (rhs, cand, alive, flags)."""
     import torch
@@ -86,31 +148,16 @@ def round1_inputs(g2, tile_size: int, storage: str):
     return plan.tiled, engine._pack_rhs(ctx, cand, alive), cand, alive, flags
 
 
-def time_copies(libs: dict, order: list, tiled, rhs, cand, alive, flags) -> dict:
-    """{name: [(fused ms, split ms), ...]} in `order`, each copy held equal
-    to the plain version at its first turn."""
-    import torch
-
-    import chip_smoke as cs
-    from repro_torch.hopper import build
+def calls(tiled, rhs, cand, alive, flags) -> dict:
+    """{what: (kernel call, plain call)} for the fused and the split launch."""
     from repro_torch.hopper import tc_spmv as K
 
-    want = K.tc_spmv_fused_plain(tiled, rhs, cand, alive, col_flags=flags)
-    load = build.library
-    times = {}
-    try:
-        for name in order:
-            build.library = lambda n, lib=libs[name]: lib if n == "tc_spmv" else load(n)
-            if name not in times and name in ("full", "this", "other"):
-                got = K.tc_spmv_fused(tiled, rhs, cand, alive, col_flags=flags)
-                cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                         f"the {name} kernel differs from its plain version")
-            times.setdefault(name, []).append((
-                cs.time_ms(lambda: K.tc_spmv_fused(tiled, rhs, cand, alive, col_flags=flags)),
-                cs.time_ms(lambda: K.tc_spmv(tiled, rhs, col_flags=flags))))
-    finally:
-        build.library = load
-    return times
+    return {
+        "fused": (lambda: K.tc_spmv_fused(tiled, rhs, cand, alive, col_flags=flags),
+                  lambda: K.tc_spmv_fused_plain(tiled, rhs, cand, alive, col_flags=flags)),
+        "split": (lambda: K.tc_spmv(tiled, rhs, col_flags=flags),
+                  lambda: K.tc_spmv_plain(tiled, rhs, col_flags=flags)),
+    }
 
 
 def main() -> None:
@@ -129,11 +176,10 @@ def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "--against":
         libs = build_copies(out, {"this": src, "other": pathlib.Path(sys.argv[2]).read_text()})
         for T, storage in ((16, "bitpack"), (16, "int8"), (128, "bitpack"), (128, "int8")):
-            inputs = round1_inputs(g2, T, storage)
-            times = time_copies(libs, ["other", "this", "this", "other"], *inputs)
-            for name, ((f1, s1), (f2, s2)) in times.items():
-                print(f"T={T} {storage:7s} {name:5s} fused {f1:.4f}/{f2:.4f} ms  "
-                      f"split {s1:.4f}/{s2:.4f} ms", flush=True)
+            times = time_calls(libs, ["other", "this", "this", "other"], "tc_spmv",
+                               calls(*round1_inputs(g2, T, storage)))
+            for name, turns in times.items():
+                print(f"T={T} {storage:7s} {turns_line(name, turns)}", flush=True)
     elif len(sys.argv) == 1:
         sources = {}
         for name, edits in COPIES.items():
@@ -145,11 +191,12 @@ def main() -> None:
             sources[name] = text
         libs = build_copies(out, sources)
         tiled, rhs, cand, alive, flags = round1_inputs(g2, 16, "bitpack")
-        times = time_copies(libs, list(libs) + list(libs)[::-1], tiled, rhs, cand, alive, flags)
+        times = time_calls(libs, list(libs) + list(libs)[::-1], "tc_spmv",
+                           calls(tiled, rhs, cand, alive, flags))
         print(f"G2 round-1 inputs: T=16 bitpack tiles={tiled.n_tiles} "
               f"active_cols={int(flags.sum())}/{tiled.n_block_cols} lanes={rhs.shape[1]}")
-        for name, ((f1, s1), (f2, s2)) in times.items():
-            print(f"{name:8s} fused {f1:.4f}/{f2:.4f} ms  split {s1:.4f}/{s2:.4f} ms")
+        for name, turns in times.items():
+            print(turns_line(name, turns))
     else:
         raise SystemExit(__doc__)
     print(cs.card_line())
