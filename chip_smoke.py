@@ -39,7 +39,12 @@ Phases, each fatal on failure:
                frontier: plane scan 2× per round (H3), fused packed SpMV
                once; with `engine="tiled_pallas"`: split packed SpMV once;
              - `phase1="tiled", frontier="dense"`: dense neighbour max 2×
-               per round, dense fused SpMV once.
+               per round, dense fused SpMV once;
+             - with `telemetry=True`, the main path and the packed
+               `tiled_pallas` path: the same launches per round, and a
+               round trace that passes `RoundTrace.check_invariants`, opens
+               on all vertices, selects the MIS and equals, in every
+               column, the trace of `tiled_ref` with the same options.
              Every other count must stay 0.  Each path converges to a valid
              MIS equal, in set and rounds, to the plain-torch `tiled_ref`
              engine's on the card with the same options and priorities, and
@@ -55,9 +60,17 @@ Phases, each fatal on failure:
              slab bytes the kernel reads once per active tile); a library
              yardstick (never used by the port, timed cold) where one
              PyTorch call computes the same function; the median of 5 warm
-             solves of the segment and the packed path, and a
-             torch.profiler breakdown of one more solve of each, with every
-             launch of the port's kernels in it.
+             solves of the segment and the packed path, beside the
+             profiler twin's split of a round (`Solver.profile`: phase ①,
+             ②+③, the state merge; medians of 5, each profile held to the
+             solve's MIS and rounds) and its set-up alone (priorities, bit
+             planes, state₀), the median of 5 warm solves with telemetry on,
+             and a torch.profiler breakdown of one more telemetry solve,
+             set-up, solve and profile of each, with every launch of the
+             port's kernels in it, the solve and the profile traced with
+             `Trace(profiler=True)`: their spans (solver.*, rounds.phase*)
+             must appear among the profiler's events, each printed with its
+             host time and the device time of the kernels inside it.
   5. deepfm  DeepFM serving at the full published CONFIG (39 fields,
              33,889,984 rows, d = 10, MLP 400-400-400), weights drawn on
              the card from seed 0, fields from `ClickStream(FIELD_VOCABS, B,
@@ -197,7 +210,7 @@ SPMV_INSTANCE = re.compile(
 MAIN_SPMV = "T=16 bitpack fused f32 L=8"     # the main path's instance
 # nbr_max_{tile,slot}_lanes<T, Kind, PACKED> as the Itanium ABI mangles it
 NBR_MAX_INSTANCE = re.compile(r"nbr_max_(tile|slot)_lanesILi(\d+)EL.*?KindE(\d)ELb([01])E")
-# spmv_bits_tile_lanes<T> and spmv_bits_rows<T, FUSED>
+# spmv_bits_tile_lanes<T, FUSED> and spmv_bits_rows<T, FUSED>
 SPMV_BITS_INSTANCE = re.compile(r"spmv_bits_(tile_lanes|rows)ILi(\d+)E(?:Lb([01])E)?")
 # bag_groups<T, VEC, CH, WEIGHTED>
 BAG_INSTANCE = re.compile(r"bag_groupsI(f|13__nv_bfloat16)Li(\d)ELi(\d+)ELb([01])E")
@@ -245,9 +258,8 @@ def spmv_bits_label(mangled: str) -> str:
     if m is None:
         return mangled
     form, T, fused = m.groups()
-    if form == "tile_lanes":
-        return f"T={T} fused (a lane per tile)"
-    return f"T={T} {'fused' if fused == '1' else 'split'} (a thread per row)"
+    how = "a lane per tile" if form == "tile_lanes" else "a thread per row"
+    return f"T={T} {'fused' if fused == '1' else 'split'} ({how})"
 
 
 def bag_label(mangled: str) -> str:
@@ -484,7 +496,8 @@ def phase_paths(g2) -> dict:
 
     def run(label, opts, expect, *, key=None):
         """Solve, hold validity, launch counts (kernel -> launches per
-        round; every other kernel 0) and equality with `tiled_ref`."""
+        round; every other kernel 0) and equality with `tiled_ref`;
+        returns (plan, result, `tiled_ref`'s result)."""
         solver, plan, res, counts = solve_path(g2, opts, label, plans)
         check(res.converged, f"{label} did not converge")
         check(is_valid_mis(plan.g, torch.from_numpy(res.in_mis_plan).cuda()),
@@ -502,9 +515,9 @@ def phase_paths(g2) -> dict:
         mis[label] = (res.in_mis, res.rounds)
         if key:
             out[key] = (solver, plan, res)
-        return plan
+        return plan, res, ref
 
-    main = run("main", SolveOptions(hybrid="off"), {"tc_spmv_fused": 1}, key="main")
+    main, _, _ = run("main", SolveOptions(hybrid="off"), {"tc_spmv_fused": 1}, key="main")
     check(main.tile_size == 16 and main.storage == "bitpack",
           f"main path planned T={main.tile_size} {main.storage}")
     run("main storage=int8", SolveOptions(hybrid="off", storage="int8"),
@@ -513,16 +526,35 @@ def phase_paths(g2) -> dict:
         SolveOptions(hybrid="off", storage="int8", engine="tiled_pallas"), {"tc_spmv": 1})
 
     slice_opts = SolveOptions(hybrid="off", phase1="tiled")
-    sl = run("packed", slice_opts,
-             {"tc_neighbor_max_bits": 2, "tc_spmv_fused_bits": 1}, key="packed")
+    sl, _, _ = run("packed", slice_opts,
+                   {"tc_neighbor_max_bits": 2, "tc_spmv_fused_bits": 1}, key="packed")
     frontier = resolve_frontier(slice_opts, get_engine(slice_opts.engine), storage=sl.storage)
     check(sl.tile_size == 16 and sl.storage == "bitpack" and frontier == "bitwise",
           f"packed path planned T={sl.tile_size} {sl.storage}, frontier {frontier}")
-    run("packed tiled_pallas",
-        SolveOptions(hybrid="off", phase1="tiled", engine="tiled_pallas"),
-        {"tc_neighbor_max_bits": 2, "tc_spmv_bits": 1})
+    split_opts = SolveOptions(hybrid="off", phase1="tiled", engine="tiled_pallas")
+    run("packed tiled_pallas", split_opts, {"tc_neighbor_max_bits": 2, "tc_spmv_bits": 1})
     run("dense tiled phase 1", SolveOptions(hybrid="off", phase1="tiled", frontier="dense"),
         {"tc_neighbor_max": 2, "tc_spmv_fused": 1})
+
+    # round telemetry: the same kernels as often, the same MIS, and the trace
+    # `tiled_ref` records with the same options (both engines take their
+    # column flags from the one `TorchRoundEngine.col_flags`)
+    for label, opts, expect in (
+            ("main telemetry", SolveOptions(hybrid="off"), {"tc_spmv_fused": 1}),
+            ("packed tiled_pallas telemetry", split_opts,
+             {"tc_neighbor_max_bits": 2, "tc_spmv_bits": 1})):
+        _, res, ref = run(label, dataclasses.replace(opts, telemetry=True), expect)
+        rt = res.telemetry
+        rt.check_invariants()
+        check(rt.rounds == res.rounds and rt.alive[0] == g2.n_nodes
+              and sum(rt.selected) == res.mis_size,
+              f"{label}: trace rounds {rt.rounds}, alive0 {rt.alive[0]}, "
+              f"selected {sum(rt.selected)} against {res.rounds}, {g2.n_nodes}, "
+              f"{res.mis_size}")
+        columns = {k: v for k, v in rt.to_dict().items() if k != "meta"}
+        check(columns == {k: v for k, v in ref.telemetry.to_dict().items() if k != "meta"},
+              f"{label}: trace differs from tiled_ref's")
+        print(f"[paths] {label}: {json.dumps(columns)}", flush=True)
 
     base_mis, base_rounds = mis["main"]
     for label, (m, r) in mis.items():
@@ -778,15 +810,19 @@ def timing_packed(packed, launches: dict, errs: dict) -> list:
     ]
 
 
+# the spans of repro_torch.obs.trace
+SPANS = ("solver.", "rounds.")
 # the port's own kernels (csrc/*.cu) among the profiler's device events
 PORT_KERNEL = re.compile(r"\b(tc_spmv_rows|nbr_max_\w+_lanes|spmv_bits_\w+|bag_groups)<")
 
 
-def profile_call(fn, label: str) -> None:
+def profile_call(fn, label: str) -> set:
     """One more warm call of `fn` under torch.profiler: device time by
     kernel (the device-side events: kernels, copies, fills), the ten
     largest and every one of the port's kernels, and the device's busy
-    share of the wall time."""
+    share of the wall time.  Prints each span of a `Trace(profiler=True)`
+    among the profiler's events with its host time and the device time of
+    the kernels launched inside it, and returns the spans' names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -795,9 +831,10 @@ def profile_call(fn, label: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # a span's range on the device timeline is not device work
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
+              and e.self_device_time_total > 0 and not e.key.startswith(SPANS)]
     check(bool(events), f"profiler saw no device time in the {label} call")
     busy_us = sum(e.self_device_time_total for e in events)
     print(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, device busy "
@@ -808,18 +845,73 @@ def profile_call(fn, label: str) -> None:
         if i < 10 or PORT_KERNEL.search(e.key):
             print(f"[profile]   {e.self_device_time_total / 1e3:8.4f} ms  x{e.count:<4d} "
                   f"{e.key[:90]}", flush=True)
+    spans = {e.key: e for e in prof.key_averages()
+             if e.key.startswith(SPANS) and e.device_type == torch.autograd.DeviceType.CPU}
+    for name, e in sorted(spans.items()):
+        print(f"[profile]   span {name} x{e.count}: host {e.cpu_time_total / 1e3:.4f} ms, "
+              f"kernels inside {e.device_time_total / 1e3:.4f} ms", flush=True)
+    return set(spans)
 
 
 def timing_solves(paths: dict) -> None:
-    """Median of 5 warm solves (plan cached, kernels loaded) per path, then
-    one profiled solve each."""
+    """Median of 5 warm solves (plan cached, kernels loaded) per path, and
+    of 5 with telemetry on; the solve's set-up alone (priorities, bit
+    planes, state₀) and the profiler twin's phase split (`Solver.profile`,
+    median of 5 per phase) beside it, each profile held to the solve's MIS
+    and rounds; then one telemetry solve, one set-up, one solve and one
+    profile each under torch.profiler, the last two with
+    `Trace(profiler=True)`, whose spans must show among the profiler's
+    events."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Solver
+    from repro_torch.core.tc_mis import _setup
+    from repro_torch.obs import Trace
+
     for key, label in (("main", "segment phase ① (main path)"),
                        ("packed", "tiled phase ①, packed frontier")):
         solver, plan, res = paths[key]
         med, took = median_ms(lambda: solver.solve(plan))
         print(f"[timing] warm solve, {label}: median {med:.3f} ms "
               f"of {[round(x, 3) for x in took]}, rounds={res.rounds}", flush=True)
-        profile_call(lambda: solver.solve(plan), f"{label} solve")
+        on = Solver(dataclasses.replace(solver.options, telemetry=True), device="cuda")
+        med_on, took_on = median_ms(lambda: on.solve(plan))
+        print(f"[timing] warm solve with telemetry, {label}: median {med_on:.3f} ms "
+              f"of {[round(x, 3) for x in took_on]}", flush=True)
+        profile_call(lambda: on.solve(plan), f"{label} solve with telemetry")
+
+        def setup():
+            gen = torch.Generator(device="cuda").manual_seed(solver.options.seed)
+            return _setup(plan.g, plan.tiled, gen, solver.options)
+
+        med_setup, took_setup = median_ms(setup)
+        print(f"[timing] solve set-up alone, {label}: median {med_setup:.3f} ms "
+              f"of {[round(x, 3) for x in took_setup]}", flush=True)
+        profile_call(setup, f"{label} set-up")
+        phases = {"phase1": [], "phase2": [], "phase3": []}
+        for _ in range(5):
+            prof, times = solver.profile(plan)
+            check(prof.rounds == res.rounds == times["rounds"]
+                  and np.array_equal(prof.in_mis, res.in_mis),
+                  f"{label}: Solver.profile differs from solve")
+            for k in phases:
+                phases[k].append(times[k] * 1e3 / res.rounds)
+        split = {k: statistics.median(v) for k, v in phases.items()}
+        print(f"[timing] profiler twin, {label}: ms per round, median of 5: "
+              f"phase ① {split['phase1']:.4f}, ②+③ {split['phase2']:.4f}, "
+              f"③ merge {split['phase3']:.4f}, sum {sum(split.values()):.4f}; "
+              f"warm solve {med / res.rounds:.4f} ms per round; "
+              f"all five {json.dumps({k: [round(x, 4) for x in v] for k, v in phases.items()})}",
+              flush=True)
+        spans = profile_call(lambda: solver.solve(plan, trace=Trace(label, profiler=True)),
+                             f"{label} solve")
+        check(spans == {"solver.solve", "solver.plan", "solver.execute"},
+              f"{label}: spans among the profiler's events: {sorted(spans)}")
+        spans = profile_call(lambda: solver.profile(plan, trace=Trace(label, profiler=True)),
+                             f"{label} profile")
+        check(spans == {"solver.profile", "solver.plan", "rounds.phase1", "rounds.phase2",
+                        "rounds.phase3"},
+              f"{label}: spans among the profiler's events: {sorted(spans)}")
 
 
 def counted(fn):

@@ -6,7 +6,7 @@ validated like the reference's, and resolved by the reference's own rules:
 the port's engines do not support hybrid routing, so `hybrid` plans
 "off"; `frontier` resolves as the reference resolves it (the packed words
 for a tile engine with `phase1="tiled"` on bitpack storage);
-`placement="sharded"` and `telemetry=True` raise at solve time; `repair`,
+`placement="sharded"` raises at solve time; `repair`,
 `repair_threshold`, `bitpack`, `shard_threshold` and `cache_dir` have no
 effect yet (ROADMAP.md, Queue 1).
 """
@@ -48,7 +48,8 @@ class SolveOptions:
       hybrid_threshold: nnz cut for the hybrid classifier
 
     Placement: placement (auto | local | sharded), shard_threshold, bitpack.
-    Dynamic graphs: repair, repair_threshold.  Observability: telemetry.
+    Dynamic graphs: repair, repair_threshold.  Observability: telemetry
+    (a per-round `obs.RoundTrace` in `SolveResult.telemetry`).
     Reproducibility / caching: seed (seeds the `torch.Generator` of
     `Solver.solve`), cache_dir, plan_cache_entries.
     """

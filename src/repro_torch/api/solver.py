@@ -3,8 +3,11 @@
 
 `Solver(options, device="cuda")` runs on the CUDA device and raises where
 there is none; `device="cpu"` must be asked for.  A graph handed to
-`solve` is moved to the solver's device.  `solve_many`, `update`,
-`profile` and the sharded route are not ported yet (ROADMAP.md, Queue 1).
+`solve` is moved to the solver's device.  `solve` takes a `trace`
+(`repro_torch.obs.Trace`) and, with `SolveOptions(telemetry=True)`,
+returns a `RoundTrace` in `SolveResult.telemetry`; `profile` runs the
+phase-timed twin.  `solve_many`, `update` and the sharded route are not
+ported yet (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -17,10 +20,12 @@ import torch
 
 from repro_torch.api.options import SolveOptions
 from repro_torch.api.plan import Plan, PlanCache, choose_tile_size, resolve_storage
-from repro_torch.core.engine import get_engine
-from repro_torch.core.tc_mis import run_tc_mis
+from repro_torch.core.engine import get_engine, resolve_frontier
+from repro_torch.core.tc_mis import run_phases, run_tc_mis
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.graph import Graph
+from repro_torch.obs.rounds import RoundTrace
+from repro_torch.obs.trace import Trace, trace_span
 
 GraphLike = Union[Graph, Plan]
 
@@ -34,6 +39,8 @@ class SolveResult:
     placement: str              # local
     plan: Plan
     stats: Dict[str, object] = dataclasses.field(default_factory=dict)
+    # the per-round series when SolveOptions.telemetry is on (obs.rounds)
+    telemetry: Optional[RoundTrace] = None
 
     @property
     def mis_size(self) -> int:
@@ -91,15 +98,7 @@ class Solver:
             return self.options.placement
         return "local"
 
-    def solve(
-        self,
-        graph: GraphLike,
-        *,
-        generator: Optional[torch.Generator] = None,
-    ) -> SolveResult:
-        """Solve one graph.  Priorities draw from `generator`, by default a
-        `torch.Generator` on the solver's device seeded with
-        `options.seed`."""
+    def _local_plan(self, graph: GraphLike) -> Plan:
         plan = self.plan(graph)
         if plan.device != self.device:
             raise ValueError(
@@ -109,16 +108,42 @@ class Solver:
             raise NotImplementedError(
                 "placement='sharded' is not ported yet (ROADMAP.md, Queue 1 item 16)"
             )
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(
-                self.options.seed
-            )
-        t0 = time.perf_counter()
-        result = run_tc_mis(plan.g, plan.tiled, generator, self.options)
-        in_mis_plan = result.in_mis.cpu().numpy().astype(bool)
-        rounds = int(result.rounds)
-        converged = bool(result.converged)
-        solve_ms = (time.perf_counter() - t0) * 1e3
+        return plan
+
+    def _generator(self, generator: Optional[torch.Generator]) -> torch.Generator:
+        if generator is not None:
+            return generator
+        return torch.Generator(device=self.device).manual_seed(self.options.seed)
+
+    def solve(
+        self,
+        graph: GraphLike,
+        *,
+        generator: Optional[torch.Generator] = None,
+        trace: Optional[Trace] = None,
+    ) -> SolveResult:
+        """Solve one graph.  Priorities draw from `generator`, by default a
+        `torch.Generator` on the solver's device seeded with
+        `options.seed`.
+
+        `trace` (`repro_torch.obs.Trace`, default None: no clock read)
+        records the spans `solver.solve` ⊃ `solver.plan`, `solver.execute`;
+        `execute` ends after the result's host copy, so it holds the
+        device work.  The port compiles no program, so there is no
+        `solver.compile` span (the reference's cold traced dispatch has
+        one)."""
+        with trace_span(trace, "solver.solve"):
+            with trace_span(trace, "solver.plan"):
+                plan = self._local_plan(graph)
+            generator = self._generator(generator)
+            t0 = time.perf_counter()
+            with trace_span(trace, "solver.execute"):
+                out = run_tc_mis(plan.g, plan.tiled, generator, self.options)
+                result, rt = self._split_telemetry(out, plan.g, plan.tiled)
+                in_mis_plan = result.in_mis.cpu().numpy().astype(bool)
+                rounds = int(result.rounds)
+                converged = bool(result.converged)
+            solve_ms = (time.perf_counter() - t0) * 1e3
         return SolveResult(
             in_mis=plan.to_original(in_mis_plan).astype(bool),
             rounds=rounds,
@@ -126,4 +151,55 @@ class Solver:
             placement="local",
             plan=plan,
             stats={"solve_ms": solve_ms, "device": str(self.device)},
+            telemetry=rt,
         )
+
+    def profile(
+        self,
+        graph: GraphLike,
+        *,
+        generator: Optional[torch.Generator] = None,
+        trace: Optional[Trace] = None,
+    ):
+        """The instrumented twin (`core.tc_mis.run_phases`): rounds stepped
+        from Python with a clock around each phase, synced on the card.
+        Returns `(SolveResult, times)` with times keyed phase1 / phase2 /
+        phase3 (seconds summed over the rounds) and rounds; the result
+        bit-matches `solve` on the same graph and generator seed.  `trace`
+        records `solver.profile` ⊃ `solver.plan` and each round's
+        `rounds.phase1` / `rounds.phase2` / `rounds.phase3`."""
+        with trace_span(trace, "solver.profile"):
+            with trace_span(trace, "solver.plan"):
+                plan = self._local_plan(graph)
+            result, times = run_phases(plan.g, plan.tiled, self._generator(generator),
+                                       self.options, trace=trace)
+        in_mis_plan = result.in_mis.cpu().numpy().astype(bool)
+        res = SolveResult(
+            in_mis=plan.to_original(in_mis_plan).astype(bool),
+            rounds=int(result.rounds),
+            converged=bool(result.converged),
+            placement="local",
+            plan=plan,
+            stats=dict(times, device=str(self.device)),
+        )
+        return res, times
+
+    def _split_telemetry(self, out, g: Graph, tiled):
+        """Telemetry off: `out` is the result → (result, None).  Telemetry
+        on: `out` is `(result, buffer)`; the buffer comes to the host here,
+        its one device→host transfer, as a `RoundTrace`."""
+        if not self.options.telemetry:
+            return out, None
+        result, buf = out
+        rounds = int(result.rounds)
+        engine = get_engine(self.options.engine)
+        meta = dict(
+            scope="solve",
+            engine=self.options.engine,
+            storage=tiled.storage,
+            frontier=resolve_frontier(self.options, engine, storage=tiled.storage),
+            n_nodes=g.n_nodes,
+        )
+        rt = RoundTrace.from_buffer(buf.cpu().numpy(), rounds,
+                                    tiles_total=tiled.n_tiles_pad, meta=meta)
+        return result, rt

@@ -31,6 +31,10 @@ routing yet (`supports_hybrid = False`), so the Solver plans it off.
 Per-round metadata: tiled engines gate block-columns with no candidate off
 (`block_col_flags`, ANDed with the static `col_gate`); a gated column
 contributes nothing on any lane, in the kernels and in `tile_spmv` alike.
+
+Telemetry runs step `step_with_stats` instead of `step`: the same round
+body, the same kernel launches and the same column flags, plus six
+reductions into one `obs.rounds` row.  `step` itself carries no telemetry.
 """
 from __future__ import annotations
 
@@ -55,6 +59,15 @@ from repro_torch.core.tiling import (
     unpack_frontier_words,
 )
 from repro_torch.graphs.graph import Graph
+from repro_torch.obs.rounds import (
+    COL_ALIVE,
+    COL_FRONTIER,
+    COL_SELECTED,
+    COL_TILES_DENSE,
+    COL_TILES_SKIPPED,
+    COL_TILES_SPARSE,
+    TELEMETRY_COLS,
+)
 
 
 # --------------------------------------------------------------------------
@@ -337,6 +350,86 @@ def phase3_update_bits(
 
 
 # --------------------------------------------------------------------------
+# round telemetry reductions: folds over state the round body already
+# holds; used only by `step_with_stats`, never by `step`.  Each op is a
+# host dispatch, so a round's four set sizes are taken in one stacked pass.
+# --------------------------------------------------------------------------
+
+_POP8: Dict[torch.device, torch.Tensor] = {}
+
+
+def _byte_popcounts(device: torch.device) -> torch.Tensor:
+    """(256,) int32 popcount of every byte value, made once per device."""
+    table = _POP8.get(device)
+    if table is None:
+        table = torch.tensor([bin(b).count("1") for b in range(256)], dtype=torch.int32,
+                             device=device)
+        _POP8[device] = table
+    return table
+
+
+def _set_sizes(sets: torch.Tensor) -> torch.Tensor:
+    """Sizes of k stacked vertex sets: (k, n) bool vectors, or (k, nbc, W)
+    packed int32 words (the bits of uint32 words) → (k,) int32; the
+    reference's `_count` and `_popcount_words`, k sets at a time.  torch
+    has no popcount: a word counts as the sum of its four bytes' counts,
+    read from a 256-entry table through a uint8 view."""
+    k = sets.shape[0]
+    if sets.dtype == torch.bool:
+        return sets.reshape(k, -1).sum(dim=1, dtype=torch.int32)
+    table = _byte_popcounts(sets.device)
+    return table[sets.reshape(k, -1).view(torch.uint8).long()].sum(dim=1, dtype=torch.int32)
+
+
+def _tiles_skipped(ctx: EngineContext, flags: Optional[torch.Tensor]) -> torch.Tensor:
+    """Tiles gated off this round by the empty-C column skip: every tile,
+    padding included (`n_tiles_pad`, as the reference counts
+    `tile_cols.shape[0]`), whose block column has flag 0.  An engine
+    without flags (segment) skips nothing: 0."""
+    if flags is None:
+        return torch.zeros((), dtype=torch.int32, device=ctx.tiled.device)
+    kept = torch.index_select(flags, 0, ctx.tiled.tile_cols).sum(dtype=torch.int32)
+    return ctx.tiled.n_tiles_pad - kept
+
+
+def _tiles_routed_dense(
+    ctx: EngineContext, skipped: torch.Tensor, flags: Optional[torch.Tensor]
+) -> torch.Tensor:
+    """Tiles dispatched on the dense path this round: the stored list
+    minus the gated ones.  An engine with no tile schedule routes none."""
+    if flags is None:
+        return torch.zeros((), dtype=torch.int32, device=ctx.tiled.device)
+    return ctx.tiled.n_tiles_pad - skipped
+
+
+def _telemetry_row(alive, frontier, selected, skipped, tiles_dense, tiles_sparse) -> torch.Tensor:
+    """(TELEMETRY_COLS,) int32 row in the `obs.rounds` column layout,
+    built on the device from 0-dim int32 tensors."""
+    vals = [None] * TELEMETRY_COLS
+    vals[COL_ALIVE] = alive
+    vals[COL_FRONTIER] = frontier
+    vals[COL_SELECTED] = selected
+    vals[COL_TILES_SKIPPED] = skipped
+    vals[COL_TILES_DENSE] = tiles_dense
+    vals[COL_TILES_SPARSE] = tiles_sparse
+    return torch.stack(vals)
+
+
+def _round_row(ctx: EngineContext, state, cand, new, flags) -> torch.Tensor:
+    """One round's telemetry row, on either frontier: the sizes of alive
+    at entry, of C, and of in_mis after minus before; the tiles the
+    round's own column flags skipped and kept; no COO tail (0)."""
+    alive, frontier, mis_new, mis_old = _set_sizes(
+        torch.stack((state.alive, cand, new.in_mis, state.in_mis))).unbind()
+    skipped = _tiles_skipped(ctx, flags)
+    return _telemetry_row(
+        alive, frontier, mis_new - mis_old, skipped,
+        _tiles_routed_dense(ctx, skipped, flags),
+        torch.zeros((), dtype=torch.int32, device=alive.device),
+    )
+
+
+# --------------------------------------------------------------------------
 # the engine interface
 # --------------------------------------------------------------------------
 
@@ -410,6 +503,36 @@ class TorchRoundEngine:
             )
         n_c = self.phase2_counts(ctx, cand, state.alive, flags)
         return phase3_update(state, cand, n_c, inc)
+
+    # -- the instrumented round body (telemetry runs only) -----------------
+    def _step_bits_with_stats(self, ctx, pri, state: MISRoundState):
+        raise NotImplementedError(
+            f"{self.name} has no packed-frontier round body "
+            f"(supports_bitwise={self.supports_bitwise})"
+        )
+
+    def step_with_stats(
+        self, ctx: EngineContext, pri, state: MISRoundState
+    ) -> Tuple[MISRoundState, torch.Tensor]:
+        """`step` plus a (TELEMETRY_COLS,) int32 row on the device: the
+        same round body, kernel launches and column flags, plus six
+        reductions (no extra SpMV, no host read)."""
+        if ctx.frontier == "bitwise":
+            return self._step_bits_with_stats(ctx, pri, state)
+        cand = self.phase1_candidates(ctx, pri, state.alive)
+        flags = self.col_flags(ctx, cand)
+        inc = round_increment(state)
+        if self.fused:
+            new_alive, mis_add = self.fused_step(ctx, cand, state.alive, flags)
+            new = MISRoundState(
+                alive=new_alive,
+                in_mis=state.in_mis | mis_add,
+                rnd=state.rnd + inc,
+            )
+        else:
+            n_c = self.phase2_counts(ctx, cand, state.alive, flags)
+            new = phase3_update(state, cand, n_c, inc)
+        return new, _round_row(ctx, state, cand, new, flags)
 
 
 # --------------------------------------------------------------------------
@@ -566,6 +689,24 @@ class TorchTiledEngine(TorchRoundEngine):
             )
         hit_w = self.phase2_hits(ctx, cand_w, state.alive, flags)
         return phase3_update_bits(state, cand_w, hit_w, inc)
+
+    def _step_bits_with_stats(self, ctx, pri, state: MISRoundState):
+        """`step_bits` plus the telemetry row; the counts are word
+        popcounts, so the frontier never unpacks."""
+        cand_w = self.phase1_candidates_bits(ctx, pri, state.alive)
+        flags = self.col_flags_bits(ctx, cand_w)
+        inc = round_increment(state)
+        if self.fused:
+            new_alive, mis_add = self.fused_step_bits(ctx, cand_w, state.alive, flags)
+            new = MISRoundState(
+                alive=new_alive,
+                in_mis=state.in_mis | mis_add,
+                rnd=state.rnd + inc,
+            )
+        else:
+            hit_w = self.phase2_hits(ctx, cand_w, state.alive, flags)
+            new = phase3_update_bits(state, cand_w, hit_w, inc)
+        return new, _round_row(ctx, state, cand_w, new, flags)
 
 
 class TorchTiledRefEngine(TorchTiledEngine):

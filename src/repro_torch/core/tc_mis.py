@@ -11,8 +11,15 @@ Python loop that syncs once per round on `alive.any()`; it runs exactly
 the rounds the reference runs, so `rounds` is equal.  On the bitwise
 frontier the state rides as packed words through the whole loop and
 `in_mis` unpacks once, in `_result`.
+
+`run_phases` is the profiler twin (the reference's `_run_phases_impl`):
+the same round body, stepped phase by phase with a device sync and a
+host clock after each.
 """
 from __future__ import annotations
+
+import time
+from typing import Dict, Tuple
 
 import torch
 
@@ -21,7 +28,10 @@ from repro_torch.core.engine import (
     MISRoundState,
     get_engine,
     make_bitwise_context,
+    phase3_update,
+    phase3_update_bits,
     resolve_frontier,
+    round_increment,
 )
 from repro_torch.core.heuristics import Priorities, make_priorities
 from repro_torch.core.luby import MISResult
@@ -33,6 +43,8 @@ from repro_torch.core.tiling import (
     unpack_frontier_words,
 )
 from repro_torch.graphs.graph import Graph
+from repro_torch.obs.rounds import TELEMETRY_COLS, TELEMETRY_FILL
+from repro_torch.obs.trace import Trace, trace_span
 
 
 def _pad_priorities(pri: Priorities, tiled: BlockTiledGraph) -> Priorities:
@@ -132,17 +144,19 @@ def run_tc_mis(
     col_gate: torch.Tensor | None = None,
     member_rounds: bool = False,
     in_mis0: torch.Tensor | None = None,
-) -> MISResult:
+):
     """Run TC-MIS to convergence or `config.max_rounds`.
 
     The loop behind `repro_torch.api.Solver.solve`.  One host sync per
     round (`alive.any()`); the round counter stays on the device.  With
     `member_rounds`, `MISResult.rounds` is the per-vertex settle-round
-    vector (sliced to real vertices)."""
-    if getattr(config, "telemetry", False):
-        raise NotImplementedError(
-            "telemetry=True is not ported yet (ROADMAP.md, Queue 1 item 15)"
-        )
+    vector (sliced to real vertices).
+
+    With `config.telemetry` the loop also carries a (max_rounds,
+    TELEMETRY_COLS) int32 buffer on the device, filled with
+    TELEMETRY_FILL; round r writes row r (`engine.step_with_stats`) at a
+    device index, with no host read, and the return becomes
+    `(result, buffer)`, as the reference's `_tc_mis_impl` returns it."""
     engine, ctx, pri, state = _setup(
         g, tiled, generator, config, priorities, alive0, col_gate,
         member_rounds, in_mis0,
@@ -151,7 +165,111 @@ def run_tc_mis(
     # anything is alive, so the host count bounds the loop exactly like the
     # reference's `max(rnd) < max_rounds`
     rounds = 0
+    if not getattr(config, "telemetry", False):
+        while rounds < config.max_rounds and bool(state.alive.any()):
+            state = engine.step(ctx, pri, state)
+            rounds += 1
+        return _result(state, g, tiled)
+
+    buf = torch.full((int(config.max_rounds), TELEMETRY_COLS), TELEMETRY_FILL,
+                     dtype=torch.int32, device=tiled.device)
     while rounds < config.max_rounds and bool(state.alive.any()):
-        state = engine.step(ctx, pri, state)
+        new, row = engine.step_with_stats(ctx, pri, state)
+        # the current round's index: rnd, or max(rnd) when it counts per
+        # vertex (a vertex alive now has counted every round so far)
+        at = state.rnd.max() if state.rnd.ndim else state.rnd
+        buf.index_copy_(0, at.reshape(1).long(), row[None])
+        state = new
         rounds += 1
-    return _result(state, g, tiled)
+    return _result(state, g, tiled), buf
+
+
+def run_phases(
+    g: Graph,
+    tiled: BlockTiledGraph,
+    generator: torch.Generator | None,
+    config,
+    *,
+    priorities: Priorities | None = None,
+    trace: Trace | None = None,
+) -> Tuple[MISResult, Dict[str, float]]:
+    """The profiler twin: the engine's round body stepped from Python,
+    with a clock around each phase.
+
+    What `repro_torch.api.Solver.profile` runs; `run_tc_mis` is the
+    production loop.  Returns (result, {"phase1": s, "phase2": s,
+    "phase3": s, "rounds": k}).  Phase ① is the candidate selection with
+    its neighbour maxes; phase ② the SpMV with the column flags it reads
+    (for fused engines the ②+③ kernel pass); phase ③ the own-state update
+    (for fused engines the residual state merge).  On the card each phase
+    ends with `torch.cuda.synchronize`, so its time includes the device
+    work it queued; on the CPU every op is synchronous already.  One
+    warm-up round, from the first state and thrown away, runs outside the
+    timers (it loads the kernels).  `trace` records each timed phase of
+    each round as a span, `rounds.phase1` / `rounds.phase2` /
+    `rounds.phase3`, sync included."""
+    engine, ctx, pri, state0 = _setup(g, tiled, generator, config, priorities)
+    dev = tiled.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    if ctx.frontier == "bitwise":
+        def p1(alive):
+            return engine.phase1_candidates_bits(ctx, pri, alive)
+
+        if engine.fused:
+            def p2(cand, alive):
+                return engine.fused_step_bits(ctx, cand, alive, engine.col_flags_bits(ctx, cand))
+        else:
+            def p2(cand, alive):
+                return engine.phase2_hits(ctx, cand, alive, engine.col_flags_bits(ctx, cand))
+        p3 = phase3_update_bits
+    else:
+        def p1(alive):
+            return engine.phase1_candidates(ctx, pri, alive)
+
+        if engine.fused:
+            def p2(cand, alive):
+                return engine.fused_step(ctx, cand, alive, engine.col_flags(ctx, cand))
+        else:
+            def p2(cand, alive):
+                return engine.phase2_counts(ctx, cand, alive, engine.col_flags(ctx, cand))
+        p3 = phase3_update
+
+    def advance(state, cand, out):
+        inc = round_increment(state)
+        if engine.fused:
+            new_alive, mis_add = out
+            return MISRoundState(alive=new_alive, in_mis=state.in_mis | mis_add,
+                                 rnd=state.rnd + inc)
+        return p3(state, cand, out, inc)
+
+    c = p1(state0.alive)
+    advance(state0, c, p2(c, state0.alive))
+    sync()
+
+    state = state0
+    times = {"phase1": 0.0, "phase2": 0.0, "phase3": 0.0}
+    rounds = 0
+    while bool(state.alive.any()) and rounds < config.max_rounds:
+        t0 = time.perf_counter()
+        with trace_span(trace, "rounds.phase1"):
+            cand = p1(state.alive)
+            sync()
+        t1 = time.perf_counter()
+        with trace_span(trace, "rounds.phase2"):
+            out = p2(cand, state.alive)
+            sync()
+        t2 = time.perf_counter()
+        with trace_span(trace, "rounds.phase3"):
+            state = advance(state, cand, out)
+            sync()
+        t3 = time.perf_counter()
+        times["phase1"] += t1 - t0
+        times["phase2"] += t2 - t1
+        times["phase3"] += t3 - t2
+        rounds += 1
+    times["rounds"] = rounds
+    return _result(state, g, tiled), times

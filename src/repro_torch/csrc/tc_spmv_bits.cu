@@ -23,32 +23,32 @@
 // negligible.
 //
 // Design.
-// * The fused kernel at T <= 16 (the main packed path), a lane per tile
-//   (`spmv_bits_tile_lanes`).  The form before it, a thread per vertex row
-//   walking its block-row's tiles until its first hit, made every step a
-//   chain of dependent loads (tile column, flag, candidate word, tile
-//   word) and split the lanes of a warp over block-rows of unequal length.
-//   Here a warp owns groups of 64 output rows (64 / T block-rows) and walks
-//   a group's tiles 32 at a time, one tile per lane: the column, flag and
-//   candidate loads of 32 tiles are in flight together, and a lane whose
-//   column is not gated (and has a candidate) loads its whole tile, T
-//   words, as 16-byte loads.  It forms the tile's T-bit hit mask,
-//   OR_v [(row_v & cand) != 0] << v, and the masks are ORed into each
-//   block-row's word by one warp reduction per block-row of the group
-//   (__reduce_or_sync, reached by every lane: no warp collective sits
+// * Both kernels at T <= 16 (the main packed path), a lane per tile
+//   (`spmv_bits_tile_lanes<T, FUSED>`).  The form before it, a thread per
+//   vertex row walking its block-row's tiles until its first hit, made
+//   every step a chain of dependent loads (tile column, flag, candidate
+//   word, tile word) and split the lanes of a warp over block-rows of
+//   unequal length.  Here a warp owns groups of 64 output rows (64 / T
+//   block-rows) and walks a group's tiles 32 at a time, one tile per lane:
+//   the column, flag and candidate loads of 32 tiles are in flight
+//   together, and a lane whose column is not gated (and has a candidate)
+//   loads its whole tile, T words, as 16-byte loads.  It forms the tile's
+//   T-bit hit mask, OR_v [(row_v & cand) != 0] << v, and the masks are ORed
+//   into each block-row's word by one warp reduction per block-row of the
+//   group (__reduce_or_sync, reached by every lane: no warp collective sits
 //   under a lane-dependent branch).  Lane j then writes block-row r0 + j's
-//   hit, new_alive and mis_add words.  The grid holds at most the CTAs the
-//   card runs at once; each warp strides over the groups, loading the next
-//   group's bounds and first 32 tile columns while it works on the current
-//   one.
-// * Everything else (the fused kernel at T >= 32, the split kernel at every
-//   T): a thread per vertex row (`spmv_bits_rows`).  Thread g = r·T + v
-//   walks block-row r's tiles row_starts[r] .. row_starts[r+1] and stops at
-//   its first hit; a gated column is skipped before its tile is loaded.
-//   The output words are built with __ballot_sync over the row threads: for
-//   T >= 32 a warp's 32 threads are exactly one output word (word g / 32),
-//   for T < 32 a warp holds 32 / T block-rows and the first thread of each
-//   writes its T-bit slice.  Every word has one writer.
+//   hit word and, fused, its new_alive and mis_add words.  The split
+//   kernel's epilogue reads no `alive` and no candidate word by block-row,
+//   so its block grid may be non-square.  The grid holds at most the CTAs
+//   the card runs at once; each warp strides over the groups, loading the
+//   next group's bounds and first 32 tile columns while it works on the
+//   current one.
+// * Both kernels at T >= 32: a thread per vertex row (`spmv_bits_rows`).
+//   Thread g = r·T + v walks block-row r's tiles row_starts[r] ..
+//   row_starts[r+1] and stops at its first hit; a gated column is skipped
+//   before its tile is loaded.  The output words are built with
+//   __ballot_sync over the row threads: a warp's 32 threads are exactly
+//   one output word (word g / 32).  Every word has one writer.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,7 +82,7 @@ struct Words {
 };
 
 // ---------------------------------------------------------------------------
-// the fused kernel at T <= 16: a lane per tile
+// both kernels at T <= 16: a lane per tile
 // ---------------------------------------------------------------------------
 
 // The T row words of tile t (T·4 bytes: 16-byte loads).
@@ -96,7 +96,7 @@ __device__ __forceinline__ void tile_rows(const uint32_t* tiles, int t, uint32_t
   }
 }
 
-template <int T>
+template <int T, bool FUSED>
 __global__ void __launch_bounds__(WARPS * 32)
 spmv_bits_tile_lanes(const Args a) {
   constexpr int RB = ROWS_PER_WARP / T;   // block-rows per group
@@ -152,21 +152,24 @@ spmv_bits_tile_lanes(const Args a) {
     if (next < __shfl_sync(FULL, bound_next, RB)) col_first = __ldg(a.tile_cols + next);
     const int r = r0 + lane;
     if (lane < RB && r < a.nbr) {
-      const uint32_t c = __ldg(a.cand + r);
       a.hit[r] = hit;
-      a.new_alive[r] = __ldg(a.alive + r) & ~c & ~hit & LIVE;
-      a.mis_add[r] = c & LIVE;
+      if constexpr (FUSED) {
+        const uint32_t c = __ldg(a.cand + r);
+        a.new_alive[r] = __ldg(a.alive + r) & ~c & ~hit & LIVE;
+        a.mis_add[r] = c & LIVE;
+      }
     }
     bound = bound_next;
   }
 }
 
 // ---------------------------------------------------------------------------
-// the split kernel, and the fused one at T >= 32: a thread per vertex row
+// both kernels at T >= 32: a thread per vertex row
 // ---------------------------------------------------------------------------
 
 template <int T, bool FUSED>
 __global__ void spmv_bits_rows(const Args a) {
+  static_assert(T >= 32, "a warp's row threads must make whole words");
   constexpr int W = Words<T>::W;
   constexpr uint32_t LIVE = Words<T>::LIVE;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
@@ -189,19 +192,9 @@ __global__ void spmv_bits_rows(const Args a) {
     }
   }
   // every lane of the warp reaches the ballot, in range or not
-  const uint32_t ballot = __ballot_sync(FULL, hit);
-  if (!in_range) return;
-  size_t word;
-  uint32_t h;
-  if constexpr (T >= 32) {
-    if ((threadIdx.x & 31) != 0) return;
-    word = (size_t)g / 32;               // = r·W + v / 32
-    h = ballot;
-  } else {
-    if (v != 0) return;
-    word = (size_t)r;
-    h = (ballot >> (threadIdx.x & 31)) & LIVE;
-  }
+  const uint32_t h = __ballot_sync(FULL, hit);
+  if (!in_range || (threadIdx.x & 31) != 0) return;
+  const size_t word = (size_t)g / 32;    // = r·W + v / 32
   a.hit[word] = h;
   if constexpr (FUSED) {
     const uint32_t c = cand[word];
@@ -219,25 +212,29 @@ int resident_ctas(Kernel kernel) {
   return max(sms * per_sm, 1);
 }
 
+template <int T, bool FUSED>
+cudaError_t launch_tile_lanes(const Args& a, cudaStream_t s) {
+  static int resident = 0;   // asked once per kernel
+  if (!resident) resident = resident_ctas(spmv_bits_tile_lanes<T, FUSED>);
+  constexpr int per_cta = WARPS * (ROWS_PER_WARP / T);
+  const int grid = min((a.nbr + per_cta - 1) / per_cta, resident);
+  spmv_bits_tile_lanes<T, FUSED><<<grid, WARPS * 32, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
 template <int T>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   const bool fused = a.alive != nullptr;
   if constexpr (T <= 16) {
-    if (fused) {
-      static int resident = 0;   // asked once per kernel
-      if (!resident) resident = resident_ctas(spmv_bits_tile_lanes<T>);
-      constexpr int per_cta = WARPS * (ROWS_PER_WARP / T);
-      const int grid = min((a.nbr + per_cta - 1) / per_cta, resident);
-      spmv_bits_tile_lanes<T><<<grid, WARPS * 32, 0, s>>>(a);
-      return cudaGetLastError();
-    }
+    return fused ? launch_tile_lanes<T, true>(a, s) : launch_tile_lanes<T, false>(a, s);
+  } else {
+    const int grid = (int)(((int64_t)a.nbr * T + kThreads - 1) / kThreads);
+    if (fused)
+      spmv_bits_rows<T, true><<<grid, kThreads, 0, s>>>(a);
+    else
+      spmv_bits_rows<T, false><<<grid, kThreads, 0, s>>>(a);
+    return cudaGetLastError();
   }
-  const int grid = (int)(((int64_t)a.nbr * T + kThreads - 1) / kThreads);
-  if (fused)
-    spmv_bits_rows<T, true><<<grid, kThreads, 0, s>>>(a);
-  else
-    spmv_bits_rows<T, false><<<grid, kThreads, 0, s>>>(a);
-  return cudaGetLastError();
 }
 
 }  // namespace

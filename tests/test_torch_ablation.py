@@ -78,6 +78,18 @@ def test_spmv_bits_ablation_texts_occur_once(copy):
         assert src.count(old) == 1 and new != old
 
 
+def test_spmv_bits_lane_per_tile_texts_reach_both_kernels():
+    """The lane-per-tile texts sit in the one template that the fused and
+    the split kernel both launch at T <= 16, so every copy times both in
+    the new form."""
+    src = (CSRC / "tc_spmv_bits.cu").read_text()
+    start = src.index("spmv_bits_tile_lanes(const Args a)")
+    end = src.index("__global__", start)
+    for old, _ in spmv_bits_ablation._TILE_LANES.values():
+        assert start < src.index(old) < end
+    assert "launch_tile_lanes<T, true>" in src and "launch_tile_lanes<T, false>" in src
+
+
 @pytest.mark.parametrize("tool", sorted(FORM_TOOLS))
 def test_form_tools_copies_all_differ_from_the_kernel(tool):
     module, _, source = FORM_TOOLS[tool]

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.engine import block_col_flags
+from repro_torch.core.engine import block_col_flags, live_bits
 from repro_torch.core.tiling import build_block_tiles, pack_frontier_words, pack_priority_planes
 from repro_torch.graphs.graph import from_edges
 from repro_torch.hopper import embedding_bag as E
@@ -245,6 +245,48 @@ def _gated_flags(t, cand, gen):
     return (block_col_flags(cand, t.tile_size) * gate.to(torch.int32)).contiguous()
 
 
+def _hold_split_bits(t, cand, flags):
+    """The split packed SpMV, launched once per call, bit-equal to its plain
+    version, with no bit above T set; returns its hit words."""
+    cand_w = pack_frontier_words(cand, t.tile_size)
+    launches = K.tc_spmv_bits.launches
+    hit = K.tc_spmv_bits(t, cand_w, col_flags=flags)
+    assert K.tc_spmv_bits.launches == launches + 1
+    assert torch.equal(hit, K.tc_spmv_bits_plain(t, cand_w, col_flags=flags))
+    assert not bool((hit & ~live_bits(t.tile_size)).any())
+    return hit
+
+
+def _wide_row_tiling(device, T):
+    """Block-row 0 owns 48 tiles (two 32-tile chunks of the lane-per-tile
+    warp at T <= 16) and the vertices past 48·T have no edge: returns the
+    tiling and its empty block-rows."""
+    rng = np.random.default_rng(T)
+    n = 64 * T
+    j = np.arange(48 * T)
+    src = np.concatenate([(j + 1) % T, rng.integers(0, 48 * T, 96 * T)])   # no self-loop
+    dst = np.concatenate([j, rng.integers(0, 48 * T, 96 * T)])
+    t = build_block_tiles(from_edges(src, dst, n, device=device), tile_size=T,
+                          storage="bitpack")
+    assert int(t.row_starts[1]) == 48
+    empty = t.row_starts[1:] == t.row_starts[:-1]
+    assert bool(empty[48:].all())
+    return t, empty
+
+
+def _several_groups_tiling(device, T):
+    """More groups of block-rows than the card holds warps (at most 64 per
+    SM): each warp of a resident lane-per-tile grid strides over several
+    groups."""
+    from repro_torch.graphs import grid2d
+
+    t = build_block_tiles(grid2d(1100, 1100, device=device), tile_size=T,
+                          storage="bitpack")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    assert t.n_block_rows // max(64 // T, 1) > 64 * sms
+    return t
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("T", [8, 16, 32, 64, 128])
 def test_fused_bits_kernel_gated_columns_and_empty_block_rows_on_card(cuda_device, T):
@@ -252,16 +294,7 @@ def test_fused_bits_kernel_gated_columns_and_empty_block_rows_on_card(cuda_devic
     warp at T <= 16), the vertices past 48·T have no edge (empty block-rows:
     hit 0, the trivial rule), and columns are ungated, gated by the
     candidates, or with a third gated off besides."""
-    rng = np.random.default_rng(T)
-    n = 64 * T
-    j = np.arange(48 * T)
-    src = np.concatenate([(j + 1) % T, rng.integers(0, 48 * T, 96 * T)])   # no self-loop
-    dst = np.concatenate([j, rng.integers(0, 48 * T, 96 * T)])
-    t = build_block_tiles(from_edges(src, dst, n, device=cuda_device), tile_size=T,
-                          storage="bitpack")
-    assert int(t.row_starts[1]) == 48
-    empty = t.row_starts[1:] == t.row_starts[:-1]
-    assert bool(empty[48:].all())
+    t, empty = _wide_row_tiling(cuda_device, T)
     gen, cand, alive = _frontier(t, cuda_device, 40)
     for flags in (None, block_col_flags(cand, T), _gated_flags(t, cand, gen)):
         hit, new_alive, mis_add = _hold_fused_bits(t, cand, alive, flags)
@@ -277,15 +310,71 @@ def test_fused_bits_kernel_warps_take_several_groups_on_card(cuda_device, T):
     several groups and carries its prefetched bounds and columns from one
     to the next (T = 128 runs the thread-per-row kernel, on the same
     graph)."""
-    from repro_torch.graphs import grid2d
-
-    t = build_block_tiles(grid2d(1100, 1100, device=cuda_device), tile_size=T,
-                          storage="bitpack")
-    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert t.n_block_rows // max(64 // T, 1) > 64 * sms
+    t = _several_groups_tiling(cuda_device, T)
     gen, cand, alive = _frontier(t, cuda_device, 41)
     for flags in (None, _gated_flags(t, cand, gen)):
         _hold_fused_bits(t, cand, alive, flags)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [8, 16])
+def test_split_bits_kernel_gated_columns_and_empty_block_rows_on_card(cuda_device, T):
+    """The split packed SpMV's lane-per-tile form on the 48-tile block-row
+    and the empty block-rows (hit 0), with columns ungated, gated by the
+    candidates, or with a third gated off besides."""
+    t, empty = _wide_row_tiling(cuda_device, T)
+    gen, cand, _ = _frontier(t, cuda_device, 42)
+    for flags in (None, block_col_flags(cand, T), _gated_flags(t, cand, gen)):
+        hit = _hold_split_bits(t, cand, flags)
+        assert not bool(hit[empty].any())
+    assert bool(hit.any())
+
+
+def _sub_grid(t, n_rows, n_cols):
+    """The tiles of `t` in block-rows < n_rows and block-columns < n_cols,
+    as an (n_rows x n_cols) block grid."""
+    import dataclasses
+
+    nt = t.n_tiles
+    keep = ((t.tile_rows[:nt] < n_rows) & (t.tile_cols[:nt] < n_cols)).nonzero().flatten()
+    rows = t.tile_rows[keep].contiguous()
+    row_starts = torch.zeros(n_rows + 1, dtype=torch.int32, device=rows.device)
+    row_starts[1:] = torch.bincount(rows.long(), minlength=n_rows).cumsum(0)
+    return dataclasses.replace(
+        t, tiles=t.tiles[keep].contiguous(), tile_rows=rows,
+        tile_cols=t.tile_cols[keep].contiguous(), row_starts=row_starts,
+        n_tiles=int(keep.numel()), n_nodes=max(n_rows, n_cols) * t.tile_size,
+        n_block_rows=n_rows, n_block_cols=n_cols)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [8, 16])
+def test_split_bits_kernel_non_square_block_grid_on_card(cuda_device, T):
+    """The split kernel reads candidate words by block-column only, so a
+    block grid with more rows than columns (block-rows past nbc) or more
+    columns than rows runs; the fused wrapper refuses both."""
+    t = _card_tiling(cuda_device, T, "bitpack")
+    nb = t.n_block_rows
+    for n_rows, n_cols in ((nb, nb // 3), (nb // 3, nb)):
+        sub = _sub_grid(t, n_rows, n_cols)
+        assert sub.n_tiles > 0
+        gen = torch.Generator(device=cuda_device).manual_seed(43)
+        cand = torch.rand(n_cols * T, generator=gen, device=cuda_device) < 0.3
+        for flags in (None, _gated_flags(sub, cand, gen)):
+            _hold_split_bits(sub, cand, flags)
+        with pytest.raises(ValueError, match="square"):
+            K.tc_spmv_fused_bits(sub, pack_frontier_words(cand, T),
+                                 torch.zeros((n_rows, 1), dtype=torch.int32,
+                                             device=cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [8, 16])
+def test_split_bits_kernel_warps_take_several_groups_on_card(cuda_device, T):
+    t = _several_groups_tiling(cuda_device, T)
+    gen, cand, _ = _frontier(t, cuda_device, 44)
+    for flags in (None, _gated_flags(t, cand, gen)):
+        _hold_split_bits(t, cand, flags)
 
 
 @pytest.mark.gpu
@@ -472,6 +561,70 @@ def test_packed_solve_matches_tiled_ref_on_card(cuda_device, engine):
     want = Solver(SolveOptions(engine="tiled_ref", **opts), device=cuda_device).solve(g)
     assert got.converged and got.rounds == want.rounds
     assert np.array_equal(got.in_mis, want.in_mis)
+
+
+def _counts():
+    return {w.__name__: w.launches for w in (
+        K.tc_spmv, K.tc_spmv_fused, K.tc_spmv_bits, K.tc_spmv_fused_bits,
+        N.tc_neighbor_max, N.tc_neighbor_max_bits)}
+
+
+def _solve_counted(solver, g, how="solve"):
+    """One solve (or profile) and the kernel launches it made."""
+    before = _counts()
+    out = getattr(solver, how)(g)
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in _counts().items()}
+
+
+# the split packed path, the main path and the dense tiled phase ①
+CARD_PATHS = [
+    dict(engine="tiled_pallas", phase1="tiled", storage="bitpack"),
+    dict(engine="fused_pallas", phase1="segment", storage="bitpack"),
+    dict(engine="fused_pallas", phase1="tiled", storage="int8"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", CARD_PATHS, ids=lambda p: "-".join(p.values()))
+def test_telemetry_solve_on_card_equals_plain_solve(cuda_device, path):
+    """Telemetry on the card launches the same kernels as often, changes no
+    result, and records the trace `tiled_ref` records on the card."""
+    from repro_torch.api import Solver, SolveOptions
+    from repro_torch.graphs import grid2d
+
+    g = grid2d(300, 300, device=cuda_device)
+    opts = dict(tile_size=16, hybrid="off", **path)
+    off, n_off = _solve_counted(Solver(SolveOptions(**opts), device=cuda_device), g)
+    on, n_on = _solve_counted(
+        Solver(SolveOptions(telemetry=True, **opts), device=cuda_device), g)
+    assert n_on == n_off and sum(n_on.values()) > 0
+    assert on.rounds == off.rounds and np.array_equal(on.in_mis, off.in_mis)
+    rt = on.telemetry
+    rt.check_invariants()
+    assert rt.alive[0] == g.n_nodes and sum(rt.selected) == on.mis_size
+    ref = Solver(SolveOptions(telemetry=True, **dict(opts, engine="tiled_ref")),
+                 device=cuda_device).solve(g)
+    assert {k: v for k, v in rt.to_dict().items() if k != "meta"} == {
+        k: v for k, v in ref.telemetry.to_dict().items() if k != "meta"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", CARD_PATHS, ids=lambda p: "-".join(p.values()))
+def test_profile_on_card_equals_solve(cuda_device, path):
+    """The profiler twin on the card: the same MIS and rounds as `solve`,
+    the same kernels (plus one warm-up round), every phase timed."""
+    from repro_torch.api import Solver, SolveOptions
+    from repro_torch.graphs import grid2d
+
+    g = grid2d(300, 300, device=cuda_device)
+    solver = Solver(SolveOptions(tile_size=16, hybrid="off", **path), device=cuda_device)
+    want, n_solve = _solve_counted(solver, g)
+    (got, times), n_prof = _solve_counted(solver, g, "profile")
+    assert got.rounds == want.rounds == times["rounds"]
+    assert np.array_equal(got.in_mis, want.in_mis)
+    assert {k: v * (want.rounds + 1) // want.rounds for k, v in n_solve.items()} == n_prof
+    assert all(times[k] > 0.0 for k in ("phase1", "phase2", "phase3"))
 
 
 @pytest.mark.gpu

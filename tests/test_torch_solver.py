@@ -499,8 +499,6 @@ def test_solver_refuses_what_is_not_ported():
     g = from_edges(src, dst, n, device="cpu")
     with pytest.raises(NotImplementedError, match="sharded"):
         Solver(SolveOptions(placement="sharded"), device="cpu").solve(g)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        Solver(SolveOptions(telemetry=True), device="cpu").solve(g)
     with pytest.raises(NotImplementedError, match="hybrid"):
         port_plan.Plan.build(g, hybrid="auto")
 

@@ -17,11 +17,12 @@ each part is replaced; the copies compute wrong hits and are only timed):
   heads      both: what is left is the block-row heads (row_starts,
              tile_cols, col_flags), the epilogue and the stores
 
-The replaced texts are held per form of the source: a lane per tile (the
-fused kernel at T <= 16 of this form; its split kernel keeps a thread per
-vertex row and is timed unchanged) or a thread per vertex row (the earlier
-form, both kernels; its walk stops at a row's first hit, so a copy that
-changes the bits also changes how far the walk goes).  A source must hold
+The replaced texts are held per form of the source: a lane per tile
+(both kernels at T <= 16 of this form, one template; in the form before
+it only the fused kernel took a lane per tile and the split kernel,
+timed unchanged, kept a thread per vertex row) or a thread per vertex row
+(the earliest form, both kernels; its walk stops at a row's first hit, so
+a copy that changes the bits also changes how far the walk goes).  A source must hold
 every text of one form exactly once, or the tool stops.  Each copy is
 timed (CUDA events, warm and cold, as chip_smoke.py's timing phase) as
 the fused and the split kernel at the packed path's round-1 inputs
@@ -61,7 +62,9 @@ _ROWS = {
              "const uint32_t* c = cand + (size_t)r * W;"),
 }
 # {form: {copy: [(old text, new text), ...]}}; the lane-per-tile form comes
-# first, since its source keeps the thread-per-row kernel too
+# first, since its source keeps the thread-per-row kernel too (T >= 32).  Its
+# texts sit in the one template both kernels instantiate, so every copy
+# changes the split kernel as well as the fused one.
 FORMS = {
     form: {"no tile": [parts["tile"]], "no cand": [parts["cand"]],
            "heads": [parts["tile"], parts["cand"]]}
