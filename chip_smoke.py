@@ -27,9 +27,26 @@ Phases, each fatal on failure:
              RHS that puts one nonzero term in each output (the kernel's
              three bf16 parts must give back all 24 bits).  The packed
              kernels run on the bitpack plans, the plane scan on H3's
-             unsigned select keys and sign-biased resolve keys.
+             unsigned select keys and sign-biased resolve keys.  Then the
+             four kernels a hybrid round runs (split SpMV, split packed
+             SpMV, both neighbour maxes) on the compacted dense partition
+             of G2 at T = 16, both storages: at threshold 30 (67,338 dense
+             tiles, 783 block-rows with none) and at 68 (no real tile, only
+             the 8 padding tiles), gated and ungated, exact but the split
+             SpMV on randn (1e-5).
   3. paths   each path is one `Solver.solve(G2)`, with every launch count
              set to 0 just before it and read just after it:
+             - `SolveOptions()`, the defaults (`hybrid="auto"`): must plan
+               T = 16, bitpack, threshold 68 from the port's cost model, a
+               partition of 0 dense tiles, 476,063 tail tiles and 4,461,800
+               tail nnz; split SpMV once per round (on the empty dense
+               partition), fused SpMV never;
+             - `hybrid_threshold=30` (67,338 dense tiles): split SpMV once
+               per round; with `phase1="tiled"` (bitwise frontier): plane
+               scan 2×, split packed SpMV 1× per round; with
+               `frontier="dense"` too: dense neighbour max 2×, split SpMV
+               1×; and with telemetry: the trace of `tiled_ref`, 408,725
+               tail tiles in every round;
              - `SolveOptions(hybrid="off")` (fused engine, auto-T = 16,
                bitpack, segment phase ①): fused SpMV once per round; also
                with storage="int8"; and `tiled_pallas` on int8: split SpMV
@@ -48,7 +65,17 @@ Phases, each fatal on failure:
              Every other count must stay 0.  Each path converges to a valid
              MIS equal, in set and rounds, to the plain-torch `tiled_ref`
              engine's on the card with the same options and priorities, and
-             all paths give the same MIS.
+             all paths give the same MIS.  The kernels line's launches are
+             each kernel's on the first `hybrid="off"` path that runs it
+             (the full tiling phase 4 times); the hybrid paths' launches,
+             on the dense partitions, print on a line of their own.
+             Then the baselines: `ecl_mis(G2)` converges to a valid MIS
+             equal, in set and rounds, to `Solver.solve` with
+             `heuristic="ecl"` on the same priorities; `luby_mis(G2)`
+             converges to a valid MIS; their rounds and sizes print beside
+             TC-MIS's.  The G3 stand-in (`delaunay_like(524288)`) plans and
+             solves with `SolveOptions()` and with `hybrid="off"`, to the
+             same MIS; the generator, plan and partition seconds print.
   4. timing  CUDA-event times per launch (in the order plain, kernel,
              kernel, plain; the stream kept busy while a window's calls are
              enqueued) of each kernel and its plain version, at the round-1
@@ -70,7 +97,15 @@ Phases, each fatal on failure:
              port's kernels in it, the solve and the profile traced with
              `Trace(profiler=True)`: their spans (solver.*, rounds.phase*)
              must appear among the profiler's events, each printed with its
-             host time and the device time of the kernels inside it.
+             host time and the device time of the kernels inside it; all of
+             this for the default path and the threshold-30 paths (split
+             and packed) too.  Then the median of 5 warm runs of
+             `ecl_mis` and `luby_mis` on G2 and of the default path on G3;
+             and at the threshold-30 round-1 inputs, cold, the split SpMV
+             on the dense partition beside its bound and the tail's ②
+             segment sum, with the ms per dense tile, per tail nnz and the
+             break-even nnz they imply beside the cost model's 68 and 80
+             (printed only: the planner reads the model).
   5. deepfm  DeepFM serving at the full published CONFIG (39 fields,
              33,889,984 rows, d = 10, MLP 400-400-400), weights drawn on
              the card from seed 0, fields from `ClickStream(FIELD_VOCABS, B,
@@ -113,6 +148,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 G2_SHAPE = (1044, 1044)          # roadNet-PA stand-in, full size
+G3_N = 524_288                   # delaunay_n19 stand-in, full size
+# G2 at T = 16: threshold -> (dense tiles, tail tiles, tail nnz, block-rows
+# with no dense tile), of 476,063 tiles, 4,461,800 half-edges, 68,121 rows
+G2_PARTITIONS = {30: (67_338, 408_725, 2_441_660, 783), 68: (0, 476_063, 4_461_800, 68_121)}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM 32-bit rate outside the tensor cores
 CSRC = "src/repro_torch/csrc/"
@@ -465,6 +504,70 @@ def phase_kernels(g2) -> dict:
     return errs
 
 
+def phase_kernels_partition(g2, errs: dict) -> None:
+    """The four kernels of a hybrid round against their plain versions on
+    G2's compacted dense partitions (T = 16, both storages)."""
+    import torch
+    from repro_torch.api import Plan
+    from repro_torch.core.heuristics import make_priorities
+    from repro_torch.core.tiling import (
+        pack_frontier_words, pack_priority_planes, partition_tiles)
+    from repro_torch.hopper import tc_neighbor_max as N
+    from repro_torch.hopper import tc_spmv as K
+
+    n = g2.n_nodes
+    for storage in ("int8", "bitpack"):
+        tiled = Plan.build(g2, tile_size=16, storage=storage).tiled
+        T = tiled.tile_size
+        gen = torch.Generator(device="cuda").manual_seed(30)
+        pri = make_priorities("h3", gen, n, g2.degrees())
+        p = torch.nn.functional.pad(pri.select, (0, tiled.n_padded - n), value=-(1 << 30))
+        res = torch.nn.functional.pad(pri.resolve, (0, tiled.n_padded - n))
+        for thr, want in G2_PARTITIONS.items():
+            t0 = time.perf_counter()
+            part = partition_tiles(tiled, thr)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            dense = part.dense
+            uncovered = int((dense.row_starts[1:] == dense.row_starts[:-1]).sum())
+            got = (part.n_dense_tiles, part.n_sparse_tiles, part.sp_nnz, uncovered)
+            check(got == want, f"G2 partition at {thr}, {storage}: {got}, expected {want}")
+            what = f"dense partition at threshold {thr}, T=16, {storage}"
+            cand, alive, flags = random_frontier(dense, gen)
+            rhs01 = (torch.rand((dense.n_padded, 8), generator=gen, device="cuda") < 0.5).float()
+            rhs01[:, 0], rhs01[:, 1] = cand.float(), alive.float()
+            rhs = torch.randn((dense.n_padded, 8), generator=gen, device="cuda")
+            cand_w, alive_w = (pack_frontier_words(x, T) for x in (cand, alive))
+            err = 0.0
+            for fl in (flags, None):
+                how = f"{what}, flags {'on' if fl is not None else 'off'}"
+                exact(errs, "tc_spmv", K.tc_spmv(dense, rhs01, col_flags=fl),
+                      K.tc_spmv_plain(dense, rhs01, col_flags=fl), how + ", 0/1 RHS")
+                got_n, want_n = (K.tc_spmv(dense, rhs, col_flags=fl),
+                                 K.tc_spmv_plain(dense, rhs, col_flags=fl))
+                err = max(err, max_err(got_n, want_n))
+                check(torch.allclose(got_n, want_n, rtol=1e-5, atol=1e-5),
+                      f"split kernel != plain ({how}): max |err| {err}")
+                exact(errs, "tc_spmv_bits", K.tc_spmv_bits(dense, cand_w, col_flags=fl),
+                      K.tc_spmv_bits_plain(dense, cand_w, col_flags=fl), how)
+            errs["tc_spmv"] = max(errs.get("tc_spmv", 0.0), err)
+            exact(errs, "tc_neighbor_max", N.tc_neighbor_max(dense, p, alive),
+                  N.tc_neighbor_max_plain(dense, p, alive), what)
+            for key, n_bits, signed in ((p, 31, False), (res, 32, True)):
+                planes = pack_priority_planes(key, T, n_bits, signed=signed)
+                exact(errs, "tc_neighbor_max_bits",
+                      N.tc_neighbor_max_bits(dense, planes, alive_w, signed=signed),
+                      N.tc_neighbor_max_bits_plain(dense, planes, alive_w, signed=signed),
+                      f"{what}, {'signed' if signed else 'unsigned'} planes")
+            torch.cuda.synchronize()
+            print(f"[kernels] {what}: {part.n_dense_tiles} dense tiles, {uncovered} of "
+                  f"{dense.n_block_rows} block-rows with none, {part.n_sparse_tiles} tail "
+                  f"tiles, {part.sp_nnz} tail nnz (partitioned in {secs:.2f} s); "
+                  f"tc_spmv, tc_spmv_bits, tc_neighbor_max, tc_neighbor_max_bits all exact "
+                  f"but the split SpMV on randn, max|err|={err:.3g}", flush=True)
+            del part, dense
+
+
 def solve_path(g2, options, label: str, plans):
     """One `Solver.solve` with every launch count set to 0 just before it;
     returns (solver, plan, result, {kernel: launches}) read just after."""
@@ -489,7 +592,8 @@ def phase_paths(g2) -> dict:
     from repro_torch.core.validate import is_valid_mis
 
     plans = PlanCache()
-    launches = {}
+    launches = {}          # the kernels line's: hybrid="off" paths, timed tilings
+    hybrid_launches = {}   # path -> launches on the hybrid paths
     out = {}
     mis = {}
     refs = {}   # tiled_ref results by options
@@ -504,8 +608,11 @@ def phase_paths(g2) -> dict:
               f"{label}: MIS is not valid")
         want = {k: expect.get(k, 0) * res.rounds for k in KERNELS}
         check(counts == want, f"{label}: launches {counts}, expected {want}")
-        for k, per_round in expect.items():
-            launches.setdefault(k, counts[k])
+        if plan.tiled.partition is None:
+            for k in expect:
+                launches.setdefault(k, counts[k])
+        else:
+            hybrid_launches[label] = {k: counts[k] for k in expect}
         ref_opts = dataclasses.replace(opts, engine="tiled_ref")
         if ref_opts not in refs:
             refs[ref_opts] = solve_path(g2, ref_opts, f"tiled_ref for {label}", plans)[2]
@@ -516,6 +623,28 @@ def phase_paths(g2) -> dict:
         if key:
             out[key] = (solver, plan, res)
         return plan, res, ref
+
+    default, _, _ = run("default", SolveOptions(), {"tc_spmv": 1}, key="default")
+    part = default.tiled.partition
+    check(default.tile_size == 16 and default.storage == "bitpack"
+          and (default.hybrid, default.hybrid_threshold) == ("auto", 68)
+          and part is not None
+          and (part.n_dense_tiles, part.n_sparse_tiles, part.sp_nnz) == G2_PARTITIONS[68][:3],
+          f"default path planned T={default.tile_size} {default.storage} "
+          f"{default.hybrid}:{default.hybrid_threshold}, partition "
+          f"{None if part is None else (part.n_dense_tiles, part.n_sparse_tiles, part.sp_nnz)}")
+    h30 = SolveOptions(hybrid_threshold=30)
+    hp, _, _ = run("hybrid 30", h30, {"tc_spmv": 1}, key="hybrid30")
+    part = hp.tiled.partition
+    check(part is not None and (part.n_dense_tiles, part.n_sparse_tiles, part.sp_nnz)
+          == G2_PARTITIONS[30][:3], "hybrid 30 path: the partition is not G2's at 30")
+    h30_packed = dataclasses.replace(h30, phase1="tiled")
+    hk, _, _ = run("hybrid 30 packed", h30_packed,
+                   {"tc_neighbor_max_bits": 2, "tc_spmv_bits": 1}, key="hybrid30_packed")
+    frontier = resolve_frontier(h30_packed, get_engine(h30_packed.engine), storage=hk.storage)
+    check(frontier == "bitwise", f"hybrid 30 packed path: frontier {frontier}")
+    run("hybrid 30 dense tiled", dataclasses.replace(h30, phase1="tiled", frontier="dense"),
+        {"tc_neighbor_max": 2, "tc_spmv": 1})
 
     main, _, _ = run("main", SolveOptions(hybrid="off"), {"tc_spmv_fused": 1}, key="main")
     check(main.tile_size == 16 and main.storage == "bitpack",
@@ -542,9 +671,13 @@ def phase_paths(g2) -> dict:
     for label, opts, expect in (
             ("main telemetry", SolveOptions(hybrid="off"), {"tc_spmv_fused": 1}),
             ("packed tiled_pallas telemetry", split_opts,
-             {"tc_neighbor_max_bits": 2, "tc_spmv_bits": 1})):
-        _, res, ref = run(label, dataclasses.replace(opts, telemetry=True), expect)
+             {"tc_neighbor_max_bits": 2, "tc_spmv_bits": 1}),
+            ("hybrid 30 telemetry", h30, {"tc_spmv": 1})):
+        plan, res, ref = run(label, dataclasses.replace(opts, telemetry=True), expect)
         rt = res.telemetry
+        tail = 0 if plan.tiled.partition is None else plan.tiled.partition.n_sparse_tiles
+        check(rt.tiles_sparse == [tail] * rt.rounds,
+              f"{label}: tail tiles per round {rt.tiles_sparse}, expected {tail}")
         rt.check_invariants()
         check(rt.rounds == res.rounds and rt.alive[0] == g2.n_nodes
               and sum(rt.selected) == res.mis_size,
@@ -556,13 +689,82 @@ def phase_paths(g2) -> dict:
               f"{label}: trace differs from tiled_ref's")
         print(f"[paths] {label}: {json.dumps(columns)}", flush=True)
 
-    base_mis, base_rounds = mis["main"]
+    base_mis, base_rounds = mis["default"]
     for label, (m, r) in mis.items():
         check(r == base_rounds and np.array_equal(m, base_mis),
-              f"{label} differs from the main path (rounds {r} vs {base_rounds})")
+              f"{label} differs from the default path (rounds {r} vs {base_rounds})")
     print(f"[paths] all {len(mis)} paths: the same MIS of {int(base_mis.sum())} "
           f"vertices in {base_rounds} rounds", flush=True)
+    print(f"[paths] launches on the hybrid paths (dense partitions, not in the kernels "
+          f"line): {json.dumps(hybrid_launches)}", flush=True)
     out["launches"] = launches
+    out["plans"] = plans
+    return out
+
+
+def phase_baselines(g2, paths: dict) -> dict:
+    """ECL-MIS and Luby on G2 beside TC-MIS; the G3 stand-in planned and
+    solved with the default options and with `hybrid="off"`."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Solver, SolveOptions
+    from repro_torch.core import ecl_mis, is_valid_mis, luby_mis
+    from repro_torch.core.tiling import attach_partition
+    from repro_torch.graphs import delaunay_like
+
+    out = {}
+    e, counts = counted(lambda: ecl_mis(g2, torch.Generator(device="cuda").manual_seed(0)))
+    check(bool(e.converged) and is_valid_mis(g2, e.in_mis), "ecl_mis: no valid MIS")
+    check(not any(counts.values()), f"ecl_mis launched a kernel: {counts}")
+    solver = Solver(SolveOptions(heuristic="ecl"), device="cuda", plans=paths["plans"])
+    plan = solver.plan(g2)
+    tc, counts = counted(lambda: solver.solve(plan))
+    check(counts["tc_spmv"] == tc.rounds, f"TC-MIS with ECL priorities: launches {counts}")
+    check(tc.rounds == int(e.rounds) and np.array_equal(tc.in_mis, e.in_mis.cpu().numpy()),
+          f"ecl_mis ({int(e.rounds)} rounds) differs from TC-MIS with heuristic='ecl' "
+          f"({tc.rounds} rounds) on the same priorities")
+    lb = luby_mis(g2, torch.Generator(device="cuda").manual_seed(0))
+    check(bool(lb.converged) and is_valid_mis(g2, lb.in_mis), "luby_mis: no valid MIS")
+    h3 = paths["default"][2]
+    print(f"[baselines] G2: luby_mis {int(lb.rounds)} rounds, {int(lb.in_mis.sum())} vertices; "
+          f"ecl_mis {int(e.rounds)} rounds, {int(e.in_mis.sum())} vertices, equal to TC-MIS "
+          f"with heuristic='ecl' (default path); TC-MIS H3 {h3.rounds} rounds, "
+          f"{h3.mis_size} vertices", flush=True)
+
+    t0 = time.perf_counter()
+    g3 = delaunay_like(G3_N, device="cuda")
+    gen_s = time.perf_counter() - t0
+    g3_runs = {}
+    for label, opts in (("default", SolveOptions()), ("off", SolveOptions(hybrid="off"))):
+        solver = Solver(opts, device="cuda")
+        t0 = time.perf_counter()
+        plan = solver.plan(g3)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        res, counts = counted(lambda: solver.solve(plan))
+        check(res.converged and is_valid_mis(plan.g, torch.from_numpy(res.in_mis_plan).cuda()),
+              f"G3 {label}: no valid MIS")
+        part = plan.tiled.partition
+        print(f"[baselines] G3 delaunay_like({G3_N}) {label}: n={g3.n_nodes} "
+              f"half-edges={g3.n_edges}; plan {plan_s:.2f} s: T={plan.tile_size} "
+              f"{plan.storage} tiles={plan.tiled.n_tiles} hybrid={plan.hybrid}:"
+              f"{plan.hybrid_threshold} partition="
+              f"{None if part is None else (part.n_dense_tiles, part.n_sparse_tiles, part.sp_nnz)}"
+              f"; rounds={res.rounds} mis={res.mis_size} "
+              f"launches={ {k: v for k, v in counts.items() if v} }", flush=True)
+        g3_runs[label] = (solver, plan, res)
+    off_plan = g3_runs["off"][1]
+    t0 = time.perf_counter()
+    attach_partition(off_plan.tiled, mode="auto", threshold=g3_runs["default"][1].hybrid_threshold)
+    torch.cuda.synchronize()
+    part_s = time.perf_counter() - t0
+    a, b = g3_runs["default"][2], g3_runs["off"][2]
+    check(a.rounds == b.rounds and np.array_equal(a.in_mis, b.in_mis),
+          "G3: the default path and hybrid='off' give different MIS")
+    print(f"[baselines] G3: generator {gen_s:.2f} s, partition alone {part_s:.2f} s; "
+          f"default and hybrid='off' give one MIS of {a.mis_size} vertices in {a.rounds} "
+          f"rounds", flush=True)
+    out["g3"] = g3_runs["default"]
     return out
 
 
@@ -868,8 +1070,11 @@ def timing_solves(paths: dict) -> None:
     from repro_torch.core.tc_mis import _setup
     from repro_torch.obs import Trace
 
-    for key, label in (("main", "segment phase ① (main path)"),
-                       ("packed", "tiled phase ①, packed frontier")):
+    for key, label in (("default", "default options, hybrid auto (empty dense half)"),
+                       ("hybrid30", "hybrid 30, segment phase ①"),
+                       ("hybrid30_packed", "hybrid 30, tiled phase ①, packed frontier"),
+                       ("main", "segment phase ①, hybrid off"),
+                       ("packed", "tiled phase ①, packed frontier, hybrid off")):
         solver, plan, res = paths[key]
         med, took = median_ms(lambda: solver.solve(plan))
         print(f"[timing] warm solve, {label}: median {med:.3f} ms "
@@ -912,6 +1117,57 @@ def timing_solves(paths: dict) -> None:
         check(spans == {"solver.profile", "solver.plan", "rounds.phase1", "rounds.phase2",
                         "rounds.phase3"},
               f"{label}: spans among the profiler's events: {sorted(spans)}")
+
+
+def timing_hybrid(g2, paths: dict, baselines: dict) -> None:
+    """Median of 5 warm runs of the two baselines on G2 and of the
+    default path's solve on G3; then, cold at the
+    threshold-30 path's round-1 inputs, the split SpMV on the dense
+    partition (and on the default path's empty one) beside its bound, and
+    the tail's ② segment sum, with the costs per dense tile and per tail
+    nnz and the break-even they imply (printed, never read by the
+    planner)."""
+    import torch
+    from repro_torch.core import ecl_mis, luby_mis
+    from repro_torch.core.tc_mis import _setup
+    from repro_torch.hopper import tc_spmv as K
+    from repro_torch.perf import hybrid_density_threshold
+
+    for label, fn in (("ecl_mis", ecl_mis), ("luby_mis", luby_mis)):
+        med, took = median_ms(lambda: fn(g2, torch.Generator(device="cuda").manual_seed(0)))
+        print(f"[timing] warm {label} on G2: median {med:.3f} ms "
+              f"of {[round(x, 3) for x in took]}", flush=True)
+    solver, plan, res = baselines["g3"]
+    med, took = median_ms(lambda: solver.solve(plan))
+    print(f"[timing] warm solve, G3 default path: median {med:.3f} ms "
+          f"of {[round(x, 3) for x in took]}, rounds={res.rounds}", flush=True)
+
+    solver, plan, _ = paths["hybrid30"]
+    part = plan.tiled.partition
+    gen = torch.Generator(device="cuda").manual_seed(solver.options.seed)
+    engine, ctx, pri, state0 = _setup(plan.g, plan.tiled, gen, solver.options)
+    dctx = dataclasses.replace(ctx, tiled=part.dense)
+    alive = state0.alive
+    cand = engine._hybrid_candidates(ctx, dctx, pri, alive)
+    flags = engine.col_flags(dctx, cand).contiguous()
+    rhs = engine._pack_rhs(dctx, cand, alive)
+    n_active = int(_active_tiles(part.dense, flags).sum())
+    spmv_ms = time_ms(lambda: K.tc_spmv(part.dense, rhs, col_flags=flags), cold=True)
+    bound = bound_spmv(part.dense, flags, rhs.shape[1], False)
+    tail_ms = time_ms(lambda: engine._sparse_counts(ctx, cand), cold=True)
+    empty = paths["default"][1].tiled.partition.dense
+    empty_flags = torch.ones(empty.n_block_cols, dtype=torch.int32, device="cuda")
+    empty_ms = time_ms(lambda: K.tc_spmv(empty, rhs, col_flags=empty_flags), cold=True)
+    per_tile, per_nnz = spmv_ms / max(n_active, 1), tail_ms / part.sp_nnz
+    print(f"[timing] hybrid 30 round-1 inputs: cand={int(cand.sum())} dense tiles "
+          f"{part.n_dense_tiles} ({n_active} active), tail nnz {part.sp_nnz}; "
+          f"tc_spmv on the dense partition "
+          f"{spmv_ms:.4f} ms cold, bound {bound[0]:.4f} ms by {bound[1]}; on the empty "
+          f"partition {empty_ms:.4f} ms; the tail's ② segment sum {tail_ms:.4f} ms cold; "
+          f"{per_tile * 1e6:.3f} ns per active dense tile, {per_nnz * 1e6:.4f} ns per tail "
+          f"nnz: break-even {per_tile / per_nnz:.1f} nnz per tile, against the cost model's "
+          f"{hybrid_density_threshold(16, 'bitpack')} (bitpack) and "
+          f"{hybrid_density_threshold(16, 'int8')} (int8)", flush=True)
 
 
 def counted(fn):
@@ -1144,11 +1400,14 @@ def main() -> None:
     print(f"[graph] G2 grid2d{G2_SHAPE}: n={g2.n_nodes} half-edges={g2.n_edges} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     errs = phase_kernels(g2)
+    phase_kernels_partition(g2, errs)
     paths = phase_paths(g2)
+    baselines = phase_baselines(g2, paths)
     records = timing_dense(paths["main"], paths["launches"], errs)
     records += timing_packed(paths["packed"], paths["launches"], errs)
     timing_solves(paths)
-    del paths, g2
+    timing_hybrid(g2, paths, baselines)
+    del paths, baselines, g2
     deepfm = phase_deepfm(errs)
     records += timing_deepfm(deepfm, errs)
     check(sorted(r["name"] for r in records) == sorted(KERNELS), "a kernel has no record")

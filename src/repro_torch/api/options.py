@@ -1,12 +1,13 @@
 """`SolveOptions` — every knob of a MIS solve (counterpart of
 `repro.api.options`, same fields, defaults and validation).
 
-Fields that select work this package has not ported yet are accepted and
-validated like the reference's, and resolved by the reference's own rules:
-the port's engines do not support hybrid routing, so `hybrid` plans
-"off"; `frontier` resolves as the reference resolves it (the packed words
-for a tile engine with `phase1="tiled"` on bitpack storage);
-`placement="sharded"` raises at solve time; `repair`,
+`hybrid` plans the tile partition as the reference plans it (the tile
+engines route by it, `segment` plans it "off"), at a threshold from the
+port's H100 cost model unless `hybrid_threshold` names one; `frontier`
+resolves as the reference resolves it (the packed words for a tile engine
+with `phase1="tiled"` on bitpack storage).  Fields that select work this
+package has not ported yet are accepted and validated like the
+reference's: `placement="sharded"` raises at solve time; `repair`,
 `repair_threshold`, `bitpack`, `shard_threshold` and `cache_dir` have no
 effect yet (ROADMAP.md, Queue 1).
 """
@@ -44,8 +45,10 @@ class SolveOptions:
       reorder:    None | 'rcm'
       storage:    'int8' | 'bitpack' | 'auto' (bitpack once the worst-case
                   int8 payload reaches `BITPACK_AUTO_THRESHOLD` bytes)
-      hybrid:     auto | off | forced (plans off on this package's engines)
-      hybrid_threshold: nnz cut for the hybrid classifier
+      hybrid:     auto | off | forced, the tile-partition policy
+                  (`core.tiling.attach_partition`)
+      hybrid_threshold: nnz cut for the hybrid classifier; None = the
+                  cost model's break-even (`repro_torch.perf`)
 
     Placement: placement (auto | local | sharded), shard_threshold, bitpack.
     Dynamic graphs: repair, repair_threshold.  Observability: telemetry

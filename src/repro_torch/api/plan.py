@@ -2,11 +2,12 @@
 of `repro.api.plan`).
 
 A plan is a graph's canonical (optionally RCM-permuted) form, its BSR
-tiling and the permutation that maps results back, keyed by a sha256 over
-the canonical edge list and the build parameters — the same key derivation
-as the reference, so one graph keys identically in both packages.  The
-cache's disk layer, `apply_delta` and the hybrid partition come later
-(ROADMAP.md, Queue 1 items 10 and 14).
+tiling with its hybrid tile partition where the policy attaches one, and
+the permutation that maps results back, keyed by a sha256 over the
+canonical edge list and the build parameters — the same key derivation as
+the reference, so one graph keys identically in both packages.  The
+cache's disk layer and `apply_delta` come later (ROADMAP.md, Queue 1
+items 9 and 14).
 
 `plan_from_arrays` builds a plan from a reference plan's arrays (the
 reference's npz cache layout), so parity tests run both packages on
@@ -25,6 +26,7 @@ import torch
 from repro_torch.core.tiling import (
     STORAGES as TILE_STORAGES,
     BlockTiledGraph,
+    attach_partition,
     build_block_tiles,
     next_pow2,
     rcm_ordering,
@@ -83,6 +85,20 @@ def resolve_storage(
     return "bitpack" if est >= threshold else "int8"
 
 
+def resolve_hybrid_threshold(
+    tile_size: int, storage: str, threshold: Optional[int] = None
+) -> int:
+    """The nnz cut of a plan's tile partition: the caller's override, or
+    the cost model's break-even for this tile size and storage
+    (`repro_torch.perf.hybrid_density_threshold`).  Resolved at plan time,
+    so the cache key names a number, never a policy."""
+    if threshold is not None:
+        return int(threshold)
+    from repro_torch.perf.roofline import hybrid_density_threshold
+
+    return hybrid_density_threshold(tile_size, storage)
+
+
 def choose_tile_size(
     n_nodes: int,
     n_edges: int,
@@ -115,6 +131,8 @@ class Plan:
     perm: Optional[np.ndarray] = None  # perm[plan_id] = original_id
     inv: Optional[np.ndarray] = None   # inv[original_id] = plan_id
     reorder: Optional[str] = None
+    hybrid: str = "off"                # the tile-partition policy
+    hybrid_threshold: int = 0          # its resolved nnz cut (0 iff off)
 
     @property
     def n_nodes(self) -> int:
@@ -151,28 +169,25 @@ class Plan:
         reorder: Optional[str] = None,
         storage: str = "int8",
         hybrid: str = "off",
+        hybrid_threshold: Optional[int] = None,
         cache: Optional["PlanCache"] = None,
     ) -> "Plan":
         """Plan a graph on its own device, through `cache` when given.
-        `tile_size=None` applies auto-T, `storage` may be 'auto'.  A `Plan`
-        passes through untouched."""
+        `tile_size=None` applies auto-T, `storage` may be 'auto'; `hybrid`
+        is the tile-partition policy, its `hybrid_threshold=None` the cost
+        model's cut (`resolve_hybrid_threshold`).  A `Plan` passes through
+        untouched."""
         if isinstance(graph, Plan):
             return graph
-        _check_hybrid(hybrid)
         T = tile_size or choose_tile_size(graph.n_nodes, graph.n_edges)
         storage = resolve_storage(storage, graph.n_nodes, graph.n_edges, T)
         if cache is not None:
-            return cache.plan(graph, tile_size=T, reorder=reorder, storage=storage)[0]
-        key = plan_cache_key(graph, T, reorder, storage)
-        return build_plan(graph, T, reorder, key, storage=storage)
-
-
-def _check_hybrid(hybrid: str) -> None:
-    if hybrid != "off":
-        raise NotImplementedError(
-            f"hybrid={hybrid!r}: the tile partition is not ported yet "
-            "(ROADMAP.md, Queue 1 item 10); plan with hybrid='off'"
-        )
+            return cache.plan(graph, tile_size=T, reorder=reorder, storage=storage,
+                              hybrid=hybrid, hybrid_threshold=hybrid_threshold)[0]
+        thr = 0 if hybrid == "off" else resolve_hybrid_threshold(T, storage, hybrid_threshold)
+        key = plan_cache_key(graph, T, reorder, storage, hybrid, thr)
+        return build_plan(graph, T, reorder, key, storage=storage,
+                          hybrid=hybrid, hybrid_threshold=thr)
 
 
 def _edge_bytes(g: Graph) -> Tuple[bytes, bytes]:
@@ -217,8 +232,11 @@ def build_plan(
     reorder: Optional[str],
     key: str,
     storage: str = "int8",
+    hybrid: str = "off",
+    hybrid_threshold: int = 0,
 ) -> Plan:
-    """The cache-miss path: (optional) RCM + BSR tiling, on `g`'s device."""
+    """The cache-miss path: (optional) RCM + BSR tiling + (optional) tile
+    partition, on `g`'s device.  `hybrid_threshold` arrives resolved."""
     perm = inv = None
     if reorder == "rcm":
         perm = np.asarray(rcm_ordering(g))
@@ -230,12 +248,16 @@ def build_plan(
     elif reorder is not None:
         raise ValueError(f"unknown reorder {reorder!r} (None or 'rcm')")
     tiled = build_block_tiles(g, tile_size=tile_size, storage=storage)
-    return Plan(g=g, tiled=tiled, key=key, perm=perm, inv=inv, reorder=reorder)
+    if hybrid != "off":
+        tiled = attach_partition(tiled, mode=hybrid, threshold=int(hybrid_threshold))
+    return Plan(g=g, tiled=tiled, key=key, perm=perm, inv=inv, reorder=reorder,
+                hybrid=hybrid, hybrid_threshold=int(hybrid_threshold))
 
 
 # the reference's npz `meta` record: n_nodes, n_edges, n_tiles, tile_size,
 # nbr, nbc, version, storage index, hybrid mode index, hybrid threshold
 _META_FIELDS = 8
+HYBRID_MODES = ("off", "auto", "forced")   # by the meta record's mode index
 
 
 def _check_tiling_arrays(arrays, n_tiles: int, nbr: int, nbc: int) -> None:
@@ -263,16 +285,18 @@ def plan_from_arrays(
     cache layout: senders, receivers (real half-edges only), tiles as
     stored (int8 or uint32 words), tile_rows, tile_cols, row_starts, the
     optional perm, and the int `meta` record (n_nodes, n_edges, n_tiles,
-    tile_size, n_block_rows, n_block_cols, version, storage index, ...).
-    A plan whose meta names a hybrid partition is refused."""
+    tile_size, n_block_rows, n_block_cols, version, storage index, hybrid
+    mode index, hybrid threshold).  A meta record that names a hybrid mode
+    re-attaches the partition from the tiles, as the reference's loader
+    does: it is policy, not payload."""
     dev = resolve_device(device)
     meta = [int(v) for v in np.asarray(arrays["meta"])]
     if len(meta) < _META_FIELDS:
         raise ValueError(f"meta record has {len(meta)} fields, need ≥ {_META_FIELDS}")
     n_nodes, n_edges, n_tiles, tile_size, nbr, nbc = meta[:6]
     storage = TILE_STORAGES[meta[7]]
-    if len(meta) > 8 and meta[8] != 0:
-        _check_hybrid("partitioned")
+    hybrid = HYBRID_MODES[meta[8]] if len(meta) > 9 else "off"
+    hybrid_threshold = meta[9] if hybrid != "off" else 0
     g = Graph(
         senders=to_torch(np.asarray(arrays["senders"], np.int32), dev),
         receivers=to_torch(np.asarray(arrays["receivers"], np.int32), dev),
@@ -284,13 +308,16 @@ def plan_from_arrays(
         arrays, n_tiles=n_tiles, n_nodes=n_nodes, tile_size=tile_size,
         n_block_rows=nbr, n_block_cols=nbc, storage=storage, device=dev,
     )
+    if hybrid != "off":
+        tiled = attach_partition(tiled, mode=hybrid, threshold=hybrid_threshold)
     perm = inv = None
     if arrays.get("perm") is not None:
         perm = np.asarray(arrays["perm"])
         inv = np.empty_like(perm)
         inv[perm] = np.arange(n_nodes)
     return Plan(g=g, tiled=tiled, key=key, perm=perm, inv=inv,
-                reorder="rcm" if perm is not None else None)
+                reorder="rcm" if perm is not None else None,
+                hybrid=hybrid, hybrid_threshold=hybrid_threshold)
 
 
 class PlanCache:
@@ -318,17 +345,20 @@ class PlanCache:
         tile_size: Optional[int] = None,
         reorder: Optional[str] = None,
         storage: Optional[str] = None,
+        hybrid: str = "off",
+        hybrid_threshold: Optional[int] = None,
     ) -> Tuple[Plan, str]:
         """Return (plan, status) with status ∈ {'mem', 'built'}.  Plans are
-        keyed by content and device: one graph planned on two devices is
-        two entries."""
+        keyed by content, device and hybrid policy: one graph planned on
+        two devices is two entries."""
         T = self.tile_size if tile_size is None else int(tile_size)
         ro = self.reorder if reorder is None else reorder
         st = resolve_storage(
             self.storage if storage is None else storage,
             g.n_nodes, g.n_edges, T,
         )
-        key = plan_cache_key(g, T, ro, st)
+        thr = 0 if hybrid == "off" else resolve_hybrid_threshold(T, st, hybrid_threshold)
+        key = plan_cache_key(g, T, ro, st, hybrid, thr)
         slot = f"{key}@{g.device}"
         hit = self._mem.get(slot)
         if hit is not None:
@@ -336,7 +366,7 @@ class PlanCache:
             self._mem.move_to_end(slot)
             return hit, "mem"
         self.stats["misses"] += 1
-        plan = build_plan(g, T, ro, key, storage=st)
+        plan = build_plan(g, T, ro, key, storage=st, hybrid=hybrid, hybrid_threshold=thr)
         self._mem[slot] = plan
         while len(self._mem) > self.max_mem_entries:
             self._mem.popitem(last=False)

@@ -75,9 +75,11 @@ class Solver:
 
     def plan(self, graph: GraphLike) -> Plan:
         """Plan a graph on the solver's device through the cache (a `Plan`
-        passes through).  Auto-T and auto-storage resolve per graph.  The
-        reference's Solver plans hybrid "off" for engines without
-        `supports_hybrid`, which is every engine of this package."""
+        passes through).  Auto-T and auto-storage resolve per graph, and
+        `options.hybrid` plans the tile partition (the default "auto" at
+        the cost model's threshold), except for an engine without
+        `supports_hybrid` (segment: it has no tiles to split), which plans
+        it "off", as the reference's Solver does."""
         if isinstance(graph, Plan):
             return graph
         graph = graph.to(self.device)
@@ -87,8 +89,11 @@ class Solver:
         storage = resolve_storage(
             self.options.storage, graph.n_nodes, graph.n_edges, tile_size
         )
-        # no engine here has `supports_hybrid`, so `options.hybrid` plans off
-        plan, _ = self.plans.plan(graph, tile_size=tile_size, storage=storage)
+        hybrid = self.options.hybrid
+        if not get_engine(self.options.engine).supports_hybrid:
+            hybrid = "off"
+        plan, _ = self.plans.plan(graph, tile_size=tile_size, storage=storage, hybrid=hybrid,
+                                  hybrid_threshold=self.options.hybrid_threshold)
         return plan
 
     def route(self, plan: Plan) -> str:

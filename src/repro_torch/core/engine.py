@@ -25,8 +25,17 @@ declare `supports_bitwise`, so `phase1="tiled"` on bitpack storage runs
 the packed-word round body (`step_bits`): alive / in_mis / candidate sets
 ride as (n_blocks, W) int32 words, phase ② is a word AND, and phase ① is
 the plane scan (Hopper engines) or its collapsed clz form over
-priority-sorted slots (`tiled_ref`).  No engine here supports hybrid
-routing yet (`supports_hybrid = False`), so the Solver plans it off.
+priority-sorted slots (`tiled_ref`).
+
+Hybrid routing: the tile engines declare `supports_hybrid`, so a tiling
+that carries a `TilePartition` runs `step_hybrid` / `step_bits_hybrid`.
+Phases ① and ② each run twice, the engine's own tile machinery over the
+compacted dense partition and segment ops over the COO tail, and the
+halves merge exactly (max for Max_Np, + or | for ②) before phase ③, so
+the MIS is the one the unpartitioned tiling gives.  The dense half masks
+block-rows that own no dense tile (`_covered_vertices`).  The fused
+engine runs the split ② under a partition: its in-kernel ③ cannot see
+the tail's hits.
 
 Per-round metadata: tiled engines gate block-columns with no candidate off
 (`block_col_flags`, ANDed with the static `col_gate`); a gated column
@@ -44,10 +53,12 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.spmv import INT32_MIN, _NEG
+from repro_torch.core.spmv import INT32_MIN, _NEG, _segment_max
 from repro_torch.core.tiling import (
     BlockTiledGraph,
+    byte_popcounts,
     dense_tile_mask,
+    gather_frontier_bits,
     pack_frontier_bits,
     pack_frontier_words,
     pack_priority_planes,
@@ -355,19 +366,6 @@ def phase3_update_bits(
 # host dispatch, so a round's four set sizes are taken in one stacked pass.
 # --------------------------------------------------------------------------
 
-_POP8: Dict[torch.device, torch.Tensor] = {}
-
-
-def _byte_popcounts(device: torch.device) -> torch.Tensor:
-    """(256,) int32 popcount of every byte value, made once per device."""
-    table = _POP8.get(device)
-    if table is None:
-        table = torch.tensor([bin(b).count("1") for b in range(256)], dtype=torch.int32,
-                             device=device)
-        _POP8[device] = table
-    return table
-
-
 def _set_sizes(sets: torch.Tensor) -> torch.Tensor:
     """Sizes of k stacked vertex sets: (k, n) bool vectors, or (k, nbc, W)
     packed int32 words (the bits of uint32 words) → (k,) int32; the
@@ -377,7 +375,7 @@ def _set_sizes(sets: torch.Tensor) -> torch.Tensor:
     k = sets.shape[0]
     if sets.dtype == torch.bool:
         return sets.reshape(k, -1).sum(dim=1, dtype=torch.int32)
-    table = _byte_popcounts(sets.device)
+    table = byte_popcounts(sets.device)
     return table[sets.reshape(k, -1).view(torch.uint8).long()].sum(dim=1, dtype=torch.int32)
 
 
@@ -415,18 +413,32 @@ def _telemetry_row(alive, frontier, selected, skipped, tiles_dense, tiles_sparse
     return torch.stack(vals)
 
 
-def _round_row(ctx: EngineContext, state, cand, new, flags) -> torch.Tensor:
+def _round_row(ctx: EngineContext, state, cand, new, flags, tiles_sparse: int = 0) -> torch.Tensor:
     """One round's telemetry row, on either frontier: the sizes of alive
     at entry, of C, and of in_mis after minus before; the tiles the
-    round's own column flags skipped and kept; no COO tail (0)."""
+    round's own column flags skipped and kept on `ctx.tiled` (the dense
+    partition under hybrid routing); the tiles routed to the COO tail."""
     alive, frontier, mis_new, mis_old = _set_sizes(
         torch.stack((state.alive, cand, new.in_mis, state.in_mis))).unbind()
     skipped = _tiles_skipped(ctx, flags)
     return _telemetry_row(
         alive, frontier, mis_new - mis_old, skipped,
         _tiles_routed_dense(ctx, skipped, flags),
-        torch.zeros((), dtype=torch.int32, device=alive.device),
+        torch.full((), tiles_sparse, dtype=torch.int32, device=alive.device),
     )
+
+
+def _covered_rows(tiled: BlockTiledGraph) -> torch.Tensor:
+    """(n_block_rows,) bool: block-rows that own at least one stored tile.
+    A full tiling covers every row that has an edge; the compacted dense
+    partition of a hybrid plan routinely leaves rows whose every tile
+    went to the tail, and their dense-half lanes are masked out."""
+    return tiled.row_starts[1:] > tiled.row_starts[:-1]
+
+
+def _covered_vertices(tiled: BlockTiledGraph) -> torch.Tensor:
+    """`_covered_rows` on the (n_padded,) vertex axis."""
+    return _covered_rows(tiled).repeat_interleave(tiled.tile_size)
 
 
 # --------------------------------------------------------------------------
@@ -489,6 +501,10 @@ class TorchRoundEngine:
         )
 
     def step(self, ctx: EngineContext, pri, state: MISRoundState) -> MISRoundState:
+        if self.supports_hybrid and ctx.tiled.partition is not None:
+            if ctx.frontier == "bitwise":
+                return self.step_bits_hybrid(ctx, pri, state)
+            return self.step_hybrid(ctx, pri, state)
         if ctx.frontier == "bitwise":
             return self.step_bits(ctx, pri, state)
         cand = self.phase1_candidates(ctx, pri, state.alive)
@@ -517,6 +533,10 @@ class TorchRoundEngine:
         """`step` plus a (TELEMETRY_COLS,) int32 row on the device: the
         same round body, kernel launches and column flags, plus six
         reductions (no extra SpMV, no host read)."""
+        if self.supports_hybrid and ctx.tiled.partition is not None:
+            if ctx.frontier == "bitwise":
+                return self._step_bits_hybrid_with_stats(ctx, pri, state)
+            return self._step_hybrid_with_stats(ctx, pri, state)
         if ctx.frontier == "bitwise":
             return self._step_bits_with_stats(ctx, pri, state)
         cand = self.phase1_candidates(ctx, pri, state.alive)
@@ -612,9 +632,11 @@ class TorchSegmentEngine(TorchRoundEngine):
 class TorchTiledEngine(TorchRoundEngine):
     """Shared phase-① policy for tile-schedule engines: `cfg.phase1` picks
     the segment max or the tiled max.  Also owns the packed-frontier round
-    body (`step_bits`)."""
+    body (`step_bits`) and the hybrid round bodies (`step_hybrid`,
+    `step_bits_hybrid`)."""
 
     supports_bitwise = True
+    supports_hybrid = True
 
     def _tiled_nbr_max(self, ctx, p, mask) -> torch.Tensor:
         t = ctx.tiled
@@ -708,6 +730,137 @@ class TorchTiledEngine(TorchRoundEngine):
             new = phase3_update_bits(state, cand_w, hit_w, inc)
         return new, _round_row(ctx, state, cand_w, new, flags)
 
+    # -- hybrid round bodies -----------------------------------------------
+    #
+    # The dense half reuses the engine's own machinery on a sub-context
+    # whose `tiled` is the compacted dense partition; the tail is segment
+    # gather/scatter in global padded ids over its real entries (the
+    # reference scatters its sentinel padding into a slot it drops).
+
+    def _dense_phase2(self, dctx, cand, alive, col_flags) -> torch.Tensor:
+        """Split ② over the dense partition, masked to covered rows
+        (`dctx` is the dense sub-context)."""
+        counts = self._dense_phase2_counts(dctx, cand, alive, col_flags)
+        return torch.where(_covered_vertices(dctx.tiled), counts, 0.0)
+
+    def _dense_phase2_counts(self, dctx, cand, alive, col_flags) -> torch.Tensor:
+        """The hybrid split ②'s kernel seam: the fused engine overrides it
+        to reach the split kernel."""
+        return self.phase2_counts(dctx, cand, alive, col_flags)
+
+    def _sparse_nbr_max(self, ctx, p, mask) -> torch.Tensor:
+        """① over the tail: masked priorities gathered at the columns,
+        max-reduced at the rows.  Empty segments read int32 min, below
+        `_NEG`, so the max with the dense half is exact."""
+        part = ctx.tiled.partition
+        pm = torch.where(mask, p, _NEG)[part.tail_cols]
+        return _segment_max(part.tail_rows, pm, ctx.tiled.n_padded)
+
+    def _sparse_counts(self, ctx, cand) -> torch.Tensor:
+        """② over the tail: candidate gather and sum at the rows, the
+        slice of N_c the dense partition does not cover (0/1 sums in f32
+        are exact in any order)."""
+        part = ctx.tiled.partition
+        out = torch.zeros(ctx.tiled.n_padded, dtype=torch.float32, device=cand.device)
+        return out.index_add_(0, part.tail_rows, cand.to(torch.float32)[part.tail_cols])
+
+    def _hybrid_nbr_max(self, ctx, dctx, p, mask) -> torch.Tensor:
+        if ctx.cfg.phase1 != "tiled":
+            # the segment phase ① covers the whole graph: nothing to merge
+            return _segment_nbr_max(ctx, p, mask)
+        dense_mx = torch.where(_covered_vertices(dctx.tiled),
+                               self._tiled_nbr_max(dctx, p, mask), _NEG)
+        return torch.maximum(dense_mx, self._sparse_nbr_max(ctx, p, mask))
+
+    def _hybrid_candidates(self, ctx, dctx, pri, alive) -> torch.Tensor:
+        max_np = self._hybrid_nbr_max(ctx, dctx, pri.select, alive)
+        if pri.resolve is None:
+            return alive & (pri.select > max_np)
+        pending = alive & (pri.select >= max_np)
+        max_res = self._hybrid_nbr_max(ctx, dctx, pri.resolve, pending)
+        return pending & (pri.resolve > max_res)
+
+    def _hybrid_round(self, ctx, pri, state: MISRoundState):
+        """(new state, C, the dense partition's column flags, dense ctx)."""
+        dctx = dataclasses.replace(ctx, tiled=ctx.tiled.partition.dense)
+        cand = self._hybrid_candidates(ctx, dctx, pri, state.alive)
+        flags = self.col_flags(dctx, cand)
+        n_c = self._dense_phase2(dctx, cand, state.alive, flags)
+        n_c = n_c + self._sparse_counts(ctx, cand)
+        return phase3_update(state, cand, n_c, round_increment(state)), cand, flags, dctx
+
+    def step_hybrid(self, ctx, pri, state: MISRoundState) -> MISRoundState:
+        return self._hybrid_round(ctx, pri, state)[0]
+
+    def _step_hybrid_with_stats(self, ctx, pri, state: MISRoundState):
+        new, cand, flags, dctx = self._hybrid_round(ctx, pri, state)
+        return new, _round_row(dctx, state, cand, new, flags,
+                               ctx.tiled.partition.n_sparse_tiles)
+
+    # -- hybrid, packed frontiers ------------------------------------------
+
+    def _sparse_nbr_max_bits(self, ctx, p, mask_words) -> torch.Tensor:
+        """① tail on packed frontiers: one bit gathered per nnz
+        (`gather_frontier_bits`), then the masked segment max."""
+        part = ctx.tiled.partition
+        bit = gather_frontier_bits(mask_words, part.tail_bits)
+        pm = torch.where(bit, p[part.tail_cols], _NEG)
+        return _segment_max(part.tail_rows, pm, ctx.tiled.n_padded)
+
+    def _sparse_hits_bits(self, ctx, cand_words) -> torch.Tensor:
+        """② tail on packed frontiers: candidate bits gathered, any-hit at
+        the rows, packed to (nbc, W) words for the `|` merge."""
+        part = ctx.tiled.partition
+        bit = gather_frontier_bits(cand_words, part.tail_bits).to(torch.int32)
+        hit = _segment_max(part.tail_rows, bit, ctx.tiled.n_padded, fill=0)
+        return pack_frontier_words(hit, ctx.tiled.tile_size)
+
+    def _dense_hits_bits(self, dctx, cand_words, alive_words, flags) -> torch.Tensor:
+        """② hit words over the dense partition, masked to covered rows."""
+        hit_w = self.phase2_hits(dctx, cand_words, alive_words, flags)
+        return torch.where(_covered_rows(dctx.tiled)[:, None], hit_w, 0)
+
+    def _hybrid_nbr_max_bits(self, ctx, dctx, st, planes, p, mask_words) -> torch.Tensor:
+        dense_mx = torch.where(_covered_vertices(dctx.tiled),
+                               self._nbr_max_bits(dctx, st, planes, mask_words), _NEG)
+        return torch.maximum(dense_mx, self._sparse_nbr_max_bits(ctx, p, mask_words))
+
+    def _hybrid_candidates_bits(self, ctx, dctx, pri, alive_words) -> torch.Tensor:
+        """`phase1_candidates_bits` with the merged Max_Np; `ctx.bits` was
+        built over the dense partition (`core.tc_mis._setup`)."""
+        T = ctx.tiled.tile_size
+        b = ctx.bits
+        if ctx.cfg.phase1 != "tiled":
+            max_np = _segment_nbr_max_bits_oracle(ctx, pri.select, alive_words)
+        else:
+            max_np = self._hybrid_nbr_max_bits(ctx, dctx, b.select, b.select_planes,
+                                               pri.select, alive_words)
+        if pri.resolve is None:
+            return pack_frontier_words(pri.select > max_np, T) & alive_words
+        pending = pack_frontier_words(pri.select >= max_np, T) & alive_words
+        if ctx.cfg.phase1 != "tiled":
+            max_res = _segment_nbr_max_bits_oracle(ctx, pri.resolve, pending)
+        else:
+            max_res = self._hybrid_nbr_max_bits(ctx, dctx, b.resolve, b.resolve_planes,
+                                                pri.resolve, pending)
+        return pack_frontier_words(pri.resolve > max_res, T) & pending
+
+    def _hybrid_round_bits(self, ctx, pri, state: MISRoundState):
+        dctx = dataclasses.replace(ctx, tiled=ctx.tiled.partition.dense)
+        cand_w = self._hybrid_candidates_bits(ctx, dctx, pri, state.alive)
+        flags = self.col_flags_bits(ctx, cand_w)
+        hit_w = self._dense_hits_bits(dctx, cand_w, state.alive, flags)
+        hit_w = hit_w | self._sparse_hits_bits(ctx, cand_w)
+        return phase3_update_bits(state, cand_w, hit_w, round_increment(state)), cand_w, flags, dctx
+
+    def step_bits_hybrid(self, ctx, pri, state: MISRoundState) -> MISRoundState:
+        return self._hybrid_round_bits(ctx, pri, state)[0]
+
+    def _step_bits_hybrid_with_stats(self, ctx, pri, state: MISRoundState):
+        new, cand_w, flags, dctx = self._hybrid_round_bits(ctx, pri, state)
+        return new, _round_row(dctx, state, cand_w, new, flags,
+                               ctx.tiled.partition.n_sparse_tiles)
+
 
 class TorchTiledRefEngine(TorchTiledEngine):
     """Plain torch on the BSR schedule — what the kernels are held against."""
@@ -784,6 +937,12 @@ class HopperFusedEngine(HopperSpmvEngine):
 
     def phase2_counts(self, ctx, cand, alive, col_flags=None):
         raise NotImplementedError("fused_pallas runs ②+③ as one fused_step")
+
+    def _dense_phase2_counts(self, dctx, cand, alive, col_flags):
+        # under a partition ② runs split (the in-kernel ③ cannot merge the
+        # tail's hits): the parent's split kernel, past the raise above;
+        # the packed twin `phase2_hits` is inherited as it is
+        return super().phase2_counts(dctx, cand, alive, col_flags)
 
     def fused_step(self, ctx, cand, alive, col_flags=None):
         from repro_torch.hopper.tc_spmv import tc_spmv_fused

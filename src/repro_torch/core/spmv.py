@@ -31,10 +31,12 @@ def neighbor_sum_segment(g: Graph, x: torch.Tensor) -> torch.Tensor:
     return out.index_add_(0, g.receivers_long, contrib)[: g.n_nodes]
 
 
-def _segment_max(g: Graph, contrib: torch.Tensor) -> torch.Tensor:
-    out = torch.full((g.n_nodes + 1,), INT32_MIN, dtype=torch.int32,
-                     device=contrib.device)
-    return out.scatter_reduce_(0, g.receivers_long, contrib, "amax")[: g.n_nodes]
+def _segment_max(rows: torch.Tensor, contrib: torch.Tensor, n_slots: int,
+                 fill: int = INT32_MIN) -> torch.Tensor:
+    """Max of `contrib` at its int64 `rows` into `n_slots` slots; an empty
+    slot reads `fill` (`jax.ops.segment_max`'s identity by default)."""
+    out = torch.full((n_slots,), fill, dtype=contrib.dtype, device=contrib.device)
+    return out.scatter_reduce_(0, rows, contrib, "amax")
 
 
 def neighbor_max_segment(g: Graph, p: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -42,10 +44,10 @@ def neighbor_max_segment(g: Graph, p: torch.Tensor, mask: torch.Tensor) -> torch
     neighbour, int32 min where no neighbour at all."""
     live = g.edge_mask & _gather(g, mask)
     contrib = torch.where(live, _gather(g, p), _NEG).to(torch.int32)
-    return _segment_max(g, contrib)
+    return _segment_max(g.receivers_long, contrib, g.n_nodes + 1)[: g.n_nodes]
 
 
 def neighbor_any_segment(g: Graph, flag: torch.Tensor) -> torch.Tensor:
     """Does v have a neighbour with `flag` set?"""
     contrib = (g.edge_mask & _gather(g, flag)).to(torch.int32)
-    return _segment_max(g, contrib) > 0
+    return _segment_max(g.receivers_long, contrib, g.n_nodes + 1)[: g.n_nodes] > 0

@@ -18,6 +18,7 @@ host clock after each.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, Tuple
 
@@ -81,7 +82,8 @@ def _setup(
 
     The Hopper engines get the priority bit planes their plane-scan kernel
     reads, on any device (the reference builds them on a TPU only); the
-    other tile engines get the sorted tiles of the clz form."""
+    other tile engines get the sorted tiles of the clz form.  Under a tile
+    partition these are built over its dense half."""
     engine = get_engine(config.engine)
     if priorities is None:
         if generator is None:
@@ -93,7 +95,12 @@ def _setup(
     )
     bits = None
     if frontier == "bitwise":
-        bits = make_bitwise_context(tiled, pri, planes=engine.plane_kernel_nbr_max)
+        # hybrid runs walk only the compacted dense partition with the tile
+        # machinery: the packed structures are built over it
+        bits_tiled = tiled
+        if engine.supports_hybrid and tiled.partition is not None:
+            bits_tiled = tiled.partition.dense
+        bits = make_bitwise_context(bits_tiled, pri, planes=engine.plane_kernel_nbr_max)
     ctx = EngineContext(g=g, tiled=tiled, cfg=config, col_gate=col_gate,
                         frontier=frontier, bits=bits)
     dev = tiled.device
@@ -207,7 +214,9 @@ def run_phases(
     warm-up round, from the first state and thrown away, runs outside the
     timers (it loads the kernels).  `trace` records each timed phase of
     each round as a span, `rounds.phase1` / `rounds.phase2` /
-    `rounds.phase3`, sync included."""
+    `rounds.phase3`, sync included.  Under a tile partition the round is
+    the hybrid one, ② split even on the fused engine, as `step` runs it:
+    phase ② is the dense half's SpMV and the tail's, merged."""
     engine, ctx, pri, state0 = _setup(g, tiled, generator, config, priorities)
     dev = tiled.device
 
@@ -215,11 +224,33 @@ def run_phases(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    if ctx.frontier == "bitwise":
+    hybrid = engine.supports_hybrid and tiled.partition is not None
+    fused = engine.fused and not hybrid
+    if hybrid:
+        dctx = dataclasses.replace(ctx, tiled=tiled.partition.dense)
+    if hybrid and ctx.frontier == "bitwise":
+        def p1(alive):
+            return engine._hybrid_candidates_bits(ctx, dctx, pri, alive)
+
+        def p2(cand, alive):
+            flags = engine.col_flags_bits(ctx, cand)
+            return engine._dense_hits_bits(dctx, cand, alive, flags) | \
+                engine._sparse_hits_bits(ctx, cand)
+        p3 = phase3_update_bits
+    elif hybrid:
+        def p1(alive):
+            return engine._hybrid_candidates(ctx, dctx, pri, alive)
+
+        def p2(cand, alive):
+            flags = engine.col_flags(dctx, cand)
+            return engine._dense_phase2(dctx, cand, alive, flags) + \
+                engine._sparse_counts(ctx, cand)
+        p3 = phase3_update
+    elif ctx.frontier == "bitwise":
         def p1(alive):
             return engine.phase1_candidates_bits(ctx, pri, alive)
 
-        if engine.fused:
+        if fused:
             def p2(cand, alive):
                 return engine.fused_step_bits(ctx, cand, alive, engine.col_flags_bits(ctx, cand))
         else:
@@ -230,7 +261,7 @@ def run_phases(
         def p1(alive):
             return engine.phase1_candidates(ctx, pri, alive)
 
-        if engine.fused:
+        if fused:
             def p2(cand, alive):
                 return engine.fused_step(ctx, cand, alive, engine.col_flags(ctx, cand))
         else:
@@ -240,7 +271,7 @@ def run_phases(
 
     def advance(state, cand, out):
         inc = round_increment(state)
-        if engine.fused:
+        if fused:
             new_alive, mis_add = out
             return MISRoundState(alive=new_alive, in_mis=state.in_mis | mis_add,
                                  rnd=state.rnd + inc)

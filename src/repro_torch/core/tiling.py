@@ -1,5 +1,5 @@
-"""Block-tiled adjacency and the packed-frontier substrate (counterpart of
-`repro.core.tiling`; the hybrid partition is not ported yet).
+"""Block-tiled adjacency, its hybrid dense/sparse partition and the
+packed-frontier substrate (counterpart of `repro.core.tiling`).
 
 The adjacency matrix is cut into T×T tiles; only non-empty tiles are
 stored, sorted by block-row then block-column (BSR order), with
@@ -19,6 +19,12 @@ Tiles come in two storages:
 the same pad-to-8 zero tiles pinned to the last real block-row at column
 0, and the single zero tile of an empty graph.
 
+Hybrid routing (`attach_partition`): tiles with at least `threshold`
+nonzeros form a compacted dense sub-tiling (same block grid, its own
+`row_starts`, so block-rows may own no tile), the rest become a COO tail
+of global padded vertex ids that the engines run through segment ops.
+The partition equals the reference's array for array.
+
 Packed frontiers (the bitwise round body): a vertex vector rides as
 (n_blocks, W) int32 words in the same bit layout as a packed tile row, so
 a tile row ANDs straight against a frontier word.  The priority-sorted
@@ -29,6 +35,8 @@ bit planes feed the plane-scan kernel.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +46,11 @@ from repro_torch.graphs.graph import Graph
 
 STORAGES = ("int8", "bitpack")
 _BITS = 32
+
+# the "auto" gate of hybrid routing: partition only when there are enough
+# tiles for the split to matter and a real sparse tail to peel off
+HYBRID_AUTO_MIN_TILES = 16
+HYBRID_AUTO_MIN_SPARSE_FRAC = 0.25
 
 
 def packed_words(tile_size: int) -> int:
@@ -119,6 +132,9 @@ class BlockTiledGraph:
                   never visits padding.
       n_tiles, n_nodes, tile_size, n_block_rows, n_block_cols, storage:
                   static metadata.
+      partition:  optional `TilePartition` (hybrid routing); the full tile
+                  list above stays authoritative, the partition is a view
+                  rebuilt from it.
     """
     tiles: torch.Tensor
     tile_rows: torch.Tensor
@@ -130,6 +146,7 @@ class BlockTiledGraph:
     n_block_rows: int
     n_block_cols: int
     storage: str = "int8"
+    partition: Optional["TilePartition"] = None
 
     @property
     def n_tiles_pad(self) -> int:
@@ -154,7 +171,184 @@ class BlockTiledGraph:
             tiles = pack_tile_bits(self.tiles)
         else:
             tiles = unpack_tile_bits(self.tiles, self.tile_size)
-        return dataclasses.replace(self, tiles=tiles, storage=storage)
+        out = dataclasses.replace(self, tiles=tiles, storage=storage, partition=None)
+        if self.partition is not None:
+            # the dense sub-tiling shares the storage: rebuild it
+            out = dataclasses.replace(
+                out, partition=partition_tiles(out, self.partition.threshold))
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePartition:
+    """The nnz-classified hybrid split of a tiling (built by
+    `partition_tiles`).  Empty tiles are in neither half.
+
+    Attributes:
+      dense:     compacted `BlockTiledGraph` of the tiles with nnz >=
+                 threshold, on the same block grid and storage, with its
+                 own `row_starts` and pad-to-8 (its `partition` is None).
+      tail_rows: (sp_nnz,) int64 global padded output-vertex id per tail
+                 nnz (the tile row axis: the scatter target).
+      tail_cols: (sp_nnz,) int64 global padded input-vertex id per tail
+                 nnz (the gather source).  These are the reference's
+                 `sp_rows[:sp_nnz]` / `sp_cols[:sp_nnz]`; its sentinel
+                 padding only ever feeds a segment slot it drops, so the
+                 port keeps none (and int64, as `scatter_reduce_` /
+                 `index_add_` take it, so a round converts nothing).
+      threshold, n_dense_tiles, n_sparse_tiles, sp_nnz: static metadata
+                 (sp_nnz counts the tail entries).
+    """
+    dense: BlockTiledGraph
+    tail_rows: torch.Tensor
+    tail_cols: torch.Tensor
+    threshold: int
+    n_dense_tiles: int
+    n_sparse_tiles: int
+    sp_nnz: int
+
+    @functools.cached_property
+    def tail_bits(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`frontier_bit_slots` of `tail_cols`, made once per partition:
+        the packed-frontier tail reads one bit per nnz up to three times
+        a round."""
+        return frontier_bit_slots(self.tail_cols, self.dense.tile_size)
+
+
+_POP8: dict = {}
+
+
+def byte_popcounts(device: torch.device) -> torch.Tensor:
+    """(256,) int32 popcount of every byte value, made once per device
+    (torch has no popcount: a word counts as the sum of its bytes')."""
+    table = _POP8.get(device)
+    if table is None:
+        table = torch.tensor([bin(b).count("1") for b in range(256)], dtype=torch.int32,
+                             device=device)
+        _POP8[device] = table
+    return table
+
+
+def tile_nnz(tiled: BlockTiledGraph) -> np.ndarray:
+    """Per-tile nnz over the stored list, (n_tiles_pad,) int32, counted on
+    the tiling's device in chunks (padding tiles read 0)."""
+    t = tiled.tiles
+    out = torch.empty(t.shape[0], dtype=torch.int32, device=t.device)
+    chunk = max((1 << 24) // t[0].numel(), 1)   # a tiling stores >= 8 tiles
+    table = byte_popcounts(t.device) if tiled.storage == "bitpack" else None
+    for lo in range(0, t.shape[0], chunk):
+        part = t[lo:lo + chunk]
+        if table is None:
+            counts = (part != 0).sum(dim=(1, 2), dtype=torch.int32)
+        else:
+            counts = table[part.contiguous().view(torch.uint8).long()].sum(
+                dim=(1, 2), dtype=torch.int32)
+        out[lo:lo + chunk] = counts
+    return out.cpu().numpy()
+
+
+def partition_tiles(
+    tiled: BlockTiledGraph, threshold: int, *, nnz: np.ndarray | None = None
+) -> TilePartition:
+    """Classify tiles by nnz and build the hybrid split, on the tiling's
+    device.  Deterministic in (tiles, threshold): equal, array for array,
+    to the reference's `partition_tiles`.  Dense tiles keep their
+    row-major order, so the compacted CSR stays kernel-legal; the tail
+    lists nonzeros by tile, then row, then column (`np.nonzero`'s order),
+    built in chunks of tiles so the unpacked masks stay near 16 MB."""
+    T = tiled.tile_size
+    thr = int(threshold)
+    dev = tiled.device
+    if nnz is None:
+        nnz = tile_nnz(tiled)
+    real = np.asarray(nnz)[: tiled.n_tiles]
+    dense_idx = np.nonzero(real >= thr)[0]
+    sparse_idx = np.nonzero((real > 0) & (real < thr))[0]
+    rows_h = tiled.tile_rows.cpu().numpy()
+
+    # dense subset: gather, recompute the CSR, re-pad (empty tiles vanish)
+    n_dense = int(dense_idx.shape[0])
+    d_rows = rows_h[dense_idx].astype(np.int32)
+    d_cols = tiled.tile_cols.cpu().numpy()[dense_idx].astype(np.int32)
+    counts = np.bincount(d_rows, minlength=tiled.n_block_rows)
+    row_starts = np.zeros(tiled.n_block_rows + 1, dtype=np.int32)
+    np.cumsum(counts, out=row_starts[1:])
+    target = padded_tile_count(n_dense)
+    d_tiles = torch.zeros((target,) + tuple(tiled.tiles.shape[1:]),
+                          dtype=tiled.tiles.dtype, device=dev)
+    d_tiles[:n_dense] = tiled.tiles[to_torch(dense_idx, dev)]
+    last_row = d_rows[-1] if n_dense else np.int32(0)
+    d_rows = np.concatenate([d_rows, np.full(target - n_dense, last_row, np.int32)])
+    d_cols = np.concatenate([d_cols, np.zeros(target - n_dense, np.int32)])
+    dense = BlockTiledGraph(
+        tiles=d_tiles,
+        tile_rows=to_torch(d_rows, dev),
+        tile_cols=to_torch(d_cols, dev),
+        row_starts=to_torch(row_starts, dev),
+        n_tiles=n_dense,
+        n_nodes=tiled.n_nodes,
+        tile_size=T,
+        n_block_rows=tiled.n_block_rows,
+        n_block_cols=tiled.n_block_cols,
+        storage=tiled.storage,
+    )
+
+    # sparse tail: COO in global padded vertex ids
+    sp_idx = to_torch(sparse_idx, dev).long()
+    v_parts = [torch.empty(0, dtype=torch.int64, device=dev)]
+    u_parts = [torch.empty(0, dtype=torch.int64, device=dev)]
+    chunk = max((1 << 24) // (T * T), 1)
+    for lo in range(0, sp_idx.shape[0], chunk):
+        idx = sp_idx[lo:lo + chunk]
+        t_i, r_i, c_i = dense_tile_mask(tiled.tiles[idx], T).nonzero(as_tuple=True)
+        v_parts.append(tiled.tile_rows[idx][t_i].long() * T + r_i)
+        u_parts.append(tiled.tile_cols[idx][t_i].long() * T + c_i)
+    tail_rows, tail_cols = torch.cat(v_parts), torch.cat(u_parts)
+    return TilePartition(
+        dense=dense,
+        tail_rows=tail_rows,
+        tail_cols=tail_cols,
+        threshold=thr,
+        n_dense_tiles=n_dense,
+        n_sparse_tiles=int(sparse_idx.shape[0]),
+        sp_nnz=int(tail_rows.shape[0]),
+    )
+
+
+def attach_partition(
+    tiled: BlockTiledGraph, mode: str = "auto", threshold: int | None = None
+) -> BlockTiledGraph:
+    """The hybrid-routing policy: `tiled` with a partition attached, or
+    without one where the policy says the split will not pay.
+
+      off     never partition (a stale partition is dropped).
+      forced  always partition.
+      auto    partition iff there are >= HYBRID_AUTO_MIN_TILES non-empty
+              tiles and the tail holds >= HYBRID_AUTO_MIN_SPARSE_FRAC of
+              them.
+
+    `threshold` defaults to the cost model's break-even
+    (`repro_torch.perf.hybrid_density_threshold`)."""
+    if mode == "off":
+        return tiled if tiled.partition is None else dataclasses.replace(tiled, partition=None)
+    if mode not in ("auto", "forced"):
+        raise ValueError(f"unknown hybrid mode {mode!r}; valid: auto|off|forced")
+    if threshold is None:
+        from repro_torch.perf.roofline import hybrid_density_threshold
+
+        threshold = hybrid_density_threshold(tiled.tile_size, tiled.storage)
+    thr = int(threshold)
+    nnz = tile_nnz(tiled)
+    real = nnz[: tiled.n_tiles]
+    nonempty = int(np.count_nonzero(real))
+    n_sparse = int(np.count_nonzero((real > 0) & (real < thr)))
+    if mode == "auto" and (
+        nonempty < HYBRID_AUTO_MIN_TILES
+        or n_sparse == 0
+        or n_sparse < HYBRID_AUTO_MIN_SPARSE_FRAC * nonempty
+    ):
+        return tiled if tiled.partition is None else dataclasses.replace(tiled, partition=None)
+    return dataclasses.replace(tiled, partition=partition_tiles(tiled, thr, nnz=nnz))
 
 
 def rcm_ordering(g: Graph) -> np.ndarray:
@@ -295,6 +489,26 @@ def pack_frontier_words(x: torch.Tensor, tile_size: int) -> torch.Tensor:
 def unpack_frontier_words(words: torch.Tensor, tile_size: int) -> torch.Tensor:
     """(n_blocks, W) int32 words -> (n_blocks·T,) bool."""
     return unpack_frontier_bits(words, tile_size).reshape(-1)
+
+
+def frontier_bit_slots(ids: torch.Tensor, tile_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """For each global padded vertex id, its slot in (n_blocks, W) frontier
+    words: (int64 index into the flattened words, int32 bit shift)."""
+    T = int(tile_size)
+    ids = ids.long()
+    slot = ids % T
+    return (ids // T) * packed_words(T) + slot // _BITS, (slot % _BITS).to(torch.int32)
+
+
+def gather_frontier_bits(words: torch.Tensor, slots: Tuple[torch.Tensor, torch.Tensor]
+                         ) -> torch.Tensor:
+    """The bool at each of `slots` (`frontier_bit_slots`) of the frontier
+    words: one gather, a shift and a mask per id, not a frontier unpack.
+    Unlike a jnp gather, an id past the last block is not clamped: callers
+    pass real vertex ids only."""
+    index, shift = slots
+    # `& 1` after the arithmetic shift: the sign fill lands above bit 0
+    return ((words.reshape(-1)[index] >> shift) & 1) != 0
 
 
 def sort_block_priorities(p: torch.Tensor, tile_size: int):

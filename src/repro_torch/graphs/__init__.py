@@ -1,4 +1,20 @@
-from repro_torch.graphs.generators import erdos_renyi, grid2d, random_regular
+from repro_torch.graphs.generators import (
+    GRAPH_SUITE,
+    GraphSpec,
+    delaunay_like,
+    erdos_renyi,
+    generate,
+    grid2d,
+    powerlaw,
+    preferential_attachment,
+    random_regular,
+    rmat,
+    web_like,
+)
 from repro_torch.graphs.graph import Graph, from_edges
 
-__all__ = ["Graph", "from_edges", "grid2d", "erdos_renyi", "random_regular"]
+__all__ = [
+    "Graph", "from_edges", "GRAPH_SUITE", "GraphSpec", "delaunay_like", "erdos_renyi",
+    "generate", "grid2d", "powerlaw", "preferential_attachment", "random_regular", "rmat",
+    "web_like",
+]

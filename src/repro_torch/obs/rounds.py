@@ -12,11 +12,12 @@ device→host transfer after it:
     col 1  COL_FRONTIER       popcount(candidates C), the phase-① frontier
     col 2  COL_SELECTED       popcount(in_mis_new) − popcount(in_mis_old)
     col 3  COL_TILES_SKIPPED  n_tiles_pad − Σ col_flags[tile_cols]  (0 when
-                              the engine computes no flags: segment)
+                              the engine computes no flags: segment); under
+                              hybrid routing, over the dense partition
     col 4  COL_TILES_DENSE    tiles dispatched on the dense path this round
                               (n_tiles_pad − skipped; 0 for segment)
-    col 5  COL_TILES_SPARSE   tiles routed through a COO tail (always 0: the
-                              port has no hybrid routing yet)
+    col 5  COL_TILES_SPARSE   tiles routed through the COO tail: the
+                              partition's n_sparse_tiles, 0 without one
 
 Rows past the executed round count keep the fill value −1, which is how
 `RoundTrace.from_buffer` tells "round never ran" from an all-zero round.

@@ -19,7 +19,14 @@ import pytest
 import torch
 
 from repro_torch.core.engine import block_col_flags, live_bits
-from repro_torch.core.tiling import build_block_tiles, pack_frontier_words, pack_priority_planes
+from repro_torch.core.tiling import (
+    build_block_tiles,
+    pack_frontier_words,
+    pack_priority_planes,
+    partition_tiles,
+    tile_nnz,
+)
+from repro_torch.graphs.generators import grid2d
 from repro_torch.graphs.graph import from_edges
 from repro_torch.hopper import embedding_bag as E
 from repro_torch.hopper import tc_neighbor_max as N
@@ -786,3 +793,71 @@ def test_embedding_bag_empty_output_counts_no_launch(cuda_device, B, D):
     got = E.embedding_bag(table, idx)
     assert got.shape == (B, D) and got.dtype == torch.float32
     assert E.embedding_bag.launches == launches
+
+
+# --------------------------------------------------------------------------
+# the compacted dense partition of a hybrid plan
+# --------------------------------------------------------------------------
+
+def _dense_partition(device, T, storage, kind):
+    """The dense half of a tile partition of a graph whose block-rows range
+    from sparse to dense (a lattice with 0 to 10 extra random edges per
+    vertex, by vertex id): "mixed" at the median of the block-rows' largest
+    tile nnz, so some block-rows own a dense tile and the others none,
+    "empty" above every tile's nnz, so the partition holds only its 8 zero
+    padding tiles and `row_starts` is all 0."""
+    rng = np.random.default_rng(T)
+    n = 150 * 150
+    lattice = grid2d(150, 150, seed=T, device="cpu")
+    extra = rng.integers(0, 11 * np.arange(n) // n + 1)
+    src = np.repeat(np.arange(n), extra)
+    dst = np.clip(src + rng.integers(-2 * T, 2 * T, src.shape[0]), 0, n - 1)
+    E = lattice.n_edges
+    g = from_edges(np.concatenate([lattice.senders[:E].numpy(), src]),
+                   np.concatenate([lattice.receivers[:E].numpy(), dst]), n, device=device)
+    t = build_block_tiles(g, tile_size=T, storage=storage)
+    nnz = tile_nnz(t)[: t.n_tiles]
+    row_max = np.zeros(t.n_block_rows, np.int64)
+    np.maximum.at(row_max, t.tile_rows[: t.n_tiles].cpu().numpy(), nnz)
+    thr = int(np.median(row_max)) if kind == "mixed" else int(nnz.max()) + 1
+    dense = partition_tiles(t, thr).dense
+    uncovered = int((dense.row_starts[1:] == dense.row_starts[:-1]).sum())
+    if kind == "mixed":
+        assert dense.n_tiles > 0 and 0 < uncovered < dense.n_block_rows
+    else:
+        assert dense.n_tiles == 0 and dense.n_tiles_pad == 8
+        assert uncovered == dense.n_block_rows
+    return dense
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mixed", "empty"])
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [16, 128])
+def test_kernels_on_a_dense_partition_on_card(cuda_device, T, storage, kind):
+    """The four kernels a hybrid round runs on its dense half, each held to
+    its plain version: the split SpMV (exact on a 0/1 RHS, within 1e-5 on
+    randn), the split packed SpMV and both neighbour maxes (exact), with
+    and without gated columns.  Uncovered block-rows read N_c = 0, no hit,
+    and int32 min from both maxes."""
+    t = _dense_partition(cuda_device, T, storage, kind)
+    uncovered = (t.row_starts[1:] == t.row_starts[:-1]).repeat_interleave(T)
+    gen, cand, alive = _frontier(t, cuda_device, 40)
+    rhs01, rhs = _rhs_pair(t, gen, LANES, cuda_device)
+    cand_w = pack_frontier_words(cand, T)
+    for flags in (None, block_col_flags(alive, T)):
+        launches = (K.tc_spmv.launches, K.tc_spmv_bits.launches)
+        n01 = K.tc_spmv(t, rhs01, col_flags=flags)
+        assert torch.equal(n01, K.tc_spmv_plain(t, rhs01, col_flags=flags))
+        torch.testing.assert_close(K.tc_spmv(t, rhs, col_flags=flags),
+                                   K.tc_spmv_plain(t, rhs, col_flags=flags),
+                                   rtol=1e-5, atol=1e-5)
+        hit = K.tc_spmv_bits(t, cand_w, col_flags=flags)
+        assert torch.equal(hit, K.tc_spmv_bits_plain(t, cand_w, col_flags=flags))
+        assert (K.tc_spmv.launches, K.tc_spmv_bits.launches) == (launches[0] + 2,
+                                                                 launches[1] + 1)
+        assert bool((n01[uncovered] == 0).all())
+        assert bool((hit[uncovered.reshape(-1, T)[:, 0]] == 0).all())
+    for dense, scan in _hold_maxes(t, alive, *_keys(t.n_padded, gen, cuda_device)):
+        assert bool((dense[uncovered] == -(1 << 31)).all()
+                    and (scan[uncovered] == -(1 << 31)).all())

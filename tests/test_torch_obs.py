@@ -133,8 +133,12 @@ def test_profile_bit_matches_solve_for_every_engine(engine):
 
 
 def test_solver_telemetry_trace_and_spans():
+    """Telemetry of the full tiling (`hybrid="off"`) and, last, of the
+    default `hybrid="auto"` plan, whose partition routes this grid's every
+    tile to the COO tail."""
     g = grid2d(24, 24, device="cpu")
-    opts = dict(engine="fused_pallas", tile_size=16, storage="bitpack", phase1="tiled")
+    opts = dict(engine="fused_pallas", tile_size=16, storage="bitpack", phase1="tiled",
+                hybrid="off")
     off = Solver(SolveOptions(**opts), device="cpu").solve(g)
     tr = Trace("req")
     on = Solver(SolveOptions(telemetry=True, **opts), device="cpu").solve(g, trace=tr)
@@ -152,6 +156,17 @@ def test_solver_telemetry_trace_and_spans():
     spans = {(s.name, s.depth) for s in tr.spans}
     assert spans == {("solver.solve", 0), ("solver.plan", 1), ("solver.execute", 1)}
     assert tr.total_ms("solver.solve") >= tr.total_ms("solver.execute")
+
+    auto = Solver(SolveOptions(telemetry=True, **dict(opts, hybrid="auto")),
+                  device="cpu").solve(g)
+    part = auto.plan.tiled.partition
+    np.testing.assert_array_equal(auto.in_mis, off.in_mis)
+    assert part.n_dense_tiles == 0 and part.n_sparse_tiles == on.plan.tiled.n_tiles
+    rt = auto.telemetry
+    rt.check_invariants()
+    assert rt.tiles_sparse == [part.n_sparse_tiles] * rt.rounds
+    assert [d + s for d, s in zip(rt.tiles_dense, rt.tiles_skipped)] == \
+        [part.dense.n_tiles_pad] * rt.rounds
 
 
 def test_profile_trace_records_each_phase_of_each_round():

@@ -461,7 +461,7 @@ def test_registry_names_and_aliases():
     for name, e in port_engine.ENGINES.items():
         ref = ref_engine.get_engine(name)
         assert e.supports_bitwise == ref.supports_bitwise == (name != "segment")
-        assert not e.supports_hybrid
+        assert e.supports_hybrid == ref.supports_hybrid == (name != "segment")
         assert e.plane_kernel_nbr_max == ref.plane_kernel_nbr_max
         for phase1 in ("segment", "tiled"):
             got = port_engine.resolve_frontier(
@@ -495,12 +495,16 @@ def test_solver_solve_equals_the_loop(engine, reorder):
 
 
 def test_solver_refuses_what_is_not_ported():
+    """The sharded route is refused; hybrid plans, refused before the
+    partition was ported, now build."""
     src, dst, n = _edges("random")
     g = from_edges(src, dst, n, device="cpu")
     with pytest.raises(NotImplementedError, match="sharded"):
         Solver(SolveOptions(placement="sharded"), device="cpu").solve(g)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        port_plan.Plan.build(g, hybrid="auto")
+    for hybrid in ("auto", "forced"):
+        plan = port_plan.Plan.build(g, hybrid=hybrid)
+        assert plan.hybrid == hybrid and plan.hybrid_threshold > 0
+    assert port_plan.Plan.build(g, hybrid="forced").tiled.partition is not None
 
 
 def test_solver_on_cuda_raises_without_a_card():
