@@ -106,7 +106,42 @@ Phases, each fatal on failure:
              segment sum, with the ms per dense tile, per tail nnz and the
              break-even nnz they imply beside the cost model's 68 and 80
              (printed only: the planner reads the model).
-  5. deepfm  DeepFM serving at the full published CONFIG (39 fields,
+  5. batched the serving mix of benchmarks/serve_throughput.py (64 requests at
+             scale 1024: grid2d(128, 8), powerlaw(1024, 4), erdos_renyi(1024,
+             6), erdos_renyi(512, 3), cycled, seeds 16, 17, ...) through
+             `Solver.solve_many` in batches of 16, under `SolveOptions()` and
+             `hybrid="off"`; then four grid2d(522, 522) members (seeds 0-3,
+             1,089,936 vertices, G2's count) as one batch under
+             `SolveOptions()`, `hybrid="off"` and `hybrid="off",
+             phase1="tiled"`.  Each run's launches are counted (a partitioned
+             batch runs the split SpMV, an unpartitioned one the fused SpMV,
+             once a round; the tiled phase ① two dense maxes a round: a batch
+             counts rounds per vertex, so its frontier is dense); every member
+             equals, in MIS and rounds, its solo solve under its own request
+             generator and is a valid MIS of its plan graph.  Before the G2
+             batch's solve, the six MIS kernels are held exactly against
+             their plain versions on its round-1 inputs, with the column flags
+             its `col_gate` zeroes.  Printed: ms per batch and per member
+             (median of 5 warm), the G2 batch against four solo solves.
+  6. dynamic `Solver.update` on G2 with `repair="incremental"` on the
+             default, `hybrid="off"` and packed paths: `random_delta` at 0.2,
+             1 and 5 % of the 2,230,900 undirected edges (k adds and k
+             removes, k = int(n_und · frac) // 2, seed int(frac · 1e4), as
+             benchmarks/dyngraph_bench.py draws them).  The patched tiling
+             (`patch_plan`, median of 3) equals a rebuild of the mutated
+             graph array for array, partition and `tail_bits` included; the
+             covered pass's kernel (`tc_spmv`, or `tc_spmv_bits` on the
+             packed path) is held exactly against its plain version on the
+             full patched tiling; the repair launches it once plus the
+             path's kernels once (twice for the plane scan) a round; the
+             repaired MIS is valid; at 1 % or less it takes strictly fewer
+             rounds than a cold solve of the patched plan; an empty delta
+             returns the prior solution.  Printed: patch, repair and cold ms
+             (medians of 3), rounds and MIS sizes.
+  7. disk    G2 planned (T = 16, bitpack, hybrid auto) into a temporary
+             `cache_dir` under build/ and loaded by a fresh `PlanCache`:
+             status "disk", every array equal; build and load ms.
+  8. deepfm  DeepFM serving at the full published CONFIG (39 fields,
              33,889,984 rows, d = 10, MLP 400-400-400), weights drawn on
              the card from seed 0, fields from `ClickStream(FIELD_VOCABS, B,
              seed=0)`:
@@ -1384,6 +1419,324 @@ def timing_deepfm(state: dict, errs: dict) -> list:
     return [records["D=10"]]
 
 
+# --------------------------------------------------------------------------
+# the batched and dynamic routes, and the plan cache's disk layer
+# --------------------------------------------------------------------------
+
+SERVE_SCALE, SERVE_REQUESTS, SERVE_BATCH = 1024, 64, 16   # serve_throughput, not quick
+G2_MEMBER = (522, 522)          # four of these hold G2's 1,089,936 vertices
+DELTA_FRACS = (0.002, 0.01, 0.05)   # of G2's undirected edges, as dyngraph_bench
+SMALL_FRAC = 0.01               # repair takes strictly fewer rounds than cold here
+
+
+def serving_mix():
+    """The reference's non-quick serving mix (benchmarks/serve_throughput.py
+    `_request_mix(64, 1024, seed=16)`): grid2d(128, 8), powerlaw(1024, 4),
+    erdos_renyi(1024, 6), erdos_renyi(512, 3), cycled, seeds 16, 17, ..."""
+    from repro_torch.graphs import erdos_renyi, grid2d, powerlaw
+
+    s = SERVE_SCALE
+    makers = [lambda k: grid2d(s // 8, 8, seed=k, device="cuda"),
+              lambda k: powerlaw(s, avg_deg=4.0, seed=k, device="cuda"),
+              lambda k: erdos_renyi(s, avg_deg=6.0, seed=k, device="cuda"),
+              lambda k: erdos_renyi(s // 2, avg_deg=3.0, seed=k, device="cuda")]
+    return [makers[i % 4](SERVE_BATCH + i // 4) for i in range(SERVE_REQUESTS)]
+
+
+def batch_launches(results, counts: dict, label: str) -> None:
+    """A `solve_many` run's launches: a batch with a partition runs the
+    split SpMV on its dense half once a round, one without it the fused
+    SpMV; every kernel the run's batches take was launched, no other."""
+    want = set()
+    for r in results:
+        if r.placement == "batched":
+            want.add("tc_spmv" if ".h" in r.stats["bucket"] else "tc_spmv_fused")
+    got = {k for k, v in counts.items() if v}
+    check(got == want, f"{label}: kernels launched {got}, expected {want}")
+
+
+def hold_batch_kernels(batch, options, errs: dict, what: str) -> None:
+    """Every MIS kernel on a batch's round-1 inputs, with the column flags
+    its `col_gate` zeroes, against its plain version: candidates from the
+    plain `tiled_ref` round, alive = `alive0`."""
+    import torch
+    from repro_torch.core.tc_mis import _setup
+    from repro_torch.core.tiling import pack_frontier_words, pack_priority_planes
+    from repro_torch.hopper import tc_neighbor_max as N
+    from repro_torch.hopper import tc_spmv as K
+
+    opts = dataclasses.replace(options, engine="tiled_ref", hybrid="off")
+    t = dataclasses.replace(batch.tiled, partition=None)
+    engine, ctx, pri, state = _setup(batch.g, t, None, opts, batch.priorities,
+                                     batch.alive0, batch.col_gate, True)
+    alive = state.alive
+    cand = engine.phase1_candidates(ctx, pri, alive)
+    flags = engine.col_flags(ctx, cand).contiguous()
+    check(int(flags.sum()) <= int(batch.col_gate.sum()) < t.n_block_cols,
+          f"{what}: col_gate gates no column")
+    T = t.tile_size
+    rhs = engine._pack_rhs(ctx, cand, alive)
+    exact(errs, "tc_spmv_fused", K.tc_spmv_fused(t, rhs, cand, alive, col_flags=flags),
+          K.tc_spmv_fused_plain(t, rhs, cand, alive, col_flags=flags), what)
+    exact(errs, "tc_spmv", K.tc_spmv(t, rhs, col_flags=flags),
+          K.tc_spmv_plain(t, rhs, col_flags=flags), what)
+    exact(errs, "tc_neighbor_max", N.tc_neighbor_max(t, pri.select, alive),
+          N.tc_neighbor_max_plain(t, pri.select, alive), what)
+    cand_w, alive_w = pack_frontier_words(cand, T), pack_frontier_words(alive, T)
+    exact(errs, "tc_spmv_bits", K.tc_spmv_bits(t, cand_w, col_flags=flags),
+          K.tc_spmv_bits_plain(t, cand_w, col_flags=flags), what)
+    exact(errs, "tc_spmv_fused_bits",
+          K.tc_spmv_fused_bits(t, cand_w, alive_w, col_flags=flags),
+          K.tc_spmv_fused_bits_plain(t, cand_w, alive_w, col_flags=flags), what)
+    for key, n_bits, signed in ((pri.select, 31, False), (pri.resolve, 32, True)):
+        planes = pack_priority_planes(key, T, n_bits, signed=signed)
+        exact(errs, "tc_neighbor_max_bits",
+              N.tc_neighbor_max_bits(t, planes, alive_w, signed=signed),
+              N.tc_neighbor_max_bits_plain(t, planes, alive_w, signed=signed), what)
+    torch.cuda.synchronize()
+    print(f"[batched] {what}: six kernels exact against their plain versions on the "
+          f"round-1 inputs, {int(flags.sum())} of {t.n_block_cols} block-columns active "
+          f"({int(batch.col_gate.sum())} real)", flush=True)
+
+
+def check_members(solver, results, label: str) -> None:
+    """Each member's MIS and rounds equal its solo solve under its own
+    request generator, and it is a valid MIS of its plan graph."""
+    import numpy as np
+    import torch
+    from repro_torch.core.validate import is_valid_mis
+
+    for i, r in enumerate(results):
+        solo = solver.solve(r.plan, generator=solver.request_generator(r.plan))
+        check(solo.rounds == r.rounds and np.array_equal(solo.in_mis, r.in_mis),
+              f"{label}: member {i} differs from its solo solve "
+              f"({r.rounds} rounds against {solo.rounds})")
+        check(r.converged and is_valid_mis(r.plan.g, torch.from_numpy(r.in_mis_plan).cuda()),
+              f"{label}: member {i} is not a valid MIS")
+
+
+def phase_batched(g2, errs: dict) -> None:
+    """The serving mix through `solve_many` in batches of 16, and four
+    quarter-G2 members as one batch, each under the default options and
+    `hybrid="off"` (the G2 batch with `phase1="tiled"` too)."""
+    from repro_torch.api import Solver, SolveOptions
+    from repro_torch.graphs import grid2d
+    from repro_torch.serve_mis.batcher import member_priorities, pack_batch
+
+    mix = serving_mix()
+    for label, opts in (("default", SolveOptions()), ("off", SolveOptions(hybrid="off"))):
+        solver = Solver(opts, device="cuda")
+        for b in range(0, SERVE_REQUESTS, SERVE_BATCH):
+            graphs = mix[b: b + SERVE_BATCH]
+            results, counts = counted(lambda: solver.solve_many(graphs))
+            batch_launches(results, counts, f"serving mix {label}, batch {b // SERVE_BATCH}")
+            check_members(solver, results, f"serving mix {label}, batch {b // SERVE_BATCH}")
+            med, took = median_ms(lambda: solver.solve_many(graphs))
+            groups = {}
+            for r in results:
+                groups.setdefault(r.stats.get("bucket", "solo"), []).append(r.rounds)
+            print(f"[batched] serving mix {label}, batch {b // SERVE_BATCH} ({len(graphs)} "
+                  f"requests, scale {SERVE_SCALE}): median {med:.3f} ms per batch, "
+                  f"{med / len(graphs):.4f} ms per member, of "
+                  f"{[round(x, 3) for x in took]}; groups {json.dumps(groups)}; "
+                  f"launches { {k: v for k, v in counts.items() if v} }", flush=True)
+
+    members = [grid2d(*G2_MEMBER, seed=s, device="cuda") for s in range(4)]
+    check(sum(m.n_nodes for m in members) == g2.n_nodes, "G2 batch: vertex count")
+    for label, opts, expect in (
+            ("default", SolveOptions(), {"tc_spmv": 1}),
+            ("off", SolveOptions(hybrid="off"), {"tc_spmv_fused": 1}),
+            ("off tiled", SolveOptions(hybrid="off", phase1="tiled"),
+             {"tc_neighbor_max": 2, "tc_spmv_fused": 1})):
+        solver = Solver(opts, device="cuda")
+        plans = [solver.plan(m) for m in members]
+        if label != "off tiled":
+            pris = [member_priorities(p, solver.request_generator(p), opts.heuristic)
+                    for p in plans]
+            hold_batch_kernels(pack_batch(plans, pris), opts, errs, f"G2 batch, {label}")
+        results, counts = counted(lambda: solver.solve_many(plans))
+        rounds = max(r.rounds for r in results)
+        want = {k: expect.get(k, 0) * rounds for k in KERNELS}
+        check(counts == want, f"G2 batch {label}: launches {counts}, expected {want}")
+        check(all(r.placement == "batched" for r in results), f"G2 batch {label}: not batched")
+        check_members(solver, results, f"G2 batch {label}")
+        med, took = median_ms(lambda: solver.solve_many(plans))
+        gens = [solver.request_generator(p) for p in plans]
+        solo_med, solo_took = median_ms(
+            lambda: [solver.solve(p, generator=gen) for p, gen in zip(plans, gens)])
+        r0 = results[0]
+        print(f"[batched] G2 batch {label} (4 x grid2d{G2_MEMBER}, T={r0.plan.tile_size} "
+              f"{r0.plan.storage}, bucket {r0.stats['bucket']}): rounds "
+              f"{[r.rounds for r in results]}, mis {[r.mis_size for r in results]}; "
+              f"median {med:.3f} ms per batch of {[round(x, 3) for x in took]} against "
+              f"{solo_med:.3f} ms for the four solo solves of "
+              f"{[round(x, 3) for x in solo_took]}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+
+
+def same_tiling(a, b) -> bool:
+    import torch
+
+    if any(getattr(a, k) != getattr(b, k) for k in ("n_tiles", "n_block_rows", "storage")):
+        return False
+    if not all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in ("tiles", "tile_rows", "tile_cols", "row_starts")):
+        return False
+    pa, pb = a.partition, b.partition
+    if (pa is None) != (pb is None):
+        return False
+    if pa is None:
+        return True
+    return ((pa.threshold, pa.n_dense_tiles, pa.n_sparse_tiles, pa.sp_nnz)
+            == (pb.threshold, pb.n_dense_tiles, pb.n_sparse_tiles, pb.sp_nnz)
+            and same_tiling(pa.dense, pb.dense)
+            and all(torch.equal(x, y) for x, y in zip(
+                (pa.tail_rows, pa.tail_cols, *pa.tail_bits),
+                (pb.tail_rows, pb.tail_cols, *pb.tail_bits))))
+
+
+def hold_cover_kernels(plan, options, prior, touched, errs: dict, what: str) -> None:
+    """The covered pass's kernel on the full patched tiling, against its
+    plain version: `tc_spmv` on the seed set as lane 0 (dense frontier) or
+    `tc_spmv_bits` on its words (packed)."""
+    import torch
+    from repro_torch.core.engine import get_engine, resolve_frontier
+    from repro_torch.core.tiling import pack_frontier_words, pack_vertex_vector
+    from repro_torch.dyngraph.repair import dirty_mask
+    from repro_torch.hopper import tc_spmv as K
+
+    t = plan.tiled
+    dirty = torch.from_numpy(dirty_mask(plan.n_nodes, touched)).cuda()
+    seed = torch.from_numpy(plan.to_plan_ids(prior.in_mis).astype(bool)).cuda() & ~dirty
+    padded = pack_vertex_vector(seed, t)
+    frontier = resolve_frontier(options, get_engine(options.engine), storage=t.storage)
+    if frontier == "bitwise":
+        words = pack_frontier_words(padded, t.tile_size)
+        exact(errs, "tc_spmv_bits", K.tc_spmv_bits(t, words), K.tc_spmv_bits_plain(t, words),
+              what)
+    else:
+        rhs = torch.zeros((t.n_padded, options.lanes), dtype=torch.float32, device="cuda")
+        rhs[:, 0] = padded.float()
+        exact(errs, "tc_spmv", K.tc_spmv(t, rhs), K.tc_spmv_plain(t, rhs), what)
+    torch.cuda.synchronize()
+
+
+def phase_dynamic(g2, errs: dict) -> None:
+    """`Solver.update` on G2: `random_delta` at 0.2, 1 and 5 % of the
+    undirected edges on the default, `hybrid="off"` and packed paths with
+    `repair="incremental"`, then a cold solve of the patched plan."""
+    import numpy as np
+    import torch
+    from repro_torch.api import PlanCache, Solver, SolveOptions, patch_plan
+    from repro_torch.core.tiling import attach_partition, build_block_tiles
+    from repro_torch.core.validate import is_valid_mis
+    from repro_torch.dyngraph import EdgeDelta, apply_graph_delta, random_delta
+
+    n_und = g2.n_edges // 2
+    deltas = {}
+    for frac in DELTA_FRACS:
+        k = int(n_und * frac) // 2
+        t0 = time.perf_counter()
+        deltas[frac] = random_delta(g2, n_add=k, n_remove=k, seed=int(frac * 1e4))
+        print(f"[dynamic] delta {frac:.1%}: {k} adds + {k} removes, "
+              f"{deltas[frac].touched().size} touched vertices "
+              f"(drawn in {time.perf_counter() - t0:.1f} s)", flush=True)
+    rebuilt = {}
+    plans = PlanCache(tile_size=16, storage="bitpack", device="cuda")
+    for label, opts, cover, expect in (
+            ("default", SolveOptions(repair="incremental"), "tc_spmv", {"tc_spmv": 1}),
+            ("off", SolveOptions(repair="incremental", hybrid="off"), "tc_spmv",
+             {"tc_spmv_fused": 1}),
+            ("packed", SolveOptions(repair="incremental", hybrid="off", phase1="tiled"),
+             "tc_spmv_bits", {"tc_spmv_fused_bits": 1, "tc_neighbor_max_bits": 2})):
+        solver = Solver(opts, device="cuda", plans=plans)
+        plan = solver.plan(g2)
+        prior = solver.solve(plan)
+        same, counts = counted(lambda: solver.update(prior, EdgeDelta.make()))
+        check(same.rounds == 0 and np.array_equal(same.in_mis, prior.in_mis)
+              and counts == {k: int(k == cover) for k in KERNELS},
+              f"dynamic {label}: an empty delta did not return the prior solution "
+              f"after the covered pass alone (launches {counts})")
+        for frac, delta in deltas.items():
+            took = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                patched = patch_plan(plan, delta)
+                torch.cuda.synchronize()
+                took.append((time.perf_counter() - t0) * 1e3)
+            patch_ms = statistics.median(took)
+            key = (plan.key, frac)
+            if key not in rebuilt:
+                t = build_block_tiles(apply_graph_delta(g2, delta), tile_size=16,
+                                      storage="bitpack")
+                if plan.hybrid != "off":
+                    t = attach_partition(t, mode=plan.hybrid, threshold=plan.hybrid_threshold)
+                rebuilt[key] = t
+            check(same_tiling(patched.tiled, rebuilt[key]),
+                  f"dynamic {label} {frac:.1%}: the patched tiling differs from a rebuild")
+            cached, status = plans.apply_delta(plan, delta)
+            check(same_tiling(cached.tiled, patched.tiled), f"dynamic {label}: cache patch")
+            hold_cover_kernels(cached, opts, prior, delta.touched(), errs,
+                               f"G2 {label} {frac:.1%} covered pass")
+            rep, counts = counted(lambda: solver.update(prior, delta))
+            want = {k: expect.get(k, 0) * rep.rounds + (k == cover) for k in KERNELS}
+            check(counts == want, f"dynamic {label} {frac:.1%}: launches {counts}, "
+                                  f"expected {want}")
+            check(rep.stats["repair"] == "incremental" and rep.stats["patch"] == "mem"
+                  and rep.converged
+                  and is_valid_mis(rep.plan.g, torch.from_numpy(rep.in_mis_plan).cuda()),
+                  f"dynamic {label} {frac:.1%}: the repaired MIS is not valid")
+            rep_ms, rep_took = median_ms(lambda: solver.update(prior, delta), 3)
+            cold = solver.solve(rep.plan)
+            check(cold.converged, f"dynamic {label}: cold solve did not converge")
+            cold_ms, cold_took = median_ms(lambda: solver.solve(rep.plan), 3)
+            if frac <= SMALL_FRAC:
+                check(rep.rounds < cold.rounds,
+                      f"dynamic {label} {frac:.1%}: repair took {rep.rounds} rounds, "
+                      f"cold {cold.rounds}")
+            print(f"[dynamic] G2 {label} {frac:.1%} (+{delta.n_add} -{delta.n_remove}, "
+                  f"{status}): patch {patch_ms:.3f} ms (median of "
+                  f"{[round(x, 3) for x in took]}, tiles {plan.tiled.n_tiles} -> "
+                  f"{patched.tiled.n_tiles}); repair {rep_ms:.3f} ms of "
+                  f"{[round(x, 3) for x in rep_took]}, {rep.rounds} rounds, mis "
+                  f"{rep.mis_size}; cold {cold_ms:.3f} ms of "
+                  f"{[round(x, 3) for x in cold_took]}, {cold.rounds} rounds, mis "
+                  f"{cold.mis_size}; launches { {k: v for k, v in counts.items() if v} }",
+                  flush=True)
+            del patched, cached, rep, cold
+        del solver, plan, prior
+
+
+def phase_disk_cache(g2) -> None:
+    """G2 planned into a temporary cache directory and loaded in a fresh
+    cache: status "disk", every array equal."""
+    import tempfile
+
+    import torch
+    from repro_torch.api import PlanCache
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        kw = dict(tile_size=16, storage="bitpack", cache_dir=d, device="cuda")
+        t0 = time.perf_counter()
+        a, st = PlanCache(**kw).plan(g2, hybrid="auto")
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        b, st2 = PlanCache(**kw).plan(g2, hybrid="auto")
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        check((st, st2) == ("built", "disk"), f"disk cache: statuses {st}, {st2}")
+        check(same_tiling(a.tiled, b.tiled) and a.key == b.key
+              and torch.equal(a.g.senders, b.g.senders)
+              and torch.equal(a.g.receivers, b.g.receivers),
+              "disk cache: the loaded plan differs from the built one")
+        size = sum(f.stat().st_size for f in pathlib.Path(d).iterdir())
+    print(f"[disk] G2 plan (T=16 bitpack, hybrid auto:{a.hybrid_threshold}): built and "
+          f"written in {build_ms:.1f} ms, loaded by a fresh cache in {load_ms:.1f} ms "
+          f"({size / 1e6:.1f} MB on disk); every array equal", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -1407,7 +1760,11 @@ def main() -> None:
     records += timing_packed(paths["packed"], paths["launches"], errs)
     timing_solves(paths)
     timing_hybrid(g2, paths, baselines)
-    del paths, baselines, g2
+    del paths, baselines
+    phase_batched(g2, errs)
+    phase_dynamic(g2, errs)
+    phase_disk_cache(g2)
+    del g2
     deepfm = phase_deepfm(errs)
     records += timing_deepfm(deepfm, errs)
     check(sorted(r["name"] for r in records) == sorted(KERNELS), "a kernel has no record")

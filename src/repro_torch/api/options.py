@@ -5,11 +5,12 @@
 engines route by it, `segment` plans it "off"), at a threshold from the
 port's H100 cost model unless `hybrid_threshold` names one; `frontier`
 resolves as the reference resolves it (the packed words for a tile engine
-with `phase1="tiled"` on bitpack storage).  Fields that select work this
-package has not ported yet are accepted and validated like the
-reference's: `placement="sharded"` raises at solve time; `repair`,
-`repair_threshold`, `bitpack`, `shard_threshold` and `cache_dir` have no
-effect yet (ROADMAP.md, Queue 1).
+with `phase1="tiled"` on bitpack storage).  `repair` and
+`repair_threshold` pick `Solver.update`'s mode; `cache_dir` gives the
+Solver's plan cache its disk layer.  Fields of the sharded route, not
+ported, are accepted and validated like the reference's:
+`placement="sharded"` raises at solve time; `bitpack` and
+`shard_threshold` have no effect (ROADMAP.md, Queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -51,10 +52,13 @@ class SolveOptions:
                   cost model's break-even (`repro_torch.perf`)
 
     Placement: placement (auto | local | sharded), shard_threshold, bitpack.
-    Dynamic graphs: repair, repair_threshold.  Observability: telemetry
+    Dynamic graphs (`Solver.update`): repair (auto | incremental | cold),
+    repair_threshold (auto's largest touched-vertex share for
+    incremental).  Observability: telemetry
     (a per-round `obs.RoundTrace` in `SolveResult.telemetry`).
     Reproducibility / caching: seed (seeds the `torch.Generator` of
-    `Solver.solve`), cache_dir, plan_cache_entries.
+    `Solver.solve`, and batched members' `request_generator`s), cache_dir
+    (the plan cache's `.npz` directory), plan_cache_entries.
     """
 
     heuristic: str = "h3"

@@ -1,19 +1,34 @@
-"""`Solver` — plan, route and solve one graph (counterpart of
-`repro.api.solver`, local route only).
+"""`Solver` — plan, route and solve graphs (counterpart of
+`repro.api.solver`; the local, batched and dynamic routes).
+
+    solve(graph)         one graph on the local route
+    solve_many(graphs)   [] → []; one graph → `solve`; many → block-diagonal
+                         batches (`serve_mis.batcher`), one convergence loop
+                         per (tile size, storage) group, each member's MIS
+                         and rounds those of its solo solve under its own
+                         `request_generator`
+    profile(graph)       the phase-timed twin (`core.tc_mis.run_phases`)
+    update(prior, delta) dynamic graphs: patch the plan tile by tile
+                         through the cache, then repair the solution per
+                         `options.repair` (a warm-started round loop from
+                         the prior MIS, or a cold solve of the patched plan)
 
 `Solver(options, device="cuda")` runs on the CUDA device and raises where
-there is none; `device="cpu"` must be asked for.  A graph handed to
-`solve` is moved to the solver's device.  `solve` takes a `trace`
-(`repro_torch.obs.Trace`) and, with `SolveOptions(telemetry=True)`,
-returns a `RoundTrace` in `SolveResult.telemetry`; `profile` runs the
-phase-timed twin.  `solve_many`, `update` and the sharded route are not
-ported yet (ROADMAP.md, Queue 1).
+there is none; `device="cpu"` must be asked for.  A graph handed in is
+moved to the solver's device.  `solve` draws priorities from a
+`torch.Generator` seeded with `options.seed`; batched members draw from
+`request_generator(options.seed, plan)`, derived from the graph's content,
+so a member's solution never depends on its batch, slot or arrival order.
+`metrics` is the solver's `MetricsRegistry`; `stats` its legacy view.
+The sharded route is not ported (ROADMAP.md, Queue 1 item 16): a plan
+that routes there raises.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional, Union
+from collections import OrderedDict
+from typing import Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -24,6 +39,7 @@ from repro_torch.core.engine import get_engine, resolve_frontier
 from repro_torch.core.tc_mis import run_phases, run_tc_mis
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.graph import Graph
+from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.rounds import RoundTrace
 from repro_torch.obs.trace import Trace, trace_span
 
@@ -32,14 +48,20 @@ GraphLike = Union[Graph, Plan]
 
 @dataclasses.dataclass(frozen=True)
 class SolveResult:
-    """One graph's solution, in ORIGINAL vertex numbering."""
+    """One graph's solution, in ORIGINAL vertex numbering.
+
+    `rounds` is this graph's own convergence round; for a batched member
+    the maximum of its vertices' settle rounds, not the batch's.
+    `converged` is the batch's flag for batched members (an unconverged
+    member still fails maximality on its own)."""
     in_mis: np.ndarray          # (n_nodes,) bool, original vertex ids
     rounds: int
     converged: bool
-    placement: str              # local
+    placement: str              # local | batched
     plan: Plan
     stats: Dict[str, object] = dataclasses.field(default_factory=dict)
-    # the per-round series when SolveOptions.telemetry is on (obs.rounds)
+    # the per-round series when SolveOptions.telemetry is on (obs.rounds;
+    # batched members share the batch's series, its meta says so)
     telemetry: Optional[RoundTrace] = None
 
     @property
@@ -70,8 +92,31 @@ class Solver:
             tile_size=options.tile_size or 32,
             reorder=options.reorder,
             storage=options.storage,
+            cache_dir=options.cache_dir,
             max_mem_entries=options.plan_cache_entries,
+            device=self.device,
         )
+        # batched members' priorities by plan content, for the default
+        # request generators only (custom generators bypass it)
+        self._priority_cache: Dict = {}
+        self.metrics = MetricsRegistry("solver")
+        for k in ("solver.solves", "solver.batches", "solver.compiles"):
+            self.metrics.counter(k)
+
+    @property
+    def stats(self) -> Dict[str, int]:
+        """Read-only `{"solves", "batches", "compiles"}` view of the
+        metrics, in the reference's spelling.  The port compiles no
+        per-shape program (each kernel builds once per process, on first
+        use), so `compiles` stays 0."""
+        m = self.metrics
+        return {
+            "solves": m.counter("solver.solves").value,
+            "batches": m.counter("solver.batches").value,
+            "compiles": m.counter("solver.compiles").value,
+        }
+
+    # -- planning ----------------------------------------------------------
 
     def plan(self, graph: GraphLike) -> Plan:
         """Plan a graph on the solver's device through the cache (a `Plan`
@@ -96,6 +141,14 @@ class Solver:
                                   hybrid_threshold=self.options.hybrid_threshold)
         return plan
 
+    def request_generator(self, plan: Plan) -> torch.Generator:
+        """The content-derived generator a batched member draws from
+        (`serve_mis.batcher.request_generator`): a member's solo
+        reproduction is `solve(plan, generator=solver.request_generator(plan))`."""
+        from repro_torch.serve_mis.batcher import request_generator
+
+        return request_generator(self.options.seed, plan, self.device)
+
     def route(self, plan: Plan) -> str:
         """The placement policy.  Only the local route exists here, so
         "auto" always resolves to it."""
@@ -103,8 +156,7 @@ class Solver:
             return self.options.placement
         return "local"
 
-    def _local_plan(self, graph: GraphLike) -> Plan:
-        plan = self.plan(graph)
+    def _check_local(self, plan: Plan) -> Plan:
         if plan.device != self.device:
             raise ValueError(
                 f"plan lives on {plan.device}, solver on {self.device}"
@@ -119,6 +171,8 @@ class Solver:
         if generator is not None:
             return generator
         return torch.Generator(device=self.device).manual_seed(self.options.seed)
+
+    # -- execution ---------------------------------------------------------
 
     def solve(
         self,
@@ -139,25 +193,195 @@ class Solver:
         one)."""
         with trace_span(trace, "solver.solve"):
             with trace_span(trace, "solver.plan"):
-                plan = self._local_plan(graph)
-            generator = self._generator(generator)
-            t0 = time.perf_counter()
-            with trace_span(trace, "solver.execute"):
-                out = run_tc_mis(plan.g, plan.tiled, generator, self.options)
-                result, rt = self._split_telemetry(out, plan.g, plan.tiled)
-                in_mis_plan = result.in_mis.cpu().numpy().astype(bool)
-                rounds = int(result.rounds)
-                converged = bool(result.converged)
-            solve_ms = (time.perf_counter() - t0) * 1e3
+                plan = self._check_local(self.plan(graph))
+            return self._solve_local(plan, self._generator(generator), trace)
+
+    def _solve_local(self, plan: Plan, generator: torch.Generator,
+                     trace: Optional[Trace]) -> SolveResult:
+        return self._execute(
+            plan, lambda: run_tc_mis(plan.g, plan.tiled, generator, self.options),
+            trace, "solve")
+
+    def _execute(self, plan: Plan, run, trace: Optional[Trace], scope: str) -> SolveResult:
+        """One convergence loop on `plan` (`run()`: a cold `run_tc_mis` or
+        a warm-started repair), its host copy, and the solver's metrics."""
+        t0 = time.perf_counter()
+        with trace_span(trace, "solver.execute"):
+            result, rt = self._split_telemetry(run(), plan.g, plan.tiled, scope=scope)
+            in_mis_plan = result.in_mis.cpu().numpy().astype(bool)
+            rounds = int(result.rounds)
+            converged = bool(result.converged)
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        self.metrics.counter("solver.solves").inc()
+        self.metrics.histogram("solver.solve_ms").observe(solve_ms)
+        self._note_attribution(plan.tiled, rt, solve_ms)
         return SolveResult(
             in_mis=plan.to_original(in_mis_plan).astype(bool),
             rounds=rounds,
             converged=converged,
             placement="local",
             plan=plan,
-            stats={"solve_ms": solve_ms, "device": str(self.device)},
+            stats={"solve_ms": solve_ms, "batch_size": 1, "device": str(self.device)},
             telemetry=rt,
         )
+
+    def solve_many(
+        self,
+        graphs: Iterable[GraphLike],
+        *,
+        generators: Optional[Sequence[torch.Generator]] = None,
+        trace: Optional[Trace] = None,
+    ) -> List[SolveResult]:
+        """Solve a workload, batching where it pays.
+
+        Empty input returns `[]`, and a single graph goes through `solve`:
+        neither builds a batch.  Two or more graphs group by (tile size,
+        storage), as a batch shares both; a group of two or more packs
+        into one block-diagonal batch and one convergence loop, a group of
+        one solves alone.  Results keep the input order.  Members draw
+        from `request_generator(plan)` unless `generators` gives one per
+        graph (then the priority cache is bypassed)."""
+        with trace_span(trace, "solver.plan"):
+            plans = [self._check_local(self.plan(g)) for g in graphs]
+        if not plans:
+            return []
+        default = generators is None
+        if default:
+            generators = [self.request_generator(p) for p in plans]
+        elif len(generators) != len(plans):
+            raise ValueError(f"{len(plans)} graphs but {len(generators)} generators")
+        if len(plans) == 1:
+            return [self.solve(plans[0], generator=generators[0], trace=trace)]
+
+        out: List[Optional[SolveResult]] = [None] * len(plans)
+        groups: "OrderedDict[tuple, List[int]]" = OrderedDict()
+        for i, p in enumerate(plans):
+            groups.setdefault((p.tile_size, p.tiled.storage), []).append(i)
+        for idxs in groups.values():
+            if len(idxs) == 1:
+                i = idxs[0]
+                out[i] = self._solve_local(plans[i], generators[i], trace)
+                continue
+            solved = self._solve_batched(
+                [plans[i] for i in idxs], [generators[i] for i in idxs],
+                use_priority_cache=default, trace=trace,
+            )
+            for i, r in zip(idxs, solved):
+                out[i] = r
+        return out   # type: ignore[return-value]
+
+    def _solve_batched(
+        self,
+        plans: Sequence[Plan],
+        generators: Sequence[torch.Generator],
+        use_priority_cache: bool = True,
+        trace: Optional[Trace] = None,
+    ) -> List[SolveResult]:
+        from repro_torch.serve_mis.batcher import member_priorities, pack_batch
+
+        cache = self._priority_cache if use_priority_cache else None
+        t0 = time.perf_counter()
+        with trace_span(trace, "solver.pack", batch_size=len(plans)):
+            pris = [member_priorities(p, gen, self.options.heuristic, cache)
+                    for p, gen in zip(plans, generators)]
+            batch = pack_batch(plans, pris)
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        self.metrics.counter("solver.batches").inc()
+        self.metrics.histogram("solver.batch_size").observe(len(plans))
+
+        t0 = time.perf_counter()
+        with trace_span(trace, "solver.execute", batch_size=len(plans)):
+            out = run_tc_mis(batch.g, batch.tiled, None, self.options,
+                             priorities=batch.priorities, alive0=batch.alive0,
+                             col_gate=batch.col_gate, member_rounds=True)
+            result, rt = self._split_telemetry(out, batch.g, batch.tiled, scope="batch",
+                                               batch_size=len(plans))
+            in_mis = batch.unpack(result.in_mis)
+            rounds = batch.unpack(result.rounds)
+            converged = bool(result.converged)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        self.metrics.counter("solver.solves").inc(len(plans))
+        self.metrics.histogram("solver.batch_ms").observe(batch_ms)
+        self._note_attribution(batch.tiled, rt, batch_ms)
+
+        # one loop served the whole batch: each member's `solve_ms` is its
+        # 1/batch share, the shared wall clock is `batch_ms`
+        shared = dict(solve_ms=batch_ms / len(plans), batch_ms=batch_ms, pack_ms=pack_ms,
+                      bucket=batch.signature(), batch_size=len(plans),
+                      device=str(self.device))
+        return [
+            SolveResult(
+                in_mis=plan.to_original(mis.astype(bool)).astype(bool),
+                rounds=int(np.max(rnd)) if rnd.size else 0,
+                converged=converged,
+                placement="batched",
+                plan=plan,
+                stats=dict(shared),
+                telemetry=rt,
+            )
+            for plan, mis, rnd in zip(plans, in_mis, rounds)
+        ]
+
+    def update(
+        self,
+        prior: SolveResult,
+        delta,
+        *,
+        generator: Optional[torch.Generator] = None,
+        trace: Optional[Trace] = None,
+    ) -> SolveResult:
+        """Apply an `EdgeDelta` (original vertex ids) to a solved graph and
+        re-solve.
+
+        The plan is patched tile by tile through the cache
+        (`PlanCache.apply_delta`: delta-chained key, the parent's disk
+        entry retired), then re-solved per `options.repair`:
+
+          incremental   warm-start the round loop from `prior.in_mis` with
+                        only the dirty frontier alive
+                        (`dyngraph.repair.repair_solution`)
+          cold          a fresh `solve` of the patched plan
+          auto          incremental while the delta touches at most
+                        `options.repair_threshold` of the vertices
+
+        `prior` must be a converged result for the plan the delta applies
+        to (chain updates by passing each result to the next).  Both modes
+        draw the patched graph's priorities from the same generator, so an
+        empty delta returns the prior solution bit for bit either way.
+        Stats gain `repair` (the mode taken), `patch` (the cache layer of
+        the patched plan), `patch_ms`, `plan_epoch`, `delta_add` and
+        `delta_remove`."""
+        from repro_torch.dyngraph.repair import dirty_mask, note_repair, repair_solution
+
+        t0 = time.perf_counter()
+        with trace_span(trace, "solver.plan"):
+            plan2, patch_status = self.plans.apply_delta(prior.plan, delta)
+            self._check_local(plan2)
+        extra = dict(
+            patch=patch_status, patch_ms=(time.perf_counter() - t0) * 1e3,
+            plan_epoch=plan2.epoch, delta_add=delta.n_add, delta_remove=delta.n_remove,
+        )
+        touched = delta.touched()
+        dirty_frac = touched.size / max(plan2.n_nodes, 1)
+        mode = self.options.repair
+        if mode == "auto":
+            mode = "incremental" if dirty_frac <= self.options.repair_threshold else "cold"
+        note_repair(mode, dirty_frac=dirty_frac)
+        generator = self._generator(generator)
+        if mode == "cold":
+            with trace_span(trace, "solver.update", mode="cold"):
+                res = self._solve_local(plan2, generator, trace)
+            return dataclasses.replace(res, stats=dict(res.stats, repair="cold", **extra))
+
+        with trace_span(trace, "solver.update", mode="incremental"):
+            touched_plan = touched if plan2.inv is None else plan2.inv[touched]
+            dirty = torch.from_numpy(dirty_mask(plan2.n_nodes, touched_plan)).to(self.device)
+            prior_plan = torch.from_numpy(
+                plan2.to_plan_ids(prior.in_mis).astype(bool)).to(self.device)
+            res = self._execute(plan2, lambda: repair_solution(
+                plan2.g, plan2.tiled, generator, self.options, prior_plan, dirty),
+                trace, "repair")
+        return dataclasses.replace(res, stats=dict(res.stats, repair="incremental", **extra))
 
     def profile(
         self,
@@ -175,9 +399,10 @@ class Solver:
         `rounds.phase1` / `rounds.phase2` / `rounds.phase3`."""
         with trace_span(trace, "solver.profile"):
             with trace_span(trace, "solver.plan"):
-                plan = self._local_plan(graph)
+                plan = self._check_local(self.plan(graph))
             result, times = run_phases(plan.g, plan.tiled, self._generator(generator),
                                        self.options, trace=trace)
+        self.metrics.counter("solver.solves").inc()
         in_mis_plan = result.in_mis.cpu().numpy().astype(bool)
         res = SolveResult(
             in_mis=plan.to_original(in_mis_plan).astype(bool),
@@ -189,22 +414,55 @@ class Solver:
         )
         return res, times
 
-    def _split_telemetry(self, out, g: Graph, tiled):
+    # -- telemetry and metrics ---------------------------------------------
+
+    def _split_telemetry(self, out, g: Graph, tiled, *, scope: str = "solve",
+                         batch_size: int = 1):
         """Telemetry off: `out` is the result → (result, None).  Telemetry
         on: `out` is `(result, buffer)`; the buffer comes to the host here,
-        its one device→host transfer, as a `RoundTrace`."""
+        its one device→host transfer, as a `RoundTrace`.  A batch counts
+        rounds per vertex: the rounds run are the largest count."""
         if not self.options.telemetry:
             return out, None
         result, buf = out
-        rounds = int(result.rounds)
+        rounds = int(result.rounds.max()) if result.rounds.ndim else int(result.rounds)
         engine = get_engine(self.options.engine)
         meta = dict(
-            scope="solve",
+            scope=scope,
             engine=self.options.engine,
             storage=tiled.storage,
-            frontier=resolve_frontier(self.options, engine, storage=tiled.storage),
+            frontier=resolve_frontier(self.options, engine, storage=tiled.storage,
+                                      member_rounds=batch_size > 1),
             n_nodes=g.n_nodes,
         )
+        if batch_size > 1:
+            meta["batch_size"] = batch_size
         rt = RoundTrace.from_buffer(buf.cpu().numpy(), rounds,
                                     tiles_total=tiled.n_tiles_pad, meta=meta)
         return result, rt
+
+    def _note_attribution(self, tiled, rt: Optional[RoundTrace], solve_ms: float) -> None:
+        """The cost model's error gauges: predicted against measured cost
+        per round, from the telemetry's dispatch mix (telemetry on only;
+        `rt is None` records nothing).  The tail is priced at its real
+        entries, the stream the port's tail runs (`tail_rows.numel()`; the
+        reference prices its sentinel-padded length)."""
+        if rt is None or not rt.rounds:
+            return
+        from repro_torch.perf.roofline import round_cost_attribution
+
+        dense = sum(rt.tiles_dense) / rt.rounds if rt.tiles_dense else 0.0
+        if dense <= 0.0 and rt.tiles_total:
+            # an engine that fills no dense-tile column (segment): every
+            # tile the round did not skip went the one dense way
+            dense = max(rt.tiles_total - sum(rt.tiles_skipped) / rt.rounds, 0.0)
+        p = tiled.partition
+        sparse = float(p.tail_rows.numel()) if p is not None else 0.0
+        att = round_cost_attribution(
+            dense_tiles=dense, sparse_edges=sparse,
+            tile_size=tiled.tile_size, storage=tiled.storage,
+            measured_s=(solve_ms / 1e3) / rt.rounds,
+        )
+        self.metrics.gauge("perf.roofline_predicted_us").set(att["predicted_us"])
+        self.metrics.gauge("perf.roofline_measured_us").set(att["measured_us"])
+        self.metrics.gauge("perf.roofline_error_pct").set(att["error_pct"])

@@ -1,13 +1,16 @@
 """repro_torch.obs — observability of a solve (counterpart of `repro.obs`).
 
-Two legs, importable independently:
+Three legs, importable independently:
 
-* `rounds` — the round-telemetry buffer layout and the host `RoundTrace`
-             (numpy only; `core.engine` imports its column constants)
-* `trace`  — `Trace` / `trace_span` span tracing and JSONL export
+* `rounds`  — the round-telemetry buffer layout and the host `RoundTrace`
+              (numpy only; `core.engine` imports its column constants)
+* `trace`   — `Trace` / `trace_span` span tracing and JSONL export
+* `metrics` — counters, gauges and histograms in named registries
+              (`Solver.metrics`, `PlanCache.metrics`, the process-wide
+              `REGISTRY`)
 
-The reference's `metrics`, `promtext`, `report` and `bench` legs are not
-ported yet (ROADMAP.md, Queue 1 item 15).
+The reference's `promtext`, `report` and `bench` legs are not ported yet
+(ROADMAP.md, Queue 1 item 15).
 """
 from repro_torch.obs.rounds import (
     COL_ALIVE,
@@ -21,6 +24,7 @@ from repro_torch.obs.rounds import (
     TELEMETRY_FILL,
     RoundTrace,
 )
+from repro_torch.obs.metrics import REGISTRY, Counter, Gauge, Histogram, MetricsRegistry
 from repro_torch.obs.trace import JsonlWriter, Span, Trace, trace_span
 
 __all__ = [
@@ -34,6 +38,11 @@ __all__ = [
     "TELEMETRY_COLS",
     "TELEMETRY_FILL",
     "RoundTrace",
+    "REGISTRY",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
     "JsonlWriter",
     "Span",
     "Trace",

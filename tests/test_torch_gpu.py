@@ -14,6 +14,8 @@ sum back to it.  The embedding bag sums in
 the plain version's order with no FMA contraction, so it too is held
 exactly, and the DeepFM forward through it equals the forward through the
 plain version."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -861,3 +863,178 @@ def test_kernels_on_a_dense_partition_on_card(cuda_device, T, storage, kind):
     for dense, scan in _hold_maxes(t, alive, *_keys(t.n_padded, gen, cuda_device)):
         assert bool((dense[uncovered] == -(1 << 31)).all()
                     and (scan[uncovered] == -(1 << 31)).all())
+
+
+# --------------------------------------------------------------------------
+# the batched and dynamic routes: gated batch kernels, the covered pass
+# --------------------------------------------------------------------------
+
+def _card_batch(device, T, storage, hybrid="off"):
+    """A block-diagonal batch of five members (an edgeless one among them)
+    on the card, whose bucket leaves padding block-columns that `col_gate`
+    zeroes, with each member's H3 priorities from its request generator."""
+    from repro_torch.api import Plan
+    from repro_torch.serve_mis.batcher import member_priorities, pack_batch, request_generator
+
+    rng = np.random.default_rng(T)
+    graphs = [grid2d(40, 30, device=device), grid2d(7, 9, device=device),
+              from_edges(np.zeros(0, np.int64), np.zeros(0, np.int64), 5, device=device)]
+    for n in (700, 333):
+        graphs.append(from_edges(rng.integers(0, n, 3 * n), rng.integers(0, n, 3 * n), n,
+                                 device=device))
+    plans = [Plan.build(g, tile_size=T, storage=storage, hybrid=hybrid, hybrid_threshold=8)
+             for g in graphs]
+    pris = [member_priorities(p, request_generator(0, p, device), "h3") for p in plans]
+    batch = pack_batch(plans, pris)
+    gate = batch.col_gate
+    assert 0 < int(gate.sum()) < gate.numel(), "the bucket should leave gated columns"
+    return plans, pris, batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [8, 16, 32, 128])
+def test_kernels_on_a_gated_batch_on_card(cuda_device, T, storage):
+    """All four SpMVs and both maxes on a packed batch, with the column
+    flags its `col_gate` zeroes (the engines' `flags * col_gate`), each
+    held to its plain version; the padding slots stay dead and unhit."""
+    from repro_torch.core.tiling import tiles_as_words
+
+    _, _, batch = _card_batch(cuda_device, T, storage)
+    t = batch.tiled
+    gen = torch.Generator(device=cuda_device).manual_seed(T)
+    alive = batch.alive0 & (torch.rand(t.n_padded, generator=gen, device=cuda_device) < 0.8)
+    cand = alive & (torch.rand(t.n_padded, generator=gen, device=cuda_device) < 0.3)
+    gate = batch.col_gate
+    flags = block_col_flags(cand, T) * gate
+    rhs01, rhs = _rhs_pair(t, gen, LANES, cuda_device)
+    _check_dense(t, cand, alive, flags, rhs01, rhs)
+    words = tiles_as_words(t.tiles, T)
+    cand_w, alive_w = pack_frontier_words(cand, T), pack_frontier_words(alive, T)
+    fused = K.tc_spmv_fused_bits(t, cand_w, alive_w, tiles_words=words, col_flags=flags)
+    for a, b in zip(fused, K.tc_spmv_fused_bits_plain(t, cand_w, alive_w, tiles_words=words,
+                                                      col_flags=flags)):
+        assert torch.equal(a, b)
+    hit = K.tc_spmv_bits(t, cand_w, tiles_words=words, col_flags=flags)
+    assert torch.equal(hit, K.tc_spmv_bits_plain(t, cand_w, tiles_words=words, col_flags=flags))
+    pad = ~batch.alive0
+    assert not bool((fused[1] & pack_frontier_words(pad, T)).any())
+    n_c = K.tc_spmv(t, rhs01, col_flags=gate)
+    assert bool((n_c[pad] == 0).all())
+    _hold_maxes(t, alive, batch.priorities.select, batch.priorities.resolve)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hybrid", ["off", "forced"])
+@pytest.mark.parametrize("engine, phase1", [("fused_pallas", "segment"),
+                                            ("fused_pallas", "tiled"),
+                                            ("tiled_pallas", "tiled"), ("segment", "segment")])
+def test_batched_members_equal_solo_on_card(cuda_device, engine, phase1, hybrid):
+    """A batch's loop on the card: each member's MIS and rounds are those of
+    its solo solve with its priorities, and of `tiled_ref`'s batch."""
+    from repro_torch.api import SolveOptions
+    from repro_torch.core.tc_mis import run_tc_mis
+
+    plans, pris, batch = _card_batch(cuda_device, 16, "bitpack", hybrid)
+    assert (batch.tiled.partition is not None) == (hybrid == "forced")
+    opts = SolveOptions(engine=engine, phase1=phase1)
+    kw = dict(priorities=batch.priorities, alive0=batch.alive0, col_gate=batch.col_gate,
+              member_rounds=True)
+    before = _counts()
+    got = run_tc_mis(batch.g, batch.tiled, None, opts, **kw)
+    launched = sum(v - before[k] for k, v in _counts().items())
+    assert (launched > 0) == (engine != "segment")
+    want = run_tc_mis(batch.g, batch.tiled, None,
+                      dataclasses.replace(opts, engine="tiled_ref"), **kw)
+    assert torch.equal(got.in_mis, want.in_mis) and torch.equal(got.rounds, want.rounds)
+    for plan, pri, mis, rnd in zip(plans, pris, batch.unpack(got.in_mis),
+                                   batch.unpack(got.rounds)):
+        solo = run_tc_mis(plan.g, plan.tiled, None, opts, priorities=pri)
+        assert np.array_equal(mis, solo.in_mis.cpu().numpy())
+        assert (int(rnd.max()) if rnd.size else 0) == int(solo.rounds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+def test_covered_pass_on_an_empty_partition_on_card(cuda_device, storage):
+    """The warm start's covered pass runs the engine's kernel over the full
+    tiling even when the plan's dense partition holds no tile: the same
+    warm state as `tiled_ref`'s plain SpMV, one `tc_spmv` (dense frontier)
+    or `tc_spmv_bits` (packed) launch."""
+    from repro_torch.api import Plan, SolveOptions, patch_plan
+    from repro_torch.dyngraph import random_delta
+    from repro_torch.dyngraph.repair import dirty_mask, warm_start
+
+    g = grid2d(200, 200, device=cuda_device)
+    plan = Plan.build(g, tile_size=16, storage=storage, hybrid="forced",
+                      hybrid_threshold=10 ** 6)
+    assert plan.tiled.partition.n_dense_tiles == 0
+    d = random_delta(g, n_add=300, n_remove=300, seed=1)
+    p1 = patch_plan(plan, d)
+    prior = torch.from_numpy(np.random.default_rng(0).random(g.n_nodes) < 0.3).to(cuda_device)
+    prior &= ~torch.from_numpy(dirty_mask(g.n_nodes, d.touched())).to(cuda_device)
+    # any independent seed set will do: keep the lower-id end of each edge
+    s, r = p1.g.senders.long(), p1.g.receivers.long()
+    clash = prior[s] & prior[r] & (s > r)
+    prior[s[clash]] = False
+    dirty = torch.from_numpy(dirty_mask(g.n_nodes, d.touched())).to(cuda_device)
+    for phase1, kernel in (("segment", "tc_spmv"), ("tiled", "tc_spmv_bits")):
+        if storage == "int8" and phase1 == "tiled":
+            kernel = "tc_spmv"    # int8 plans keep the dense frontier
+        opts = SolveOptions(engine="fused_pallas", phase1=phase1)
+        before = _counts()
+        alive, mis = warm_start(p1.g, p1.tiled, opts, prior, dirty)
+        torch.cuda.synchronize()
+        after = _counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(k == kernel) for k in after}
+        want = warm_start(p1.g, p1.tiled, dataclasses.replace(opts, engine="tiled_ref"),
+                          prior, dirty)
+        assert torch.equal(alive, want[0]) and torch.equal(mis, want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", [dict(), dict(hybrid="off"),
+                                  dict(hybrid="off", phase1="tiled")],
+                         ids=["default", "off", "packed"])
+def test_update_on_card_equals_tiled_ref(cuda_device, path):
+    """`Solver.update` on the card: the tile-local patch equals a rebuild on
+    the card, and the incremental repair equals `tiled_ref`'s, valid."""
+    from repro_torch.api import Solver, SolveOptions
+    from repro_torch.core.validate import is_valid_mis
+    from repro_torch.dyngraph import EdgeDelta, apply_graph_delta, random_delta
+
+    g = grid2d(300, 300, device=cuda_device)
+    out = {}
+    for engine in ("fused_pallas", "tiled_ref"):
+        solver = Solver(SolveOptions(engine=engine, repair="incremental", **path),
+                        device=cuda_device)
+        prior = solver.solve(g)
+        d = random_delta(g, n_add=900, n_remove=900, seed=2)
+        res = solver.update(prior, d)
+        assert res.stats["repair"] == "incremental" and res.converged
+        assert is_valid_mis(res.plan.g, torch.from_numpy(res.in_mis_plan).to(cuda_device))
+        rebuilt = build_block_tiles(apply_graph_delta(g, d), tile_size=res.plan.tile_size,
+                                    storage=res.plan.storage)
+        for name in ("tiles", "tile_rows", "tile_cols", "row_starts"):
+            assert torch.equal(getattr(res.plan.tiled, name), getattr(rebuilt, name))
+        out[engine] = res
+        same = solver.update(prior, EdgeDelta.make())
+        assert same.rounds == 0 and np.array_equal(same.in_mis, prior.in_mis)
+    assert out["fused_pallas"].rounds == out["tiled_ref"].rounds
+    assert np.array_equal(out["fused_pallas"].in_mis, out["tiled_ref"].in_mis)
+
+
+@pytest.mark.gpu
+def test_plan_cache_disk_layer_loads_onto_the_card(cuda_device, tmp_path):
+    from repro_torch.api import PlanCache
+
+    g = grid2d(120, 120, device=cuda_device)
+    a, st = PlanCache(tile_size=16, storage="bitpack", cache_dir=str(tmp_path)).plan(
+        g, hybrid="auto")
+    b, st2 = PlanCache(tile_size=16, storage="bitpack", cache_dir=str(tmp_path)).plan(
+        g.to("cpu"), hybrid="auto")
+    assert (st, st2) == ("built", "disk") and b.device == a.device
+    for name in ("tiles", "tile_rows", "tile_cols", "row_starts"):
+        assert torch.equal(getattr(a.tiled, name), getattr(b.tiled, name))
+    assert torch.equal(a.tiled.partition.tail_rows, b.tiled.partition.tail_rows)

@@ -355,7 +355,7 @@ def test_off_mode_cache_key_is_byte_identical_to_legacy():
     assert hy == ref_plan_cache_key(ref_g, 32, "none", "int8", hybrid="forced",
                                     hybrid_threshold=8)
     # a plan cache keys the policy: one graph, two entries
-    cache = PlanCache(tile_size=32)
+    cache = PlanCache(tile_size=32, device="cpu")
     a, _ = cache.plan(g, hybrid="forced", hybrid_threshold=8)
     b, _ = cache.plan(g)
     assert a.key == port_plan.plan_cache_key(g, 32, None, "int8", "forced", 8)

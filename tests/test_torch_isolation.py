@@ -37,6 +37,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.hopper.tc_neighbor_max, repro_torch.hopper.launch\n"
         "import repro_torch.hopper.embedding_bag, repro_torch.models.deepfm\n"
         "import repro_torch.configs.deepfm, repro_torch.data.pipeline\n"
+        "import repro_torch.dyngraph, repro_torch.serve_mis, repro_torch.obs.metrics\n"
+        "import repro_torch.dyngraph.retile, repro_torch.dyngraph.repair\n"
+        "import repro_torch.serve_mis.batcher, repro_torch.serve_mis.io\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -293,3 +293,79 @@ def test_set_sizes_match_numpy_bitwise_count():
         np.testing.assert_array_equal(got.numpy(), np.bitwise_count(w).reshape(w.shape[0], -1).sum(1))
     mask = rng.random((4, 300)) < 0.3
     np.testing.assert_array_equal(_set_sizes(torch.from_numpy(mask)).numpy(), mask.sum(1))
+
+
+# --------------------------------------------------------------------------
+# the metrics registry (repro.obs.metrics)
+# --------------------------------------------------------------------------
+
+def _feed(mod, values, name="r"):
+    """One registry of `mod` fed a seeded stream of events."""
+    reg = mod.MetricsRegistry(name)
+    for i, v in enumerate(values):
+        reg.counter("events").inc()
+        reg.counter("weighted").inc(int(v) % 7)
+        reg.gauge("last").set(v)
+        reg.histogram("latency_ms").observe(v)
+        if i % 3 == 0:
+            reg.histogram("sizes").observe(v / 100.0)
+    reg.histogram("empty")
+    return reg
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_metrics_snapshots_equal_reference(seed):
+    from repro.obs import metrics as ref_metrics
+    from repro_torch.obs import metrics
+
+    # log-spread values from 10 µs to 100 s, past both ends of the buckets
+    values = np.exp(np.random.default_rng(seed).uniform(np.log(0.01), np.log(1e5), 200))
+    mine, ref = _feed(metrics, values), _feed(ref_metrics, values)
+    assert json.dumps(mine.snapshot()) == json.dumps(ref.snapshot())
+    for q in (0.0, 0.1, 0.5, 0.95, 0.99, 1.0, 1.5):
+        assert mine.histogram("latency_ms").quantile(q) == \
+            ref.histogram("latency_ms").quantile(q)
+    assert mine.histogram("empty").quantile(0.5) is None
+    # merging replicas: counters add, gauges take the other's, buckets add
+    mine.merge(_feed(metrics, values[::2], "other"))
+    ref.merge(_feed(ref_metrics, values[::2], "other"))
+    assert json.dumps(mine.snapshot()) == json.dumps(ref.snapshot())
+
+
+def test_metrics_registry_rules_equal_reference():
+    from repro.obs import metrics as ref_metrics
+    from repro_torch.obs import metrics
+
+    for mod in (metrics, ref_metrics):
+        reg = mod.MetricsRegistry()
+        reg.counter("x")
+        with pytest.raises(TypeError, match="is a counter"):
+            reg.gauge("x")
+        with pytest.raises(ValueError, match="strictly increasing"):
+            mod.Histogram("h", buckets=(1.0, 1.0, 2.0))
+        h = mod.Histogram("h", buckets=(1.0, 2.0))
+        with pytest.raises(ValueError, match="cannot merge"):
+            h.merge(mod.Histogram("g", buckets=(1.0, 3.0)))
+    assert metrics.DEFAULT_BUCKETS == ref_metrics.DEFAULT_BUCKETS
+    assert metrics.QUANTILES == ref_metrics.QUANTILES
+    assert metrics.counter("t.c") is metrics.REGISTRY.counter("t.c")
+    assert metrics.histogram("t.h") is metrics.REGISTRY.histogram("t.h")
+    assert metrics.gauge("t.g") is metrics.REGISTRY.gauge("t.g")
+
+
+def test_solver_and_plan_cache_metrics_views():
+    """`Solver.stats` and `PlanCache.stats` are views over their registries,
+    in the reference's spelling; a telemetry solve sets the cost model's
+    error gauges."""
+    solver = Solver(SolveOptions(engine="tiled_ref", tile_size=16, telemetry=True),
+                    device="cpu")
+    g = grid2d(24, 24, device="cpu")
+    res = solver.solve(g)
+    solver.solve(g)
+    assert solver.stats == {"solves": 2, "batches": 0, "compiles": 0}
+    assert solver.plans.stats == {"mem_hits": 1, "disk_hits": 0, "misses": 1,
+                                  "evicted_stale": 0}
+    snap = solver.metrics.snapshot()
+    assert snap["solver.solve_ms"]["count"] == 2
+    assert snap["perf.roofline_measured_us"] > 0
+    assert res.telemetry.rounds == res.rounds

@@ -491,7 +491,8 @@ def test_solver_solve_equals_the_loop(engine, reorder):
     assert not is_maximal(g, torch.zeros(n, dtype=torch.bool))
     assert not is_independent(g, torch.ones(n, dtype=torch.bool))
     assert solver.solve(g).plan is plan     # the memory cache hit
-    assert solver.plans.stats == {"mem_hits": 1, "misses": 1}
+    assert solver.plans.stats == {"mem_hits": 1, "disk_hits": 0, "misses": 1,
+                                  "evicted_stale": 0}
 
 
 def test_solver_refuses_what_is_not_ported():
