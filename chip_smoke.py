@@ -163,6 +163,44 @@ Phases, each fatal on failure:
                it) and one torch.nn.functional.embedding_bag call; the
                median of 5 warm forwards at serve_p99 and serve_bulk and of
                5 retrieval sweeps; a profile of one serve_bulk forward.
+  9. serve   the serving front door (run after phase 7, while G2 is held),
+             each worker step with every launch count set to 0 just before
+             it and read just after it:
+             (a) the serving mix of phase 5 through one `MISService`
+                 (`ServeConfig(tile_size=32, engine="fused_pallas",
+                 max_batch=16, seed=0)`, benchmarks/serve_throughput.py's)
+                 in a cold and a warm wave, with the segment and the tiled
+                 phase ①: every response valid and equal, in MIS and
+                 rounds, to a fresh `Solver.solve_many` of its window's
+                 plans; warm plans all "mem"; each window launches the
+                 split SpMV (partitioned group) or the fused SpMV once a
+                 round per group loop, plus two dense maxes a round when
+                 tiled.  Printed per wave: requests per second,
+                 `service.latency_ms.batched` p50 / p99 (bucket bounds),
+                 the windows;
+             (b) G2 written as a SNAP edge list under build/serve/, parsed
+                 alone and planned alone (a fresh cache), then submitted
+                 plainly and with stream=True (plans "built", "mem"), one
+                 step equal to `Solver.solve` under the request generator;
+                 a 1 % update (phase 6's draw) valid, incremental, in fewer
+                 rounds than a cold solve of the patched plan, launching
+                 the covered pass once and the path's kernels per round
+                 (`ServeConfig()` and `phase1="tiled"`: plane scan twice and
+                 split packed SpMV once a round); an unknown base raises
+                 KeyError, a bad delta gives an error response beside a
+                 valid one; `is_valid_mis_checks` on G2 equal to the single
+                 checks on the solution, the empty and the full set, its ms;
+             (c) `python -m repro_torch.serve_mis --once --repeat 2
+                 --telemetry --trace-path ... --metrics-path ... --update
+                 0:<1 % delta>` on G2's file and the three fixtures: exit 0,
+                 every line valid, the update line's base_id 0, the .prom
+                 file's service metrics; `python -m repro_torch.obs report`
+                 exit 0 (--json: trace and rounds records), 2 on an empty
+                 file, 0 on (a)'s two metrics records (their latency
+                 histograms printed); the trace's ms by span per window;
+             (d) `python -m repro_torch.launch.serve_graphs --engine
+                 fused_pallas --requests 32 --scale 1024 --waves 3
+                 --repeat-frac 0.5`: exit 0, its per-wave lines.
 
 The last three lines of standard output are, in order: the kernels JSON
 object (one record per kernel), the card's name and power limit as
@@ -1737,6 +1775,332 @@ def phase_disk_cache(g2) -> None:
           f"({size / 1e6:.1f} MB on disk); every array equal", flush=True)
 
 
+# --------------------------------------------------------------------------
+# the serving front door: MISService, its CLI, the report CLI, the launcher
+# --------------------------------------------------------------------------
+
+# benchmarks/serve_throughput.py:56-63, not quick: its service config
+SERVE_CFG = dict(tile_size=32, engine="fused_pallas", max_batch=SERVE_BATCH, seed=0)
+SERVE_DIR = ROOT / "build" / "serve"
+FIXTURES = [ROOT / "tests" / "fixtures" / f for f in ("tiny.mtx", "tiny.edges", "tiny.dimacs")]
+
+
+def window_launches(responses, phase1: str) -> dict:
+    """The launches one service window must make: each batched group's
+    loop runs the split SpMV (partitioned) or the fused SpMV once a round,
+    with phase1="tiled" two dense maxes a round too (a batch's frontier is
+    dense); a group's rounds are its slowest member's."""
+    rounds = {}
+    for r in responses:
+        check(r.stats["bucket"] != "local", f"service request {r.id} was not batched")
+        rounds[r.stats["bucket"]] = max(rounds.get(r.stats["bucket"], 0), r.rounds)
+    want = {k: 0 for k in KERNELS}
+    for bucket, n in rounds.items():
+        want["tc_spmv" if ".h" in bucket else "tc_spmv_fused"] += n
+        if phase1 == "tiled":
+            want["tc_neighbor_max"] += 2 * n
+    return want
+
+
+def update_launches(plan, options, rounds: int) -> dict:
+    """An incremental update's launches: the covered pass once, then per
+    repair round the path's ② (split SpMV, or the split packed SpMV on the
+    bitwise frontier) and its phase ① maxes (two under H3)."""
+    from repro_torch.core.engine import get_engine, resolve_frontier
+
+    want = {k: 0 for k in KERNELS}
+    bitwise = resolve_frontier(options, get_engine(options.engine),
+                               storage=plan.storage) == "bitwise"
+    want["tc_spmv_bits" if bitwise else "tc_spmv"] = rounds + 1
+    if options.phase1 == "tiled":
+        want["tc_neighbor_max_bits" if bitwise else "tc_neighbor_max"] = 2 * rounds
+    return want
+
+
+def wave_latency(hist, before) -> tuple:
+    """p50 and p99 (bucket upper bounds) of the observations a histogram
+    took since `before` = (bucket counts, count)."""
+    from repro_torch.obs.metrics import Histogram
+
+    w = Histogram("wave", hist.buckets)
+    w.bucket_counts = [a - b for a, b in zip(hist.bucket_counts, before[0])]
+    w.count, w.max = hist.count - before[1], hist.max
+    return w.quantile(0.5), w.quantile(0.99)
+
+
+def phase_serve_traffic() -> None:
+    """(a) The reference's serving traffic through `MISService`: one cold
+    and one warm wave of the 64-request mix on one service, with the
+    segment and the tiled phase ①."""
+    import numpy as np
+    from repro_torch.api import Solver
+    from repro_torch.obs import JsonlWriter
+    from repro_torch.serve_mis import MISService, ServeConfig
+
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    (SERVE_DIR / "traffic.jsonl").unlink(missing_ok=True)
+    sink = JsonlWriter(str(SERVE_DIR / "traffic.jsonl"))
+    mix = serving_mix()
+    for phase1 in ("segment", "tiled"):
+        cfg = ServeConfig(**SERVE_CFG, phase1=phase1)
+        svc = MISService(cfg, device="cuda")
+        fresh = Solver(cfg.solve_options(), device="cuda")
+        hist = svc.metrics.histogram("service.latency_ms.batched")
+        for wave in ("cold", "warm"):
+            before = (list(hist.bucket_counts), hist.count)
+            windows, launches = [], {k: 0 for k in KERNELS}
+            t0 = time.perf_counter()
+            for g in mix:
+                svc.submit(g)
+            while svc.pending:
+                out, counts = counted(svc.step)
+                want = window_launches(out, phase1)
+                check(counts == want, f"serve {phase1} {wave} window {len(windows)}: launches "
+                                      f"{counts}, expected {want}")
+                windows.append(out)
+                launches = {k: launches[k] + counts[k] for k in KERNELS}
+            took = time.perf_counter() - t0
+            responses = [r for w in windows for r in w]
+            check(len(responses) == SERVE_REQUESTS and all(r.valid for r in responses),
+                  f"serve {phase1} {wave}: a response is missing or invalid")
+            if wave == "warm":
+                check(all(r.stats["plan_cache"] == "mem" for r in responses),
+                      f"serve {phase1}: a warm plan was not a memory hit")
+            for w in windows:
+                plans = [svc.planner.plan(mix[r.id % SERVE_REQUESTS])[0] for r in w]
+                for r, s in zip(w, fresh.solve_many(plans)):
+                    check(r.rounds == s.rounds and np.array_equal(r.in_mis, s.in_mis),
+                          f"serve {phase1} {wave}: request {r.id} differs from solve_many")
+            p50, p99 = wave_latency(hist, before)
+            groups = sorted({r.stats["bucket"] for r in responses})
+            print(f"[serve] traffic {phase1} {wave} wave: {len(responses)} requests in "
+                  f"{took * 1e3:.3f} ms, {len(responses) / took:.1f} requests/s; "
+                  f"service.latency_ms.batched p50 <= {p50} ms, p99 <= {p99} ms (bucket "
+                  f"bounds); windows {[len(w) for w in windows]}, rounds per window "
+                  f"{[max(r.rounds for r in w) for w in windows]}; buckets {groups}; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        sink.write_metrics(svc.metrics_snapshot())   # read back by the report CLI in (c)
+        del svc, fresh
+    sink.close()
+
+
+def write_edge_list(g, path) -> None:
+    """`g` as a SNAP edge list, each undirected edge once."""
+    import numpy as np
+
+    s = g.senders[: g.n_edges].cpu().numpy()
+    r = g.receivers[: g.n_edges].cpu().numpy()
+    keep = s < r
+    np.savetxt(path, np.stack([s[keep], r[keep]], 1), fmt="%d\t%d",
+               header=f"grid2d{G2_SHAPE}: {g.n_nodes} vertices\nFromNodeId\tToNodeId")
+
+
+def write_delta(delta, path) -> None:
+    """A delta file: `+ u v` per added edge, `- u v` per removed one."""
+    import numpy as np
+
+    with open(path, "w") as f:
+        np.savetxt(f, delta.add, fmt="+ %d %d")
+        np.savetxt(f, delta.remove, fmt="- %d %d")
+
+
+def phase_serve_g2(g2) -> tuple:
+    """(b) G2 as a file through the service, plainly and streamed, one
+    window, a 1 % update, a bad update and an unknown base, on the segment
+    and the tiled phase ①; the fused validity check on G2."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Solver
+    from repro_torch.core.validate import is_independent, is_maximal, is_valid_mis_checks
+    from repro_torch.dyngraph import EdgeDelta, random_delta
+    from repro_torch.graphs import grid2d
+    from repro_torch.serve_mis import MISService, ServeConfig, load_graph
+
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    edges, delta_path = SERVE_DIR / "g2.edges", SERVE_DIR / "g2_1pct.delta"
+    t0 = time.perf_counter()
+    write_edge_list(g2, edges)
+    write_s = time.perf_counter() - t0
+    k = int(g2.n_edges // 2 * SMALL_FRAC) // 2
+    delta = random_delta(g2, n_add=k, n_remove=k, seed=int(SMALL_FRAC * 1e4))
+    write_delta(delta, delta_path)
+    t0 = time.perf_counter()
+    parsed = load_graph(str(edges), device="cuda")
+    torch.cuda.synchronize()
+    parse_ms = (time.perf_counter() - t0) * 1e3
+    check(parsed.n_nodes == g2.n_nodes and parsed.n_edges == g2.n_edges
+          and torch.equal(parsed.senders, g2.senders)
+          and torch.equal(parsed.receivers, g2.receivers), "G2's edge file parses to another graph")
+    print(f"[serve] G2 edge file: {edges.stat().st_size / 1e6:.1f} MB written in {write_s:.1f} s, "
+          f"parsed alone in {parse_ms:.1f} ms; 1 % delta {delta.n_add} adds + "
+          f"{delta.n_remove} removes", flush=True)
+
+    for phase1 in ("segment", "tiled"):
+        cfg = ServeConfig(phase1=phase1)
+        opts = cfg.solve_options()
+        t0 = time.perf_counter()
+        Solver(opts, device="cuda").plans.plan(parsed)     # a fresh cache: built
+        torch.cuda.synchronize()
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        svc = MISService(cfg, device="cuda")
+        t0 = time.perf_counter()
+        rid = svc.submit(str(edges))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        svc.submit(str(edges), stream=True)
+        torch.cuda.synchronize()
+        stream_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        out, counts = counted(svc.step)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        check(len(out) == 2 and all(r.valid for r in out), f"serve G2 {phase1}: invalid response")
+        check([r.stats["plan_cache"] for r in out] == ["built", "mem"],
+              f"serve G2 {phase1}: plan layers {[r.stats['plan_cache'] for r in out]}")
+        want = window_launches(out, phase1)
+        check(counts == want, f"serve G2 {phase1}: launches {counts}, expected {want}")
+        plan = svc.planner.plan(parsed)[0]
+        solo = svc.solver.solve(plan, generator=svc.solver.request_generator(plan))
+        for r in out:
+            check(r.rounds == solo.rounds and np.array_equal(r.in_mis, solo.in_mis),
+                  f"serve G2 {phase1}: request {r.id} differs from its solo solve")
+
+        uid = svc.submit_update(rid, delta)
+        t0 = time.perf_counter()
+        (upd,), counts = counted(svc.step)
+        upd_ms = (time.perf_counter() - t0) * 1e3
+        patched = svc.planner.apply_delta(plan, delta)[0]
+        cold = svc.solver.solve(patched, generator=svc.solver.request_generator(patched))
+        check(upd.valid and upd.stats["repair"] == "incremental" and upd.stats["base_id"] == rid,
+              f"serve G2 {phase1}: update response {upd.stats}")
+        check(upd.rounds < cold.rounds, f"serve G2 {phase1}: update took {upd.rounds} rounds, "
+                                        f"cold {cold.rounds}")
+        want = update_launches(patched, opts, upd.rounds)
+        check(counts == want, f"serve G2 {phase1} update: launches {counts}, expected {want}")
+        print(f"[serve] G2 {phase1} (T={plan.tile_size} {plan.storage}, hybrid "
+              f"{plan.hybrid}:{plan.hybrid_threshold}): plan alone {plan_ms:.1f} ms (built in "
+              f"a fresh cache); submit {plain_ms:.1f} ms (parse + plan "
+              f"built), stream submit {stream_ms:.1f} ms (chunked parse + plan mem); one step "
+              f"of both {step_ms:.1f} ms, {out[0].rounds} rounds, mis {out[0].mis_size}, "
+              f"bucket {out[0].stats['bucket']}; 1 % update step {upd_ms:.1f} ms (solve "
+              f"{upd.stats['solve_ms']:.3f} ms), {upd.rounds} rounds against cold "
+              f"{cold.rounds}, mis {upd.mis_size}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+
+        if phase1 == "segment":
+            try:
+                svc.submit_update(10 ** 9, delta)
+                fail("serve G2: an update of an unknown id was accepted")
+            except KeyError:
+                pass
+            non_edge = random_delta(g2, n_add=1, seed=7).add
+            svc.submit_update(uid, EdgeDelta(add=np.zeros((0, 2), np.int64), remove=non_edge))
+            svc.submit(grid2d(40, 40, device="cuda"))
+            err, ok = svc.step()
+            check(not err.valid and "not in the graph" in err.stats.get("error", "") and ok.valid,
+                  "serve G2: a bad update did not give an error response beside a valid one")
+            sol = solo.in_mis_plan
+            none, full = np.zeros_like(sol), np.ones_like(sol)
+            for mask, want in ((sol, (True, True)), (none, (True, False)), (full, (False, True))):
+                t = torch.from_numpy(mask).cuda()
+                check(is_valid_mis_checks(plan.g, mask) == want
+                      == (is_independent(plan.g, t), is_maximal(plan.g, t)),
+                      f"is_valid_mis_checks on G2 disagrees with the single checks ({want})")
+            med, took = median_ms(lambda: is_valid_mis_checks(plan.g, sol))
+            print(f"[serve] G2 validity check: {med:.3f} ms per response (median of "
+                  f"{[round(x, 3) for x in took]}, numpy mask in, two bools out); an unknown "
+                  f"base raised KeyError; a bad delta gave an error response beside a valid one",
+                  flush=True)
+        del svc, plan, solo, patched, cold, out, upd
+    return edges, delta_path
+
+
+def run_module(*args, timeout: int = 600):
+    """`python -m <args>` from the repository root; returns the process."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=timeout)
+
+
+def phase_serve_cli(edges, delta_path) -> None:
+    """(c) The serving CLI as users run it, then the report CLI on its
+    trace; (d) the synthetic-traffic launcher."""
+    trace, prom = SERVE_DIR / "trace.jsonl", SERVE_DIR / "metrics.prom"
+    empty = SERVE_DIR / "empty.jsonl"
+    for f in (trace, prom):
+        f.unlink(missing_ok=True)
+    empty.write_text("")
+    t0 = time.perf_counter()
+    proc = run_module("repro_torch.serve_mis", "--once", "--repeat", "2", "--telemetry",
+                      "--trace-path", str(trace), "--metrics-path", str(prom),
+                      "--update", f"0:{delta_path}", str(edges), *map(str, FIXTURES))
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"serve_mis CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = [json.loads(l) for l in proc.stdout.splitlines() if l.startswith("{")]
+    check(len(lines) == 2 * (1 + len(FIXTURES)) + 1 and all(r["valid"] for r in lines),
+          f"serve_mis CLI: {len(lines)} response lines, valid {[r['valid'] for r in lines]}")
+    check(lines[-1].get("base_id") == 0, f"serve_mis CLI: the update line {lines[-1]}")
+    text = prom.read_text()
+    check("repro_service_requests_total" in text
+          and "# TYPE repro_service_latency_ms_update histogram" in text,
+          "serve_mis CLI: the promtext file lacks the service metrics")
+    rep = run_module("repro_torch.obs", "report", str(trace))
+    rep_json = run_module("repro_torch.obs", "report", "--json", str(trace))
+    rep_empty = run_module("repro_torch.obs", "report", str(empty))
+    check(rep.returncode == 0 and rep_json.returncode == 0 and rep_empty.returncode == 2,
+          f"report CLI exit codes {rep.returncode}, {rep_json.returncode}, "
+          f"{rep_empty.returncode} (expected 0, 0, 2)")
+    counts = json.loads(rep_json.stdout)["counts"]
+    check(counts.get("trace", 0) >= 1 and counts.get("rounds", 0) >= 1,
+          f"report --json counts {counts}")
+    rep_traffic = run_module("repro_torch.obs", "report", str(SERVE_DIR / "traffic.jsonl"))
+    health = [l.strip() for l in rep_traffic.stdout.splitlines()
+              if l.strip().startswith("service.latency_ms.batched")]
+    check(rep_traffic.returncode == 0 and len(health) == 2,
+          f"report CLI on phase (a)'s metrics records: exit {rep_traffic.returncode}")
+    served = [l for l in proc.stderr.splitlines() if l.startswith("# served=")]
+    g2_line = next(r for r in lines if r["source"] == str(edges))
+    print(f"[serve] CLI --once --repeat 2 (G2 file + 3 fixtures, --update 0:1 %): exit "
+          f"{proc.returncode} in {cli_s:.1f} s; {len(lines)} valid lines; G2 line rounds "
+          f"{g2_line['rounds']} mis {g2_line['mis_size']} bucket {g2_line['bucket']} "
+          f"execute_ms {g2_line.get('execute_ms')}; update line rounds {lines[-1]['rounds']} "
+          f"repair {lines[-1]['repair']}; {served[-1] if served else 'no summary'}; "
+          f"{len(text.splitlines())} promtext lines; report exit {rep.returncode}, --json "
+          f"exit {rep_json.returncode} counts {counts}, empty file exit {rep_empty.returncode}",
+          flush=True)
+    for line in health:
+        print(f"[serve] report of (a)'s metrics records (segment, then tiled): {line}",
+              flush=True)
+    for rec in json.loads(rep_json.stdout)["records"]:
+        if rec["kind"] == "trace":
+            spans = {}
+            for sp in rec["spans"]:
+                n, ms = spans.get(sp["name"], (0, 0.0))
+                spans[sp["name"]] = (n + 1, ms + sp["dur_ms"])
+            print(f"[serve] CLI trace {rec['request_id']}, ms by span (count): "
+                  + ", ".join(f"{k} {ms:.3f} ({n})" for k, (n, ms) in spans.items()),
+                  flush=True)
+
+    t0 = time.perf_counter()
+    proc = run_module("repro_torch.launch.serve_graphs", "--engine", "fused_pallas",
+                      "--requests", "32", "--scale", "1024", "--waves", "3",
+                      "--repeat-frac", "0.5")
+    check(proc.returncode == 0, f"serve_graphs exited {proc.returncode}: {proc.stderr[-2000:]}")
+    for line in proc.stdout.splitlines():
+        print(f"[serve] serve_graphs: {line}", flush=True)
+    print(f"[serve] serve_graphs: exit 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_serve(g2) -> None:
+    t0 = time.perf_counter()
+    phase_serve_traffic()
+    edges, delta_path = phase_serve_g2(g2)
+    phase_serve_cli(edges, delta_path)
+    print(f"[serve] phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -1764,6 +2128,7 @@ def main() -> None:
     phase_batched(g2, errs)
     phase_dynamic(g2, errs)
     phase_disk_cache(g2)
+    phase_serve(g2)
     del g2
     deepfm = phase_deepfm(errs)
     records += timing_deepfm(deepfm, errs)

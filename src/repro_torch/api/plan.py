@@ -481,9 +481,11 @@ class PlanCache:
 
     Plans live on the cache's `device`, the CUDA device unless the caller
     asks for the CPU: a graph on another device is moved there before it
-    is planned, and disk entries load there.  `tile_size`, `reorder` and
-    `storage` are the defaults of `plan`; its per-call values (the
-    Solver's auto policies) and the hybrid policy join the key.  A disk
+    is planned, and disk entries load there.  `tile_size`, `reorder`,
+    `storage`, `hybrid` and `hybrid_threshold` are the defaults of `plan`
+    (a `Solver` builds its cache with its options' values, so a bare
+    `plans.plan(g)` plans as the Solver does); its per-call values (the
+    Solver's auto policies) join the key.  A disk
     entry of another format version is evicted with a warning and rebuilt,
     as is a v1 entry at its legacy path; `apply_delta` retires a patched
     plan's parent the same way, so a mutating graph keeps one live file.
@@ -497,12 +499,16 @@ class PlanCache:
         cache_dir: Optional[str] = None,
         max_mem_entries: int = 256,
         storage: str = "int8",
+        hybrid: str = "off",
+        hybrid_threshold: Optional[int] = None,
         *,
         device: DeviceLike = "cuda",
     ):
         self.tile_size = int(tile_size)
         self.reorder = reorder
         self.storage = storage
+        self.hybrid = hybrid
+        self.hybrid_threshold = hybrid_threshold
         self.cache_dir = cache_dir
         self.device = resolve_device(device)
         self.max_mem_entries = max(int(max_mem_entries), 1)
@@ -542,7 +548,7 @@ class PlanCache:
         tile_size: Optional[int] = None,
         reorder: Optional[str] = None,
         storage: Optional[str] = None,
-        hybrid: str = "off",
+        hybrid: Optional[str] = None,
         hybrid_threshold: Optional[int] = None,
     ) -> Tuple[Plan, str]:
         """Return (plan, status) with status ∈ {'mem', 'disk', 'built'}."""
@@ -553,7 +559,9 @@ class PlanCache:
             self.storage if storage is None else storage,
             g.n_nodes, g.n_edges, T,
         )
-        thr = 0 if hybrid == "off" else resolve_hybrid_threshold(T, st, hybrid_threshold)
+        hybrid = self.hybrid if hybrid is None else hybrid
+        thr = 0 if hybrid == "off" else resolve_hybrid_threshold(
+            T, st, self.hybrid_threshold if hybrid_threshold is None else hybrid_threshold)
         key = plan_cache_key(g, T, ro, st, hybrid, thr)
         hit = self._hit(key)
         if hit is not None:

@@ -92,6 +92,8 @@ class Solver:
             tile_size=options.tile_size or 32,
             reorder=options.reorder,
             storage=options.storage,
+            hybrid=options.hybrid,
+            hybrid_threshold=options.hybrid_threshold,
             cache_dir=options.cache_dir,
             max_mem_entries=options.plan_cache_entries,
             device=self.device,
@@ -188,9 +190,10 @@ class Solver:
         `trace` (`repro_torch.obs.Trace`, default None: no clock read)
         records the spans `solver.solve` ⊃ `solver.plan`, `solver.execute`;
         `execute` ends after the result's host copy, so it holds the
-        device work.  The port compiles no program, so there is no
-        `solver.compile` span (the reference's cold traced dispatch has
-        one)."""
+        device work, and a traced result's stats carry its wall time as
+        `execute_ms`.  The port compiles no program, so there is no
+        `solver.compile` span and no `compile_ms` (the reference's cold
+        traced dispatch has both)."""
         with trace_span(trace, "solver.solve"):
             with trace_span(trace, "solver.plan"):
                 plan = self._check_local(self.plan(graph))
@@ -215,13 +218,16 @@ class Solver:
         self.metrics.counter("solver.solves").inc()
         self.metrics.histogram("solver.solve_ms").observe(solve_ms)
         self._note_attribution(plan.tiled, rt, solve_ms)
+        stats = {"solve_ms": solve_ms, "batch_size": 1, "device": str(self.device)}
+        if trace is not None:
+            stats["execute_ms"] = solve_ms   # the solver.execute span
         return SolveResult(
             in_mis=plan.to_original(in_mis_plan).astype(bool),
             rounds=rounds,
             converged=converged,
             placement="local",
             plan=plan,
-            stats={"solve_ms": solve_ms, "batch_size": 1, "device": str(self.device)},
+            stats=stats,
             telemetry=rt,
         )
 
@@ -309,6 +315,8 @@ class Solver:
         shared = dict(solve_ms=batch_ms / len(plans), batch_ms=batch_ms, pack_ms=pack_ms,
                       bucket=batch.signature(), batch_size=len(plans),
                       device=str(self.device))
+        if trace is not None:
+            shared["execute_ms"] = batch_ms   # the batch's solver.execute span
         return [
             SolveResult(
                 in_mis=plan.to_original(mis.astype(bool)).astype(bool),

@@ -1,16 +1,19 @@
 """repro_torch.obs — observability of a solve (counterpart of `repro.obs`).
 
-Three legs, importable independently:
+Legs, importable independently:
 
-* `rounds`  — the round-telemetry buffer layout and the host `RoundTrace`
-              (numpy only; `core.engine` imports its column constants)
-* `trace`   — `Trace` / `trace_span` span tracing and JSONL export
-* `metrics` — counters, gauges and histograms in named registries
-              (`Solver.metrics`, `PlanCache.metrics`, the process-wide
-              `REGISTRY`)
+* `rounds`   — the round-telemetry buffer layout and the host `RoundTrace`
+               (numpy only; `core.engine` imports its column constants)
+* `trace`    — `Trace` / `trace_span` span tracing and JSONL export
+* `metrics`  — counters, gauges and histograms in named registries
+               (`Solver.metrics`, `PlanCache.metrics`, the process-wide
+               `REGISTRY`)
+* `promtext` — Prometheus text exposition over a metrics snapshot
+* `report`   — the JSONL renderer behind
+               `python -m repro_torch.obs report trace.jsonl [--json]`
 
-The reference's `promtext`, `report` and `bench` legs are not ported yet
-(ROADMAP.md, Queue 1 item 15).
+The reference's `bench` leg (stamped bench records, `bench-diff`) is not
+ported yet (ROADMAP.md, Queue 1 items 15 and 18).
 """
 from repro_torch.obs.rounds import (
     COL_ALIVE,
@@ -25,6 +28,7 @@ from repro_torch.obs.rounds import (
     RoundTrace,
 )
 from repro_torch.obs.metrics import REGISTRY, Counter, Gauge, Histogram, MetricsRegistry
+from repro_torch.obs.promtext import metric_name, to_promtext, write_promtext
 from repro_torch.obs.trace import JsonlWriter, Span, Trace, trace_span
 
 __all__ = [
@@ -43,6 +47,9 @@ __all__ = [
     "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "metric_name",
+    "to_promtext",
+    "write_promtext",
     "JsonlWriter",
     "Span",
     "Trace",

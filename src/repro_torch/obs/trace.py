@@ -9,18 +9,21 @@ solve pays one `is None` check per seam.
 
 Spans of the port (names dotted, layer first):
 
+    service.step            one `MISService.step` window
+      service.batch         the window's `solve_many` call
+      service.validate      one response's validity check
     solver.solve            one front-door call
       solver.plan           plan-cache lookup / tiling build
+      solver.pack           block-diagonal batch packing
       solver.execute        the convergence loop, up to its last host read
+    solver.update           the dynamic route's re-solve (meta: mode)
     solver.profile          one `Solver.profile` call (the phase-timed twin)
       solver.plan
       rounds.phase1         per round: candidates, with the neighbour maxes
       rounds.phase2         the SpMV (fused engines: the ②+③ pass)
       rounds.phase3         the own-state update (fused: the state merge)
 
-The port compiles no program, so it has no `solver.compile` span; the
-reference's `solver.pack`, `solver.validate` and `solver.update` come with
-the routes that open them (ROADMAP Queue 1).
+The port compiles no program, so it has no `solver.compile` span.
 
 `Trace(profiler=True)` also opens each span as a
 `torch.profiler.record_function` range, so spans land, by name, among the
@@ -95,6 +98,17 @@ class Trace:
                 meta={k: v for k, v in meta.items() if v is not None},
             ))
 
+    def note(self, name: str, dur_ms: float, **meta) -> None:
+        """Record a duration measured elsewhere (a queue wait, say) as a
+        span ending now."""
+        self.spans.append(Span(
+            name=name,
+            start_ms=(time.perf_counter() - self._t0) * 1e3 - dur_ms,
+            dur_ms=float(dur_ms),
+            depth=self._depth,
+            meta={k: v for k, v in meta.items() if v is not None},
+        ))
+
     # -- query ------------------------------------------------------------
 
     def total_ms(self, name: str) -> float:
@@ -127,7 +141,7 @@ def trace_span(trace: Optional[Trace], name: str, **meta):
 
 
 class JsonlWriter:
-    """Append-only JSONL sink for trace and rounds records.
+    """Append-only JSONL sink for trace, rounds and metrics records.
 
     Opens lazily on first write, so a writer that is never used leaves no
     empty file behind."""
@@ -147,6 +161,9 @@ class JsonlWriter:
 
     def write_rounds(self, rt) -> None:
         self.write_line(rt.to_jsonl_line())
+
+    def write_metrics(self, snapshot: Dict[str, object]) -> None:
+        self.write_line(json.dumps({"kind": "metrics", "metrics": snapshot}, sort_keys=True))
 
     def close(self) -> None:
         if self._fh is not None:

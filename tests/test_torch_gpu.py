@@ -1038,3 +1038,72 @@ def test_plan_cache_disk_layer_loads_onto_the_card(cuda_device, tmp_path):
     for name in ("tiles", "tile_rows", "tile_cols", "row_starts"):
         assert torch.equal(getattr(a.tiled, name), getattr(b.tiled, name))
     assert torch.equal(a.tiled.partition.tail_rows, b.tiled.partition.tail_rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("phase1", ["segment", "tiled"])
+def test_service_window_and_update_on_card_equal_tiled_ref(cuda_device, phase1):
+    """`MISService` on the card: a mixed window (files and graphs, two
+    (T, storage) groups) and one update, each response valid and equal,
+    in MIS and rounds, to the same service on `tiled_ref`; the window
+    launched the kernels of its path."""
+    import os
+
+    from repro_torch.dyngraph import random_delta
+    from repro_torch.graphs.generators import erdos_renyi, powerlaw
+    from repro_torch.serve_mis import MISService, ServeConfig
+
+    fixtures = os.path.join(os.path.dirname(__file__), "fixtures")
+    graphs = [grid2d(40, 40, device=cuda_device), erdos_renyi(900, 6.0, seed=1, device=cuda_device),
+              powerlaw(1200, 4.0, seed=2, device=cuda_device)]
+    out = {}
+    for engine in ("fused_pallas", "tiled_ref"):
+        svc = MISService(ServeConfig(engine=engine, phase1=phase1, max_batch=8,
+                                     repair="incremental"), device=cuda_device)
+        ids = [svc.submit(os.path.join(fixtures, f)) for f in ("tiny.mtx", "tiny.dimacs")]
+        ids += [svc.submit(g) for g in graphs]
+        before = _counts()
+        window = svc.step()
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _counts().items() if v > before[k]}
+        svc.submit_update(ids[2], random_delta(graphs[0], n_add=20, n_remove=20, seed=3))
+        (upd,) = svc.drain()
+        assert all(r.valid for r in window + [upd])
+        assert upd.stats["repair"] == "incremental" and upd.stats["base_id"] == ids[2]
+        assert all(r.stats["batch_size"] == 5 for r in window)
+        out[engine] = (window + [upd], launched)
+    (got, launched), (want, plain) = out["fused_pallas"], out["tiled_ref"]
+    for a, b in zip(got, want):
+        assert (a.id, a.rounds) == (b.id, b.rounds)
+        assert np.array_equal(a.in_mis, b.in_mis)
+    # the int8 group runs the fused SpMV, the partitioned bitpack group the
+    # split one; a batch's frontier is dense, so phase ① is the dense max
+    want_kernels = {"tc_spmv", "tc_spmv_fused"} | ({"tc_neighbor_max"} if phase1 == "tiled"
+                                                   else set())
+    assert not plain and set(launched) == want_kernels
+
+
+@pytest.mark.gpu
+def test_serving_cli_once_on_card(cuda_device, tmp_path):
+    """`python -m repro_torch.serve_mis --once` on the fixtures, on the
+    card by default: every response line valid, exit 0."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    fixtures = [os.path.join(repo, "tests", "fixtures", f)
+                for f in ("tiny.mtx", "tiny.edges", "tiny.dimacs")]
+    delta = tmp_path / "g.delta"
+    delta.write_text("+ 0 9\n- 0 1\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serve_mis", "--once", "--repeat", "2",
+         "--update", f"0:{delta}", "--metrics-path", str(tmp_path / "m.prom"), *fixtures],
+        capture_output=True, text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    lines = [json.loads(l) for l in proc.stdout.splitlines() if l.startswith("{")]
+    assert len(lines) == 7 and all(r["valid"] for r in lines)
+    assert lines[-1]["base_id"] == 0 and lines[-1]["repair"] == "incremental"
+    assert "repro_service_requests_total 7" in (tmp_path / "m.prom").read_text()

@@ -40,6 +40,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.dyngraph, repro_torch.serve_mis, repro_torch.obs.metrics\n"
         "import repro_torch.dyngraph.retile, repro_torch.dyngraph.repair\n"
         "import repro_torch.serve_mis.batcher, repro_torch.serve_mis.io\n"
+        "import repro_torch.serve_mis.service, repro_torch.serve_mis.__main__\n"
+        "import repro_torch.obs.promtext, repro_torch.obs.report\n"
+        "import repro_torch.launch.serve_graphs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
