@@ -202,6 +202,28 @@ Phases, each fatal on failure:
                  fused_pallas --requests 32 --scale 1024 --waves 3
                  --repeat-frac 0.5`: exit 0, its per-wave lines.
 
+ 10. sharded the Solver's sharded route (run after phase 7, while G2 is held):
+             (a) G2 through `Solver(SolveOptions(placement="sharded"))` on a
+                 one-rank NCCL group (`core.distributed.process_group`),
+                 with packed and byte gathers: placement "sharded",
+                 n_shards 1, the MIS and rounds of the `hybrid="off"` main
+                 path, `tc_spmv` launched once a round and every other
+                 kernel never (phase ① is plain torch on the shards),
+                 `is_valid_mis_checks` true; (c) the median of 5 warm
+                 sharded solves beside the main path's, and the round's
+                 parts on round-1 inputs (warm CUDA events: the plain
+                 phase ①, a packed and a byte gather, the split SpMV) with
+                 their shares of the solve;
+             (b) the split SpMV on each slab of a 4-way `shard_tiled(G2)`
+                 (rows_per_shard × padded block-columns, not square) on the
+                 round-1 RHS over the global columns: exact against its
+                 plain version, the stacked outputs equal to the whole
+                 tiling's;
+             (d) `spmv_tiled(backend="pallas")` on G2 at L = 64 (GIN's
+                 width) within 1e-5 of the plain version, its warm ms
+                 beside the plain version's; `neighbor_max_tiled(backend=
+                 "pallas")` exact.
+
 The last three lines of standard output are, in order: the kernels JSON
 object (one record per kernel), the card's name and power limit as
 nvidia-smi gives them, and `{"ok": true, "device": {...}}`.
@@ -1776,6 +1798,173 @@ def phase_disk_cache(g2) -> None:
 
 
 # --------------------------------------------------------------------------
+# the sharded route on a one-rank NCCL group
+# --------------------------------------------------------------------------
+
+SHARD_SPLIT = 4       # the slab check cuts G2 into this many rps x nbr_pad slabs
+GIN_WIDTH = 64        # spmv_tiled's RHS width in GIN (d_hidden)
+
+
+def round1_frontier(tiled, pri, n_padded: int):
+    """G2's round-1 (cand, alive) over `n_padded` vertices (zero beyond the
+    tiling's), H3 two-pass, with the plain phase ① a shard runs."""
+    import torch
+    from repro_torch.core.spmv import neighbor_max_tiled
+
+    n = tiled.n_nodes
+    pad = lambda x: torch.nn.functional.pad(x, (0, tiled.n_padded - n), value=-(1 << 30))
+    select, resolve = pad(pri.select), pad(pri.resolve)
+    alive = torch.arange(tiled.n_padded, device="cuda") < n
+    pend = alive & (select >= neighbor_max_tiled(tiled, select, alive))
+    cand = pend & (resolve > neighbor_max_tiled(tiled, resolve, pend))
+    grow = lambda x: torch.nn.functional.pad(x, (0, n_padded - tiled.n_padded))
+    return grow(cand), grow(alive)
+
+
+def phase_sharded(g2, errs: dict) -> None:
+    """`placement="sharded"` on G2 through a one-rank NCCL group, the
+    split SpMV on each slab of a 4-way split, and the tiled wrappers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.api import PlanCache, Solver, SolveOptions
+    from repro_torch.core import distributed as D
+    from repro_torch.core.engine import block_col_flags
+    from repro_torch.core.heuristics import make_priorities
+    from repro_torch.core.spmv import neighbor_max_tiled, spmv_tiled
+    from repro_torch.core.validate import is_valid_mis_checks
+    from repro_torch.hopper import tc_neighbor_max as N
+    from repro_torch.hopper import tc_spmv as K
+
+    t_phase = time.perf_counter()
+    plans = PlanCache(device="cuda")
+    main_solver = Solver(SolveOptions(hybrid="off"), device="cuda", plans=plans)
+    main_plan = main_solver.plan(g2)
+    main = main_solver.solve(main_plan)
+    main_ms, _ = median_ms(lambda: main_solver.solve(main_plan))
+
+    # (a) the route, with and without packed gathers
+    try:
+        for bitpack in (True, False):
+            solver = Solver(SolveOptions(placement="sharded", bitpack=bitpack), device="cuda",
+                            plans=plans)
+            plan = solver.plan(g2)
+            res, counts = counted(lambda: solver.solve(plan))
+            label = f"bitpack={bitpack}"
+            check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                  f"[sharded] {label}: group {dist.get_backend()} of {dist.get_world_size()}")
+            check(res.placement == "sharded" and res.stats["n_shards"] == 1
+                  and res.stats["compile"] == "compiled" and res.converged,
+                  f"[sharded] {label}: {res.placement} {res.stats}")
+            check(plan.tile_size == 16 and plan.storage == "bitpack"
+                  and plan.tiled.partition is not None,
+                  f"[sharded] {label}: planned T={plan.tile_size} {plan.storage}")
+            want = {k: res.rounds if k == "tc_spmv" else 0 for k in KERNELS}
+            check(counts == want, f"[sharded] {label}: launches {counts}, expected {want}")
+            check(res.rounds == main.rounds and np.array_equal(res.in_mis, main.in_mis),
+                  f"[sharded] {label}: MIS of {res.mis_size} in {res.rounds} rounds, the "
+                  f"main path's {main.mis_size} in {main.rounds}")
+            valid = is_valid_mis_checks(plan.g, torch.from_numpy(res.in_mis_plan).cuda())
+            check(valid == (True, True), f"[sharded] {label}: (independent, maximal) {valid}")
+            # (c) time: warm solves beside the main path's
+            ms, took = median_ms(lambda: solver.solve(plan))
+            print(f"[sharded] {label}: G2 MIS {res.mis_size} in {res.rounds} rounds, equal to "
+                  f"the hybrid=\"off\" main path's; launches {counts['tc_spmv']} tc_spmv "
+                  f"(once a round), every other kernel 0; valid; warm solve median "
+                  f"{ms:.3f} ms (of {[round(t, 3) for t in took]}) against the main path's "
+                  f"{main_ms:.3f} ms", flush=True)
+
+            # the round's parts on round-1 inputs of the one-rank slab (warm,
+            # CUDA events): the plain phase ①, a gather, the split SpMV
+            if bitpack:
+                pri = make_priorities("h3", torch.Generator(device="cuda").manual_seed(0),
+                                      g2.n_nodes, g2.degrees())
+                sh1 = D.shard_tiled(plan.tiled, 1)
+                slab = sh1.slab(0)
+                check(slab.n_block_rows == slab.n_block_cols == plan.tiled.n_block_rows,
+                      "[sharded] the one-rank slab is not square")
+                cand, alive = round1_frontier(plan.tiled, pri, sh1.n_padded)
+                sel = torch.nn.functional.pad(pri.select, (0, sh1.n_padded - g2.n_nodes),
+                                              value=-(1 << 30))
+                rhs = torch.zeros((sh1.n_padded, 8), device="cuda")
+                rhs[:, 0], rhs[:, 1] = cand, alive
+                flags = block_col_flags(cand, 16)
+                parts = {
+                    "phase1": time_ms(lambda: neighbor_max_tiled(slab, sel, alive), reps=10),
+                    "gather_packed": time_ms(lambda: D.gather_bool(alive, 16, bitpack=True)),
+                    "gather_bytes": time_ms(lambda: D.gather_bool(alive, 16, bitpack=False)),
+                    "spmv": time_ms(lambda: K.tc_spmv(slab, rhs, col_flags=flags)),
+                }
+                n_gathers = 3 * res.rounds + 2
+                shares = {
+                    "phase1": 2 * res.rounds * parts["phase1"] / ms,
+                    "gather": n_gathers * parts["gather_packed"] / ms,
+                    "spmv": res.rounds * parts["spmv"] / ms,
+                }
+                print(f"[sharded] round parts, warm ms per call on round-1 inputs: "
+                      f"{json.dumps({k: round(v, 4) for k, v in parts.items()})}; per solve "
+                      f"(2 phase-1 maxes and 3 gathers a round, 2 gathers outside): shares of "
+                      f"the {ms:.3f} ms solve {json.dumps({k: round(v, 3) for k, v in shares.items()})}",
+                      flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    # (b) the split SpMV on each non-square slab of a 4-way split, on the
+    # round-1 RHS over the global columns
+    tiled = main_plan.tiled
+    pri = make_priorities("h3", torch.Generator(device="cuda").manual_seed(0), g2.n_nodes,
+                          g2.degrees())
+    sh = D.shard_tiled(tiled, SHARD_SPLIT)
+    cand, alive = round1_frontier(tiled, pri, sh.n_padded)
+    rhs = torch.zeros((sh.n_padded, 8), device="cuda")
+    rhs[:, 0], rhs[:, 1] = cand, alive
+    flags = block_col_flags(cand, 16)
+    outs = []
+    for s in range(SHARD_SPLIT):
+        slab = sh.slab(s)
+        check(slab.n_block_rows < slab.n_block_cols == sh.n_block_cols,
+              f"[sharded] slab {s} is {slab.n_block_rows} x {slab.n_block_cols}")
+        got = K.tc_spmv(slab, rhs, col_flags=flags)
+        exact(errs, "tc_spmv", got, K.tc_spmv_plain(slab, rhs, col_flags=flags),
+              f"slab {s} of {SHARD_SPLIT}, round-1 RHS")
+        outs.append(got)
+    whole = K.tc_spmv_plain(tiled, rhs[: tiled.n_padded].contiguous(),
+                            col_flags=flags[: tiled.n_block_cols].contiguous())
+    check(torch.equal(torch.cat(outs)[: tiled.n_padded], whole),
+          "[sharded] the stacked slabs' SpMV differs from the whole tiling's")
+    print(f"[sharded] split SpMV on the {SHARD_SPLIT} slabs of G2 ({sh.rows_per_shard} x "
+          f"{sh.n_block_cols} blocks, real tiles {list(sh.shard_tiles)}, padded to "
+          f"{sh.tiles.shape[1]}): exact against the plain version on lanes 0 (round-1 "
+          f"candidates, {int(cand.sum())}) and 1 (alive), stacked equal to the whole tiling's",
+          flush=True)
+    del sh, outs, whole
+
+    # (d) the tiled wrappers: spmv_tiled at GIN's width, neighbor_max_tiled
+    gen = torch.Generator(device="cuda").manual_seed(GIN_WIDTH)
+    h = torch.randn((tiled.n_padded, GIN_WIDTH), generator=gen, device="cuda")
+    got = spmv_tiled(tiled, h, backend="pallas")
+    want = spmv_tiled(tiled, h, backend="ref")
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+          f"spmv_tiled(backend='pallas') at L={GIN_WIDTH}: max |err| {err}")
+    errs["tc_spmv"] = max(errs.get("tc_spmv", 0.0), err)
+    del want
+    kern_ms = time_ms(lambda: spmv_tiled(tiled, h, backend="pallas"), reps=10)
+    plain_ms = time_ms(lambda: spmv_tiled(tiled, h, backend="ref"), reps=3, warmup=1)
+    del got, h
+    alive = alive[: tiled.n_padded].contiguous()
+    sel = torch.nn.functional.pad(pri.select, (0, tiled.n_padded - g2.n_nodes),
+                                  value=-(1 << 30))
+    exact(errs, "tc_neighbor_max", neighbor_max_tiled(tiled, sel, alive, backend="pallas"),
+          N.tc_neighbor_max_plain(tiled, sel, alive), "neighbor_max_tiled on G2")
+    print(f"[sharded] spmv_tiled(backend='pallas') on G2 at L={GIN_WIDTH}: max |err| {err:.3g} "
+          f"(tol 1e-5), {kern_ms:.4f} ms warm against the plain version's {plain_ms:.4f}; "
+          f"neighbor_max_tiled(backend='pallas') exact; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+# --------------------------------------------------------------------------
 # the serving front door: MISService, its CLI, the report CLI, the launcher
 # --------------------------------------------------------------------------
 
@@ -2128,6 +2317,7 @@ def main() -> None:
     phase_batched(g2, errs)
     phase_dynamic(g2, errs)
     phase_disk_cache(g2)
+    phase_sharded(g2, errs)
     phase_serve(g2)
     del g2
     deepfm = phase_deepfm(errs)

@@ -7,10 +7,9 @@ port's H100 cost model unless `hybrid_threshold` names one; `frontier`
 resolves as the reference resolves it (the packed words for a tile engine
 with `phase1="tiled"` on bitpack storage).  `repair` and
 `repair_threshold` pick `Solver.update`'s mode; `cache_dir` gives the
-Solver's plan cache its disk layer.  Fields of the sharded route, not
-ported, are accepted and validated like the reference's:
-`placement="sharded"` raises at solve time; `bitpack` and
-`shard_threshold` have no effect (ROADMAP.md, Queue 1 item 16).
+Solver's plan cache its disk layer.  `placement`, `shard_threshold` and
+`bitpack` steer the sharded route (`core.distributed` over
+`torch.distributed`) as the reference's steer its shard_map route.
 """
 from __future__ import annotations
 
@@ -51,7 +50,10 @@ class SolveOptions:
       hybrid_threshold: nnz cut for the hybrid classifier; None = the
                   cost model's break-even (`repro_torch.perf`)
 
-    Placement: placement (auto | local | sharded), shard_threshold, bitpack.
+    Placement: placement (auto | local | sharded; auto picks sharded when
+    the padded vertex count reaches shard_threshold and the default
+    `torch.distributed` group has more than one rank), bitpack (the
+    sharded route gathers its frontiers as packed words, else as bytes).
     Dynamic graphs (`Solver.update`): repair (auto | incremental | cold),
     repair_threshold (auto's largest touched-vertex share for
     incremental).  Observability: telemetry

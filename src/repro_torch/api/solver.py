@@ -1,17 +1,26 @@
 """`Solver` — plan, route and solve graphs (counterpart of
-`repro.api.solver`; the local, batched and dynamic routes).
+`repro.api.solver`: the local, sharded, batched and dynamic routes).
 
-    solve(graph)         one graph on the local route
+    solve(graph)         placement per graph (`route`):
+                           local    one convergence loop on the configured
+                                    round engine
+                           sharded  `core.distributed` over the default
+                                    `torch.distributed` group, one block-row
+                                    slab per rank (auto: big padded graphs
+                                    on more than one rank)
     solve_many(graphs)   [] → []; one graph → `solve`; many → block-diagonal
                          batches (`serve_mis.batcher`), one convergence loop
                          per (tile size, storage) group, each member's MIS
                          and rounds those of its solo solve under its own
-                         `request_generator`
-    profile(graph)       the phase-timed twin (`core.tc_mis.run_phases`)
+                         `request_generator`; sharded-routed members peel
+                         off to their own sharded solve
+    profile(graph)       the phase-timed twin (`core.tc_mis.run_phases`),
+                         local plans only
     update(prior, delta) dynamic graphs: patch the plan tile by tile
                          through the cache, then repair the solution per
                          `options.repair` (a warm-started round loop from
-                         the prior MIS, or a cold solve of the patched plan)
+                         the prior MIS, or a cold solve of the patched plan;
+                         always cold on a plan that routes sharded)
 
 `Solver(options, device="cuda")` runs on the CUDA device and raises where
 there is none; `device="cpu"` must be asked for.  A graph handed in is
@@ -20,8 +29,12 @@ moved to the solver's device.  `solve` draws priorities from a
 `request_generator(options.seed, plan)`, derived from the graph's content,
 so a member's solution never depends on its batch, slot or arrival order.
 `metrics` is the solver's `MetricsRegistry`; `stats` its legacy view.
-The sharded route is not ported (ROADMAP.md, Queue 1 item 16): a plan
-that routes there raises.
+
+The sharded route runs on every rank of the default group together (each
+rank calls the same solve); with no group initialised, a forced
+`placement="sharded"` runs a one-rank group in this process, as the
+reference runs a one-device mesh.  It is dense-only: the plan's hybrid
+partition is set aside.
 """
 from __future__ import annotations
 
@@ -36,6 +49,7 @@ import torch
 from repro_torch.api.options import SolveOptions
 from repro_torch.api.plan import Plan, PlanCache, choose_tile_size, resolve_storage
 from repro_torch.core.engine import get_engine, resolve_frontier
+from repro_torch.core.heuristics import make_priorities
 from repro_torch.core.tc_mis import run_phases, run_tc_mis
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.graph import Graph
@@ -44,6 +58,8 @@ from repro_torch.obs.rounds import RoundTrace
 from repro_torch.obs.trace import Trace, trace_span
 
 GraphLike = Union[Graph, Plan]
+
+_DIST_PROGRAM_CACHE = 16       # sharded slabs kept per Solver (LRU)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +73,7 @@ class SolveResult:
     in_mis: np.ndarray          # (n_nodes,) bool, original vertex ids
     rounds: int
     converged: bool
-    placement: str              # local | batched
+    placement: str              # local | batched | sharded
     plan: Plan
     stats: Dict[str, object] = dataclasses.field(default_factory=dict)
     # the per-round series when SolveOptions.telemetry is on (obs.rounds;
@@ -76,7 +92,7 @@ class SolveResult:
 
 
 class Solver:
-    """Plan → route → execute on one device."""
+    """Plan → route → execute, on one device or one rank's slab."""
 
     def __init__(
         self,
@@ -101,6 +117,8 @@ class Solver:
         # batched members' priorities by plan content, for the default
         # request generators only (custom generators bypass it)
         self._priority_cache: Dict = {}
+        # plan key -> this rank's sharded run (slab built), LRU
+        self._dist_runs: "OrderedDict[str, object]" = OrderedDict()
         self.metrics = MetricsRegistry("solver")
         for k in ("solver.solves", "solver.batches", "solver.compiles"):
             self.metrics.counter(k)
@@ -110,7 +128,8 @@ class Solver:
         """Read-only `{"solves", "batches", "compiles"}` view of the
         metrics, in the reference's spelling.  The port compiles no
         per-shape program (each kernel builds once per process, on first
-        use), so `compiles` stays 0."""
+        use); `compiles` counts the sharded route's slab builds, where the
+        reference compiles its shard_map program."""
         m = self.metrics
         return {
             "solves": m.counter("solver.solves").value,
@@ -152,22 +171,29 @@ class Solver:
         return request_generator(self.options.seed, plan, self.device)
 
     def route(self, plan: Plan) -> str:
-        """The placement policy.  Only the local route exists here, so
-        "auto" always resolves to it."""
+        """The placement policy: "auto" gives "sharded" when the padded
+        graph reaches `options.shard_threshold` and the default group has
+        more than one rank, "local" otherwise."""
+        from repro_torch.core.distributed import world_size
+
         if self.options.placement != "auto":
             return self.options.placement
+        if plan.tiled.n_padded >= self.options.shard_threshold and world_size() > 1:
+            return "sharded"
         return "local"
 
-    def _check_local(self, plan: Plan) -> Plan:
+    def _check_device(self, plan: Plan) -> Plan:
         if plan.device != self.device:
             raise ValueError(
                 f"plan lives on {plan.device}, solver on {self.device}"
             )
-        if self.route(plan) != "local":
-            raise NotImplementedError(
-                "placement='sharded' is not ported yet (ROADMAP.md, Queue 1 item 16)"
-            )
         return plan
+
+    def _solve_routed(self, plan: Plan, generator: torch.Generator,
+                      trace: Optional[Trace]) -> SolveResult:
+        if self.route(plan) == "sharded":
+            return self._solve_sharded(plan, generator, trace)
+        return self._solve_local(plan, generator, trace)
 
     def _generator(self, generator: Optional[torch.Generator]) -> torch.Generator:
         if generator is not None:
@@ -191,13 +217,14 @@ class Solver:
         records the spans `solver.solve` ⊃ `solver.plan`, `solver.execute`;
         `execute` ends after the result's host copy, so it holds the
         device work, and a traced result's stats carry its wall time as
-        `execute_ms`.  The port compiles no program, so there is no
-        `solver.compile` span and no `compile_ms` (the reference's cold
-        traced dispatch has both)."""
+        `execute_ms`.  The port compiles no program, so the local route
+        has no `solver.compile` span and no `compile_ms` (the reference's
+        cold traced dispatch has both); the sharded route's slab build
+        runs in a `solver.compile` span."""
         with trace_span(trace, "solver.solve"):
             with trace_span(trace, "solver.plan"):
-                plan = self._check_local(self.plan(graph))
-            return self._solve_local(plan, self._generator(generator), trace)
+                plan = self._check_device(self.plan(graph))
+            return self._solve_routed(plan, self._generator(generator), trace)
 
     def _solve_local(self, plan: Plan, generator: torch.Generator,
                      trace: Optional[Trace]) -> SolveResult:
@@ -241,14 +268,15 @@ class Solver:
         """Solve a workload, batching where it pays.
 
         Empty input returns `[]`, and a single graph goes through `solve`:
-        neither builds a batch.  Two or more graphs group by (tile size,
-        storage), as a batch shares both; a group of two or more packs
-        into one block-diagonal batch and one convergence loop, a group of
-        one solves alone.  Results keep the input order.  Members draw
-        from `request_generator(plan)` unless `generators` gives one per
-        graph (then the priority cache is bypassed)."""
+        neither builds a batch.  Of two or more graphs, those that route
+        sharded solve one by one on that route; the rest group by (tile
+        size, storage), as a batch shares both; a group of two or more
+        packs into one block-diagonal batch and one convergence loop, a
+        group of one solves alone.  Results keep the input order.  Members
+        draw from `request_generator(plan)` unless `generators` gives one
+        per graph (then the priority cache is bypassed)."""
         with trace_span(trace, "solver.plan"):
-            plans = [self._check_local(self.plan(g)) for g in graphs]
+            plans = [self._check_device(self.plan(g)) for g in graphs]
         if not plans:
             return []
         default = generators is None
@@ -262,7 +290,10 @@ class Solver:
         out: List[Optional[SolveResult]] = [None] * len(plans)
         groups: "OrderedDict[tuple, List[int]]" = OrderedDict()
         for i, p in enumerate(plans):
-            groups.setdefault((p.tile_size, p.tiled.storage), []).append(i)
+            if self.route(p) == "sharded":
+                out[i] = self._solve_sharded(p, generators[i], trace)
+            else:
+                groups.setdefault((p.tile_size, p.tiled.storage), []).append(i)
         for idxs in groups.values():
             if len(idxs) == 1:
                 i = idxs[0]
@@ -352,6 +383,9 @@ class Solver:
           auto          incremental while the delta touches at most
                         `options.repair_threshold` of the vertices
 
+        A patched plan that routes sharded is always re-solved cold (the
+        sharded loop has no warm start).
+
         `prior` must be a converged result for the plan the delta applies
         to (chain updates by passing each result to the next).  Both modes
         draw the patched graph's priorities from the same generator, so an
@@ -364,7 +398,7 @@ class Solver:
         t0 = time.perf_counter()
         with trace_span(trace, "solver.plan"):
             plan2, patch_status = self.plans.apply_delta(prior.plan, delta)
-            self._check_local(plan2)
+            self._check_device(plan2)
         extra = dict(
             patch=patch_status, patch_ms=(time.perf_counter() - t0) * 1e3,
             plan_epoch=plan2.epoch, delta_add=delta.n_add, delta_remove=delta.n_remove,
@@ -374,11 +408,13 @@ class Solver:
         mode = self.options.repair
         if mode == "auto":
             mode = "incremental" if dirty_frac <= self.options.repair_threshold else "cold"
+        if mode == "incremental" and self.route(plan2) == "sharded":
+            mode = "cold"
         note_repair(mode, dirty_frac=dirty_frac)
         generator = self._generator(generator)
         if mode == "cold":
             with trace_span(trace, "solver.update", mode="cold"):
-                res = self._solve_local(plan2, generator, trace)
+                res = self._solve_routed(plan2, generator, trace)
             return dataclasses.replace(res, stats=dict(res.stats, repair="cold", **extra))
 
         with trace_span(trace, "solver.update", mode="incremental"):
@@ -404,10 +440,14 @@ class Solver:
         phase3 (seconds summed over the rounds) and rounds; the result
         bit-matches `solve` on the same graph and generator seed.  `trace`
         records `solver.profile` ⊃ `solver.plan` and each round's
-        `rounds.phase1` / `rounds.phase2` / `rounds.phase3`."""
+        `rounds.phase1` / `rounds.phase2` / `rounds.phase3`.  The twin
+        steps the local round engine: a plan that routes sharded raises."""
         with trace_span(trace, "solver.profile"):
             with trace_span(trace, "solver.plan"):
-                plan = self._check_local(self.plan(graph))
+                plan = self._check_device(self.plan(graph))
+            if self.route(plan) == "sharded":
+                raise NotImplementedError(
+                    "profile has no sharded twin: it steps the local round engine")
             result, times = run_phases(plan.g, plan.tiled, self._generator(generator),
                                        self.options, trace=trace)
         self.metrics.counter("solver.solves").inc()
@@ -421,6 +461,65 @@ class Solver:
             stats=dict(times, device=str(self.device)),
         )
         return res, times
+
+    def _solve_sharded(self, plan: Plan, generator: torch.Generator,
+                       trace: Optional[Trace] = None) -> SolveResult:
+        """One sharded solve on this rank (every rank of the group calls it
+        with the same plan and generator state).  Dense-only: the slabs
+        take the plan's whole tile list and its hybrid partition goes
+        unused, as the reference's shard_map loop has no sparse-tail seam.
+        The plan's slab is built once and kept (LRU of
+        `_DIST_PROGRAM_CACHE` per Solver): the `compile` stat says
+        "compiled" when this call built it, "reused" when it came from the
+        cache, the reference's values for its shard_map program."""
+        import torch.distributed as dist
+
+        from repro_torch.core.distributed import (
+            DistConfig, build_distributed_mis, process_group, shard_tiled,
+        )
+
+        group = process_group(self.device)
+        n_shards = dist.get_world_size(group)
+        run = self._dist_runs.get(plan.key)
+        compile_stat = "reused" if run is not None else "compiled"
+        if run is None:
+            self.metrics.counter("solver.compiles").inc()
+            with trace_span(trace, "solver.compile", placement="sharded"):
+                run = build_distributed_mis(
+                    shard_tiled(plan.tiled, n_shards), group, DistConfig(
+                        max_rounds=self.options.max_rounds,
+                        bitpack=self.options.bitpack,
+                        lanes=self.options.lanes,
+                    ))
+            self._dist_runs[plan.key] = run
+            while len(self._dist_runs) > _DIST_PROGRAM_CACHE:
+                self._dist_runs.popitem(last=False)
+        else:
+            self._dist_runs.move_to_end(plan.key)
+
+        pri = make_priorities(self.options.heuristic, generator, plan.g.n_nodes,
+                              plan.g.degrees())
+        t0 = time.perf_counter()
+        with trace_span(trace, "solver.execute", placement="sharded"):
+            res = run(pri)
+            in_mis_plan = res.in_mis[: plan.g.n_nodes].cpu().numpy().astype(bool)
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        self.metrics.counter("solver.solves").inc()
+        self.metrics.histogram("solver.solve_ms").observe(solve_ms)
+        stats = dict(solve_ms=solve_ms, compile=compile_stat, n_shards=n_shards,
+                     batch_size=1, device=str(self.device))
+        if trace is not None:
+            stats["execute_ms"] = solve_ms   # the solver.execute span
+        return SolveResult(
+            in_mis=plan.to_original(in_mis_plan).astype(bool),
+            rounds=res.rounds,
+            # the loop returns no flag: stopping before the bound is the
+            # (conservative) convergence signal, as the reference's
+            converged=res.rounds < self.options.max_rounds,
+            placement="sharded",
+            plan=plan,
+            stats=stats,
+        )
 
     # -- telemetry and metrics ---------------------------------------------
 

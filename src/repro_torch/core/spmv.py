@@ -1,16 +1,23 @@
-"""Edge-list (segment) neighbourhood operators (counterpart of the segment
-half of `repro.core.spmv`): gather by sender, reduce by receiver into
-`n_nodes + 1` slots, drop the sentinel slot.
+"""Neighbourhood operators (counterpart of `repro.core.spmv`).
 
-Fills match the reference's `jax.ops.segment_*`: a vertex with no edges
-gets int32 min (the `segment_max` identity); a vertex whose neighbours are
-all masked gets `_NEG`.
+* the segment path (`*_segment`): gather by sender, reduce by receiver
+  into `n_nodes + 1` slots, drop the sentinel slot.  Fills match the
+  reference's `jax.ops.segment_*`: a vertex with no edges gets int32 min
+  (the `segment_max` identity); a vertex whose neighbours are all masked
+  gets `_NEG`.
+* the tiled path (`spmv_tiled`, `neighbor_max_tiled`): the BSR tile
+  schedule, `backend="ref"` as plain torch, `backend="pallas"` (the
+  reference's name for its kernel path, kept so its callers port
+  unchanged) through the Hopper kernels on CUDA tensors and their plain
+  versions on CPU tensors.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.graphs.graph import Graph
+
+BACKENDS = ("ref", "pallas")
 
 _NEG = -(1 << 30)
 INT32_MIN = -(1 << 31)
@@ -51,3 +58,43 @@ def neighbor_any_segment(g: Graph, flag: torch.Tensor) -> torch.Tensor:
     """Does v have a neighbour with `flag` set?"""
     contrib = (g.edge_mask & _gather(g, flag)).to(torch.int32)
     return _segment_max(g.receivers_long, contrib, g.n_nodes + 1)[: g.n_nodes] > 0
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; valid: {BACKENDS}")
+
+
+def spmv_tiled(tiled, rhs: torch.Tensor, *, backend: str = "ref",
+               col_flags: torch.Tensor | None = None) -> torch.Tensor:
+    """N = A @ rhs over the BSR tiles: rhs (n_block_cols·T, L), col_flags
+    (n_block_cols,) int32 or None (a gated column adds nothing on any
+    lane); returns (n_block_rows·T, L) float32.  "ref": `tile_spmv`;
+    "pallas": `hopper.tc_spmv`."""
+    _check_backend(backend)
+    if backend == "pallas":
+        from repro_torch.hopper.tc_spmv import tc_spmv
+
+        return tc_spmv(tiled, rhs, col_flags=col_flags)
+    from repro_torch.core.engine import tile_spmv
+
+    return tile_spmv(tiled.tiles, tiled.tile_rows, tiled.tile_cols, rhs,
+                     tiled.n_block_rows, tiled.tile_size, col_flags=col_flags)
+
+
+def neighbor_max_tiled(tiled, p: torch.Tensor, mask: torch.Tensor, *,
+                       backend: str = "ref") -> torch.Tensor:
+    """Tiled phase ①: per row, the max of `p` over neighbours with `mask`
+    set; p, mask (n_padded,), returns (n_padded,) int32.  "ref":
+    `tile_neighbor_max` (its floor rule); "pallas": `hopper.tc_neighbor_max`
+    (every covered row floored at `_NEG`, as the Pallas kernel)."""
+    _check_backend(backend)
+    if backend == "pallas":
+        from repro_torch.hopper.tc_neighbor_max import tc_neighbor_max
+
+        return tc_neighbor_max(tiled, p, mask)
+    from repro_torch.core.engine import tile_neighbor_max
+
+    return tile_neighbor_max(tiled.tiles, tiled.tile_rows, tiled.tile_cols,
+                             torch.where(mask, p, _NEG), tiled.n_block_rows,
+                             tiled.tile_size)

@@ -247,6 +247,41 @@ def tile_nnz(tiled: BlockTiledGraph) -> np.ndarray:
     return out.cpu().numpy()
 
 
+def tile_stats(tiled: BlockTiledGraph) -> dict:
+    """The tiling's footprint and nnz distribution, the reference's
+    `tile_stats` key for key.  `nnz_hist` buckets the real tiles by nnz
+    in powers of two: key u counts tiles with nnz in (u/2, u], key 0 the
+    empty ones (a delta can drain a tile in place), up to u = T²."""
+    per_tile = tile_nnz(tiled)[: tiled.n_tiles]
+    nnz = int(per_tile.sum())
+    cells = tiled.n_tiles * tiled.tile_size * tiled.tile_size
+    total_blocks = tiled.n_block_rows * tiled.n_block_cols
+    cap = tiled.tile_size * tiled.tile_size
+    hist = {0: int(np.count_nonzero(per_tile == 0))}
+    upper = 1
+    while True:
+        hist[upper] = int(np.count_nonzero((per_tile > upper // 2) & (per_tile <= upper)))
+        if upper >= cap:
+            break
+        upper *= 2
+    payload = tiled.tiles.numel() * tiled.tiles.element_size()
+    index_bytes = 4 * (tiled.tile_rows.numel() + tiled.tile_cols.numel()
+                       + tiled.row_starts.numel())
+    return dict(
+        tile_size=tiled.tile_size,
+        n_tiles=tiled.n_tiles,
+        storage=tiled.storage,
+        block_grid=total_blocks,
+        block_occupancy=tiled.n_tiles / max(total_blocks, 1),
+        intra_tile_density=nnz / max(cells, 1),
+        tile_nnz=per_tile.tolist(),
+        nnz_hist=hist,
+        tile_payload_bytes=payload,
+        bsr_bytes=payload + index_bytes,
+        csr_bytes=8 * nnz + 4 * (tiled.n_nodes + 1),
+    )
+
+
 def partition_tiles(
     tiled: BlockTiledGraph, threshold: int, *, nnz: np.ndarray | None = None
 ) -> TilePartition:
@@ -448,6 +483,11 @@ def pack_vertex_vector(x: torch.Tensor, tiled: BlockTiledGraph) -> torch.Tensor:
     """(n_nodes,) -> (n_padded,) zero-padded to whole tiles."""
     pad = tiled.n_padded - x.shape[0]
     return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
+def unpack_vertex_vector(x: torch.Tensor, tiled: BlockTiledGraph) -> torch.Tensor:
+    """(n_padded, ...) -> (n_nodes, ...): the real vertices' rows."""
+    return x[: tiled.n_nodes]
 
 
 # --------------------------------------------------------------------------

@@ -118,3 +118,52 @@ def from_edges(
         n_nodes=int(n_nodes),
         n_edges=n_edges,
     )
+
+
+def build_csr(g: Graph) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side CSR (indptr int64, indices int32) from the real half-edges,
+    ordered by a stable sort on the sender."""
+    s = g.senders[: g.n_edges].cpu().numpy()
+    r = g.receivers[: g.n_edges].cpu().numpy()
+    order = np.argsort(s, kind="stable")
+    s, r = s[order], r[order]
+    counts = np.bincount(s, minlength=g.n_nodes)
+    indptr = np.zeros(g.n_nodes + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return indptr, r.astype(np.int32)
+
+
+def pad_graph(g: Graph, e_pad: int) -> Graph:
+    """A copy of `g` with `e_pad` edge rows, on `g`'s device.
+
+    Growing appends sentinel rows (`n_nodes`).  An `e_pad` below the
+    current padding but at least `n_edges` shrinks it: every row past
+    `n_edges` is a sentinel, so cutting it loses nothing (empty and
+    singleton graphs round-trip through `from_edges(pad_to=...)`).  Below
+    `n_edges` raises."""
+    if e_pad < g.n_edges:
+        raise ValueError(f"pad {e_pad} < real edges {g.n_edges}")
+    if e_pad == g.e_pad:
+        return g
+    if e_pad < g.e_pad:
+        return Graph(g.senders[:e_pad], g.receivers[:e_pad], g.n_nodes, g.n_edges)
+    pad = torch.full((e_pad - g.e_pad,), g.n_nodes, dtype=torch.int32, device=g.device)
+    return Graph(
+        senders=torch.cat([g.senders, pad]),
+        receivers=torch.cat([g.receivers, pad]),
+        n_nodes=g.n_nodes,
+        n_edges=g.n_edges,
+    )
+
+
+def to_networkx(g: Graph):
+    """The graph as an undirected `networkx.Graph` on vertices 0..n-1 (for
+    oracle comparisons on small graphs; networkx is imported here only)."""
+    import networkx as nx
+
+    s = g.senders[: g.n_edges].cpu().numpy()
+    r = g.receivers[: g.n_edges].cpu().numpy()
+    out = nx.Graph()
+    out.add_nodes_from(range(g.n_nodes))
+    out.add_edges_from(zip(s.tolist(), r.tolist()))
+    return out

@@ -3,6 +3,9 @@
   serve_graphs   synthetic traffic over the paper-suite generators through
                  `serve_mis.MISService`
 
-The reference's LM `serve`, `train`, `dryrun` and `mesh` launchers are not
-ported yet (ROADMAP.md, Queue 1 items 16 and 19).
+The reference's LM `serve` and `train` launchers are not ported yet
+(ROADMAP.md, Queue 1 item 19); `dryrun` lowers cells through XLA and waits
+with the cost model's XLA terms (item 17).  `mesh` has no counterpart: a
+`torch.distributed` group is its caller's, given its address, world size
+and rank.
 """

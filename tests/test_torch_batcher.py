@@ -355,6 +355,23 @@ def test_solve_many_metrics_and_telemetry():
 
 
 def test_solve_many_refuses_the_sharded_route():
+    """The route once refused here now runs: with `placement="sharded"`
+    every member peels off to its own sharded solve (a one-rank gloo group
+    in this process), equal to its local solve under the same request
+    generator."""
+    import torch.distributed as dist
+
+    graphs = _graphs()[:2]
     solver = Solver(SolveOptions(placement="sharded", tile_size=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        solver.solve_many(_graphs()[:2])
+    local = Solver(SolveOptions(placement="local", tile_size=8), device="cpu")
+    try:
+        results = solver.solve_many(graphs)
+    finally:
+        dist.destroy_process_group()
+    assert [r.placement for r in results] == ["sharded"] * 2
+    assert solver.stats == {"solves": 2, "batches": 0, "compiles": 2}
+    for res in results:
+        assert res.stats["n_shards"] == 1 and res.converged
+        want = local.solve(res.plan, generator=local.request_generator(res.plan))
+        np.testing.assert_array_equal(res.in_mis, want.in_mis)
+        assert res.rounds == want.rounds

@@ -1107,3 +1107,81 @@ def test_serving_cli_once_on_card(cuda_device, tmp_path):
     assert len(lines) == 7 and all(r["valid"] for r in lines)
     assert lines[-1]["base_id"] == 0 and lines[-1]["repair"] == "incremental"
     assert "repro_service_requests_total 7" in (tmp_path / "m.prom").read_text()
+
+
+# --------------------------------------------------------------------------
+# the sharded route's slabs, the tiled wrappers, the one-rank route
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+@pytest.mark.parametrize("T", [16, 64])
+@pytest.mark.parametrize("n_shards", [3, 4])
+def test_split_spmv_on_non_square_slabs_on_card(cuda_device, n_shards, T, storage):
+    """The split SpMV on each rows_per_shard x nbr_pad slab of a sharded
+    tiling, gated by a candidate set over the global columns: exact on the
+    0/1 lanes, within 1e-5 on a random f32 RHS."""
+    from repro_torch.core.distributed import shard_tiled
+
+    t = _card_tiling(cuda_device, T, storage)
+    sh = shard_tiled(t, n_shards)
+    gen = torch.Generator(device=cuda_device).manual_seed(n_shards)
+    alive = torch.rand(sh.n_padded, generator=gen, device=cuda_device) < 0.7
+    cand = alive & (torch.rand(sh.n_padded, generator=gen, device=cuda_device) < 0.3)
+    flags = block_col_flags(cand, T)
+    rhs = torch.zeros((sh.n_padded, LANES), device=cuda_device)
+    rhs[:, 0], rhs[:, 1] = cand, alive
+    noise = torch.randn((sh.n_padded, LANES), generator=gen, device=cuda_device)
+    for s in range(n_shards):
+        slab = sh.slab(s)
+        assert slab.n_block_rows < slab.n_block_cols
+        launches = K.tc_spmv.launches
+        assert torch.equal(K.tc_spmv(slab, rhs, col_flags=flags),
+                           K.tc_spmv_plain(slab, rhs, col_flags=flags))
+        assert K.tc_spmv.launches == launches + 1
+        torch.testing.assert_close(K.tc_spmv(slab, noise, col_flags=flags),
+                                   K.tc_spmv_plain(slab, noise, col_flags=flags),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["int8", "bitpack"])
+def test_tiled_wrappers_at_gin_width_on_card(cuda_device, storage):
+    """`spmv_tiled(backend="pallas")` at L = 64 (GIN's hidden width) within
+    1e-5 of the plain version; `neighbor_max_tiled(backend="pallas")` exact."""
+    from repro_torch.core import spmv
+
+    t = _card_tiling(cuda_device, 16, storage)
+    gen = torch.Generator(device=cuda_device).manual_seed(64)
+    h = torch.randn((t.n_padded, 64), generator=gen, device=cuda_device)
+    launches = K.tc_spmv.launches
+    got = spmv.spmv_tiled(t, h, backend="pallas")
+    assert K.tc_spmv.launches == launches + 1
+    torch.testing.assert_close(got, K.tc_spmv_plain(t, h), rtol=1e-5, atol=1e-5)
+    p = torch.randint(-(1 << 30), 1 << 30, (t.n_padded,), generator=gen, device=cuda_device,
+                      dtype=torch.int32)
+    mask = torch.rand(t.n_padded, generator=gen, device=cuda_device) < 0.5
+    assert torch.equal(spmv.neighbor_max_tiled(t, p, mask, backend="pallas"),
+                       N.tc_neighbor_max_plain(t, p, mask))
+
+
+@pytest.mark.gpu
+def test_sharded_solve_on_one_nccl_rank_equals_local(cuda_device):
+    """`placement="sharded"` on the card: a one-rank NCCL group, the split
+    SpMV once a round, the MIS and rounds of the local route."""
+    import torch.distributed as dist
+
+    from repro_torch.api import Solver, SolveOptions
+
+    g = grid2d(90, 90, device=cuda_device)
+    try:
+        solver = Solver(SolveOptions(placement="sharded", tile_size=16), device=cuda_device)
+        launches = K.tc_spmv.launches
+        res = solver.solve(g)
+        assert K.tc_spmv.launches == launches + res.rounds
+        assert dist.get_backend() == "nccl"
+    finally:
+        dist.destroy_process_group()
+    want = Solver(SolveOptions(placement="local", tile_size=16), device=cuda_device).solve(g)
+    assert (res.placement, res.stats["n_shards"]) == ("sharded", 1)
+    assert res.rounds == want.rounds and np.array_equal(res.in_mis, want.in_mis)

@@ -197,16 +197,33 @@ def _feed_reference_priorities(monkeypatch, ref_svc, seed, heuristic):
     monkeypatch.setattr(port_tc_mis, "make_priorities", draw)
 
 
-@pytest.mark.parametrize("engine", ["tiled_ref", "fused_pallas"])
-def test_service_responses_equal_reference(engine, monkeypatch):
-    kw = dict(tile_size=8, engine=engine, max_batch=4, seed=1)
+# the two first cases at T = 8, then ROADMAP.md Queue 3's re-anchor probe:
+# h1/h2/h3 x segment/tiled phase 1 x int8/bitpack at T = 16 on fused_pallas,
+# RCM on tiled_pallas, T = 32 with three lanes on tiled_ref, and segment
+_SERVICE_CONFIGS = [
+    pytest.param(dict(tile_size=8, engine="tiled_ref"), id="tiled_ref"),
+    pytest.param(dict(tile_size=8, engine="fused_pallas"), id="fused_pallas"),
+] + [
+    pytest.param(dict(tile_size=16, engine="fused_pallas", heuristic=h, phase1=p1,
+                      storage=st), id=f"{h}-{p1}-{st}")
+    for h in ("h1", "h2", "h3") for p1 in ("segment", "tiled") for st in ("int8", "bitpack")
+] + [
+    pytest.param(dict(tile_size=16, engine="tiled_pallas", reorder="rcm"), id="rcm"),
+    pytest.param(dict(tile_size=32, engine="tiled_ref", lanes=3), id="T32-lanes3"),
+    pytest.param(dict(tile_size=16, engine="segment"), id="segment"),
+]
+
+
+@pytest.mark.parametrize("config", _SERVICE_CONFIGS)
+def test_service_responses_equal_reference(config, monkeypatch):
+    kw = dict(config, max_batch=4, seed=1)
     pairs = _stream_graphs()
     ref_delta = ref_random_delta(pairs[0][0], n_add=1, n_remove=1, seed=4)
     delta = EdgeDelta.make(ref_delta.add[:, 0], ref_delta.add[:, 1],
                            ref_delta.remove[:, 0], ref_delta.remove[:, 1])
     ref_svc = RefService(RefConfig(**kw))
     want = _drive(ref_svc, [r for r, _ in pairs], ref_delta, FIXTURE_FILES)
-    _feed_reference_priorities(monkeypatch, ref_svc, kw["seed"], "h3")
+    _feed_reference_priorities(monkeypatch, ref_svc, kw["seed"], kw.get("heuristic", "h3"))
     svc = _service(**kw)
     got = _drive(svc, [g for _, g in pairs], delta, FIXTURE_FILES)
 
@@ -223,7 +240,8 @@ def test_service_responses_equal_reference(engine, monkeypatch):
     update = got[4]
     assert update.stats["repair"] == want[4].stats["repair"] == "incremental"
     assert (update.stats["base_id"], update.stats["plan_epoch"]) == (3, 1)
-    assert got[2].mis_size == 4          # Petersen's maximum independent set
+    if kw.get("heuristic", "h3") == "h3" and kw.get("reorder") is None:
+        assert got[2].mis_size == 4      # Petersen's maximum independent set
     assert [r.stats["bucket"] for r in got][-1] == "local"
     assert svc.stats["requests"] == ref_svc.stats["requests"] == 9
     assert svc.stats["batches"] == ref_svc.stats["batches"]

@@ -496,12 +496,21 @@ def test_solver_solve_equals_the_loop(engine, reorder):
 
 
 def test_solver_refuses_what_is_not_ported():
-    """The sharded route is refused; hybrid plans, refused before the
-    partition was ported, now build."""
+    """Nothing is refused any more: the sharded route, once refused, runs
+    (a one-rank gloo group in this process) to the local route's MIS, and
+    hybrid plans, refused before the partition was ported, build."""
+    import torch.distributed as dist
+
     src, dst, n = _edges("random")
     g = from_edges(src, dst, n, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        Solver(SolveOptions(placement="sharded"), device="cpu").solve(g)
+    try:
+        res = Solver(SolveOptions(placement="sharded"), device="cpu").solve(g)
+    finally:
+        dist.destroy_process_group()
+    want = Solver(SolveOptions(placement="local"), device="cpu").solve(g)
+    assert (res.placement, res.stats["n_shards"], res.converged) == ("sharded", 1, True)
+    np.testing.assert_array_equal(res.in_mis, want.in_mis)
+    assert res.rounds == want.rounds
     for hybrid in ("auto", "forced"):
         plan = port_plan.Plan.build(g, hybrid=hybrid)
         assert plan.hybrid == hybrid and plan.hybrid_threshold > 0
