@@ -224,6 +224,36 @@ Phases, each fatal on failure:
                  beside the plain version's; `neighbor_max_tiled(backend=
                  "pallas")` exact.
 
+ 11. train   DeepFM training at the full CONFIG and train_batch (B = 65,536,
+             fields and labels from `ClickStream(FIELD_VOCABS, B, seed=0)`;
+             run after phase 8, float32 products without TF32):
+             (a) the bag's backward kernel (`embedding_bag_backward`) bit-equal
+                 to its plain version on the card, and two launches bit-equal,
+                 on train_batch's (65,536, 39) slots at D = 10 and D = 1,
+                 unweighted and with random weights, and with every slot in
+                 the 16-row field (runs of about 160,000 slots);
+             (b) one `configs.deepfm.train_step` (`OptConfig(total_steps=
+                 10000)`, the cell's) with every launch count set to 0 just
+                 before it: `embedding_bag` 2, `embedding_bag_backward` 2,
+                 every MIS kernel 0; the loss finite; every parameter and
+                 moment within 1e-6 of the same step with both bags' forward
+                 and backward through their plain versions;
+             (c) 20 steps with tests/test_recsys.py's `OptConfig(lr=3e-3,
+                 warmup_steps=5, total_steps=100, weight_decay=0.0)`: the
+                 losses (finite), the median step ms split by CUDA events
+                 into forward, backward and optimizer, the peak device
+                 memory, a profile of one step; the backward kernel per
+                 launch (D = 10, D = 1, D = 10 weighted), cold and warm,
+                 beside its plain version, its bound and one
+                 `torch.zeros(V, D).index_add_` (the kernels line carries D =
+                 10), and the wrapper's sort and a clear of the output alone;
+             (d) the TrainLoop on the card at test_training_reduces_loss's
+                 config (10 fields of 32, d = 8, MLP 32, B = 256), checkpoints
+                 under build/train/: the mean loss of the last 10 of 60 steps
+                 below the first 10's by more than 0.01; 25 straight steps
+                 equal, bit for bit, 20 steps then a fresh loop that restores
+                 and runs 5; a failure raised at step 13 recovered.
+
 The last three lines of standard output are, in order: the kernels JSON
 object (one record per kernel), the card's name and power limit as
 nvidia-smi gives them, and `{"ok": true, "device": {...}}`.
@@ -261,6 +291,9 @@ KERNELS = {
     "tc_neighbor_max_bits": (CSRC + "tc_neighbor_max.cu",
                              "src/repro/kernels/tc_neighbor_max.py:96"),
     "embedding_bag": (CSRC + "embedding_bag.cu", "src/repro/kernels/embedding_bag.py:24"),
+    # no Pallas body: the reference's table gradient is jax.grad of the
+    # gathers in deepfm_loss, XLA's scatter-add
+    "embedding_bag_backward": (CSRC + "embedding_bag.cu", "src/repro/models/deepfm.py:92"),
 }
 # retrieval_cand scores the items of the first categorical field (10,000,000
 # rows); the 13 numeric fields hold 64 values each
@@ -297,7 +330,7 @@ def wrappers() -> dict:
         "tc_neighbor_max": N.tc_neighbor_max,
         "tc_spmv_fused_bits": S.tc_spmv_fused_bits, "tc_spmv_bits": S.tc_spmv_bits,
         "tc_neighbor_max_bits": N.tc_neighbor_max_bits,
-        "embedding_bag": E.embedding_bag,
+        "embedding_bag": E.embedding_bag, "embedding_bag_backward": E.embedding_bag_backward,
     }
 
 
@@ -346,8 +379,10 @@ MAIN_SPMV = "T=16 bitpack fused f32 L=8"     # the main path's instance
 NBR_MAX_INSTANCE = re.compile(r"nbr_max_(tile|slot)_lanesILi(\d+)EL.*?KindE(\d)ELb([01])E")
 # spmv_bits_tile_lanes<T, FUSED> and spmv_bits_rows<T, FUSED>
 SPMV_BITS_INSTANCE = re.compile(r"spmv_bits_(tile_lanes|rows)ILi(\d+)E(?:Lb([01])E)?")
-# bag_groups<T, VEC, CH, WEIGHTED>
+# bag_groups<T, VEC, CH, WEIGHTED>, bag_backward_segments<WEIGHTED> and
+# bag_backward_runs
 BAG_INSTANCE = re.compile(r"bag_groupsI(f|13__nv_bfloat16)Li(\d)ELi(\d+)ELb([01])E")
+BAG_BACKWARD_INSTANCE = re.compile(r"bag_backward_(segments|runs)(?:ILb([01])E)?")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -397,6 +432,11 @@ def spmv_bits_label(mangled: str) -> str:
 
 
 def bag_label(mangled: str) -> str:
+    m = BAG_BACKWARD_INSTANCE.search(mangled)
+    if m is not None:
+        kind, weighted = m.groups()
+        return f"backward {kind}" + ("" if weighted is None else
+                                     " weighted" if weighted == "1" else " unweighted")
     m = BAG_INSTANCE.search(mangled)
     if m is None:
         return mangled
@@ -594,7 +634,7 @@ def phase_kernels(g2) -> dict:
                   f"SpMV on randn, max|err|={err:.3g} "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
             del plan, tiled
-    check(sorted(errs) == sorted(k for k in KERNELS if k != "embedding_bag"),
+    check(sorted(errs) == sorted(k for k in KERNELS if not k.startswith("embedding_bag")),
           f"kernels held: {sorted(errs)}")
     return errs
 
@@ -1110,7 +1150,8 @@ def timing_packed(packed, launches: dict, errs: dict) -> list:
 # the spans of repro_torch.obs.trace
 SPANS = ("solver.", "rounds.")
 # the port's own kernels (csrc/*.cu) among the profiler's device events
-PORT_KERNEL = re.compile(r"\b(tc_spmv_rows|nbr_max_\w+_lanes|spmv_bits_\w+|bag_groups)<")
+PORT_KERNEL = re.compile(
+    r"\b(tc_spmv_rows|nbr_max_\w+_lanes|spmv_bits_\w+|bag_groups|bag_backward_\w+)[<(]")
 
 
 def profile_call(fn, label: str) -> set:
@@ -1477,6 +1518,247 @@ def timing_deepfm(state: dict, errs: dict) -> list:
         profile_call(lambda: serve_step(model, state["fields"]["serve_bulk"]),
                      "serve_bulk forward")
     return [records["D=10"]]
+
+
+# --------------------------------------------------------------------------
+# DeepFM training
+# --------------------------------------------------------------------------
+
+# tests/test_recsys.py:74, test_training_reduces_loss's optimizer
+RECSYS_OPT = dict(lr=3e-3, warmup_steps=5, total_steps=100, weight_decay=0.0)
+TRAIN_STEPS = 20
+# test_training_reduces_loss's model and batch (tests/test_recsys.py:70-73)
+LOOP_VOCABS, LOOP_DIM, LOOP_MLP, LOOP_BATCH = tuple([32] * 10), 8, (32,), 256
+TRAIN_DIR = ROOT / "build" / "train"
+HOT_FIELD = 38      # FIELD_VOCABS' 16-row field: 4,096 slots a row at B = 65,536
+TRAIN_TOL = 1e-6    # the card's step against the step through plain bags
+
+
+def bound_bag_backward(n_rows: int, grad_out, idx, weights):
+    """Bag backward: the dense (n_rows, D) f32 gradient written once, the
+    indices, weights and grad_out read once; an add (and a multiply) per
+    slot and element."""
+    (B, K), D = idx.shape, grad_out.shape[1]
+    nbytes = n_rows * D * 4 + idx.numel() * 4 + grad_out.numel() * 4 + (
+        0 if weights is None else weights.numel() * 4)
+    return _bound(nbytes, B * K * D * (1 if weights is None else 2))
+
+
+def phase_train(errs: dict) -> dict:
+    """DeepFM training at the full CONFIG and train_batch (B = 65,536):
+    (a) the bag's backward kernel against its plain version, bit for bit,
+    and twice on one input; (b) one `train_step` with the launch counts
+    set to 0 just before it, against the same step through both plain
+    bags; (c) 20 steps timed by CUDA events, a profile, the backward
+    kernel's per-launch times; (d) the TrainLoop on the card."""
+    import torch
+    from repro_torch.configs import deepfm as C
+    from repro_torch.data.pipeline import ClickStream
+    from repro_torch.hopper import embedding_bag as E
+    from repro_torch.models import deepfm as M
+    from repro_torch.train import adamw_init
+
+    t0 = time.perf_counter()
+    B = C.SHAPES["train_batch"]["batch"]
+    model = M.DeepFM(C.CONFIG, seed=0, device="cuda")
+    V, D = model.embed.shape
+    stream = ClickStream(C.FIELD_VOCABS, B, seed=0)
+    fields, labels = (torch.from_numpy(a).cuda() for a in stream.batch_at(0))
+    flat = fields + model.offsets[None, :]
+    print(f"[train] CONFIG {V} rows, d={D}, {C.CONFIG.param_count()} parameters, "
+          f"train_batch B={B} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # (a) the backward kernel at train_batch's bag shapes
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    w = torch.rand(flat.shape, generator=gen, device="cuda")
+    grads_out = {d: torch.randn((B, d), generator=gen, device="cuda") for d in (D, 1)}
+    hot = model.offsets[HOT_FIELD] + torch.randint(
+        0, C.FIELD_VOCABS[HOT_FIELD], flat.shape, generator=gen, device="cuda", dtype=torch.int32)
+    cases = [(f"D={d}, {'random weights' if wt is not None else 'unweighted'}", grads_out[d],
+              flat, wt) for d in (D, 1) for wt in (None, w)]
+    cases.append((f"every slot in the {C.FIELD_VOCABS[HOT_FIELD]}-row field, D={D}, random "
+                  "weights", grads_out[D], hot, w))
+    for what, g, idx, wt in cases:
+        t1 = time.perf_counter()
+        got = E.embedding_bag_backward(g, idx, wt, V)
+        again = E.embedding_bag_backward(g, idx, wt, V)
+        exact(errs, "embedding_bag_backward", got, again, f"{what}, two launches")
+        del again
+        exact(errs, "embedding_bag_backward", got, E.embedding_bag_backward_plain(g, idx, wt, V),
+              what)
+        print(f"[train] (a) embedding_bag_backward {what}, {tuple(idx.shape)} slots into {V} "
+              f"rows: bit-equal to the plain version on the card and across two launches "
+              f"({time.perf_counter() - t1:.1f} s)", flush=True)
+        del got
+    del hot
+
+    # (b) one full-width train step through the kernels, and through plain bags
+    params = C.train_params(model)
+    opt = adamw_init(params)
+    (p1, s1, loss), counts = counted(lambda: C.train_step(model, params, opt, fields, labels))
+    want = {k: 0 for k in KERNELS}
+    want.update(embedding_bag=2, embedding_bag_backward=2)
+    check(counts == want, f"train_step: launches {counts}, expected {want}")
+    check(bool(torch.isfinite(loss)), f"train_step: loss {float(loss)}")
+    pp, ps, ploss = C.train_step(model, params, opt, fields, labels, bag=E.embedding_bag_plain)
+    err = max(max_err(a, b) for part, plain in ((p1, pp), (s1.m, ps.m), (s1.v, ps.v))
+              for a, b in ((part[k], plain[k]) for k in part))
+    check(err <= TRAIN_TOL and abs(float(loss) - float(ploss)) <= TRAIN_TOL,
+          f"train_step through the kernels != through plain bags: max |err| {err}")
+    print(f"[train] (b) train_step: launches {counts}; loss {float(loss):.6f}; every "
+          f"parameter and moment within {err:.3g} of the step through plain bags (tol "
+          f"{TRAIN_TOL}), loss {abs(float(loss) - float(ploss)):.3g}", flush=True)
+    del p1, s1, pp, ps
+    torch.cuda.synchronize()
+    return {"model": model, "params": params, "stream": stream, "fields": fields,
+            "labels": labels, "flat": flat, "weights": w, "grads_out": grads_out,
+            "launches": counts}
+
+
+def timing_train(state: dict, errs: dict) -> list:
+    """(c) TRAIN_STEPS full-width steps with RECSYS_OPT, each split by CUDA
+    events into forward (to the logits: a forward hook), backward (the rest
+    of `loss_and_grads`) and optimizer (`adamw_update`), the two calls
+    `train_step` makes; a profile of one step; the backward kernel per
+    launch beside its plain version, its bound and one `index_add_`."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import deepfm as C
+    from repro_torch.hopper import embedding_bag as E
+    from repro_torch.train import OptConfig, adamw_init, adamw_update
+
+    model, stream = state["model"], state["stream"]
+    opt_cfg = OptConfig(**RECSYS_OPT)
+    params = state["params"]
+    opt = adamw_init(params)
+    batches = [tuple(torch.from_numpy(a).cuda() for a in stream.batch_at(i))
+               for i in range(TRAIN_STEPS)]
+    marks = []
+    hook = model.register_forward_hook(lambda *_: marks[-1][1].record())
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for fields, labels in batches:
+        marks.append([torch.cuda.Event(enable_timing=True) for _ in range(4)])
+        marks[-1][0].record()
+        loss, grads = C.loss_and_grads(model, params, fields, labels)
+        marks[-1][2].record()
+        params, opt, _ = adamw_update(opt_cfg, grads, opt, params)
+        marks[-1][3].record()
+        losses.append(loss)
+        del grads
+    torch.cuda.synchronize()
+    hook.remove()
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"train: losses not finite: {losses}")
+    parts = {name: statistics.median(m[i].elapsed_time(m[j]) for m in marks)
+             for name, i, j in (("step", 0, 3), ("forward", 0, 1), ("backward", 1, 2),
+                                ("optimizer", 2, 3))}
+    print(f"[train] (c) {TRAIN_STEPS} steps at train_batch, OptConfig({RECSYS_OPT}): "
+          f"losses {[round(x, 6) for x in losses]}", flush=True)
+    print(f"[train] (c) median ms per step {parts['step']:.3f}: forward {parts['forward']:.3f}, "
+          f"backward {parts['backward']:.3f}, optimizer {parts['optimizer']:.3f} (CUDA events); "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    fields, labels = batches[0]
+    profile_call(lambda: C.train_step(model, params, opt, fields, labels, opt_cfg=opt_cfg),
+                 "train_batch step")
+    del batches, params, opt
+
+    flat, w = state["flat"], state["weights"]
+    V = model.embed.shape[0]
+    sort_ms = time_ms(lambda: torch.sort(flat.reshape(-1), stable=True), cold=True)
+    clear_ms = time_ms(lambda: torch.empty((V, 10), device="cuda").zero_(), cold=True)
+    print(f"[timing] embedding_bag_backward's parts at train_batch: the wrapper's stable sort "
+          f"of {flat.numel()} slots {sort_ms:.4f} ms, a ({V}, 10) f32 clear {clear_ms:.4f} ms "
+          f"(cold)", flush=True)
+    records = {}
+    for what, g, weights in (("D=10", state["grads_out"][10], None),
+                             ("D=1", state["grads_out"][1], None),
+                             ("D=10 weighted", state["grads_out"][10], w)):
+        (B, K), Dg = flat.shape, g.shape[1]
+        idx = flat.reshape(-1)
+
+        def library(g=g, weights=weights):
+            terms = (g[:, None, :].expand(B, K, Dg) if weights is None
+                     else weights[..., None] * g[:, None, :])
+            return torch.zeros((V, Dg), device="cuda").index_add_(0, idx, terms.reshape(-1, Dg))
+
+        lib_err = max_err(library(), E.embedding_bag_backward(g, flat, weights, V))
+        check(lib_err <= 1e-3, f"index_add_ disagrees with the bag backward ({what}): {lib_err}")
+        library_ms = time_ms(library, cold=True)
+        timing = time_pair(lambda: E.embedding_bag_backward(g, flat, weights, V),
+                           lambda: E.embedding_bag_backward_plain(g, flat, weights, V))
+        print(f"[timing] embedding_bag_backward {what} at train_batch {tuple(flat.shape)}: "
+              f"index_add_ max |err| {lib_err:.3g} (atomics, another order)", flush=True)
+        records[what] = record("embedding_bag_backward", state["launches"], errs, timing,
+                               bound_bag_backward(V, g, flat, weights), library_ms)
+    return [records["D=10"]]
+
+
+def phase_train_loop() -> None:
+    """(d) TrainLoop on the card at test_training_reduces_loss's config,
+    checkpoints under build/train/: the loss falls over 60 steps; 25
+    straight steps equal 20, a fresh loop's restore and 5 more, bit for
+    bit; a failure at step 13 is retried and the run completes."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import deepfm as C
+    from repro_torch.data.pipeline import ClickStream
+    from repro_torch.models import deepfm as M
+    from repro_torch.train import LoopConfig, OptConfig, TrainLoop, adamw_init
+    from repro_torch.train import tree as T
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    cfg = M.DeepFMConfig(field_vocabs=LOOP_VOCABS, embed_dim=LOOP_DIM, mlp_dims=LOOP_MLP)
+    opt_cfg = OptConfig(**RECSYS_OPT)
+
+    def make_loop(name: str) -> TrainLoop:
+        model = M.DeepFM(cfg, seed=0, device="cuda")
+        params = C.train_params(model)
+
+        def step_fn(state, batch):
+            params, opt, loss = C.train_step(model, *state, *batch, opt_cfg=opt_cfg)
+            return (params, opt), {"loss": loss}
+
+        return TrainLoop(step_fn, (params, adamw_init(params)),
+                         ClickStream(cfg.field_vocabs, LOOP_BATCH, seed=0),
+                         LoopConfig(ckpt_dir=str(TRAIN_DIR / name), checkpoint_every=10,
+                                    log_path=str(TRAIN_DIR / f"{name}.jsonl")), device="cuda")
+
+    t0 = time.perf_counter()
+    make_loop("fall").run(60)
+    losses = [json.loads(ln)["loss"] for ln in (TRAIN_DIR / "fall.jsonl").read_text().splitlines()
+              if "loss" in ln]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(len(losses) == 60 and last < first - 0.01,
+          f"TrainLoop: loss {first:.4f} -> {last:.4f} over 60 steps")
+    straight = make_loop("straight")
+    straight.run(25)
+    make_loop("resumed").run(20)
+    resumed = make_loop("resumed")
+    check(resumed.start_step == 20, f"TrainLoop resumed at {resumed.start_step}, not 20")
+    resumed.run(5)
+    pairs = list(zip(T.leaves(straight.state), T.leaves(resumed.state)))
+    differ = sum(not torch.equal(a, b) for a, b in pairs)
+    check(differ == 0, f"TrainLoop: 25 straight steps != 20 + restore + 5 in {differ} of "
+                       f"{len(pairs)} leaves")
+    armed = {"on": True}
+
+    def fail_hook(step):
+        if step == 13 and armed["on"]:
+            armed["on"] = False
+            raise RuntimeError("simulated node loss")
+
+    res = make_loop("failure").run(30, fail_hook=fail_hook)
+    check(res["recoveries"] >= 1 and res["final_step"] == 29
+          and np.isfinite(res["metrics"]["loss"]), f"TrainLoop failure run: {res}")
+    print(f"[train] (d) TrainLoop ({len(LOOP_VOCABS)} fields of {LOOP_VOCABS[0]}, d={LOOP_DIM}, "
+          f"MLP {LOOP_MLP}, B={LOOP_BATCH}): loss {first:.4f} -> {last:.4f} over 60 steps; "
+          f"25 straight steps == 20 + restore + 5, bitwise in all {len(pairs)} leaves; a "
+          f"failure at step 13 recovered ({res['recoveries']} retry), final step "
+          f"{res['final_step']} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -2322,6 +2604,11 @@ def main() -> None:
     del g2
     deepfm = phase_deepfm(errs)
     records += timing_deepfm(deepfm, errs)
+    del deepfm
+    train = phase_train(errs)
+    records += timing_train(train, errs)
+    del train
+    phase_train_loop()
     check(sorted(r["name"] for r in records) == sorted(KERNELS), "a kernel has no record")
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))

@@ -1,20 +1,25 @@
 """deepfm [arXiv:1703.04247]: 39 sparse fields (13 binned numerics + 26
 categoricals, Criteo-style vocabulary skew, 33,889,984 rows in all),
 embed_dim=10, MLP 400-400-400, FM interaction.  The counterpart of
-`repro.configs.deepfm`, serving half: the same vocabularies, configs,
-shapes and FLOP count, and one step per serve shape.
+`repro.configs.deepfm`: the same vocabularies, configs, shapes and FLOP
+count, one step per serve shape, and the train_batch cell's train step
+(`deepfm_loss`, its gradients, one AdamW update).
 
 Shapes: train_batch 65 536 / serve_p99 512 / serve_bulk 262 144 /
 retrieval_cand 1×1 000 000 candidates (padded to 1 000 448, a multiple of
-512, as the reference's cell pads them).  The train step waits for the
-training slice.
+512, as the reference's cell pads them).
 """
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
+from torch.func import functional_call
 
 from repro_torch.device import DeviceLike
-from repro_torch.models.deepfm import DeepFM, DeepFMConfig
+from repro_torch.hopper.embedding_bag import embedding_bag
+from repro_torch.models.deepfm import Bag, DeepFM, DeepFMConfig, bce_with_logits
+from repro_torch.train.optimizer import AdamWState, OptConfig, adamw_update
 
 # Criteo-style skewed vocabularies (sum ≈ 33.9M, padded per-field to /16)
 _CAT = [10_000_000, 8_000_000, 5_000_000, 4_000_000, 2_000_000, 1_500_000,
@@ -35,6 +40,9 @@ SHAPES = {
     "retrieval_cand": dict(batch=1, n_candidates=1_000_000, kind="serve"),
 }
 RETRIEVAL_CANDIDATES = -(-SHAPES["retrieval_cand"]["n_candidates"] // 512) * 512
+TRAIN_OPT = OptConfig(total_steps=10000)     # the train_batch cell's
+
+Params = Dict[str, torch.Tensor]
 
 
 def _fwd_flops(cfg: DeepFMConfig, batch: int) -> float:
@@ -60,13 +68,53 @@ def retrieval_step(model: DeepFM, user_fields: torch.Tensor, cand_ids: torch.Ten
         return model.retrieval_score(user_fields, cand_ids, item_field)
 
 
+def train_params(model: DeepFM) -> Params:
+    """The model's parameters as the plain dict `train_step` carries (the
+    state-dict names: embed, linear, bias, mlp.layers.<i>.weight / .bias)."""
+    return {k: v.detach() for k, v in model.named_parameters()}
+
+
+def loss_and_grads(model: DeepFM, params: Params, fields: torch.Tensor,
+                   labels: torch.Tensor, *, bag: Bag = embedding_bag
+                   ) -> Tuple[torch.Tensor, Params]:
+    """`deepfm_loss` of `model`'s structure with `params`' values
+    (`torch.func.functional_call`), and its gradient with respect to each
+    parameter.  Both bag sums take the bag's backward kernel (`bag`: its
+    plain version, to hold the path against it)."""
+    leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+    with torch.enable_grad():
+        logits = functional_call(model, leaves, (fields,), {"bag": bag})
+        loss = bce_with_logits(logits, labels)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def train_step(model: DeepFM, params: Params, opt: AdamWState, fields: torch.Tensor,
+               labels: torch.Tensor, *, opt_cfg: OptConfig = TRAIN_OPT,
+               bag: Bag = embedding_bag) -> Tuple[Params, AdamWState, torch.Tensor]:
+    """train_batch: the loss and gradients of `deepfm_loss` on (B, 39) int32
+    fields and (B,) f32 labels, then one `adamw_update`.  Returns the new
+    params, the new optimizer state and the loss; out of place, as the
+    reference's step."""
+    loss, grads = loss_and_grads(model, params, fields, labels, bag=bag)
+    params, opt, _ = adamw_update(opt_cfg, grads, opt, params)
+    return params, opt, loss
+
+
 def smoke(device: DeviceLike = "cuda") -> None:
-    """Forward and retrieval of the smoke config: finite, of the right
-    shapes."""
+    """Forward, loss, gradients and retrieval of the smoke config: finite,
+    of the right shapes."""
     model = DeepFM(SMOKE_CONFIG, seed=0, device=device)
     dev = model.embed.device
     gen = torch.Generator(device=dev).manual_seed(1)
     fields = torch.randint(0, 32, (16, 39), generator=gen, device=dev, dtype=torch.int32)
+    labels = (torch.rand((16,), generator=gen, device=dev) > 0.5).float()
+    params = train_params(model)
+    loss, grads = loss_and_grads(model, params, fields, labels)
+    if not bool(torch.isfinite(loss)) or any(
+            g.shape != params[k].shape or not bool(torch.isfinite(g).all())
+            for k, g in grads.items()):
+        raise AssertionError(f"smoke loss {float(loss)} or its gradients not finite")
     logits = serve_step(model, fields)
     if logits.shape != (16,) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"smoke logits: shape {tuple(logits.shape)}, not all finite")

@@ -1,5 +1,8 @@
-// Embedding bag for the DeepFM lookup — Hopper (sm_90a) CUDA, with a plain
-// C interface loaded through ctypes.
+// Embedding bag for the DeepFM lookup and its gradient — Hopper (sm_90a)
+// CUDA, with a plain C interface loaded through ctypes.  Two entries:
+// `embedding_bag_launch` (the forward, below) and
+// `embedding_bag_backward_launch` (the gradient with respect to the
+// table, at the end of the file).
 //
 // Replaces the Pallas TPU kernel `_bag_kernel`
 // (src/repro/kernels/embedding_bag.py:24):
@@ -242,6 +245,131 @@ cudaError_t launch_bag(const void* table, const int32_t* idx, const float* w, fl
                       : launch_groups<T, 1, false>(t, idx, w, out, n_bags, K, D, s);
 }
 
+// ---- backward ---------------------------------------------------------
+//
+// The gradient of the bag sum with respect to the table,
+//
+//   grad_table[r, :] = Σ_{(b, k): idx[b, k] = r} w[b, k] · grad_out[b, :]
+//
+// as a dense (V, D) f32 array whose untouched rows are 0.  The reference
+// has no Pallas backward: jax.grad of its gathers gives XLA's scatter-add.
+//
+// Deterministic.  The wrapper sorts the B·K flat slots by row with a
+// stable sort, which keeps slot order within a row: `rows` holds the sorted
+// row ids (int32), `order` each sorted position's flat slot b·K + k
+// (int64).  Each row's terms w · g (one rounding each) are summed in one
+// fixed order, which the plain version follows:
+// * the sorted positions are cut into segments at every multiple of
+//   kSegment and wherever the row changes; `bag_backward_segments` (a lane
+//   group per kSegment positions) sums each segment's terms in slot order
+//   from 0 into `part` at the segment's first position;
+// * `bag_backward_runs` (a lane group per sorted position; the group whose
+//   position opens a run of equal rows works, the others exit) sums the
+//   run's segment sums in order from 0 and writes the row once.
+// Each lane owns one element of the row.  The sums are `__fadd_rn` and the
+// products `__fmul_rn`, so the compiler cannot contract them into an FMA:
+// the plain version gives the same bits, and so does every call.  No
+// atomics: every segment and every row has one writer.
+//
+// Bound.  Bytes: the dense (V, D) write (1.356 GB at DeepFM's 33,889,984
+// rows and D = 10, 0.136 GB at D = 1) dominates the 10.2 MB of int32
+// indices and the 2.6 MB of grad_out at train_batch (B = 65,536, K = 39),
+// so the bound is about 0.40 ms at D = 10 on 3.35 TB/s.  The entry clears
+// the array with cudaMemsetAsync, which is that bound's write; the touched
+// rows are then written again (2.56 M of 33.9 M rows at most), and the
+// segment sums go through `part` (B·K·D floats, written and read once at
+// most).
+//
+// Design.  Were one group to sum a whole run, the longest run would set
+// the time: ClickStream's 16-row field gives 4,096 slots a row at B =
+// 65,536, that many dependent adds (2.24 ms a D = 10 launch on the H100,
+// against 0.94 segmented).  Segments bound a group's serial adds at
+// kSegment in the first kernel and at run / kSegment + 1 in the second.
+// Each lane issues kAhead slot and gradient loads before it adds them, in
+// order.
+constexpr int kSegment = 32;     // positions a segment spans at most
+constexpr int kAhead = 8;        // loads a lane issues before its adds
+
+template <bool WEIGHTED>
+__global__ void __launch_bounds__(kThreads)
+bag_backward_segments(const int32_t* __restrict__ rows, const int64_t* __restrict__ order,
+                      const float* __restrict__ w, const float* __restrict__ grad_out,
+                      float* __restrict__ part, int64_t n, int K, int D, int G) {
+  const int NB = kThreads / G;
+  const int grp = threadIdx.x / G, lane = threadIdx.x - grp * G;
+  const int64_t c0 = ((int64_t)blockIdx.x * NB + grp) * kSegment;
+  if (grp >= NB || c0 >= n) return;
+  const int64_t c1 = min(c0 + kSegment, n);
+  for (int e = lane; e < D; e += G) {
+    float acc = 0.0f;
+    int64_t seg = c0;            // a chunk's first position opens a segment
+    int32_t cur = rows[c0];
+    for (int64_t j = c0; j < c1; j += kAhead) {
+      int32_t r[kAhead];
+      float t[kAhead];
+#pragma unroll
+      for (int c = 0; c < kAhead; ++c) {
+        const bool in = j + c < c1;
+        r[c] = in ? rows[j + c] : cur;
+        const int64_t slot = in ? order[j + c] : 0;
+        const float g = in ? grad_out[slot / K * D + e] : 0.0f;
+        if constexpr (WEIGHTED) {
+          t[c] = __fmul_rn(in ? w[slot] : 0.0f, g);
+        } else {
+          t[c] = g;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kAhead; ++c) {
+        if (j + c >= c1) break;
+        if (r[c] != cur) {       // the row changes: a new segment
+          part[seg * D + e] = acc;
+          acc = 0.0f;
+          seg = j + c;
+          cur = r[c];
+        }
+        acc = __fadd_rn(acc, t[c]);
+      }
+    }
+    part[seg * D + e] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+bag_backward_runs(const int32_t* __restrict__ rows, const float* __restrict__ part,
+                  float* __restrict__ grad_table, int64_t n, int D, int G) {
+  const int NB = kThreads / G;
+  const int grp = threadIdx.x / G, lane = threadIdx.x - grp * G;
+  const int64_t i = (int64_t)blockIdx.x * NB + grp;
+  if (grp >= NB || i >= n) return;
+  const int32_t r = rows[i];
+  if (i > 0 && rows[i - 1] == r) return;     // not the first position of its run
+  const int64_t next = (i / kSegment + 1) * kSegment;   // the run's second segment, if any
+  for (int e = lane; e < D; e += G) {
+    float acc = __fadd_rn(0.0f, part[i * D + e]);
+    bool more = true;
+    for (int64_t s = next; more; s += kAhead * kSegment) {
+      bool in[kAhead];
+      float p[kAhead];
+#pragma unroll
+      for (int c = 0; c < kAhead; ++c) {
+        const int64_t at = s + (int64_t)c * kSegment;
+        in[c] = at < n && rows[at] == r;
+        p[c] = in[c] ? part[at * D + e] : 0.0f;
+      }
+#pragma unroll
+      for (int c = 0; c < kAhead; ++c) {
+        if (!in[c]) {            // rows are sorted: the run has ended
+          more = false;
+          break;
+        }
+        acc = __fadd_rn(acc, p[c]);
+      }
+    }
+    grad_table[(int64_t)r * D + e] = acc;
+  }
+}
+
 }  // namespace
 
 // table (V, dim) f32 (bf16 != 0: bf16), indices (n_bags, bag_size) int32,
@@ -257,4 +385,44 @@ extern "C" int embedding_bag_launch(const void* table, int bf16, const void* ind
   auto s = static_cast<cudaStream_t>(stream);
   if (bf16 != 0) return launch_bag<__nv_bfloat16>(table, ix, w, o, n_bags, bag_size, dim, s);
   return launch_bag<float>(table, ix, w, o, n_bags, bag_size, dim, s);
+}
+
+// rows (n_slots,) int32 sorted, order (n_slots,) int64 (the flat slot
+// b · bag_size + k of each sorted position), weights (n_bags, bag_size) f32
+// or null, grad_out (n_bags, dim) f32, part (n_slots, dim) f32 scratch ->
+// grad_table (n_table_rows, dim) f32, cleared here first.  n_slots =
+// n_bags · bag_size.  Two kernels on `stream`: the segment sums, then the
+// runs.
+extern "C" int embedding_bag_backward_launch(const void* rows, const void* order,
+                                             const void* weights, const void* grad_out,
+                                             void* part, void* grad_table,
+                                             int64_t n_table_rows, int64_t n_slots,
+                                             int bag_size, int dim, void* stream) {
+  if (n_table_rows < 0 || n_slots < 0 || dim < 0 || (n_slots > 0 && bag_size <= 0))
+    return cudaErrorInvalidValue;
+  if (n_table_rows == 0 || dim == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(grad_table, 0, (size_t)n_table_rows * dim * sizeof(float), s);
+  if (err != cudaSuccess || n_slots == 0) return err;
+  const int G = min(dim, kMaxGroup);
+  const int NB = kThreads / G;
+  const int64_t chunks = (n_slots + kSegment - 1) / kSegment;
+  const int64_t seg_blocks = (chunks + NB - 1) / NB, run_blocks = (n_slots + NB - 1) / NB;
+  if (run_blocks > INT32_MAX) return cudaErrorInvalidValue;
+  auto r = static_cast<const int32_t*>(rows);
+  auto o = static_cast<const int64_t*>(order);
+  auto w = static_cast<const float*>(weights);
+  auto g = static_cast<const float*>(grad_out);
+  auto p = static_cast<float*>(part);
+  if (w != nullptr)
+    bag_backward_segments<true><<<(unsigned)seg_blocks, kThreads, 0, s>>>(r, o, w, g, p, n_slots,
+                                                                          bag_size, dim, G);
+  else
+    bag_backward_segments<false><<<(unsigned)seg_blocks, kThreads, 0, s>>>(r, o, w, g, p, n_slots,
+                                                                           bag_size, dim, G);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bag_backward_runs<<<(unsigned)run_blocks, kThreads, 0, s>>>(r, p, static_cast<float*>(grad_table),
+                                                              n_slots, dim, G);
+  return cudaGetLastError();
 }

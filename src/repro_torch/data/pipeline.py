@@ -1,14 +1,47 @@
 """Deterministic synthetic data streams (counterpart of
 `repro.data.pipeline`): each batch is a pure function of (seed, step), in
 numpy, so a stream here gives the same batches as the reference's for the
-same seed.  Only `ClickStream` (DeepFM) so far; the reference module
-imports JAX, so its numpy code is copied rather than imported.
+same seed, and a restart that seeks to step k resumes the same sequence.
+`TokenStream` (LM batches), `ClickStream` (DeepFM) and `prefetch`, a
+background thread that buffers a stream ahead of its consumer.  The
+reference module imports JAX, so its numpy code is copied rather than
+imported.  `GraphBatchStream` and `shard_batch` wait for the GNN and
+distributed ports.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator, Sequence, Tuple
 
 import numpy as np
+
+
+class TokenStream:
+    """Synthetic LM batches: (tokens (B,S) int32, targets (B,S) int32).
+
+    A cheap Markov-ish mixture (unigram + shifted copy) so the loss is
+    learnable: a pure-uniform stream gives a flat loss and hides optimizer
+    bugs.
+    """
+
+    def __init__(self, vocab: int, batch: int, seq: int, seed: int = 0):
+        self.vocab, self.batch, self.seq, self.seed = vocab, batch, seq, seed
+
+    def batch_at(self, step: int) -> Tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng((self.seed, step))
+        base = rng.integers(0, self.vocab, (self.batch, self.seq + 1))
+        # copy structure: token t+1 = token t + 1 (mod V) half the time
+        copy = (np.roll(base, 1, axis=1) + 1) % self.vocab
+        use = rng.random((self.batch, self.seq + 1)) < 0.5
+        toks = np.where(use, copy, base).astype(np.int32)
+        return toks[:, :-1], toks[:, 1:].astype(np.int32)
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 class ClickStream:
@@ -35,3 +68,25 @@ class ClickStream:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def prefetch(it: Iterator, size: int = 2) -> Iterator:
+    """The items of `it`, in order, produced up to `size` ahead by a
+    background thread (double buffering by default)."""
+    q: queue.Queue = queue.Queue(maxsize=size)
+    stop = object()
+
+    def worker():
+        try:
+            for item in it:
+                q.put(item)
+        finally:
+            q.put(stop)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is stop:
+            return
+        yield item

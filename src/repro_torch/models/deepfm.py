@@ -1,6 +1,6 @@
-"""DeepFM (Guo et al., arXiv:1703.04247), serving half: the counterpart of
+"""DeepFM (Guo et al., arXiv:1703.04247): the counterpart of
 `repro.models.deepfm` (`DeepFMConfig`, `deepfm_init`, `deepfm_logits`,
-`retrieval_score`).
+`deepfm_loss`, `retrieval_score`).
 
 Layout as in the reference: the fields' vocabularies are packed into ONE
 embedding table (and one first-order table) with per-field offsets.  The
@@ -12,10 +12,14 @@ stay a plain gather, as in the reference.
 
 FM pairwise term by the O(N·d) identity  Σ_{i<j}⟨v_i,v_j⟩ = ½(‖Σv‖² − Σ‖v‖²).
 
+Training: `deepfm_loss` is the reference's binary cross-entropy on the
+logits.  Its gradient reaches the tables through the bag's hand-written
+backward kernel (`hopper.embedding_bag.embedding_bag_backward`) and through
+autograd of the plain gather; `configs.deepfm.train_step` takes one AdamW
+step.
+
 `retrieval_score` scores one user context against N candidate items of
-`item_field` as one matvec over the candidates' rows.  Training
-(`deepfm_loss`, gradients) is not ported yet: the bag kernel has no
-backward.
+`item_field` as one matvec over the candidates' rows.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.hopper.embedding_bag import embedding_bag
 from repro_torch.models.gnn.common import MLP
+
+Bag = Callable[..., torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,15 +92,12 @@ class DeepFM(nn.Module):
                        generator=generator, device=dev)
         self.register_buffer("offsets", cfg.offsets.to(dev), persistent=False)
 
-    def forward(self, fields: torch.Tensor) -> torch.Tensor:
-        return deepfm_logits(self, fields)
+    def forward(self, fields: torch.Tensor, *, bag: Bag = embedding_bag) -> torch.Tensor:
+        return deepfm_logits(self, fields, bag=bag)
 
     def retrieval_score(self, user_fields: torch.Tensor, cand_ids: torch.Tensor,
                         item_field: int = 0) -> torch.Tensor:
         return retrieval_score(self, user_fields, cand_ids, item_field)
-
-
-Bag = Callable[..., torch.Tensor]
 
 
 def deepfm_logits(model: DeepFM, fields: torch.Tensor, *, bag: Bag = embedding_bag) -> torch.Tensor:
@@ -110,6 +113,19 @@ def deepfm_logits(model: DeepFM, fields: torch.Tensor, *, bag: Bag = embedding_b
     fm = 0.5 * ((s * s).sum(dim=-1) - (v * v).sum(dim=(1, 2)))
     deep = model.mlp(v.reshape(B, F * d))[:, 0]
     return model.bias + lin + fm + deep
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The reference's stable binary cross-entropy on (B,) logits and {0, 1}
+    labels: mean(max(l, 0) − l·y + log1p(exp(−|l|)))."""
+    return torch.mean(torch.clamp(logits, min=0) - logits * labels
+                      + torch.log1p(torch.exp(-logits.abs())))
+
+
+def deepfm_loss(model: DeepFM, fields: torch.Tensor, labels: torch.Tensor, *,
+                bag: Bag = embedding_bag) -> torch.Tensor:
+    """Binary cross-entropy of `deepfm_logits` on (B,) {0, 1} f32 labels."""
+    return bce_with_logits(deepfm_logits(model, fields, bag=bag), labels)
 
 
 def retrieval_score(model: DeepFM, user_fields: torch.Tensor, cand_ids: torch.Tensor,

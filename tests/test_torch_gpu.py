@@ -13,7 +13,9 @@ SpMVs are exact on any f32 RHS: the kernel's three bf16 parts of a value
 sum back to it.  The embedding bag sums in
 the plain version's order with no FMA contraction, so it too is held
 exactly, and the DeepFM forward through it equals the forward through the
-plain version."""
+plain version.  So is the bag's backward, which sums each table row's
+slots in slot order; a small DeepFM train step through both bag kernels
+stays within 1e-6 of the step through their plain versions."""
 import dataclasses
 
 import numpy as np
@@ -754,8 +756,104 @@ def test_embedding_bag_refuses_what_the_kernel_does_not_take(cuda_device):
         E.embedding_bag(torch.randn((4, 10), device=cuda_device).t(), idx)
     with pytest.raises(ValueError, match="shape"):
         E.embedding_bag(table, idx, torch.ones((3, 3), device=cuda_device))
-    with pytest.raises(RuntimeError, match="no backward"):
-        E.embedding_bag(table.requires_grad_(), idx)
+    with pytest.raises(RuntimeError, match="weights"):
+        E.embedding_bag(table, idx, torch.ones((3, 2), device=cuda_device, requires_grad=True))
+    with pytest.raises(RuntimeError, match="f32 tables only"):
+        E.embedding_bag(table.bfloat16().requires_grad_(), idx)
+    with pytest.raises(TypeError, match="int32"):
+        E.embedding_bag_backward(torch.ones((3, 4), device=cuda_device), idx.long(), None, 10)
+    with pytest.raises(TypeError, match="dtype"):
+        E.embedding_bag_backward(torch.ones((3, 4), device=cuda_device).double(), idx, None, 10)
+    with pytest.raises(ValueError, match="shape"):
+        E.embedding_bag_backward(torch.ones((2, 4), device=cuda_device), idx, None, 10)
+
+
+def _backward_case(device, B, K, D, V, weighted, seed, hot=None):
+    """grad_out (B, D), indices (B, K) into V rows (all into `hot` rows
+    when given: long runs), weights or None."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    idx = torch.randint(0, hot or V, (B, K), generator=gen, device=device, dtype=torch.int32)
+    g = torch.randn((B, D), generator=gen, device=device)
+    w = torch.rand((B, K), generator=gen, device=device) if weighted else None
+    return g, idx, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("B, K, D, V, hot", [
+    (4096, 39, 10, 200_000, None), (4096, 39, 1, 200_000, None), (2048, 13, 10, 5000, 16),
+    (1000, 7, 40, 3000, None), (300, 1, 3, 50, None), (0, 39, 10, 100, None),
+    (5, 0, 10, 100, None)])
+def test_embedding_bag_backward_bit_equal_and_deterministic(cuda_device, B, K, D, V, hot,
+                                                            weighted):
+    g, idx, w = _backward_case(cuda_device, B, K, D, V, weighted, seed=B + K + D, hot=hot)
+    launches = E.embedding_bag_backward.launches
+    got = E.embedding_bag_backward(g, idx, w, V)
+    again = E.embedding_bag_backward(g, idx, w, V)
+    torch.cuda.synchronize()
+    assert E.embedding_bag_backward.launches == launches + (2 if B * K else 0)
+    assert got.shape == (V, D) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert torch.equal(got, E.embedding_bag_backward_plain(g, idx, w, V))
+    touched = torch.zeros(V, dtype=torch.bool, device=cuda_device)
+    touched[idx.reshape(-1).long()] = True
+    assert not got[~touched].any()
+
+
+@pytest.mark.gpu
+def test_embedding_bag_autograd_takes_the_backward_kernel(cuda_device):
+    g, idx, w = _backward_case(cuda_device, 512, 39, 10, 4000, True, seed=3)
+    table = torch.randn((4000, 10), device=cuda_device, requires_grad=True)
+    fwd, bwd = E.embedding_bag.launches, E.embedding_bag_backward.launches
+    out = E.embedding_bag(table, idx, w)
+    (got,) = torch.autograd.grad(out, table, g)
+    assert (E.embedding_bag.launches, E.embedding_bag_backward.launches) == (fwd + 1, bwd + 1)
+    assert torch.equal(got, E.embedding_bag_backward_plain(g, idx, w, 4000))
+    with torch.inference_mode():
+        E.embedding_bag(table, idx, w)
+    assert E.embedding_bag_backward.launches == bwd + 1
+
+
+@pytest.mark.gpu
+def test_deepfm_train_step_on_card_equals_plain_bags_and_cpu(cuda_device):
+    """One small train step on the card: 2 forward and 2 backward bag
+    launches, params and moments within 1e-6 of the step through both
+    plain versions (the bags are bit-equal to them); the loss and gradients
+    as the CPU's (f32 GEMMs without TF32): loss within 1e-6, gradients
+    allclose(rtol=1e-5, atol=1e-7), as the CPU parity tests hold them."""
+    from repro_torch.configs import deepfm as C
+    from repro_torch.data.pipeline import ClickStream
+    from repro_torch.models import deepfm as M
+    from repro_torch.train.optimizer import adamw_init
+
+    vocabs = tuple([64] * 13 + [4000, 3000, 2000] + [500] * 23)
+    cfg = M.DeepFMConfig(field_vocabs=vocabs, mlp_dims=(64, 64))
+    model = M.DeepFM(cfg, seed=0, device=cuda_device)
+    fields, labels = (torch.from_numpy(a).to(cuda_device)
+                      for a in ClickStream(vocabs, 256, seed=0).batch_at(0))
+    params = C.train_params(model)
+    opt = adamw_init(params)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        fwd, bwd = E.embedding_bag.launches, E.embedding_bag_backward.launches
+        p, s, loss = C.train_step(model, params, opt, fields, labels)
+        assert (E.embedding_bag.launches - fwd, E.embedding_bag_backward.launches - bwd) == (2, 2)
+        assert bool(torch.isfinite(loss))
+        pp, ps, ploss = C.train_step(model, params, opt, fields, labels,
+                                     bag=E.embedding_bag_plain)
+        _, grads = C.loss_and_grads(model, params, fields, labels)
+        cpu = M.DeepFM(cfg, device="cpu")
+        cpu.load_state_dict(model.state_dict())
+        closs, cgrads = C.loss_and_grads(cpu, C.train_params(cpu), fields.cpu(), labels.cpu())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    assert abs(float(loss) - float(ploss)) <= 1e-6
+    assert abs(float(loss) - float(closs)) <= 1e-6
+    for k in params:
+        for got, plain in ((p[k], pp[k]), (s.m[k], ps.m[k]), (s.v[k], ps.v[k])):
+            torch.testing.assert_close(got, plain, rtol=0, atol=1e-6)
+        torch.testing.assert_close(grads[k].cpu(), cgrads[k], rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.gpu

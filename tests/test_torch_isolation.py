@@ -43,6 +43,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.serve_mis.service, repro_torch.serve_mis.__main__\n"
         "import repro_torch.obs.promtext, repro_torch.obs.report\n"
         "import repro_torch.launch.serve_graphs\n"
+        "import repro_torch.train, repro_torch.train.checkpoint, repro_torch.train.tree\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
