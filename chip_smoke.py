@@ -228,25 +228,38 @@ Phases, each fatal on failure:
              fields and labels from `ClickStream(FIELD_VOCABS, B, seed=0)`;
              run after phase 8, float32 products without TF32):
              (a) the bag's backward kernel (`embedding_bag_backward`) bit-equal
-                 to its plain version on the card, and two launches bit-equal,
-                 on train_batch's (65,536, 39) slots at D = 10 and D = 1,
-                 unweighted and with random weights, and with every slot in
-                 the 16-row field (runs of about 160,000 slots);
+                 to its plain version on the card, and two launches bit-equal
+                 (one launch each), with the slot plan (`sort_slots`, CUB)
+                 equal to the plain sort's: on train_batch's (65,536, 39)
+                 slots at D = 10 and D = 1, unweighted and with random
+                 weights, at D = 10 with the gather's gradient as the `extra`
+                 term; every slot in the 16-row field (runs of about 160,000
+                 slots); the dense write's edges: rows 0 and V - 1 touched,
+                 rows 0, 1, V - 2, V - 1 untouched, every slot in one row,
+                 3 CTAs' rows and 5 more (D = 10 and D = 1), no slots ((0,
+                 39) and (512, 0)), no rows;
              (b) one `configs.deepfm.train_step` (`OptConfig(total_steps=
                  10000)`, the cell's) with every launch count set to 0 just
-                 before it: `embedding_bag` 2, `embedding_bag_backward` 2,
-                 every MIS kernel 0; the loss finite; every parameter and
-                 moment within 1e-6 of the same step with both bags' forward
-                 and backward through their plain versions;
+                 before it: `embedding_bag` 2, `embedding_bag_backward` 2 (D =
+                 1, and D = 10 with the gather's gradient), one slot sort,
+                 every MIS kernel 0; `embed`'s gradient fed by the bag's
+                 Function alone (no IndexBackward0 in the graph); the loss
+                 finite; every parameter and moment within 1e-6 of the same
+                 step with both bags' forward and backward through their
+                 plain versions;
              (c) 20 steps with tests/test_recsys.py's `OptConfig(lr=3e-3,
                  warmup_steps=5, total_steps=100, weight_decay=0.0)`: the
                  losses (finite), the median step ms split by CUDA events
                  into forward, backward and optimizer, the peak device
-                 memory, a profile of one step; the backward kernel per
-                 launch (D = 10, D = 1, D = 10 weighted), cold and warm,
+                 memory, a profile of one step (one slot sort, no
+                 `aten::sort`, no `index_put_`); the backward kernel per
+                 launch (D = 10, D = 1, D = 10 weighted, D = 10 with the
+                 gather term, each sorting on its own; D = 10 with the gather
+                 term and D = 1 on the step's shared plan), cold and warm,
                  beside its plain version, its bound and one
                  `torch.zeros(V, D).index_add_` (the kernels line carries D =
-                 10), and the wrapper's sort and a clear of the output alone;
+                 10 sorting on its own); the slot plan alone, a stable
+                 `torch.sort` and a clear of a (V, 10) array;
              (d) the TrainLoop on the card at test_training_reduces_loss's
                  config (10 fields of 32, d = 8, MLP 32, B = 256), checkpoints
                  under build/train/: the mean loss of the last 10 of 60 steps
@@ -268,6 +281,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -379,10 +393,11 @@ MAIN_SPMV = "T=16 bitpack fused f32 L=8"     # the main path's instance
 NBR_MAX_INSTANCE = re.compile(r"nbr_max_(tile|slot)_lanesILi(\d+)EL.*?KindE(\d)ELb([01])E")
 # spmv_bits_tile_lanes<T, FUSED> and spmv_bits_rows<T, FUSED>
 SPMV_BITS_INSTANCE = re.compile(r"spmv_bits_(tile_lanes|rows)ILi(\d+)E(?:Lb([01])E)?")
-# bag_groups<T, VEC, CH, WEIGHTED>, bag_backward_segments<WEIGHTED> and
-# bag_backward_runs
+# bag_groups<T, VEC, CH, WEIGHTED>, bag_backward_segments<WEIGHTED, EXTRA>,
+# bag_backward_runs, bag_backward_tiles and bag_backward_dense
 BAG_INSTANCE = re.compile(r"bag_groupsI(f|13__nv_bfloat16)Li(\d)ELi(\d+)ELb([01])E")
-BAG_BACKWARD_INSTANCE = re.compile(r"bag_backward_(segments|runs)(?:ILb([01])E)?")
+BAG_BACKWARD_INSTANCE = re.compile(
+    r"bag_backward_(segments|runs|dense|tiles)(?:ILb([01])ELb([01])E)?")
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -434,9 +449,10 @@ def spmv_bits_label(mangled: str) -> str:
 def bag_label(mangled: str) -> str:
     m = BAG_BACKWARD_INSTANCE.search(mangled)
     if m is not None:
-        kind, weighted = m.groups()
+        kind, weighted, extra = m.groups()
         return f"backward {kind}" + ("" if weighted is None else
-                                     " weighted" if weighted == "1" else " unweighted")
+                                     (" weighted" if weighted == "1" else " unweighted")
+                                     + (" with the gather term" if extra == "1" else ""))
     m = BAG_INSTANCE.search(mangled)
     if m is None:
         return mangled
@@ -1154,13 +1170,14 @@ PORT_KERNEL = re.compile(
     r"\b(tc_spmv_rows|nbr_max_\w+_lanes|spmv_bits_\w+|bag_groups|bag_backward_\w+)[<(]")
 
 
-def profile_call(fn, label: str) -> set:
+def profile_call(fn, label: str, names: Optional[set] = None) -> set:
     """One more warm call of `fn` under torch.profiler: device time by
     kernel (the device-side events: kernels, copies, fills), the ten
     largest and every one of the port's kernels, and the device's busy
     share of the wall time.  Prints each span of a `Trace(profiler=True)`
     among the profiler's events with its host time and the device time of
-    the kernels launched inside it, and returns the spans' names."""
+    the kernels launched inside it, and returns the spans' names.  Adds
+    every event's name (host ops and device kernels) to `names`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1169,6 +1186,8 @@ def profile_call(fn, label: str) -> set:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    if names is not None:
+        names.update(e.key for e in prof.key_averages())
     # a span's range on the device timeline is not device work
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1534,23 +1553,87 @@ HOT_FIELD = 38      # FIELD_VOCABS' 16-row field: 4,096 slots a row at B = 65,53
 TRAIN_TOL = 1e-6    # the card's step against the step through plain bags
 
 
-def bound_bag_backward(n_rows: int, grad_out, idx, weights):
+def bound_bag_backward(n_rows: int, grad_out, idx, weights, extra=None):
     """Bag backward: the dense (n_rows, D) f32 gradient written once, the
-    indices, weights and grad_out read once; an add (and a multiply) per
-    slot and element."""
+    indices, weights, grad_out and the gather's gradient `extra` read once;
+    an add (and a multiply, and the gather term's add) per slot and
+    element."""
     (B, K), D = idx.shape, grad_out.shape[1]
     nbytes = n_rows * D * 4 + idx.numel() * 4 + grad_out.numel() * 4 + (
-        0 if weights is None else weights.numel() * 4)
-    return _bound(nbytes, B * K * D * (1 if weights is None else 2))
+        0 if weights is None else weights.numel() * 4) + (0 if extra is None else extra.numel() * 4)
+    ops = B * K * D * (1 + (weights is not None) + (extra is not None))
+    return _bound(nbytes, ops)
+
+
+def hold_slot_plan(idx, n_rows: int, what: str) -> None:
+    """`sort_slots` (CUB on the card) equal to `sort_slots_plain` in every
+    array up to its run count."""
+    import torch
+    from repro_torch.hopper import embedding_bag as E
+
+    got, want = E.sort_slots(idx, n_rows), E.sort_slots_plain(idx, n_rows)
+    n_runs = int(want.n_runs)
+    same = (torch.equal(got.n_runs, want.n_runs) and torch.equal(got.rows, want.rows)
+            and torch.equal(got.order, want.order)
+            and torch.equal(got.run_rows[:n_runs], want.run_rows[:n_runs])
+            and torch.equal(got.starts[:n_runs + 1], want.starts[:n_runs + 1]))
+    check(same, f"sort_slots != sort_slots_plain ({what})")
+
+
+def backward_cases(model, flat, B: int, D: int, gen) -> tuple:
+    """Phase 11 (a)'s cases, (what, grad_out, indices, weights, extra,
+    n_rows), and the train_batch inputs they draw on (weights, the gather's
+    gradient, grad_out per D).  train_batch's slots at D = 10 and 1,
+    unweighted and weighted, with the gather's gradient; every slot in the
+    16-row field; the dense write's edges: the first and last rows touched
+    and untouched, row counts that are no multiple of a CTA's rows, every
+    slot in one row, no slots, no rows."""
+    import torch
+    from repro_torch.configs import deepfm as C
+    from repro_torch.hopper import embedding_bag as E
+
+    V = model.embed.shape[0]
+    w = torch.rand(flat.shape, generator=gen, device="cuda")
+    x = torch.randn(flat.shape + (D,), generator=gen, device="cuda")
+    grads_out = {d: torch.randn((B, d), generator=gen, device="cuda") for d in (D, 1)}
+    hot = model.offsets[HOT_FIELD] + torch.randint(
+        0, C.FIELD_VOCABS[HOT_FIELD], flat.shape, generator=gen, device="cuda", dtype=torch.int32)
+    ends = flat.clone()
+    ends[0, 0], ends[-1, -1] = 0, V - 1
+    inner = flat.clamp(1, V - 2)
+    R10, R1 = E.dense_rows(D), E.dense_rows(1)     # a dense-write CTA's rows
+    small = torch.randint(0, 3 * R10 + 5, (512, 39), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    g10 = grads_out[D]
+    cases = [(f"D={d}, {'random weights' if wt is not None else 'unweighted'}"
+              f"{', gather term' if xt is not None else ''}", grads_out[d], flat, wt, xt, V)
+             for d in (D, 1) for wt in (None, w) for xt in ((None, x) if d == D else (None,))]
+    cases += [
+        (f"every slot in the {C.FIELD_VOCABS[HOT_FIELD]}-row field, D={D}, random weights, "
+         "gather term", g10, hot, w, x, V),
+        (f"rows 0 and {V - 1} touched, D={D}, gather term", g10, ends, None, x, V),
+        (f"rows 0, 1, {V - 2} and {V - 1} untouched, D={D}", g10, inner, w, None, V),
+        (f"every slot in row {V // 2}, D={D}, gather term", g10,
+         torch.full_like(flat, V // 2), None, x, V),
+        (f"{3 * R10 + 5} rows (3 CTAs of {R10} and 5), D={D}",
+         g10[:512], small, w[:512], x[:512], 3 * R10 + 5),
+        (f"{3 * R1 + 5} rows (3 CTAs of {R1} and 5), D=1",
+         grads_out[1][:512], small, None, None, 3 * R1 + 5),
+        (f"no slots, D={D}", g10[:0], flat[:0], None, x[:0], V),
+        (f"no slots, D={D}", g10[:512], flat[:512, :0], None, None, 1000),
+        ("no rows, no slots", g10[:0], flat[:0], None, None, 0),
+    ]
+    return cases, {"weights": w, "extra": x, "grads_out": grads_out}
 
 
 def phase_train(errs: dict) -> dict:
     """DeepFM training at the full CONFIG and train_batch (B = 65,536):
     (a) the bag's backward kernel against its plain version, bit for bit,
-    and twice on one input; (b) one `train_step` with the launch counts
-    set to 0 just before it, against the same step through both plain
-    bags; (c) 20 steps timed by CUDA events, a profile, the backward
-    kernel's per-launch times; (d) the TrainLoop on the card."""
+    and twice on one input, and the slot plan against its plain version;
+    (b) one `train_step` with the launch counts set to 0 just before it,
+    against the same step through both plain bags; (c) 20 steps timed by
+    CUDA events, a profile, the backward kernel's per-launch times; (d)
+    the TrainLoop on the card."""
     import torch
     from repro_torch.configs import deepfm as C
     from repro_torch.data.pipeline import ClickStream
@@ -1568,59 +1651,87 @@ def phase_train(errs: dict) -> dict:
     print(f"[train] CONFIG {V} rows, d={D}, {C.CONFIG.param_count()} parameters, "
           f"train_batch B={B} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    # (a) the backward kernel at train_batch's bag shapes
+    # (a) the backward kernel at train_batch's bag shapes and the dense write's edges
     gen = torch.Generator(device="cuda").manual_seed(23)
-    w = torch.rand(flat.shape, generator=gen, device="cuda")
-    grads_out = {d: torch.randn((B, d), generator=gen, device="cuda") for d in (D, 1)}
-    hot = model.offsets[HOT_FIELD] + torch.randint(
-        0, C.FIELD_VOCABS[HOT_FIELD], flat.shape, generator=gen, device="cuda", dtype=torch.int32)
-    cases = [(f"D={d}, {'random weights' if wt is not None else 'unweighted'}", grads_out[d],
-              flat, wt) for d in (D, 1) for wt in (None, w)]
-    cases.append((f"every slot in the {C.FIELD_VOCABS[HOT_FIELD]}-row field, D={D}, random "
-                  "weights", grads_out[D], hot, w))
-    for what, g, idx, wt in cases:
+    cases, inputs = backward_cases(model, flat, B, D, gen)
+    for what, g, idx, wt, xt, n_rows in cases:
         t1 = time.perf_counter()
-        got = E.embedding_bag_backward(g, idx, wt, V)
-        again = E.embedding_bag_backward(g, idx, wt, V)
+        hold_slot_plan(idx, n_rows, what)
+        launches = E.embedding_bag_backward.launches
+        got = E.embedding_bag_backward(g, idx, wt, n_rows, extra=xt)
+        again = E.embedding_bag_backward(g, idx, wt, n_rows, extra=xt)
+        check(E.embedding_bag_backward.launches - launches == (2 if got.numel() else 0),
+              f"embedding_bag_backward launches ({what})")
         exact(errs, "embedding_bag_backward", got, again, f"{what}, two launches")
         del again
-        exact(errs, "embedding_bag_backward", got, E.embedding_bag_backward_plain(g, idx, wt, V),
-              what)
-        print(f"[train] (a) embedding_bag_backward {what}, {tuple(idx.shape)} slots into {V} "
-              f"rows: bit-equal to the plain version on the card and across two launches "
-              f"({time.perf_counter() - t1:.1f} s)", flush=True)
+        exact(errs, "embedding_bag_backward", got,
+              E.embedding_bag_backward_plain(g, idx, wt, n_rows, extra=xt), what)
+        print(f"[train] (a) embedding_bag_backward {what}, {tuple(idx.shape)} slots into "
+              f"{n_rows} rows: bit-equal to the plain version on the card and across two "
+              f"launches, slot plan equal to the plain sort's ({time.perf_counter() - t1:.1f} s)",
+              flush=True)
         del got
-    del hot
+    del cases
 
     # (b) one full-width train step through the kernels, and through plain bags
     params = C.train_params(model)
     opt = adamw_init(params)
+    sorts = E.sort_slots.calls
     (p1, s1, loss), counts = counted(lambda: C.train_step(model, params, opt, fields, labels))
+    sorts = E.sort_slots.calls - sorts
     want = {k: 0 for k in KERNELS}
     want.update(embedding_bag=2, embedding_bag_backward=2)
     check(counts == want, f"train_step: launches {counts}, expected {want}")
+    check(sorts == 1, f"train_step: {sorts} slot sorts, expected 1")
     check(bool(torch.isfinite(loss)), f"train_step: loss {float(loss)}")
     pp, ps, ploss = C.train_step(model, params, opt, fields, labels, bag=E.embedding_bag_plain)
     err = max(max_err(a, b) for part, plain in ((p1, pp), (s1.m, ps.m), (s1.v, ps.v))
               for a, b in ((part[k], plain[k]) for k in part))
     check(err <= TRAIN_TOL and abs(float(loss) - float(ploss)) <= TRAIN_TOL,
           f"train_step through the kernels != through plain bags: max |err| {err}")
-    print(f"[train] (b) train_step: launches {counts}; loss {float(loss):.6f}; every "
-          f"parameter and moment within {err:.3g} of the step through plain bags (tol "
-          f"{TRAIN_TOL}), loss {abs(float(loss) - float(ploss)):.3g}", flush=True)
+    parents = table_parents(model, params, fields, labels)
+    check(parents == {"embed": ["_BagBackward"], "linear": ["ViewBackward0"]},
+          f"train_step: the tables' gradient nodes {parents}")
+    print(f"[train] (b) train_step: launches {counts}, {sorts} slot sort; loss {float(loss):.6f}; "
+          f"every parameter and moment within {err:.3g} of the step through plain bags (tol "
+          f"{TRAIN_TOL}), loss {abs(float(loss) - float(ploss)):.3g}; the tables' gradient "
+          f"nodes {parents}", flush=True)
     del p1, s1, pp, ps
     torch.cuda.synchronize()
     return {"model": model, "params": params, "stream": stream, "fields": fields,
-            "labels": labels, "flat": flat, "weights": w, "grads_out": grads_out,
-            "launches": counts}
+            "labels": labels, "flat": flat, "launches": counts, **inputs}
+
+
+def table_parents(model, params, fields, labels) -> dict:
+    """The autograd nodes that feed each table's gradient in the step's
+    graph: the bag's Function alone for `embed` (the gather's gradient goes
+    through it), a view of it for `linear`; no IndexBackward0."""
+    import torch
+    from repro_torch.models import deepfm as M
+
+    leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+    logits = torch.func.functional_call(model, leaves, (fields,))
+    seen, todo = {}, [M.bce_with_logits(logits, labels).grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is not None and id(node) not in seen:
+            seen[id(node)] = node
+            todo.extend(nxt for nxt, _ in node.next_functions)
+    check(not any(type(n).__name__ == "IndexBackward0" for n in seen.values()),
+          "train_step: an IndexBackward0 in the step's graph")
+    return {k: sorted(type(n).__name__ for n in seen.values() if any(
+        getattr(nxt, "variable", None) is leaves[k] for nxt, _ in n.next_functions))
+        for k in ("embed", "linear")}
 
 
 def timing_train(state: dict, errs: dict) -> list:
     """(c) TRAIN_STEPS full-width steps with RECSYS_OPT, each split by CUDA
     events into forward (to the logits: a forward hook), backward (the rest
     of `loss_and_grads`) and optimizer (`adamw_update`), the two calls
-    `train_step` makes; a profile of one step; the backward kernel per
-    launch beside its plain version, its bound and one `index_add_`."""
+    `train_step` makes; a profile of one step (one slot sort, no
+    `index_put_`); the backward kernel per launch, sorting on its own and
+    on the step's slot plan, beside its plain version, its bound and one
+    `index_add_`; the slot plan alone."""
     import numpy as np
     import torch
     from repro_torch.configs import deepfm as C
@@ -1636,6 +1747,7 @@ def timing_train(state: dict, errs: dict) -> list:
     marks = []
     hook = model.register_forward_hook(lambda *_: marks[-1][1].record())
     losses = []
+    extra_host = state.pop("extra").cpu()   # (B, K, 10) f32, off the card while steps run
     torch.cuda.reset_peak_memory_stats()
     for fields, labels in batches:
         marks.append([torch.cuda.Event(enable_timing=True) for _ in range(4)])
@@ -1659,38 +1771,59 @@ def timing_train(state: dict, errs: dict) -> list:
           f"backward {parts['backward']:.3f}, optimizer {parts['optimizer']:.3f} (CUDA events); "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     fields, labels = batches[0]
+    names, sorts = set(), E.sort_slots.calls
     profile_call(lambda: C.train_step(model, params, opt, fields, labels, opt_cfg=opt_cfg),
-                 "train_batch step")
+                 "train_batch step", names)
+    sorts = E.sort_slots.calls - sorts
+    put = sorted(k for k in names if "index_put" in k or "indexing_backward" in k)
+    check(sorts == 1 and not put and "aten::sort" not in names,
+          f"the profiled step: {sorts} slot sorts, index_put ops {put}, aten::sort "
+          f"{'aten::sort' in names}")
+    print(f"[profile]   the step: {sorts} slot sort, no aten::sort, no index_put_ "
+          f"(radix-sort kernels: {sorted(k for k in names if 'RadixSort' in k)})", flush=True)
     del batches, params, opt
 
-    flat, w = state["flat"], state["weights"]
+    flat, w, x = state["flat"], state["weights"], extra_host.cuda()
     V = model.embed.shape[0]
-    sort_ms = time_ms(lambda: torch.sort(flat.reshape(-1), stable=True), cold=True)
+    slots = E.sort_slots(flat, V)
+    sort_ms = time_ms(lambda: E.sort_slots(flat, V), cold=True)
+    torch_sort_ms = time_ms(lambda: torch.sort(flat.reshape(-1), stable=True), cold=True)
     clear_ms = time_ms(lambda: torch.empty((V, 10), device="cuda").zero_(), cold=True)
-    print(f"[timing] embedding_bag_backward's parts at train_batch: the wrapper's stable sort "
-          f"of {flat.numel()} slots {sort_ms:.4f} ms, a ({V}, 10) f32 clear {clear_ms:.4f} ms "
-          f"(cold)", flush=True)
+    print(f"[timing] embedding_bag_backward's parts at train_batch: the slot plan (sort_slots: "
+          f"CUB radix sort of {flat.numel()} slots on {(V - 1).bit_length()} key bits, 32-bit "
+          f"slots, run-length encoding, scan) {sort_ms:.4f} ms, once a step; a stable "
+          f"torch.sort (64-bit slots, the form before) {torch_sort_ms:.4f} ms; a ({V}, 10) f32 "
+          f"clear {clear_ms:.4f} ms (cold)", flush=True)
     records = {}
-    for what, g, weights in (("D=10", state["grads_out"][10], None),
-                             ("D=1", state["grads_out"][1], None),
-                             ("D=10 weighted", state["grads_out"][10], w)):
+    for what, g, weights, extra, plan in (
+            ("D=10", state["grads_out"][10], None, None, None),
+            ("D=1", state["grads_out"][1], None, None, None),
+            ("D=10 weighted", state["grads_out"][10], w, None, None),
+            ("D=10 gather term", state["grads_out"][10], None, x, None),
+            ("D=10 gather term, the step's plan", state["grads_out"][10], None, x, slots),
+            ("D=1, the step's plan", state["grads_out"][1], None, None, slots)):
         (B, K), Dg = flat.shape, g.shape[1]
         idx = flat.reshape(-1)
 
-        def library(g=g, weights=weights):
+        def library(g=g, weights=weights, extra=extra):
             terms = (g[:, None, :].expand(B, K, Dg) if weights is None
                      else weights[..., None] * g[:, None, :])
+            if extra is not None:
+                terms = terms + extra
             return torch.zeros((V, Dg), device="cuda").index_add_(0, idx, terms.reshape(-1, Dg))
 
-        lib_err = max_err(library(), E.embedding_bag_backward(g, flat, weights, V))
+        def kernel(g=g, weights=weights, extra=extra, plan=plan):
+            return E.embedding_bag_backward(g, flat, weights, V, extra=extra, slots=plan)
+
+        lib_err = max_err(library(), kernel())
         check(lib_err <= 1e-3, f"index_add_ disagrees with the bag backward ({what}): {lib_err}")
         library_ms = time_ms(library, cold=True)
-        timing = time_pair(lambda: E.embedding_bag_backward(g, flat, weights, V),
-                           lambda: E.embedding_bag_backward_plain(g, flat, weights, V))
+        timing = time_pair(kernel, lambda: E.embedding_bag_backward_plain(
+            g, flat, weights, V, extra=extra))
         print(f"[timing] embedding_bag_backward {what} at train_batch {tuple(flat.shape)}: "
               f"index_add_ max |err| {lib_err:.3g} (atomics, another order)", flush=True)
         records[what] = record("embedding_bag_backward", state["launches"], errs, timing,
-                               bound_bag_backward(V, g, flat, weights), library_ms)
+                               bound_bag_backward(V, g, flat, weights, extra), library_ms)
     return [records["D=10"]]
 
 

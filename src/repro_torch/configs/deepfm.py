@@ -79,8 +79,9 @@ def loss_and_grads(model: DeepFM, params: Params, fields: torch.Tensor,
                    ) -> Tuple[torch.Tensor, Params]:
     """`deepfm_loss` of `model`'s structure with `params`' values
     (`torch.func.functional_call`), and its gradient with respect to each
-    parameter.  Both bag sums take the bag's backward kernel (`bag`: its
-    plain version, to hold the path against it)."""
+    parameter.  Each table's gradient is one launch of the bag's backward
+    kernel, the gather's gradient included, over one sort of the slots
+    (`bag`: its plain version, to hold the path against it)."""
     leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
     with torch.enable_grad():
         logits = functional_call(model, leaves, (fields,), {"bag": bag})

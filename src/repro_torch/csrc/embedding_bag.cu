@@ -249,52 +249,91 @@ cudaError_t launch_bag(const void* table, const int32_t* idx, const float* w, fl
 //
 // The gradient of the bag sum with respect to the table,
 //
-//   grad_table[r, :] = Σ_{(b, k): idx[b, k] = r} w[b, k] · grad_out[b, :]
+//   grad_table[r, :] = Σ_{(b, k): idx[b, k] = r} (w[b, k] · grad_out[b, :]
+//                                                 + extra[b, k, :])
 //
-// as a dense (V, D) f32 array whose untouched rows are 0.  The reference
-// has no Pallas backward: jax.grad of its gathers gives XLA's scatter-add.
+// as a dense (V, D) f32 array whose untouched rows are 0.  `extra` (B, K,
+// D), optional, is the gradient of a plain gather table[idx] over the same
+// slots (DeepFM's v = embed[flat]), so one launch takes both.  The
+// reference has no Pallas backward: jax.grad of its gathers gives XLA's
+// scatter-add of g_v[b, k] + g_s[b] per slot.
 //
-// Deterministic.  The wrapper sorts the B·K flat slots by row with a
-// stable sort, which keeps slot order within a row: `rows` holds the sorted
-// row ids (int32), `order` each sorted position's flat slot b·K + k
-// (int64).  Each row's terms w · g (one rounding each) are summed in one
-// fixed order, which the plain version follows:
-// * the sorted positions are cut into segments at every multiple of
-//   kSegment and wherever the row changes; `bag_backward_segments` (a lane
-//   group per kSegment positions) sums each segment's terms in slot order
-//   from 0 into `part` at the segment's first position;
-// * `bag_backward_runs` (a lane group per sorted position; the group whose
-//   position opens a run of equal rows works, the others exit) sums the
-//   run's segment sums in order from 0 and writes the row once.
-// Each lane owns one element of the row.  The sums are `__fadd_rn` and the
-// products `__fmul_rn`, so the compiler cannot contract them into an FMA:
-// the plain version gives the same bits, and so does every call.  No
-// atomics: every segment and every row has one writer.
+// Deterministic.  The slot plan (csrc/slot_sort.cu, made once per index
+// array and shared by every backward over it) sorts the B·K flat slots by
+// row, stably: `rows` holds the sorted rows, `order` each sorted
+// position's flat slot b·K + k, `run_rows` / `starts` each run of equal
+// rows.  Each slot's term is `__fadd_rn(__fmul_rn(w, g), x)` (unweighted
+// `g + x`; without extra `w · g` or `g`), and each row sums its terms in
+// one fixed order, which the plain version follows: the sorted positions
+// are cut into segments at every multiple of kSegment (a chunk edge) and
+// wherever the row changes; each segment sums its terms in slot order from
+// 0, and each row sums its segments in order from 0.  The sums are
+// `__fadd_rn` and the products `__fmul_rn`, so the compiler cannot
+// contract them into an FMA: the plain version gives the same bits, and so
+// does every call.  No atomics: every segment and every output element has
+// one writer.
 //
 // Bound.  Bytes: the dense (V, D) write (1.356 GB at DeepFM's 33,889,984
 // rows and D = 10, 0.136 GB at D = 1) dominates the 10.2 MB of int32
-// indices and the 2.6 MB of grad_out at train_batch (B = 65,536, K = 39),
-// so the bound is about 0.40 ms at D = 10 on 3.35 TB/s.  The entry clears
-// the array with cudaMemsetAsync, which is that bound's write; the touched
-// rows are then written again (2.56 M of 33.9 M rows at most), and the
-// segment sums go through `part` (B·K·D floats, written and read once at
-// most).
+// indices, the 2.6 MB of grad_out and the 102 MB of extra at train_batch
+// (B = 65,536, K = 39): about 0.41 ms at D = 10 on 3.35 TB/s.
 //
-// Design.  Were one group to sum a whole run, the longest run would set
-// the time: ClickStream's 16-row field gives 4,096 slots a row at B =
-// 65,536, that many dependent adds (2.24 ms a D = 10 launch on the H100,
-// against 0.94 segmented).  Segments bound a group's serial adds at
-// kSegment in the first kernel and at run / kSegment + 1 in the second.
-// Each lane issues kAhead slot and gradient loads before it adds them, in
-// order.
-constexpr int kSegment = 32;     // positions a segment spans at most
-constexpr int kAhead = 8;        // loads a lane issues before its adds
+// Design.  The dense write is the bound, so it is done once: no clear
+// (a clear alone is the bound's whole write, 0.41 ms), and no touched row
+// written twice.  `bag_backward_dense` writes each output element once: a
+// CTA owns R
+// consecutive rows (R · D ≈ kTileFloats), builds them in shared memory
+// (zeros, then each run's sum at its row) and stores the tile with
+// 16-byte stores.  Nothing in it waits on more than two loads: its runs
+// are tile_first[t] .. tile_first[t + 1] (`bag_backward_tiles`, a binary
+// search of `run_rows` per CTA edge), and their sums are ready in a compact
+// `run_sum`.  A dense write that summed the runs itself took 0.92 ms at D
+// = 10 against 0.43 for its zeros alone: its CTAs, few per SM for their
+// shared memory, waited on chains of dependent loads under the write
+// traffic.  The sums come first, in kernels with no shared memory where
+// many warps hide the gathers' latency: `bag_backward_segments` takes the
+// sorted positions a chunk of kSegment at a time, a lane group per chunk
+// with kAhead gathers in flight per lane (0.17 ms at D = 10 with the gather
+// term; a warp per chunk that gathered all its terms at once was slower,
+// 0.21 ms with the lanes over (position, element) pairs and 0.62 with a
+// lane per position), and sums every segment into `part` at its first
+// position;
+// `bag_backward_runs` adds each run's segment sums (one for most runs;
+// ClickStream's 16-row field gives runs of 4,096 slots at B = 65,536, 128
+// segments) into run_sum.  Segments bound a group's serial adds at
+// kSegment in the first and at run / kSegment + 1 in the second.  (Summing
+// the runs that lie inside one chunk straight from their slots, in a group
+// per run, was slower: 0.27 ms for the run sums at D = 10 with the gather
+// term, one or two gathers in flight per lane.)
+constexpr int kSegment = 32;       // positions a segment spans at most
+constexpr int kAhead = 8;          // loads a lane issues before its adds
+constexpr int kDenseThreads = 256;
+constexpr int kTileFloats = 8192;  // a dense-write CTA's rows, in floats (32 KB)
+constexpr int kRunCtasPerSm = 16;  // the run sums' grid: 2,048 threads an SM
 
-template <bool WEIGHTED>
+// Element e of the term of flat slot `slot` (bag slot / K), rounded as the
+// plain version rounds it.
+template <bool WEIGHTED, bool EXTRA>
+__device__ __forceinline__ float slot_term(int64_t slot, const float* __restrict__ w,
+                                           const float* __restrict__ grad_out,
+                                           const float* __restrict__ extra, int K, int D,
+                                           int e) {
+  float t = grad_out[slot / K * D + e];
+  if constexpr (WEIGHTED) t = __fmul_rn(w[slot], t);
+  if constexpr (EXTRA) t = __fadd_rn(t, extra[slot * D + e]);
+  return t;
+}
+
+// Every segment's sum: a lane group per chunk of kSegment positions sums
+// each segment of the chunk (cut where the row changes) in slot order from
+// 0 into `part` at the segment's first position.  Walking the sorted
+// positions in order keeps kAhead slots' gathers in flight per lane.
+template <bool WEIGHTED, bool EXTRA>
 __global__ void __launch_bounds__(kThreads)
-bag_backward_segments(const int32_t* __restrict__ rows, const int64_t* __restrict__ order,
+bag_backward_segments(const int32_t* __restrict__ rows, const int32_t* __restrict__ order,
                       const float* __restrict__ w, const float* __restrict__ grad_out,
-                      float* __restrict__ part, int64_t n, int K, int D, int G) {
+                      const float* __restrict__ extra, float* __restrict__ part, int64_t n,
+                      int K, int D, int G) {
   const int NB = kThreads / G;
   const int grp = threadIdx.x / G, lane = threadIdx.x - grp * G;
   const int64_t c0 = ((int64_t)blockIdx.x * NB + grp) * kSegment;
@@ -311,13 +350,7 @@ bag_backward_segments(const int32_t* __restrict__ rows, const int64_t* __restric
       for (int c = 0; c < kAhead; ++c) {
         const bool in = j + c < c1;
         r[c] = in ? rows[j + c] : cur;
-        const int64_t slot = in ? order[j + c] : 0;
-        const float g = in ? grad_out[slot / K * D + e] : 0.0f;
-        if constexpr (WEIGHTED) {
-          t[c] = __fmul_rn(in ? w[slot] : 0.0f, g);
-        } else {
-          t[c] = g;
-        }
+        t[c] = in ? slot_term<WEIGHTED, EXTRA>(order[j + c], w, grad_out, extra, K, D, e) : 0.0f;
       }
 #pragma unroll
       for (int c = 0; c < kAhead; ++c) {
@@ -335,39 +368,153 @@ bag_backward_segments(const int32_t* __restrict__ rows, const int64_t* __restric
   }
 }
 
+// tile_first[t] = the first run whose row is >= t · R, for t = 0 ..
+// n_tiles (n_runs at n_tiles): the runs of each dense-write CTA.
 __global__ void __launch_bounds__(kThreads)
-bag_backward_runs(const int32_t* __restrict__ rows, const float* __restrict__ part,
-                  float* __restrict__ grad_table, int64_t n, int D, int G) {
+bag_backward_tiles(const int32_t* __restrict__ run_rows, const int32_t* __restrict__ n_runs_at,
+                   int32_t* __restrict__ tile_first, int64_t n_tiles, int R) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t > n_tiles) return;
+  const int64_t key = t * R;
+  int64_t lo = 0, hi = *n_runs_at;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) / 2;
+    if (run_rows[mid] < key) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  tile_first[t] = (int32_t)lo;
+}
+
+// Each run's sum, in the plain version's order, into run_sum[k]: its
+// segment sums from `part` (the first at the run's first position, then
+// one at each multiple of kSegment inside the run), added in order from 0.
+// A lane group per run, striding over the runs: the grid is one wave of
+// CTAs, since n_runs lies on the device (875,909 runs for train_batch's
+// 2,555,904 slots) and a grid sized for every slot spent most of its time
+// scheduling CTAs that had no run.  Consecutive groups read nearby segment
+// sums and write consecutive rows.
+__global__ void __launch_bounds__(kThreads)
+bag_backward_runs(const int32_t* __restrict__ starts, const int32_t* __restrict__ n_runs_at,
+                  const float* __restrict__ part, float* __restrict__ run_sum, int D, int G) {
   const int NB = kThreads / G;
   const int grp = threadIdx.x / G, lane = threadIdx.x - grp * G;
-  const int64_t i = (int64_t)blockIdx.x * NB + grp;
-  if (grp >= NB || i >= n) return;
-  const int32_t r = rows[i];
-  if (i > 0 && rows[i - 1] == r) return;     // not the first position of its run
-  const int64_t next = (i / kSegment + 1) * kSegment;   // the run's second segment, if any
-  for (int e = lane; e < D; e += G) {
-    float acc = __fadd_rn(0.0f, part[i * D + e]);
-    bool more = true;
-    for (int64_t s = next; more; s += kAhead * kSegment) {
-      bool in[kAhead];
-      float p[kAhead];
+  if (grp >= NB) return;
+  const int64_t n_runs = *n_runs_at;
+  for (int64_t k = (int64_t)blockIdx.x * NB + grp; k < n_runs; k += (int64_t)gridDim.x * NB) {
+    const int64_t p0 = starts[k], p1 = starts[k + 1];
+    for (int e = lane; e < D; e += G) {
+      float acc = __fadd_rn(0.0f, part[p0 * D + e]);
+      for (int64_t s = (p0 / kSegment + 1) * kSegment; s < p1; s += kAhead * kSegment) {
+        float q[kAhead];
 #pragma unroll
-      for (int c = 0; c < kAhead; ++c) {
-        const int64_t at = s + (int64_t)c * kSegment;
-        in[c] = at < n && rows[at] == r;
-        p[c] = in[c] ? part[at * D + e] : 0.0f;
-      }
-#pragma unroll
-      for (int c = 0; c < kAhead; ++c) {
-        if (!in[c]) {            // rows are sorted: the run has ended
-          more = false;
-          break;
+        for (int c = 0; c < kAhead; ++c) {
+          const int64_t at = s + (int64_t)c * kSegment;
+          q[c] = at < p1 ? part[at * D + e] : 0.0f;
         }
-        acc = __fadd_rn(acc, p[c]);
+#pragma unroll
+        for (int c = 0; c < kAhead; ++c)
+          if (s + (int64_t)c * kSegment < p1) acc = __fadd_rn(acc, q[c]);
       }
+      run_sum[k * D + e] = acc;
     }
-    grad_table[(int64_t)r * D + e] = acc;
   }
+}
+
+// The dense write: a CTA builds rows r0 .. r0 + R - 1 in shared memory,
+// zeros and then its runs' sums (tile_first[t] .. tile_first[t + 1]: the
+// groups read run rows and sums of consecutive runs, coalesced), and
+// stores the tile once with 16-byte stores.
+__global__ void __launch_bounds__(kDenseThreads)
+bag_backward_dense(const int32_t* __restrict__ run_rows, const int32_t* __restrict__ tile_first,
+                   const float* __restrict__ run_sum, float* __restrict__ grad_table,
+                   int64_t n_rows, int D, int G, int R) {
+  extern __shared__ float4 tile4[];    // R · D floats: this CTA's rows
+  float* tile = reinterpret_cast<float*>(tile4);
+  const int64_t r0 = (int64_t)blockIdx.x * R;
+  const int count = (int)min((int64_t)R, n_rows - r0) * D;   // floats this CTA writes
+  const int64_t k0 = tile_first[blockIdx.x], k1 = tile_first[blockIdx.x + 1];
+  for (int i = threadIdx.x; i < (count + 3) / 4; i += blockDim.x)
+    tile4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+  const int NG = blockDim.x / G;
+  const int grp = threadIdx.x / G, lane = threadIdx.x - grp * G;
+  if (grp < NG) {
+    for (int64_t k = k0 + grp; k < k1; k += NG) {
+      float* dst = tile + (run_rows[k] - r0) * D;
+      for (int e = lane; e < D; e += G) dst[e] = run_sum[k * D + e];
+    }
+  }
+  __syncthreads();
+  // R is a multiple of 4, so the tile starts 16-byte aligned in grad_table
+  float4* out4 = reinterpret_cast<float4*>(grad_table + r0 * D);
+  for (int i = threadIdx.x; i < count / 4; i += blockDim.x) out4[i] = tile4[i];
+  for (int i = count / 4 * 4 + threadIdx.x; i < count; i += blockDim.x)
+    grad_table[r0 * D + i] = tile[i];
+}
+
+// The rows one dense-write CTA owns at width D: a multiple of 4, at least 4.
+int dense_rows(int D) { return max(4, kTileFloats / D / 4 * 4); }
+
+template <bool WEIGHTED, bool EXTRA>
+cudaError_t launch_sums(const int32_t* rows, const int32_t* order, const int32_t* starts,
+                        const int32_t* n_runs, const float* w, const float* g, const float* x,
+                        float* part, float* run_sum, int64_t n, int K, int D, cudaStream_t s) {
+  const int G = min(D, kMaxGroup);
+  const int NB = kThreads / G;
+  const int64_t chunks = (n + kSegment - 1) / kSegment;
+  const int64_t seg_blocks = (chunks + NB - 1) / NB;
+  if (seg_blocks > INT32_MAX) return cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // one wave: kRunCtasPerSm resident CTAs of kThreads on each SM, fewer
+  // where the slots are few
+  const int64_t run_blocks = min((int64_t)sms * kRunCtasPerSm, (n + NB - 1) / NB);
+  bag_backward_segments<WEIGHTED, EXTRA><<<(unsigned)seg_blocks, kThreads, 0, s>>>(
+      rows, order, w, g, x, part, n, K, D, G);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bag_backward_runs<<<(unsigned)run_blocks, kThreads, 0, s>>>(starts, n_runs, part, run_sum,
+                                                               D, G);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dense(const int32_t* run_rows, const int32_t* n_runs,
+                         const float* run_sum, int32_t* tile_first, float* grad_table,
+                         int64_t n_rows, int D, cudaStream_t s) {
+  const int R = dense_rows(D);
+  const int64_t n_tiles = (n_rows + R - 1) / R;
+  if (n_tiles >= INT32_MAX) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)R * D * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bag_backward_dense, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  bag_backward_tiles<<<(unsigned)(n_tiles / kThreads + 1), kThreads, 0, s>>>(
+      run_rows, n_runs, tile_first, n_tiles, R);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bag_backward_dense<<<(unsigned)n_tiles, kDenseThreads, smem, s>>>(
+      run_rows, tile_first, run_sum, grad_table, n_rows, D, min(D, kMaxGroup), R);
+  return cudaGetLastError();
+}
+
+template <bool WEIGHTED>
+cudaError_t launch_sums_for(const int32_t* rows, const int32_t* order, const int32_t* starts,
+                            const int32_t* n_runs, const float* w, const float* g,
+                            const float* x, float* part, float* run_sum, int64_t n, int K,
+                            int D, cudaStream_t s) {
+  return x != nullptr
+             ? launch_sums<WEIGHTED, true>(rows, order, starts, n_runs, w, g, x, part, run_sum,
+                                           n, K, D, s)
+             : launch_sums<WEIGHTED, false>(rows, order, starts, n_runs, w, g, x, part, run_sum,
+                                            n, K, D, s);
 }
 
 }  // namespace
@@ -387,42 +534,46 @@ extern "C" int embedding_bag_launch(const void* table, int bf16, const void* ind
   return launch_bag<float>(table, ix, w, o, n_bags, bag_size, dim, s);
 }
 
-// rows (n_slots,) int32 sorted, order (n_slots,) int64 (the flat slot
-// b · bag_size + k of each sorted position), weights (n_bags, bag_size) f32
-// or null, grad_out (n_bags, dim) f32, part (n_slots, dim) f32 scratch ->
-// grad_table (n_table_rows, dim) f32, cleared here first.  n_slots =
-// n_bags · bag_size.  Two kernels on `stream`: the segment sums, then the
-// runs.
+// The slot plan of csrc/slot_sort.cu over n_slots = n_bags · bag_size
+// slots (rows, order (n_slots,), run_rows (n_slots,), starts (n_slots + 1,),
+// n_runs (1,), all int32), weights (n_bags, bag_size) f32 or null,
+// grad_out (n_bags, dim) f32, extra (n_bags, bag_size, dim) f32 or null;
+// scratch: part and run_sum (n_slots, dim) f32, tile_first (n_tiles + 1,)
+// int32 with n_tiles = ceil(n_table_rows / R) and R = max(4, kTileFloats /
+// dim / 4 · 4) -> grad_table (n_table_rows, dim) f32, 16-byte aligned,
+// every element written once.  Four kernels on `stream`: the segment sums,
+// the run sums, each dense-write CTA's runs, the dense write.
 extern "C" int embedding_bag_backward_launch(const void* rows, const void* order,
-                                             const void* weights, const void* grad_out,
-                                             void* part, void* grad_table,
+                                             const void* run_rows, const void* starts,
+                                             const void* n_runs, const void* weights,
+                                             const void* grad_out, const void* extra, void* part,
+                                             void* run_sum, void* tile_first,
+                                             int64_t tile_first_len, void* grad_table,
                                              int64_t n_table_rows, int64_t n_slots,
                                              int bag_size, int dim, void* stream) {
-  if (n_table_rows < 0 || n_slots < 0 || dim < 0 || (n_slots > 0 && bag_size <= 0))
+  if (n_table_rows < 0 || n_slots < 0 || n_slots >= INT32_MAX || dim < 0 ||
+      (n_slots > 0 && bag_size <= 0) || reinterpret_cast<uintptr_t>(grad_table) % 16 != 0)
     return cudaErrorInvalidValue;
   if (n_table_rows == 0 || dim == 0) return cudaSuccess;
+  const int R = dense_rows(dim);
+  if (tile_first_len < (n_table_rows + R - 1) / R + 1) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(grad_table, 0, (size_t)n_table_rows * dim * sizeof(float), s);
-  if (err != cudaSuccess || n_slots == 0) return err;
-  const int G = min(dim, kMaxGroup);
-  const int NB = kThreads / G;
-  const int64_t chunks = (n_slots + kSegment - 1) / kSegment;
-  const int64_t seg_blocks = (chunks + NB - 1) / NB, run_blocks = (n_slots + NB - 1) / NB;
-  if (run_blocks > INT32_MAX) return cudaErrorInvalidValue;
   auto r = static_cast<const int32_t*>(rows);
-  auto o = static_cast<const int64_t*>(order);
+  auto o = static_cast<const int32_t*>(order);
+  auto st = static_cast<const int32_t*>(starts);
+  auto nr = static_cast<const int32_t*>(n_runs);
   auto w = static_cast<const float*>(weights);
   auto g = static_cast<const float*>(grad_out);
+  auto x = static_cast<const float*>(extra);
   auto p = static_cast<float*>(part);
-  if (w != nullptr)
-    bag_backward_segments<true><<<(unsigned)seg_blocks, kThreads, 0, s>>>(r, o, w, g, p, n_slots,
-                                                                          bag_size, dim, G);
-  else
-    bag_backward_segments<false><<<(unsigned)seg_blocks, kThreads, 0, s>>>(r, o, w, g, p, n_slots,
-                                                                           bag_size, dim, G);
-  err = cudaGetLastError();
+  auto rs = static_cast<float*>(run_sum);
+  cudaError_t err = cudaSuccess;
+  if (n_slots > 0)
+    err = w != nullptr
+              ? launch_sums_for<true>(r, o, st, nr, w, g, x, p, rs, n_slots, bag_size, dim, s)
+              : launch_sums_for<false>(r, o, st, nr, w, g, x, p, rs, n_slots, bag_size, dim, s);
   if (err != cudaSuccess) return err;
-  bag_backward_runs<<<(unsigned)run_blocks, kThreads, 0, s>>>(r, p, static_cast<float*>(grad_table),
-                                                              n_slots, dim, G);
-  return cudaGetLastError();
+  return launch_dense(static_cast<const int32_t*>(run_rows), nr, rs,
+                      static_cast<int32_t*>(tile_first), static_cast<float*>(grad_table),
+                      n_table_rows, dim, s);
 }

@@ -8,14 +8,18 @@ two bag sums of a forward, the first-order term `Σ_f linear[id_f]` and the
 FM field sum `Σ_f v_f`, run through the Hopper embedding-bag kernel
 (`hopper.embedding_bag`); the reference computes the same sums as
 gather-then-sum.  The per-field rows `v` for `Σ‖v‖²` and the deep tower
-stay a plain gather, as in the reference.
+stay a plain gather, as in the reference, taken by the same bag call so
+that their gradient joins the bag's.
 
 FM pairwise term by the O(N·d) identity  Σ_{i<j}⟨v_i,v_j⟩ = ½(‖Σv‖² − Σ‖v‖²).
 
 Training: `deepfm_loss` is the reference's binary cross-entropy on the
 logits.  Its gradient reaches the tables through the bag's hand-written
-backward kernel (`hopper.embedding_bag.embedding_bag_backward`) and through
-autograd of the plain gather; `configs.deepfm.train_step` takes one AdamW
+backward kernel (`hopper.embedding_bag.embedding_bag_backward`) alone: one
+launch per table, the `embed` one with the gather's gradient as its
+per-slot `extra` term (the reference's jax.grad scatter-adds g_v + g_s per
+slot), both over one sort of the slots (`SlotPlan`), so a step writes one
+dense gradient per table; `configs.deepfm.train_step` takes one AdamW
 step.
 
 `retrieval_score` scores one user context against N candidate items of
@@ -31,7 +35,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.hopper.embedding_bag import embedding_bag
+from repro_torch.hopper.embedding_bag import SlotPlan, embedding_bag
 from repro_torch.models.gnn.common import MLP
 
 Bag = Callable[..., torch.Tensor]
@@ -102,14 +106,16 @@ class DeepFM(nn.Module):
 
 def deepfm_logits(model: DeepFM, fields: torch.Tensor, *, bag: Bag = embedding_bag) -> torch.Tensor:
     """(B, F) int32 per-field ids -> (B,) f32 logits.  `bag` computes the
-    two bag sums (the kernel's wrapper; its plain version to hold the path
-    against it)."""
+    two bag sums and the gather `v` (the kernel's wrapper; its plain
+    version to hold the path against it): the table's gradient from `s`
+    and from `v` is one backward launch, and both backwards share one sort
+    of the slots."""
     B, F = fields.shape
     V, d = model.embed.shape
     flat = fields.to(torch.int32) + model.offsets[None, :]
-    lin = bag(model.linear.view(V, 1), flat)[:, 0]          # first order (B,)
-    s = bag(model.embed, flat)                               # Σ_f v_f (B, d)
-    v = model.embed[flat]                                    # (B, F, d)
+    plan = SlotPlan(flat, V)            # one sort of the slots for both backwards
+    lin = bag(model.linear.view(V, 1), flat, plan=plan)[:, 0]    # first order (B,)
+    s, v = bag(model.embed, flat, plan=plan, gather=True)        # Σ_f v_f (B, d), v (B, F, d)
     fm = 0.5 * ((s * s).sum(dim=-1) - (v * v).sum(dim=(1, 2)))
     deep = model.mlp(v.reshape(B, F * d))[:, 0]
     return model.bias + lin + fm + deep

@@ -69,6 +69,19 @@ def test_bag_ablation_texts_occur_once(copy):
         assert src.count(old) == 1 and new != old
 
 
+@pytest.mark.parametrize("source, forms, copy", [
+    ("embedding_bag.cu", "BACKWARD_FORMS", "no segments"),
+    ("embedding_bag.cu", "BACKWARD_FORMS", "no sums"),
+    ("embedding_bag.cu", "BACKWARD_FORMS", "no dense"),
+    ("embedding_bag.cu", "BACKWARD_FORMS", "writes only"),
+    ("slot_sort.cu", "SORT_FORMS", "sort only")])
+def test_bag_backward_ablation_texts_occur_once(source, forms, copy):
+    src = (CSRC / source).read_text()
+    forms = getattr(bag_ablation, forms)
+    for old, new in forms[spmv_ablation.form_of(src, forms)][copy]:
+        assert src.count(old) == 1 and new != old
+
+
 @pytest.mark.parametrize("copy", ["no tile", "no cand", "heads"])
 def test_spmv_bits_ablation_texts_occur_once(copy):
     tool, form, source = FORM_TOOLS["spmv_bits"]

@@ -319,6 +319,171 @@ def test_bag_backward_sums_each_row_in_the_kernels_order():
     assert torch.equal(got, want) and not got[3].any()
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bag_backward_adds_the_gather_term_in_the_kernels_order(weighted):
+    """With the gradient `extra` (B, K, D) of a gather table[idx], each
+    slot's term is w · g[b] + extra[b, k] (unweighted g[b] + extra[b, k]),
+    each operation rounded once, summed in the order above.  The gather
+    terms span six decades, so another order or an FMA shows in the bits."""
+    rng = np.random.default_rng(7)
+    B, K, D = 25, 3, 2
+    idx = torch.full((B, K), 2, dtype=torch.int32)
+    idx[:2, :] = 1
+    idx[0, 0] = idx[1, 2] = 0                 # row 0: 2 slots, row 1: 4, row 2: 69
+    w = torch.from_numpy(rng.random((B, K)).astype(np.float32)) if weighted else None
+    g = torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+    x = torch.from_numpy((rng.standard_normal((B, K, D))
+                          * 10.0 ** rng.integers(-3, 4, (B, K, 1))).astype(np.float32))
+    slots = sorted(range(B * K), key=lambda s: (int(idx.view(-1)[s]), s))
+    want = torch.zeros((4, D))
+    piece, prev = torch.zeros(D), None
+    for at, s in enumerate(slots + [None]):
+        row = None if s is None else int(idx.view(-1)[s])
+        if at and (row != prev or at % E.SEGMENT == 0):
+            want[prev] = want[prev] + piece
+            piece = torch.zeros(D)
+        if s is not None:
+            term = g[s // K] if w is None else w.view(-1)[s] * g[s // K]
+            piece = piece + (term + x.view(-1, D)[s])
+        prev = row
+    got = E.embedding_bag_backward_plain(g, idx, w, 4, extra=x)
+    assert torch.equal(got, want) and not got[3].any()
+    assert torch.equal(E.embedding_bag_backward(g, idx, w, 4, extra=x), want)
+
+
+def _jax_bag_and_gather_grad(table, idx, w, g, gx):
+    ww = np.ones(idx.shape, np.float32) if w is None else w
+    _, vjp = jax.vjp(lambda t: (embedding_bag_ref(t, jnp.asarray(idx), jnp.asarray(ww)),
+                                t[jnp.asarray(idx)]), jnp.asarray(table))
+    return np.asarray(vjp((jnp.asarray(g), jnp.asarray(gx)))[0])
+
+
+@pytest.mark.parametrize("weights", ["none", "random", "zeros"])
+@pytest.mark.parametrize("B,K,D,V", [(16, 5, 10, 40), (32, 39, 1, 64), (8, 39, 10, 16),
+                                     (0, 39, 10, 50), (12, 1, 3, 7)])
+def test_bag_with_gather_backward_matches_jax_grad(B, K, D, V, weights):
+    """One backward for the bag sum and the gathered rows table[idx] (the
+    `extra` term) against jax.vjp of both outputs, within the same 1e-5
+    relative as the bag alone (per-row sums of the same f32 terms in
+    another order); through autograd it equals the plain backward."""
+    table, idx, w, g = _bag_case(B, K, D, V, weights, seed=B + K + D)
+    gx = np.random.default_rng(B + K).standard_normal((B, K, D)).astype(np.float32)
+    want = _jax_bag_and_gather_grad(table, idx, w, g, gx)
+    wt = None if w is None else torch.from_numpy(w)
+    ti, tg, tx = torch.from_numpy(idx), torch.from_numpy(g), torch.from_numpy(gx)
+    plain = E.embedding_bag_backward_plain(tg, ti, wt, V, extra=tx)
+    assert plain.shape == (V, D) and plain.dtype == torch.float32
+    np.testing.assert_allclose(plain.numpy(), want, rtol=1e-5, atol=1e-6)
+    t = torch.from_numpy(table).requires_grad_()
+    out, rows = E.embedding_bag(t, ti, wt, gather=True)
+    assert torch.equal(rows, t.detach()[ti.long()])
+    (got,) = torch.autograd.grad((out, rows), t, (tg, tx))
+    assert torch.equal(got, plain)
+    plan = E.SlotPlan(ti, V)
+    assert torch.equal(E.embedding_bag_backward(tg, ti, wt, V, extra=tx,
+                                                slots=plan.sorted()), plain)
+
+
+@pytest.mark.parametrize("B,K,V", [(25, 3, 4), (64, 39, 300), (0, 39, 10), (7, 1, 1)])
+def test_sort_slots_plain_is_a_stable_sort_with_its_runs(B, K, V):
+    """The slot plan: rows sorted, slots in slot order within a row, and
+    the runs of equal rows with their first positions, `starts[n_runs]`
+    the slot count; `sort_slots` on CPU tensors is the plain version."""
+    idx = np.random.default_rng(B + K).integers(0, V, (B, K)).astype(np.int32)
+    slots = E.sort_slots(torch.from_numpy(idx), V)
+    n = B * K
+    order = np.argsort(idx.reshape(-1), kind="stable")
+    assert np.array_equal(slots.order.numpy(), order)
+    assert np.array_equal(slots.rows.numpy(), idx.reshape(-1)[order])
+    uniq, first = np.unique(idx.reshape(-1)[order], return_index=True)
+    n_runs = int(slots.n_runs)
+    assert n_runs == uniq.size
+    assert np.array_equal(slots.run_rows.numpy()[:n_runs], uniq)
+    assert np.array_equal(slots.starts.numpy()[:n_runs + 1], np.append(first, n))
+    assert all(t.dtype == torch.int32 for t in (slots.rows, slots.order, slots.run_rows,
+                                                slots.starts, slots.n_runs))
+    assert (slots.rows.shape, slots.starts.shape, slots.n_runs.shape) == ((n,), (n + 1,), (1,))
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("B", [64, 512])
+def test_table_gradients_match_jax_grad(name, B):
+    """`loss_and_grads`' `embed` and `linear` gradients, now one backward
+    launch each (the gather's gradient in the embed launch), against
+    jax.grad of the reference's `deepfm_loss`.  At B = 512 the skewed
+    config's small fields give rows of hundreds of slots, so segments and
+    runs both cut.  Tolerance allclose(rtol=1e-5, atol=1e-7): each row is
+    a sum of up to B·F f32 terms, here in the kernel's segment order, in
+    XLA's scatter-add order there; the terms themselves (g_v + g_s per
+    slot) are one rounding in both."""
+    model, params, cfg, ref_cfg = _pair(name)
+    fields, labels = _batch(cfg, B, 3)
+    _, grads = C.loss_and_grads(model, C.train_params(model), torch.from_numpy(fields),
+                                torch.from_numpy(labels))
+    _, want = _ref_loss_and_grads(params, ref_cfg, fields, labels)
+    for k in ("embed", "linear"):
+        np.testing.assert_allclose(grads[k].numpy(), np.asarray(want[k]), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=k)
+
+
+@pytest.mark.parametrize("bag, sorter", [(E.embedding_bag, "sort_slots"),
+                                         (E.embedding_bag_plain, "sort_slots_plain")])
+def test_one_sort_per_loss_and_grads(monkeypatch, bag, sorter):
+    """Both backward launches of a step (linear's D = 1, embed's D = d with
+    the gather term) share one slot plan: its sort runs once per
+    `loss_and_grads`, and not at all in a forward without gradients."""
+    model, _, cfg, _ = _pair("smoke")
+    fields, labels = (torch.from_numpy(a) for a in _batch(cfg, 32, 0))
+    made = []
+    sort = getattr(E, sorter)
+    monkeypatch.setattr(E, sorter, lambda *a: made.append(a[0].shape) or sort(*a))
+    C.loss_and_grads(model, C.train_params(model), fields, labels, bag=bag)
+    assert made == [(32, cfg.n_fields)]
+    C.loss_and_grads(model, C.train_params(model), fields, labels, bag=bag)
+    assert len(made) == 2
+    with torch.no_grad():
+        M.deepfm_logits(model, fields, bag=bag)
+    assert len(made) == 2
+
+
+def _graph_nodes(fn) -> list:
+    seen, todo = [], [fn]
+    while todo:
+        node = todo.pop()
+        if node is None or any(node is x for x in seen):
+            continue
+        seen.append(node)
+        todo.extend(nxt for nxt, _ in node.next_functions)
+    return seen
+
+
+def test_no_index_backward_reaches_the_tables():
+    """The step's graph has no IndexBackward0 (whose backward is a dense
+    `index_put_` with accumulate): the tables' only parents are the bag's
+    Function, one node per table."""
+    model, _, cfg, _ = _pair("smoke")
+    fields, labels = (torch.from_numpy(a) for a in _batch(cfg, 16, 0))
+    leaves = {k: p.detach().requires_grad_() for k, p in C.train_params(model).items()}
+    logits = torch.func.functional_call(model, leaves, (fields,))
+    nodes = _graph_nodes(M.bce_with_logits(logits, labels).grad_fn)
+    names = [type(n).__name__ for n in nodes]
+    assert "IndexBackward0" not in names and not any("IndexPut" in x for x in names)
+    for table in ("embed", "linear"):
+        parents = [n for n in nodes if any(
+            getattr(nxt, "variable", None) is leaves[table] for nxt, _ in n.next_functions)]
+        if table == "linear":        # linear.view(V, 1)
+            assert [type(n).__name__ for n in parents] == ["ViewBackward0"]
+            parents = [n for n in nodes if any(nxt is parents[0] for nxt, _ in n.next_functions)]
+        assert [type(n).__name__ for n in parents] == ["_BagBackward"], table
+
+
+def test_slot_plan_refuses_other_indices():
+    idx = torch.zeros((3, 2), dtype=torch.int32)
+    table = torch.randn((4, 2), requires_grad=True)
+    with pytest.raises(ValueError, match="another index tensor"):
+        E.embedding_bag(table, idx.clone(), plan=E.SlotPlan(idx, 4))
+
+
 def test_plain_segment_matches_the_kernel_source():
     import pathlib
     import re
@@ -327,6 +492,19 @@ def test_plain_segment_matches_the_kernel_source():
 
     src = (pathlib.Path(build.CSRC) / "embedding_bag.cu").read_text()
     assert re.findall(r"constexpr int kSegment = (\d+);", src) == [str(E.SEGMENT)]
+
+
+def test_dense_tile_matches_the_kernel_source():
+    """`dense_rows` (the tests' and chip_smoke.py's CTA edges) follows
+    kTileFloats, and a CTA's rows keep its tile 16-byte aligned."""
+    import pathlib
+    import re
+
+    from repro_torch.hopper import build
+
+    src = (pathlib.Path(build.CSRC) / "embedding_bag.cu").read_text()
+    assert re.findall(r"constexpr int kTileFloats = (\d+);", src) == [str(E.TILE_FLOATS)]
+    assert [E.dense_rows(d) for d in (1, 3, 10, 40, 5000)] == [8192, 2728, 816, 204, 4]
 
 
 def test_bag_refuses_gradients_no_kernel_computes():

@@ -14,8 +14,10 @@ sum back to it.  The embedding bag sums in
 the plain version's order with no FMA contraction, so it too is held
 exactly, and the DeepFM forward through it equals the forward through the
 plain version.  So is the bag's backward, which sums each table row's
-slots in slot order; a small DeepFM train step through both bag kernels
-stays within 1e-6 of the step through their plain versions."""
+slots in slot order (with or without a gather's gradient, over a slot
+plan held equal to the plain sort's); a small DeepFM train step through
+both bag kernels stays within 1e-6 of the step through their plain
+versions."""
 import dataclasses
 
 import numpy as np
@@ -768,41 +770,90 @@ def test_embedding_bag_refuses_what_the_kernel_does_not_take(cuda_device):
         E.embedding_bag_backward(torch.ones((2, 4), device=cuda_device), idx, None, 10)
 
 
-def _backward_case(device, B, K, D, V, weighted, seed, hot=None):
+def _backward_case(device, B, K, D, V, weighted, seed, hot=None, gather=False):
     """grad_out (B, D), indices (B, K) into V rows (all into `hot` rows
-    when given: long runs), weights or None."""
+    when given: long runs), weights or None, the gather's gradient (B, K,
+    D) or None."""
     gen = torch.Generator(device=device).manual_seed(seed)
     idx = torch.randint(0, hot or V, (B, K), generator=gen, device=device, dtype=torch.int32)
     g = torch.randn((B, D), generator=gen, device=device)
     w = torch.rand((B, K), generator=gen, device=device) if weighted else None
-    return g, idx, w
+    x = torch.randn((B, K, D), generator=gen, device=device) if gather else None
+    return g, idx, w, x
+
+
+def _hold_backward(g, idx, w, x, V):
+    """Two launches bit-equal to each other and to the plain version, one
+    launch each (none for an empty output), the slot plan equal to the
+    plain sort's, and exact zeros on every row no slot touches."""
+    launches = E.embedding_bag_backward.launches
+    got = E.embedding_bag_backward(g, idx, w, V, extra=x)
+    again = E.embedding_bag_backward(g, idx, w, V, extra=x)
+    torch.cuda.synchronize()
+    assert E.embedding_bag_backward.launches == launches + (2 if got.numel() else 0)
+    assert got.shape == (V, g.shape[1]) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert torch.equal(got, E.embedding_bag_backward_plain(g, idx, w, V, extra=x))
+    slots, want = E.sort_slots(idx, V), E.sort_slots_plain(idx, V)
+    n_runs = int(want.n_runs)
+    assert torch.equal(slots.n_runs, want.n_runs)
+    for name in ("rows", "order"):
+        assert torch.equal(getattr(slots, name), getattr(want, name)), name
+    assert torch.equal(slots.run_rows[:n_runs], want.run_rows[:n_runs])
+    assert torch.equal(slots.starts[:n_runs + 1], want.starts[:n_runs + 1])
+    touched = torch.zeros(V, dtype=torch.bool, device=g.device)
+    touched[idx.reshape(-1).long()] = True
+    assert not got[~touched].any()
+    return got
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("gather", [False, True])
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("B, K, D, V, hot", [
     (4096, 39, 10, 200_000, None), (4096, 39, 1, 200_000, None), (2048, 13, 10, 5000, 16),
     (1000, 7, 40, 3000, None), (300, 1, 3, 50, None), (0, 39, 10, 100, None),
     (5, 0, 10, 100, None)])
 def test_embedding_bag_backward_bit_equal_and_deterministic(cuda_device, B, K, D, V, hot,
-                                                            weighted):
-    g, idx, w = _backward_case(cuda_device, B, K, D, V, weighted, seed=B + K + D, hot=hot)
-    launches = E.embedding_bag_backward.launches
-    got = E.embedding_bag_backward(g, idx, w, V)
-    again = E.embedding_bag_backward(g, idx, w, V)
-    torch.cuda.synchronize()
-    assert E.embedding_bag_backward.launches == launches + (2 if B * K else 0)
-    assert got.shape == (V, D) and got.dtype == torch.float32
-    assert torch.equal(got, again)
-    assert torch.equal(got, E.embedding_bag_backward_plain(g, idx, w, V))
-    touched = torch.zeros(V, dtype=torch.bool, device=cuda_device)
-    touched[idx.reshape(-1).long()] = True
-    assert not got[~touched].any()
+                                                            weighted, gather):
+    g, idx, w, x = _backward_case(cuda_device, B, K, D, V, weighted, seed=B + K + D, hot=hot,
+                                  gather=gather)
+    _hold_backward(g, idx, w, x, V)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [10, 1, 3])
+@pytest.mark.parametrize("case", ["ends touched", "ends untouched", "one row", "tail rows",
+                                  "no slots", "no rows"])
+def test_embedding_bag_backward_dense_write_edges(cuda_device, case, D):
+    """The dense write's edges: the first and last rows touched and
+    untouched, every slot in one row, row counts that are no multiple of a
+    CTA's rows (3 CTAs and 5 rows more), no slots, no rows."""
+    R = E.dense_rows(D)
+    V = 3 * R + 5
+    g, idx, w, x = _backward_case(cuda_device, 700, 39, D, V, True, seed=D, gather=True)
+    if case == "ends touched":
+        idx[0, 0], idx[-1, -1] = 0, V - 1
+    elif case == "ends untouched":
+        idx = idx.clamp(1, V - 2)
+    elif case == "one row":
+        idx = torch.full_like(idx, R + 1)
+    elif case == "tail rows":
+        idx = 3 * R + idx % 5
+    elif case == "no slots":
+        g, idx, w, x = g[:0], idx[:0], w[:0], x[:0]
+    else:
+        g, idx, w, x, V = g[:0], idx[:0], w[:0], x[:0], 0
+    got = _hold_backward(g, idx.contiguous(), w, x, V)
+    if case == "ends touched":
+        assert got[0].any() and got[-1].any()
+    if case == "no slots":
+        assert not got.any() and got.shape == (V, D)
 
 
 @pytest.mark.gpu
 def test_embedding_bag_autograd_takes_the_backward_kernel(cuda_device):
-    g, idx, w = _backward_case(cuda_device, 512, 39, 10, 4000, True, seed=3)
+    g, idx, w, x = _backward_case(cuda_device, 512, 39, 10, 4000, True, seed=3, gather=True)
     table = torch.randn((4000, 10), device=cuda_device, requires_grad=True)
     fwd, bwd = E.embedding_bag.launches, E.embedding_bag_backward.launches
     out = E.embedding_bag(table, idx, w)
@@ -812,12 +863,23 @@ def test_embedding_bag_autograd_takes_the_backward_kernel(cuda_device):
     with torch.inference_mode():
         E.embedding_bag(table, idx, w)
     assert E.embedding_bag_backward.launches == bwd + 1
+    # the gathered rows' gradient joins the same launch; two bags share one sort
+    first = torch.randn((4000, 1), device=cuda_device, requires_grad=True)
+    plan, sorts = E.SlotPlan(idx, 4000), E.sort_slots.calls
+    out, rows = E.embedding_bag(table, idx, w, gather=True, plan=plan)
+    lin = E.embedding_bag(first, idx, plan=plan)
+    got, got_first = torch.autograd.grad((out, rows, lin), (table, first), (g, x, g[:, :1]))
+    assert E.embedding_bag_backward.launches == bwd + 3 and E.sort_slots.calls == sorts + 1
+    assert torch.equal(rows, table.detach()[idx.long()])
+    assert torch.equal(got, E.embedding_bag_backward_plain(g, idx, w, 4000, extra=x))
+    assert torch.equal(got_first, E.embedding_bag_backward_plain(g[:, :1].contiguous(), idx,
+                                                                 None, 4000))
 
 
 @pytest.mark.gpu
 def test_deepfm_train_step_on_card_equals_plain_bags_and_cpu(cuda_device):
     """One small train step on the card: 2 forward and 2 backward bag
-    launches, params and moments within 1e-6 of the step through both
+    launches over one slot sort, params and moments within 1e-6 of the step through both
     plain versions (the bags are bit-equal to them); the loss and gradients
     as the CPU's (f32 GEMMs without TF32): loss within 1e-6, gradients
     allclose(rtol=1e-5, atol=1e-7), as the CPU parity tests hold them."""
@@ -837,8 +899,10 @@ def test_deepfm_train_step_on_card_equals_plain_bags_and_cpu(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         fwd, bwd = E.embedding_bag.launches, E.embedding_bag_backward.launches
+        sorts = E.sort_slots.calls
         p, s, loss = C.train_step(model, params, opt, fields, labels)
         assert (E.embedding_bag.launches - fwd, E.embedding_bag_backward.launches - bwd) == (2, 2)
+        assert E.sort_slots.calls - sorts == 1
         assert bool(torch.isfinite(loss))
         pp, ps, ploss = C.train_step(model, params, opt, fields, labels,
                                      bag=E.embedding_bag_plain)
