@@ -267,6 +267,54 @@ Phases, each fatal on failure:
                  equal, bit for bit, 20 steps then a fresh loop that restores
                  and runs 5; a failure raised at step 13 recovered.
 
+ 12. gnn     the GNN family (run after phase 11), every `[gnn]` line beside
+             the card's name and power limit:
+             (a) full_graph_sm's stand-in, `erdos_renyi(2708, avg_deg=2 ·
+                 10,556 / 2,708, seed 0)`, 1,433 random features: the split
+                 SpMV (`tc_spmv`) against its plain version at GIN's widths,
+                 L = 1,433 (layer 1, odd: the scalar stores), 64 (layers
+                 2-5) and 3, at T = 16 and 32 on int8 tiles: exact on a
+                 full-mantissa RHS (each lane's nonzeros on a greedy vertex
+                 set no vertex has two neighbours in, so each output is one
+                 term, as phase 2's), within 1e-5 on the features and randn;
+                 cold and warm ms per launch beside its plain version, the
+                 bound and `sparse_bsr_tensor @ rhs`.  gin-tu (5 layers,
+                 d_hidden 64, n_out 7) forward on `backend="tiled"` with
+                 every launch count set to 0 just before it: `tc_spmv` 5
+                 (one a layer), every other 0; within 1e-4 (scale-
+                 normalised) of the segment forward; its warm ms beside
+                 the segment forward's; with grad enabled it raises;
+             (b) minibatch_lg's stand-in, `erdos_renyi` at Reddit's 232,965
+                 vertices and about its 114.6 M half-edges (host seconds
+                 printed), the CSR built on the card (`NeighborSampler`,
+                 seconds printed): every masked-in slot of one
+                 `NeighborSampler` draw and of one cell tree (1,024 seeds,
+                 fanout (15, 10): 169,984 slots, 168,960 edges) a CSR
+                 neighbour of its parent;
+             (c) the train step of gin-tu, pna, egnn and mace on
+                 full_graph_sm (the graph of (a), segment backend),
+                 minibatch_lg (a 561 MB feature table, seeds and fanout
+                 slots drawn on the card each step, the cell's inline
+                 sampler) and molecule (`GraphBatchStream(128, 30, 64,
+                 16)`, one block-diagonal graph), `OptConfig(total_steps=
+                 1000)`, each through the port's own entry point
+                 (`full_graph_step`, `minibatch_step`, `molecule_step`):
+                 step 0's loss and every leaf's gradient norm within 1e-4
+                 (relative) of the CPU's on the same state dict and inputs
+                 (minibatch_lg on the step's first 128 seeds; PNA and EGNN
+                 in f64 on both, their f32 gradients being ill-
+                 conditioned), the same
+                 non-finite leaves; the loss finite and falling over 5
+                 steps on one batch; 10 more on fresh inputs, the median ms
+                 a step split by CUDA events recorded inside the step (its
+                 `loss_and_grads` wrapped, the model's forward hooked) into
+                 sampling (minibatch_lg's tree), forward (to the model's
+                 output), backward and optimizer, the peak device memory,
+                 no port kernel launched.  EGNN on molecule: its gradient
+                 is not finite (the reference's sqrt at the masked
+                 self-loops), so the loss must be finite, the non-finite
+                 leaves those of the CPU run, and no AdamW step runs.
+
 The last three lines of standard output are, in order: the kernels JSON
 object (one record per kernel), the card's name and power limit as
 nvidia-smi gives them, and `{"ok": true, "device": {...}}`.
@@ -549,30 +597,37 @@ def exact(errs: dict, name: str, got, want, what: str) -> None:
         errs[name] = max(errs.get(name, 0.0), max_err(a, b))
 
 
-def full_mantissa_rhs(tiled, lanes: int, gen):
-    """A G2 RHS on which every output of the dense SpMV is a single term:
+def full_mantissa_rhs(tiled, member, gen, what: str):
+    """An RHS on which every output of the dense SpMV is a single term:
     lane l holds ±(1 + k·2^-23)·2^e (k over all 23-bit mantissas, e in
-    [-20, 20]) on the lattice vertices (i, j) with (i mod 3, j mod 3) = (l //
-    3, l % 3), and 0 elsewhere.  Two such vertices lie 3 or more apart in i
-    or j, and an edge (lattice or diagonal shortcut) moves at most 1 in
-    each, so no vertex has two of them as neighbours; checked below with
-    the plain SpMV of their indicator."""
+    [-20, 20]) on the vertices of `member`'s column l ((n_padded, lanes)
+    bool), and 0 elsewhere.  No vertex may have two members of a lane as
+    neighbours; checked here with the plain SpMV of the indicator."""
     import torch
     from repro_torch.hopper import tc_spmv as K
 
-    n_rows, n_cols = G2_SHAPE
-    v = torch.arange(tiled.n_padded, device="cuda")
-    cls = (v // n_cols % 3) * 3 + v % n_cols % 3
-    member = (cls[:, None] == torch.arange(lanes, device="cuda")) & (v < n_rows * n_cols)[:, None]
     check(int(K.tc_spmv_plain(tiled, member.float()).max()) == 1,
-          "full-mantissa RHS: some row has two nonzero terms on a lane")
-    shape = (tiled.n_padded, lanes)
+          f"full-mantissa RHS ({what}): some row has two nonzero terms on a lane")
+    shape = tuple(member.shape)
     k = torch.randint(0, 1 << 23, shape, generator=gen, device="cuda")
     k[::5] = (1 << 23) - 1          # rounds up to the next power of two in bf16
     e = torch.randint(-20, 21, shape, generator=gen, device="cuda")
     sign = torch.randint(0, 2, shape, generator=gen, device="cuda") * 2 - 1
     x = torch.ldexp(1 + k.double() * 2.0 ** -23, e.double()) * sign
     return torch.where(member, x, 0.0).float()
+
+
+def g2_lattice_member(tiled, lanes: int):
+    """G2's full-mantissa lanes: lane l on the lattice vertices (i, j) with
+    (i mod 3, j mod 3) = (l // 3, l % 3).  Two such vertices lie 3 or more
+    apart in i or j, and an edge (lattice or diagonal shortcut) moves at
+    most 1 in each, so no vertex has two of them as neighbours."""
+    import torch
+
+    n_rows, n_cols = G2_SHAPE
+    v = torch.arange(tiled.n_padded, device="cuda")
+    cls = (v // n_cols % 3) * 3 + v % n_cols % 3
+    return (cls[:, None] == torch.arange(lanes, device="cuda")) & (v < n_rows * n_cols)[:, None]
 
 
 def phase_kernels(g2) -> dict:
@@ -601,7 +656,7 @@ def phase_kernels(g2) -> dict:
             rhs01[:, 0] = cand.float()
             rhs01[:, 1] = alive.float()
             rhs = torch.randn((tiled.n_padded, lanes), generator=gen, device="cuda")
-            full = full_mantissa_rhs(tiled, lanes, gen)
+            full = full_mantissa_rhs(tiled, g2_lattice_member(tiled, lanes), gen, what)
             err = 0.0
             for fl in (flags, None):
                 how = f"{what}, flags {'on' if fl is not None else 'off'}"
@@ -2705,6 +2760,484 @@ def phase_serve(g2) -> None:
     print(f"[serve] phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 12: the GNN family (GIN's tiled A x H, the train steps, the sampler)
+# --------------------------------------------------------------------------
+
+GNN_SEED = 0
+GIN_TILES = (16, 32)
+GIN_LANES = (1433, 64, 3)       # layer 1 (d_feat), layers 2-5 (d_hidden), an odd few
+GIN_TOL = 1e-4                  # tiled against segment forward, scale-normalised
+GNN_DESCENT_STEPS = 5           # the loss must fall over these, on one batch
+GNN_TIMED_STEPS = 10
+D2_SETS = 3                     # distance-2 vertex sets behind the full-mantissa RHS
+GNN_CPU_TOL = 1e-4              # step 0's loss and leaf gradient norms, card against CPU
+GNN_CPU_SEEDS = 128             # minibatch_lg's seeds in that comparison (of 1,024)
+GNN_CPU_F64 = ("pna", "egnn")   # compared in f64: f32 gradients ill-conditioned (hold_to_cpu)
+
+
+def gnn_graph(shape: dict, avg_deg: float):
+    """The shape's stand-in: erdos_renyi(n, avg_deg, GNN_SEED) on the card."""
+    from repro_torch.graphs.generators import erdos_renyi
+
+    return erdos_renyi(shape["n_nodes"], avg_deg=avg_deg, seed=GNN_SEED, device="cuda")
+
+
+def distance2_sets(g, count: int):
+    """`count` greedy vertex sets (random orders from GNN_SEED) in which no
+    vertex has two members as neighbours: a lane whose nonzeros lie on one
+    such set puts at most one term in each output of A × rhs."""
+    import numpy as np
+    import torch
+    from repro_torch.graphs.graph import build_csr
+
+    indptr, indices = build_csr(g)
+    rng = np.random.default_rng(GNN_SEED)
+    sets = []
+    for _ in range(count):
+        member = np.zeros(g.n_nodes, bool)
+        covered = np.zeros(g.n_nodes, bool)
+        for u in rng.permutation(g.n_nodes):
+            nb = indices[indptr[u]:indptr[u + 1]]
+            if not covered[nb].any():
+                member[u] = True
+                covered[nb] = True
+        sets.append(torch.from_numpy(member).cuda())
+    return sets
+
+
+def distance2_member(tiled, lanes: int, sets):
+    """GIN's full-mantissa lanes: lane l on distance-2 set l mod len(sets)."""
+    import torch
+
+    n = sets[0].numel()
+    member = torch.zeros((tiled.n_padded, lanes), dtype=torch.bool, device="cuda")
+    for i, s in enumerate(sets):
+        member[:n, i::len(sets)] = s[:, None]
+    return member
+
+
+def scale_err(got, want) -> float:
+    """max |got - want| / max |want|."""
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def phase_gin_kernel(g, feats, errs: dict) -> dict:
+    """(a) the split SpMV at GIN's shapes against its plain version: on a
+    full-mantissa RHS exactly, on the features (L = 1433) and randn lanes
+    within phase 2's 1e-5; cold and warm ms beside the bound and one
+    `sparse_bsr_tensor @ rhs`.  Returns the tilings by T."""
+    import torch
+    from repro_torch.core.tiling import build_block_tiles, dense_tile_mask
+    from repro_torch.hopper import tc_spmv as K
+
+    sets = distance2_sets(g, D2_SETS)
+    print(f"[gnn] (a) full_graph_sm stand-in: n={g.n_nodes} half-edges={g.n_edges}; "
+          f"distance-2 sets of {[int(s.sum()) for s in sets]} vertices", flush=True)
+    tilings = {}
+    for T in GIN_TILES:
+        tiled = build_block_tiles(g, tile_size=T)
+        tilings[T] = tiled
+        nt = tiled.n_tiles
+        bsr = torch.sparse_bsr_tensor(
+            tiled.row_starts.long(), tiled.tile_cols[:nt].long(),
+            dense_tile_mask(tiled.tiles[:nt], T).to(torch.float32),
+            size=(tiled.n_padded, tiled.n_padded), check_invariants=True)
+        flags = torch.ones(tiled.n_block_cols, dtype=torch.int32, device="cuda")
+        for L in GIN_LANES:
+            gen = torch.Generator(device="cuda").manual_seed(GNN_SEED + T + L)
+            what = f"T={T}, L={L}"
+            member = distance2_member(tiled, L, sets)
+            full = full_mantissa_rhs(tiled, member, gen, f"GIN {what}")
+            exact(errs, "tc_spmv", K.tc_spmv(tiled, full), K.tc_spmv_plain(tiled, full),
+                  f"GIN {what}, full-mantissa RHS")
+            if L == feats.shape[1]:
+                rhs = torch.nn.functional.pad(feats, (0, 0, 0, tiled.n_padded - g.n_nodes))
+            else:
+                rhs = torch.randn((tiled.n_padded, L), generator=gen, device="cuda")
+            got, want = K.tc_spmv(tiled, rhs), K.tc_spmv_plain(tiled, rhs)
+            err = max_err(got, want)
+            check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+                  f"split SpMV != plain at GIN {what}: max |err| {err}")
+            errs["tc_spmv"] = max(errs["tc_spmv"], err)
+            lib_err = max_err(bsr @ rhs, want)
+            check(lib_err <= 1e-4, f"BSR library product disagrees at GIN {what}: {lib_err}")
+            library_ms = time_ms(lambda: bsr @ rhs, cold=True)
+            ms, plain_ms, (p1, k1, k2, p2), warm = time_pair(
+                lambda: K.tc_spmv(tiled, rhs), lambda: K.tc_spmv_plain(tiled, rhs))
+            bound_ms, by, nbytes, ops = bound_spmv(tiled, flags, L, False)
+            print(f"[gnn] (a) tc_spmv GIN {what} ({tiled.n_tiles} tiles, {tiled.n_block_rows} "
+                  f"block-rows, {-(-L // 8)} lane passes): exact on the full-mantissa RHS, "
+                  f"max |err| {err:.3g} on {'the features' if L == feats.shape[1] else 'randn'}; "
+                  f"kernel {k1:.4f}/{k2:.4f} ms cold (warm {warm:.4f}), plain {p1:.4f}/{p2:.4f} "
+                  f"ms, sparse_bsr_tensor @ rhs {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                  f"{by} ({nbytes} B, {ops} ops)", flush=True)
+        del bsr
+    return tilings
+
+
+def phase_gin_forward(g, feats, tilings: dict) -> None:
+    """(a) GIN at gin-tu width (5 layers, d_hidden 64, n_out 7): the tiled
+    forward, one split-SpMV launch a layer, against the segment forward;
+    the tiled backend refuses to differentiate."""
+    import torch
+    from repro_torch.configs import gin_tu
+
+    model = gin_tu._init(feats.shape[1], 7, seed=GNN_SEED, device="cuda")
+    mask = g.edge_mask
+    s, r = g.senders, g.receivers
+    with torch.no_grad():
+        h_seg, out_seg = model(feats, s, r, mask)
+        seg_ms = time_ms(lambda: model(feats, s, r, mask), reps=10)
+        for T, tiled in tilings.items():
+            (h, out), launches = counted(
+                lambda: model(feats, s, r, mask, tiled=tiled, backend="tiled"))
+            others = {k: v for k, v in launches.items() if k != "tc_spmv" and v}
+            check(launches["tc_spmv"] == gin_tu.N_LAYERS and not others,
+                  f"GIN tiled forward T={T}: launches {launches}")
+            err_h, err_out = scale_err(h, h_seg), scale_err(out, out_seg)
+            check(err_h <= GIN_TOL and err_out <= GIN_TOL,
+                  f"GIN tiled vs segment T={T}: scale-normalised {err_h:.3g}, {err_out:.3g}")
+            tiled_ms = time_ms(lambda: model(feats, s, r, mask, tiled=tiled, backend="tiled"),
+                               reps=10)
+            print(f"[gnn] (a) GIN forward T={T} tiled: tc_spmv launches {launches['tc_spmv']} "
+                  f"(one a layer), every other kernel 0; against the segment forward h "
+                  f"{err_h:.3g}, logits {err_out:.3g} scale-normalised (tol {GIN_TOL}); "
+                  f"{tiled_ms:.4f} ms warm against segment {seg_ms:.4f} ms", flush=True)
+    try:
+        model(feats, s, r, mask, tiled=tilings[GIN_TILES[0]], backend="tiled")
+    except RuntimeError as e:
+        check("no gradient" in str(e), f"GIN tiled under grad raised {e!r}")
+    else:
+        fail("GIN tiled backend returned a result with grad enabled")
+    print("[gnn] (a) GIN tiled under grad: raises (no gradient through the launch)", flush=True)
+
+
+def phase_gnn_sampler(shape: dict):
+    """(b) The minibatch_lg stand-in: erdos_renyi at Reddit's 232,965
+    vertices and about its 114.6 M half-edges, the CSR by a stable sort on
+    the card, one NeighborSampler draw and one cell tree of 1,024 seeds at
+    fanout (15, 10): every masked-in child a CSR neighbour of its parent.
+    Returns (indptr, indices)."""
+    import torch
+    from repro_torch.configs import gnn_cells as C
+    from repro_torch.graphs.sampler import NeighborSampler, draws
+
+    t0 = time.perf_counter()
+    g = gnn_graph(shape, shape["n_edges"] / shape["n_nodes"])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(g, shape["fanout"])
+    torch.cuda.synchronize()
+    csr_s = time.perf_counter() - t0
+    n, indptr, indices = g.n_nodes, sampler.indptr, sampler.indices
+    del g
+    check(int(indptr[-1]) == indices.numel() and bool((indptr[1:] >= indptr[:-1]).all()),
+          "device CSR: indptr not a running count of the indices")
+    rows = torch.repeat_interleave(torch.arange(n, device="cuda"), indptr[1:] - indptr[:-1])
+    keys = rows * n + indices
+    del rows
+    check(bool((keys[1:] > keys[:-1]).all()), "device CSR: rows not sorted and distinct")
+
+    def neighbours(parent, child, mask) -> int:
+        parent, child = parent[mask].long(), child[mask].long()
+        want = parent * n + child
+        at = torch.searchsorted(keys, want).clamp(max=keys.numel() - 1)
+        check(bool((keys[at] == want).all()), "a sampled vertex is not a neighbour of its parent")
+        return int(mask.sum())
+
+    gen = torch.Generator(device="cuda").manual_seed(GNN_SEED)
+    B = shape["batch_nodes"]
+    seeds = torch.randperm(n, generator=gen, device="cuda")[:B].to(torch.int32)
+    sub = sampler.sample(seeds, draws(gen, B, sampler.fanout))
+    checked = 0
+    for k in range(1, len(sub.layers)):
+        parent = sub.layers[k - 1][..., None].expand(sub.layers[k].shape)
+        checked += neighbours(parent, sub.layers[k], sub.masks[k])
+    ids, snd, rcv, emask = C.minibatch_tree(indptr, indices, seeds,
+                                            draws(gen, B, shape["fanout"]))
+    checked += neighbours(ids[rcv.long()], ids[snd.long()], emask)
+    del keys
+    print(f"[gnn] (b) minibatch_lg stand-in: n={n} half-edges={indices.numel()} "
+          f"(erdos_renyi avg_deg {shape['n_edges'] / n:.4f}): generated in {gen_s:.3f} s "
+          f"(host symmetrise, copy to the card), CSR on the card in {csr_s:.3f} s; "
+          f"NeighborSampler fanout {shape['fanout']} and the cell's tree ({ids.numel()} slots, "
+          f"{snd.numel()} edges): all {checked} masked-in slots are CSR neighbours of their "
+          f"parents", flush=True)
+    return indptr, indices
+
+
+def gnn_cell_inputs(shape_name: str, shape: dict, full, mini):
+    """(step, args_at): the port's train step for the shape
+    (`C.full_graph_step`, `C.minibatch_step`, `C.molecule_step`), called
+    step(a, model, params, opt, *args), and step i -> its args on the
+    card: the whole graph every step; a fresh draw of seeds and fanout
+    slots; `GraphBatchStream` batch i."""
+    import torch
+    from repro_torch.configs import gnn_cells as C
+    from repro_torch.data.pipeline import GraphBatchStream
+    from repro_torch.graphs.sampler import draws
+
+    if shape_name == "full_graph_sm":
+        g, feats, coords, labels = full
+        args = (feats, coords, g.senders, g.receivers, g.edge_mask, labels)
+        return C.full_graph_step, lambda i: args
+    if shape_name == "minibatch_lg":
+        indptr, indices, feats_tab, coords_tab, labels_tab = mini
+
+        def mini_args(i):
+            gen = torch.Generator(device="cuda").manual_seed(GNN_SEED + 1000 + i)
+            B = shape["batch_nodes"]
+            seeds = torch.randperm(indptr.numel() - 1, generator=gen,
+                                   device="cuda")[:B].to(torch.int32)
+            return (draws(gen, B, shape["fanout"]), indptr, indices, feats_tab, coords_tab,
+                    labels_tab, seeds)
+        return C.minibatch_step, mini_args
+    stream = GraphBatchStream(shape["batch"], shape["n_nodes"], shape["n_edges"],
+                              shape["d_feat"], seed=GNN_SEED)
+    return C.molecule_step, lambda i: tuple(torch.from_numpy(x).cuda()
+                                            for x in stream.batch_at(i))
+
+
+def step_loss(a, model, shape_name: str, args):
+    """params -> the loss that the shape's step on `args` differentiates."""
+    from repro_torch.configs import gnn_cells as C
+
+    if shape_name == "full_graph_sm":
+        return lambda p: C.full_graph_loss(a, model, p, *args)
+    if shape_name == "minibatch_lg":
+        draws, indptr, indices, feats_tab, coords_tab, labels_tab, seeds = args
+        tree = C.minibatch_tree(indptr, indices, seeds, draws)
+        return lambda p: C.minibatch_loss(a, model, p, tree, feats_tab, coords_tab,
+                                          labels_tab, seeds)
+    return lambda p: C.molecule_loss(a, model, p, *args)
+
+
+def nonfinite_leaves(grads: dict) -> list:
+    import torch
+
+    return sorted(k for k, g in grads.items() if not bool(torch.isfinite(g).all()))
+
+
+def on_device(x, device, dtype):
+    """A tensor, or a tuple of them, on `device`, floats as `dtype`."""
+    if isinstance(x, tuple):
+        return tuple(on_device(y, device, dtype) for y in x)
+    return x.to(device, dtype) if x.is_floating_point() else x.to(device)
+
+
+def hold_to_cpu(a, state: dict, shape_name: str, shape: dict, args, label: str) -> tuple:
+    """Step 0's loss and gradients on the card against the CPU's for the
+    same state dict (`state`) and inputs (minibatch_lg: the step's first
+    GNN_CPU_SEEDS seeds and their draws).  The loss and each leaf's
+    gradient norm within GNN_CPU_TOL, relative; the non-finite leaves the
+    same set; a leaf the loss does not reach zero on both.  The archs of
+    GNN_CPU_F64 run the comparison in f64 on both sides: their f32
+    gradients are ill-conditioned (`tools/gnn_f32_spread.py`: two f32 runs
+    that differ only in the order of the edges put a leaf's norm up to
+    1e-4 apart for PNA, 6e-5 for EGNN, against 2e-7 for GIN and MACE), too
+    near the limit to tell a fault from rounding.  Returns (loss,
+    non-finite leaves, worst relative error)."""
+    import math
+
+    import torch
+    from repro_torch.configs import gnn_cells as C
+
+    if shape_name == "minibatch_lg":
+        draws, *rest, seeds = args
+        k = GNN_CPU_SEEDS
+        args = (tuple(u[:k] for u in draws), *rest, seeds[:k])
+    dtype = torch.float64 if a.arch_id in GNN_CPU_F64 else torch.float32
+    n_out = 1 if shape_name == "molecule" else shape["n_out"]
+    runs = []
+    for dev in ("cuda", "cpu"):
+        m = a.init(shape["d_feat"], n_out, seed=GNN_SEED, device=dev)
+        m.load_state_dict(state)
+        m.to(dtype)
+        loss, grads = C.loss_and_grads(step_loss(a, m, shape_name, on_device(args, dev, dtype)),
+                                       C.train_params(m))
+        runs.append((float(loss), grads))
+    (card_loss, card), (cpu_loss, cpu) = runs
+    bad = nonfinite_leaves(card)
+    check(bad == nonfinite_leaves(cpu),
+          f"{label}: non-finite leaves {bad} on the card, {nonfinite_leaves(cpu)} on the CPU")
+    worst = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    check(math.isfinite(card_loss) and worst <= GNN_CPU_TOL,
+          f"{label}: step 0's loss {card_loss} on the card, {cpu_loss} on the CPU")
+    for k in cpu:
+        if k in bad:
+            continue
+        got, want = float(card[k].double().norm()), float(cpu[k].double().norm())
+        if want == 0.0:
+            check(got == 0.0, f"{label}: {k}'s gradient is 0 on the CPU, not on the card")
+            continue
+        err = abs(got - want) / want
+        check(err <= GNN_CPU_TOL, f"{label}: {k}'s gradient norm {got} on the card, "
+              f"{want} on the CPU ({err:.3g} apart)")
+        worst = max(worst, err)
+    return card_loss, bad, worst
+
+
+class StepMarks:
+    """CUDA events inside the port's train step (`gnn_cells._step`): the
+    module's `loss_and_grads` is wrapped while the marks are on, and the
+    model's forward hooked, so a step called as the user calls it records
+    [start, loss_and_grads entered, model output, gradients, end]; `start`
+    and `end` are recorded by the caller around the step."""
+
+    def __init__(self, model):
+        self.model, self.marks = model, []
+
+    def new(self):
+        import torch
+
+        self.marks.append([torch.cuda.Event(enable_timing=True) for _ in range(5)])
+        self.marks[-1][0].record()
+
+    def __enter__(self):
+        from repro_torch.configs import gnn_cells as C
+
+        inner = self.inner = C.loss_and_grads
+
+        def loss_and_grads(*args, **kwargs):
+            self.marks[-1][1].record()
+            out = inner(*args, **kwargs)
+            self.marks[-1][3].record()
+            return out
+        C.loss_and_grads = loss_and_grads
+        self.hook = self.model.register_forward_hook(lambda *_: self.marks[-1][2].record())
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.configs import gnn_cells as C
+
+        C.loss_and_grads = self.inner
+        self.hook.remove()
+
+    def medians(self) -> dict:
+        return {name: statistics.median(m[i].elapsed_time(m[j]) for m in self.marks)
+                for name, i, j in (("step", 0, 4), ("sample", 0, 1), ("forward", 1, 2),
+                                   ("backward", 2, 3), ("optimizer", 3, 4))}
+
+
+def phase_gnn_cell(a, shape_name: str, shape: dict, step, args_at) -> None:
+    """(c) One cell, through the port's own train step (`step`): the loss
+    falls over GNN_DESCENT_STEPS steps on step 0's inputs; GNN_TIMED_STEPS
+    more on fresh inputs, each split by CUDA events (`StepMarks`) into
+    sampling (minibatch_lg's tree), forward (to the model's output),
+    backward (the rest of `loss_and_grads`) and optimizer
+    (`adamw_update`); the peak memory; then step 0's loss and gradients
+    held to the CPU's (`hold_to_cpu`), after the timing so that no CPU
+    work runs beside it.  EGNN's molecule gradient is not finite in the
+    reference and here: its forward and gradient run, the non-finite
+    leaves are the CPU's (`hold_to_cpu`), and no step is taken."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import gnn_cells as C
+    from repro_torch.train import adamw_init
+
+    n_out = 1 if shape_name == "molecule" else shape["n_out"]
+    model = a.init(shape["d_feat"], n_out, seed=GNN_SEED, device="cuda")
+    params = C.train_params(model)
+    opt = adamw_init(params)
+    nan_cell = a.arch_id == "egnn" and shape_name == "molecule"
+    label = f"{a.arch_id} {shape_name}"
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    args0 = args_at(0)
+    if not nan_cell:
+        losses = []
+        for _ in range(GNN_DESCENT_STEPS + 1):
+            params, opt, loss = step(a, model, params, opt, *args0)
+            losses.append(float(loss))
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"{label}: losses {losses} not finite or not falling")
+    marks = StepMarks(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers().values():
+        w.launches = 0
+    timed = []
+    with marks:
+        for i in range(1, GNN_TIMED_STEPS + 1):
+            args = args_at(i)
+            marks.new()
+            if nan_cell:
+                loss, _ = C.loss_and_grads(step_loss(a, model, shape_name, args), params)
+            else:
+                params, opt, loss = step(a, model, params, opt, *args)
+            marks.marks[-1][4].record()
+            timed.append(loss)
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers().items() if w.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    timed = [float(x) for x in timed]
+    check(all(np.isfinite(timed)), f"{label}: timed losses {timed}")
+    check(not counts, f"{label}: a train step launched port kernels {counts}")
+    parts = marks.medians()
+    n_leaves = len(params)
+    del model, params, opt, marks
+    loss0, bad, cpu_err = hold_to_cpu(a, state0, shape_name, shape, args0, label)
+    check(bool(bad) == nan_cell, f"{label}: non-finite gradient leaves {bad}")
+    if nan_cell:
+        mlps = sorted({k.split(".layers.")[0] if ".layers." in k else k for k in bad})
+        print(f"[gnn] (c) {label}: loss {loss0:.6g} finite; gradients non-finite in "
+              f"{len(bad)} of {n_leaves} leaves (of {', '.join(mlps)}), the CPU run's set: "
+              f"the reference's sqrt at the masked self-loops; no AdamW step", flush=True)
+    on_cpu = (f"step 0 against the CPU ({'f64' if a.arch_id in GNN_CPU_F64 else 'f32'}"
+              f"{f', first {GNN_CPU_SEEDS} seeds' if shape_name == 'minibatch_lg' else ''}): "
+              f"loss and leaf gradient norms within {cpu_err:.3g} (tol {GNN_CPU_TOL}); ")
+    fell = "" if nan_cell else (f"losses over {GNN_DESCENT_STEPS} steps on one batch "
+                                f"{[round(x, 6) for x in losses]} (falls); ")
+    sample = f"sample {parts['sample']:.3f}, " if shape_name == "minibatch_lg" else ""
+    print(f"[gnn] (c) {label}: {on_cpu}{fell}median ms a step over {GNN_TIMED_STEPS} "
+          f"{parts['step']:.3f} ({sample}forward {parts['forward']:.3f}, backward "
+          f"{parts['backward']:.3f}, optimizer {parts['optimizer']:.3f}"
+          f"{', none taken' if nan_cell else ''}); peak device memory {peak:.3f} GiB; "
+          f"port kernel launches 0", flush=True)
+    del state0, args0
+    torch.cuda.empty_cache()
+
+
+def phase_gnn(errs: dict) -> None:
+    """Phase 12: the GNN family on the card (see the module docstring)."""
+    import torch
+    from repro_torch.configs import GNN_ARCHS
+    from repro_torch.configs import gnn_cells as C
+
+    t_phase = time.perf_counter()
+    print(f"[gnn] card {card_line()}", flush=True)
+    sm = C.GNN_SHAPES["full_graph_sm"]
+    g = gnn_graph(sm, 2 * sm["n_edges"] / sm["n_nodes"])
+    gen = torch.Generator(device="cuda").manual_seed(GNN_SEED)
+    feats = torch.randn((g.n_nodes, sm["d_feat"]), generator=gen, device="cuda")
+    coords = torch.randn((g.n_nodes, 3), generator=gen, device="cuda")
+    labels = torch.randint(0, sm["n_out"], (g.n_nodes,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    tilings = phase_gin_kernel(g, feats, errs)
+    phase_gin_forward(g, feats, tilings)
+    del tilings
+
+    lg = C.GNN_SHAPES["minibatch_lg"]
+    indptr, indices = phase_gnn_sampler(lg)
+    n = indptr.numel() - 1
+    feats_tab = torch.randn((n, lg["d_feat"]), generator=gen, device="cuda")
+    coords_tab = torch.randn((n, 3), generator=gen, device="cuda")
+    labels_tab = torch.randint(0, lg["n_out"], (n,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+    inputs = {"full_graph_sm": (g, feats, coords, labels),
+              "minibatch_lg": (indptr, indices, feats_tab, coords_tab, labels_tab)}
+    for shape_name in ("full_graph_sm", "minibatch_lg", "molecule"):
+        shape = C.GNN_SHAPES[shape_name]
+        step, args_at = gnn_cell_inputs(shape_name, shape, inputs["full_graph_sm"],
+                                        inputs["minibatch_lg"])
+        for a in GNN_ARCHS.values():
+            phase_gnn_cell(a, shape_name, shape, step, args_at)
+    del inputs, indptr, indices, feats_tab, coords_tab, labels_tab, g, feats
+    torch.cuda.empty_cache()
+    print(f"[gnn] phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -2742,6 +3275,9 @@ def main() -> None:
     records += timing_train(train, errs)
     del train
     phase_train_loop()
+    phase_gnn(errs)
+    for r in records:               # the later phases' checks too
+        r["max_abs_err"] = errs[r["name"]]
     check(sorted(r["name"] for r in records) == sorted(KERNELS), "a kernel has no record")
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))

@@ -1,0 +1,229 @@
+"""The GNN family's cells (counterpart of `repro.configs.gnn_cells`): the
+assigned shapes and the train steps the reference's cell builders wrap.
+
+Each arch file (`gin_tu`, `pna`, `egnn`, `mace`) supplies a `GNNArch`:
+  init(d_in, n_out, *, seed, device) -> nn.Module
+  node_logits(model, params, feats, coords, s, r, mask) -> (N, n_out)
+  graph_energy(model, params, feats, coords, s, r, mask, n_graphs) -> (n_graphs,)
+  fwd_flops(n_nodes, n_edges, d_feat) -> float
+where `params` is a plain {state-dict name: tensor} dict run through the
+model by `torch.func.functional_call` (None: the model's own), so that a
+train step is out of place, as the reference's.
+
+The steps: `full_graph_step` (cross-entropy over every vertex),
+`minibatch_step` (the reference's inline sampler on the card: seeds, their
+fanout[0] neighbours and those's fanout[1] neighbours, flattened to a tree;
+cross-entropy over the seeds) and `molecule_step` (an energy MSE over a
+batch of molecules).  Each is a loss, its gradients by autograd and one
+`adamw_update` with the cells' `OptConfig(total_steps=1000)`.
+
+A molecule batch runs as one block-diagonal graph of B·N vertices, where
+the reference vmaps `graph_energy` over the molecules: the same function,
+since every op is local to a vertex or an edge, with the energy summed per
+molecule and PNA's δ taken per molecule (`n_graphs`).
+
+Left out, as `configs.deepfm` leaves them out: the `Cell` / mesh /
+sharding machinery and `_pad512` (dry-run shapes padded to shard over 512
+chips); the steps take the true sizes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch.func import functional_call
+
+from repro_torch.device import DeviceLike
+from repro_torch.graphs.sampler import sample_neighbors
+from repro_torch.train.optimizer import AdamWState, OptConfig, adamw_update
+
+GNN_SHAPES = {
+    "full_graph_sm": dict(n_nodes=2708, n_edges=10556, d_feat=1433, n_out=7),
+    "minibatch_lg": dict(
+        n_nodes=232965, n_edges=114_615_892, d_feat=602, n_out=41,
+        batch_nodes=1024, fanout=(15, 10),
+    ),
+    "ogb_products": dict(n_nodes=2_449_029, n_edges=61_859_140, d_feat=100, n_out=47),
+    "molecule": dict(n_nodes=30, n_edges=64, batch=128, d_feat=16),
+}
+TRAIN_OPT = OptConfig(total_steps=1000)     # every GNN cell's
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNArch:
+    arch_id: str
+    init: Callable          # (d_in, n_out, *, seed, device) -> nn.Module
+    node_logits: Callable   # (model, params, feats, coords, s, r, mask) -> (N, n_out)
+    graph_energy: Callable  # (model, params, feats, coords, s, r, mask, n_graphs) -> (n_graphs,)
+    fwd_flops: Callable     # (n_nodes, n_edges, d_feat) -> float
+
+
+def call(model: torch.nn.Module, params: Optional[Params], *args, **kwargs):
+    """model(*args, **kwargs) with `params`' values in place of its own."""
+    if params is None:
+        return model(*args, **kwargs)
+    return functional_call(model, params, args, kwargs)
+
+
+def per_graph_sum(x: torch.Tensor, n_graphs: int) -> torch.Tensor:
+    """(N,) values -> (n_graphs,) sums over equal contiguous blocks."""
+    return x.reshape(n_graphs, -1).sum(dim=1)
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
+    return torch.mean(lse - tgt)
+
+
+def train_params(model: torch.nn.Module) -> Params:
+    """The model's parameters as the plain dict the steps carry."""
+    return {k: v.detach() for k, v in model.named_parameters()}
+
+
+def loss_and_grads(loss_fn: Callable[[Params], torch.Tensor], params: Params
+                   ) -> Tuple[torch.Tensor, Params]:
+    """loss_fn(params) and its gradient with respect to each parameter; a
+    parameter the loss does not reach (MACE's first-layer residuals for
+    l > 0) gets zeros, as jax.grad gives."""
+    leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+    with torch.enable_grad():
+        loss = loss_fn(leaves)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(p) if g is None else g
+                           for (k, p), g in zip(leaves.items(), grads)}
+
+
+def _step(loss_fn, params: Params, opt: AdamWState, opt_cfg: OptConfig):
+    loss, grads = loss_and_grads(loss_fn, params)
+    params, opt, _ = adamw_update(opt_cfg, grads, opt, params)
+    return params, opt, loss
+
+
+# --------------------------------------------------------------------------
+# full graph
+# --------------------------------------------------------------------------
+
+def full_graph_loss(a: GNNArch, model, params: Optional[Params], feats, coords, senders,
+                    receivers, mask, labels) -> torch.Tensor:
+    """Mean cross-entropy of `node_logits` over every vertex."""
+    return _xent(a.node_logits(model, params, feats, coords, senders, receivers, mask), labels)
+
+
+def full_graph_step(a: GNNArch, model, params: Params, opt: AdamWState, feats, coords,
+                    senders, receivers, mask, labels, *, opt_cfg: OptConfig = TRAIN_OPT):
+    """full_graph_sm / ogb_products: returns (params, opt, loss)."""
+    return _step(lambda p: full_graph_loss(a, model, p, feats, coords, senders, receivers,
+                                           mask, labels), params, opt, opt_cfg)
+
+
+# --------------------------------------------------------------------------
+# sampled minibatch
+# --------------------------------------------------------------------------
+
+def minibatch_tree(indptr, indices, seeds, draws):
+    """The reference cell's inline sampler and tree flattening: (ids,
+    senders, receivers, edge_mask) over B + B·f1 + B·f1·f2 slots.  Unlike
+    `NeighborSampler`, a second-hop slot of a masked parent keeps its draw
+    from vertex 0's row; only its edge is masked (m2 & m1)."""
+    u1, u2 = draws
+    B, f1 = u1.shape
+    f2 = u2.shape[-1]
+    dev = seeds.device
+    l1, m1 = sample_neighbors(indptr, indices, seeds, u1)         # (B, f1)
+    l1 = torch.where(m1, l1, 0)
+    l2, m2 = sample_neighbors(indptr, indices, l1, u2)            # (B, f1, f2)
+    l2 = torch.where(m2, l2, 0)
+    m2 = m2 & m1[..., None]
+    ids = torch.cat([seeds, l1.reshape(-1), l2.reshape(-1)])
+    off1, off2 = B, B + B * f1
+    snd = torch.cat([off1 + torch.arange(B * f1, dtype=torch.int32, device=dev),
+                     off2 + torch.arange(B * f1 * f2, dtype=torch.int32, device=dev)])
+    rcv = torch.cat([torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(f1),
+                     off1 + torch.arange(B * f1, dtype=torch.int32,
+                                         device=dev).repeat_interleave(f2)])
+    emask = torch.cat([m1.reshape(-1), m2.reshape(-1)])
+    return ids, snd, rcv, emask
+
+
+def minibatch_loss(a: GNNArch, model, params: Optional[Params], tree, feats_tab, coords_tab,
+                   labels_tab, seeds) -> torch.Tensor:
+    """Cross-entropy of the seeds' logits on the sampled tree."""
+    ids, snd, rcv, emask = tree
+    idx = ids.long()
+    logits = a.node_logits(model, params, feats_tab[idx], coords_tab[idx], snd, rcv, emask)
+    return _xent(logits[: seeds.shape[0]], labels_tab[seeds.long()])
+
+
+def minibatch_step(a: GNNArch, model, params: Params, opt: AdamWState, draws, indptr, indices,
+                   feats_tab, coords_tab, labels_tab, seeds, *,
+                   opt_cfg: OptConfig = TRAIN_OPT):
+    """minibatch_lg: sample the tree from `draws` (`graphs.sampler.draws`
+    at the shape's fanout; the reference takes a PRNG key) and take one step on it."""
+    tree = minibatch_tree(indptr, indices, seeds, draws)
+    return _step(lambda p: minibatch_loss(a, model, p, tree, feats_tab, coords_tab,
+                                          labels_tab, seeds), params, opt, opt_cfg)
+
+
+# --------------------------------------------------------------------------
+# molecules
+# --------------------------------------------------------------------------
+
+def molecule_energies(a: GNNArch, model, params: Optional[Params], feats, coords, senders,
+                      receivers, mask) -> torch.Tensor:
+    """(B, N, d), (B, N, 3), (B, E) int32 ×2, (B, E) bool -> (B,) energies,
+    the B molecules as one block-diagonal graph."""
+    B, N, _ = feats.shape
+    offs = (torch.arange(B, device=feats.device, dtype=torch.int32) * N)[:, None]
+    return a.graph_energy(model, params, feats.reshape(B * N, -1), coords.reshape(B * N, 3),
+                          (senders + offs).reshape(-1), (receivers + offs).reshape(-1),
+                          mask.reshape(-1), B)
+
+
+def molecule_loss(a: GNNArch, model, params: Optional[Params], feats, coords, senders,
+                  receivers, mask, energy) -> torch.Tensor:
+    """Mean squared error of the molecules' energies."""
+    e = molecule_energies(a, model, params, feats, coords, senders, receivers, mask)
+    return torch.mean((e - energy) ** 2)
+
+
+def molecule_step(a: GNNArch, model, params: Params, opt: AdamWState, feats, coords, senders,
+                  receivers, mask, energy, *, opt_cfg: OptConfig = TRAIN_OPT):
+    """molecule: returns (params, opt, loss)."""
+    return _step(lambda p: molecule_loss(a, model, p, feats, coords, senders, receivers,
+                                         mask, energy), params, opt, opt_cfg)
+
+
+def gnn_smoke(a: GNNArch, device: DeviceLike = "cuda") -> None:
+    """A reduced full-graph forward, loss, gradients and energy: finite,
+    of the right shapes."""
+    from repro_torch.graphs.generators import erdos_renyi
+
+    g = erdos_renyi(120, avg_deg=5.0, seed=0, device=device)
+    dev = g.device
+    mask = g.edge_mask
+    s = torch.where(mask, g.senders, 0)
+    r = torch.where(mask, g.receivers, 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feats = torch.randn((g.n_nodes, 8), generator=gen, device=dev)
+    coords = torch.randn((g.n_nodes, 3), generator=gen, device=dev)
+    labels = torch.randint(0, 4, (g.n_nodes,), generator=gen, device=dev, dtype=torch.int32)
+    model = a.init(8, 4, seed=3, device=dev)
+    with torch.no_grad():
+        logits = a.node_logits(model, None, feats, coords, s, r, mask)
+    if logits.shape != (g.n_nodes, 4) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{a.arch_id} smoke logits: shape {tuple(logits.shape)}, "
+                             "not all finite")
+    loss, _ = loss_and_grads(
+        lambda p: full_graph_loss(a, model, p, feats, coords, s, r, mask, labels),
+        train_params(model))
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"{a.arch_id} smoke loss {float(loss)} not finite")
+    with torch.no_grad():
+        e = a.graph_energy(model, None, feats, coords, s, r, mask, 1)
+    if not bool(torch.isfinite(e).all()):
+        raise AssertionError(f"{a.arch_id} smoke energy {e.tolist()} not finite")

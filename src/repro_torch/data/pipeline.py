@@ -2,11 +2,11 @@
 `repro.data.pipeline`): each batch is a pure function of (seed, step), in
 numpy, so a stream here gives the same batches as the reference's for the
 same seed, and a restart that seeks to step k resumes the same sequence.
-`TokenStream` (LM batches), `ClickStream` (DeepFM) and `prefetch`, a
-background thread that buffers a stream ahead of its consumer.  The
-reference module imports JAX, so its numpy code is copied rather than
-imported.  `GraphBatchStream` and `shard_batch` wait for the GNN and
-distributed ports.
+`TokenStream` (LM batches), `ClickStream` (DeepFM), `GraphBatchStream`
+(molecule batches for the GNNs) and `prefetch`, a background thread that
+buffers a stream ahead of its consumer.  The reference module imports JAX,
+so its numpy code is copied rather than imported.  `shard_batch` waits for
+the distributed input feeding.
 """
 from __future__ import annotations
 
@@ -64,6 +64,41 @@ class ClickStream:
         return fields, labels
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
+class GraphBatchStream:
+    """Batched small molecules with static shapes: (feats (B,N,d) f32,
+    coords (B,N,3) f32, senders (B,E) int32, receivers (B,E) int32, mask
+    (B,E) bool, energy (B,) f32).  Edges are drawn with replacement; a
+    self-loop is masked out.  The target energy is a smooth invariant: the
+    sum of the masked-in edges' lengths."""
+
+    def __init__(self, batch: int, n_nodes: int = 30, n_edges: int = 64,
+                 d_feat: int = 16, seed: int = 0):
+        self.batch, self.n_nodes, self.n_edges = batch, n_nodes, n_edges
+        self.d_feat, self.seed = d_feat, seed
+
+    def batch_at(self, step: int):
+        rng = np.random.default_rng((self.seed, step))
+        B, N, E = self.batch, self.n_nodes, self.n_edges
+        coords = rng.standard_normal((B, N, 3)).astype(np.float32)
+        feats = rng.standard_normal((B, N, self.d_feat)).astype(np.float32)
+        senders = rng.integers(0, N, (B, E)).astype(np.int32)
+        receivers = rng.integers(0, N, (B, E)).astype(np.int32)
+        mask = (senders != receivers)
+        d = np.linalg.norm(
+            coords[np.arange(B)[:, None], senders]
+            - coords[np.arange(B)[:, None], receivers],
+            axis=-1,
+        )
+        energy = (d * mask).sum(axis=1).astype(np.float32)
+        return feats, coords, senders, receivers, mask, energy
+
+    def __iter__(self):
         step = 0
         while True:
             yield self.batch_at(step)

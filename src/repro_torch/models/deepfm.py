@@ -93,7 +93,7 @@ class DeepFM(nn.Module):
         self.linear = nn.Parameter(normal((V,)))
         self.bias = nn.Parameter(torch.zeros((), device=dev))
         self.mlp = MLP((cfg.n_fields * d,) + tuple(cfg.mlp_dims) + (1,),
-                       generator=generator, device=dev)
+                       generator=generator, device=dev, act=torch.relu)
         self.register_buffer("offsets", cfg.offsets.to(dev), persistent=False)
 
     def forward(self, fields: torch.Tensor, *, bag: Bag = embedding_bag) -> torch.Tensor:

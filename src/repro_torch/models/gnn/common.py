@@ -1,30 +1,42 @@
-"""Shared GNN substrate: the MLP (counterpart of `repro.models.gnn.common`'s
-`MLP`, `mlp_init` and `mlp_apply`).
+"""Shared GNN substrate (counterpart of `repro.models.gnn.common`): the MLP,
+the masked segment reductions and the message-passing primitive.
 
 The reference keeps an MLP as weights `ws[i]` of shape (in, out) applied as
 `x @ w + b`; here each layer is an `nn.Linear`, whose weight is (out, in),
-so carried weights are transposed (`models.deepfm.deepfm_params_from_numpy`).
+so carried weights are transposed (`models.gnn.gnn_params_from_numpy`,
+`models.deepfm.deepfm_params_from_numpy`).
+
+Message passing runs over raw edge arrays (senders, receivers, mask), as in
+the reference, so one forward serves full graphs, block-diagonal molecule
+batches and sampled trees.  The segment ops follow `jax.ops.segment_sum` /
+`segment_max` with `num_segments`: every id must lie in [0, num_segments)
+(callers route masked edges to vertex 0, as the reference's cells do), an
+empty segment sums to 0 and its max is -inf.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 
+Activation = Callable[[torch.Tensor], torch.Tensor]
+
 
 class MLP(nn.Module):
-    """f32 linear layers with ReLU between them and none after the last (the
-    deep tower DeepFM uses).  Initialised as the reference does: weights
-    normal with the He scale (2 / in)^0.5, biases zero, drawn from
-    `generator`."""
+    """f32 linear layers with `act` between them and none after the last
+    (SiLU by default, as the reference's `mlp_apply`).  Initialised as the
+    reference's `mlp_init`: weights normal with the He scale (2 / in)^0.5,
+    biases zero, drawn from `generator`."""
 
     def __init__(self, dims: Sequence[int], *, generator: torch.Generator,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", act: Activation = F.silu):
         super().__init__()
         dev = resolve_device(device)
+        self.act = act
         self.layers = nn.ModuleList()
         for i, o in zip(dims[:-1], dims[1:]):
             layer = nn.utils.skip_init(nn.Linear, i, o, device=dev)
@@ -37,5 +49,44 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         *hidden, last = self.layers
         for layer in hidden:
-            x = torch.relu(layer(x))
+            x = self.act(layer(x))
         return last(x)
+
+
+def segment_sum(x: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Σ of the rows of `x` by `segment_ids` into `num_segments` rows."""
+    out = x.new_zeros((num_segments,) + tuple(x.shape[1:]))
+    return out.index_add(0, segment_ids.long(), x)
+
+
+def segment_max(x: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Max of the rows of `x` by `segment_ids`; -inf where a segment is
+    empty.  Ties share the gradient evenly, as jax's scatter-max does."""
+    idx = segment_ids.long().view((-1,) + (1,) * (x.ndim - 1)).expand_as(x)
+    out = x.new_full((num_segments,) + tuple(x.shape[1:]), float("-inf"))
+    return out.scatter_reduce(0, idx, x, "amax")
+
+
+def segment_mean(x: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean of the (masked-in) rows of `x` by segment; 0 where none."""
+    if mask is not None:
+        x = torch.where(mask[..., None], x, 0)
+        ones = mask.to(x.dtype)
+    else:
+        ones = x.new_ones(x.shape[:-1])
+    s = segment_sum(x, segment_ids, num_segments)
+    cnt = segment_sum(ones, segment_ids, num_segments)
+    return s / torch.clamp(cnt, min=1.0)[..., None]
+
+
+def gather_scatter_sum(h: torch.Tensor, senders: torch.Tensor, receivers: torch.Tensor,
+                       mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Σ_{j∈N(i)} h_j, the canonical message-passing primitive."""
+    msg = torch.where(mask[:, None], h[senders.long()], 0)
+    return segment_sum(msg, receivers, n_nodes)
+
+
+def degrees_from_edges(receivers: torch.Tensor, mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """(n_nodes,) f32 count of masked-in edges into each vertex."""
+    return segment_sum(mask.to(torch.float32), receivers, n_nodes)

@@ -17,7 +17,10 @@ plain version.  So is the bag's backward, which sums each table row's
 slots in slot order (with or without a gather's gradient, over a slot
 plan held equal to the plain sort's); a small DeepFM train step through
 both bag kernels stays within 1e-6 of the step through their plain
-versions."""
+versions.  The GNN cases: the split SpMV at GIN's widths (1,433, 64 and 3
+lanes) as above, GIN's tiled forward within 1e-4 (scale-normalised) of its
+segment forward, and the sampler's CSR built on the card equal to
+`build_csr`, every sampled slot a neighbour of its parent."""
 import dataclasses
 
 import numpy as np
@@ -1347,3 +1350,83 @@ def test_sharded_solve_on_one_nccl_rank_equals_local(cuda_device):
     want = Solver(SolveOptions(placement="local", tile_size=16), device=cuda_device).solve(g)
     assert (res.placement, res.stats["n_shards"]) == ("sharded", 1)
     assert res.rounds == want.rounds and np.array_equal(res.in_mis, want.in_mis)
+
+
+# --------------------------------------------------------------------------
+# the GNN family: GIN's multi-lane split SpMV, GIN tiled, the sampler
+# --------------------------------------------------------------------------
+
+def _gin_graph(device):
+    """full_graph_sm's degree (2·10,556 / 2,708) on a tenth of its vertices."""
+    from repro_torch.graphs.generators import erdos_renyi
+
+    return erdos_renyi(271, avg_deg=2 * 10556 / 2708, seed=0, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1433, 64, 3])
+@pytest.mark.parametrize("T", [16, 32])
+def test_split_spmv_at_gin_widths_on_card(cuda_device, T, lanes):
+    """GIN's layer-1 width (odd, 180 lane passes), its hidden width and an
+    odd few: a 0/1 RHS exact, randn within 1e-5."""
+    t = build_block_tiles(_gin_graph(cuda_device), tile_size=T)
+    gen = torch.Generator(device=cuda_device).manual_seed(lanes)
+    rhs01 = (torch.rand((t.n_padded, lanes), generator=gen, device=cuda_device) < 0.5).float()
+    assert torch.equal(K.tc_spmv(t, rhs01), K.tc_spmv_plain(t, rhs01))
+    rhs = torch.randn((t.n_padded, lanes), generator=gen, device=cuda_device)
+    torch.testing.assert_close(K.tc_spmv(t, rhs), K.tc_spmv_plain(t, rhs), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [16, 32])
+def test_gin_tiled_forward_on_card(cuda_device, T):
+    """GIN's tiled forward on the card, one split-SpMV launch a layer,
+    against its segment forward (scale-normalised 1e-4); it refuses to
+    differentiate."""
+    from repro_torch.models.gnn import GIN
+
+    g = _gin_graph(cuda_device)
+    t = build_block_tiles(g, tile_size=T)
+    feats = torch.randn((g.n_nodes, 1433), generator=torch.Generator(
+        device=cuda_device).manual_seed(T), device=cuda_device)
+    model = GIN(1433, 64, 5, 7, device=cuda_device)
+    args = (feats, g.senders, g.receivers, g.edge_mask)
+    with torch.no_grad():
+        launches = K.tc_spmv.launches
+        h, out = model(*args, tiled=t, backend="tiled")
+        assert K.tc_spmv.launches == launches + 5
+        h_seg, out_seg = model(*args)
+    for a, b in ((h, h_seg), (out, out_seg)):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+    with pytest.raises(RuntimeError, match="no gradient"):
+        model(*args, tiled=t, backend="tiled")
+
+
+@pytest.mark.gpu
+def test_sampler_on_card(cuda_device):
+    """The CSR built on the card equals the host `build_csr`; every
+    masked-in slot of a sample and of the minibatch cell's tree is a CSR
+    neighbour of its parent."""
+    from repro_torch.configs import gnn_cells as C
+    from repro_torch.graphs.generators import erdos_renyi
+    from repro_torch.graphs.graph import build_csr
+    from repro_torch.graphs.sampler import NeighborSampler, draws
+
+    g = erdos_renyi(5000, avg_deg=3.0, seed=1, device=cuda_device)
+    sampler = NeighborSampler(g, (15, 10))
+    indptr, indices = build_csr(g)
+    assert np.array_equal(sampler.indptr.cpu().numpy(), indptr)
+    assert np.array_equal(sampler.indices.cpu().numpy(), indices)
+    nbrs = [set(indices[indptr[v]:indptr[v + 1]].tolist()) for v in range(g.n_nodes)]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    seeds = torch.randperm(g.n_nodes, generator=gen, device=cuda_device)[:64].to(torch.int32)
+    sub = sampler.sample(seeds, draws(gen, 64, sampler.fanout))
+    pairs = []
+    for k in range(1, len(sub.layers)):
+        parent = sub.layers[k - 1][..., None].expand(sub.layers[k].shape)
+        m = sub.masks[k]
+        pairs += zip(parent[m].tolist(), sub.layers[k][m].tolist())
+    ids, snd, rcv, emask = C.minibatch_tree(sampler.indptr, sampler.indices, seeds,
+                                            draws(gen, 64, (15, 10)))
+    pairs += zip(ids[rcv.long()][emask].tolist(), ids[snd.long()][emask].tolist())
+    assert pairs and all(c in nbrs[p] for p, c in pairs)

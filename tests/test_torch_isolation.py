@@ -44,6 +44,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.obs.promtext, repro_torch.obs.report\n"
         "import repro_torch.launch.serve_graphs\n"
         "import repro_torch.train, repro_torch.train.checkpoint, repro_torch.train.tree\n"
+        "import repro_torch.models.gnn, repro_torch.graphs.sampler, repro_torch.configs\n"
+        "import repro_torch.configs.gnn_cells, repro_torch.configs.gin_tu\n"
+        "import repro_torch.configs.pna, repro_torch.configs.egnn, repro_torch.configs.mace\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
