@@ -315,6 +315,49 @@ Phases, each fatal on failure:
                  self-loops), so the loss must be finite, the non-finite
                  leaves those of the CPU run, and no AdamW step runs.
 
+ 13. lm      LM serving (run after phase 12), every `[lm]` line beside the
+             card's name and power limit; weights from a seeded generator
+             on the card, prompts `TokenStream(vocab, B, S, seed=17)`'s
+             first batch, bf16 unless said; TF32 off:
+             (a) the main path: qwen3-0.6b's full CONFIG (28 layers, d
+                 1,024, vocab 151,936), 8 prompts of 512 tokens through
+                 `lm_cells.prefill_step` into a 32,768-slot cache
+                 (decode_32k's length, its batch of 128 cut to 8; 30.06 GB
+                 of cache), then 32 greedy steps of `lm_cells.serve_step`,
+                 with every kernel's launch count set to 0 just before and
+                 read just after (all 0: the LM runs none of the port's
+                 kernels); prefill ms, each step's ms by CUDA events (median
+                 printed) beside its bound (the weights but `embed` and the
+                 whole cache read once over HBM), cache bytes, peak memory,
+                 finite logits; one more step under torch.profiler (device
+                 busy share, the ten largest kernels);
+             (b) prefill_32k's length: 1 x 32,768 (its batch of 32 cut to
+                 1): ms and peak memory beside the work the recurrence does
+                 (every KV chunk for every query, 4·S²·H·d_h·L f32 FLOPs,
+                 plus the bf16 GEMMs) and its bound;
+             (c) the keystone at full width in f32: teacher-forced
+                 `decode_step` logits against `forward`'s, from a prefill
+                 of S - 4 tokens, rtol = atol = 2e-3, on qwen3-0.6b (B = 2,
+                 S = 512) and on mixtral-8x22b cut to 2 layers (capacity
+                 factor 8, window 4,096, B = 1: a prefill of 4,608 tokens
+                 whose last 4,096 fill the ring, then decode steps that
+                 overwrite its oldest slots);
+             (d) the other archs at full width: qwen1.5-0.5b whole,
+                 mixtral-8x22b 2 of 56 layers, deepseek-v3-671b 4 of 61 (3
+                 dense, 1 MoE, the MTP block), nemotron-4-340b 2 of 96; each
+                 prefill 2 x 1,024 then 16 greedy steps: the tree holds
+                 `param_count()` parameters (plus the leaves it leaves
+                 out), prefill ms, the step's median ms, peak memory,
+                 finite logits, each MoE layer's drop fraction, one more
+                 step profiled as in (a);
+             (e) card against CPU: the five SMOKE configs' weights drawn on
+                 the CPU and carried to the card as numpy
+                 (`lm_params_from_numpy`), prefill 2 x 12 and 4 decode
+                 steps in f32: logits within 1e-5 and every MoE call's
+                 expert ids equal;
+             (f) `python -m repro_torch.launch.serve` at its defaults exits
+                 0.
+
 The last three lines of standard output are, in order: the kernels JSON
 object (one record per kernel), the card's name and power limit as
 nvidia-smi gives them, and `{"ok": true, "device": {...}}`.
@@ -3238,6 +3281,341 @@ def phase_gnn(errs: dict) -> None:
     print(f"[gnn] phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+LM_SEED = 0
+LM_PROMPT_SEED = 17
+LM_MAIN = dict(batch=8, prompt=512, cache=32_768, steps=32)  # decode_32k's cache, batch 128 -> 8
+LM_CACHE_BYTES = 8 * 32_768 * 114_688                        # 28 layers x 2 x 8 heads x 128 x bf16
+LM_PREFILL_SEQ = 32_768                                      # prefill_32k's length, batch 32 -> 1
+LM_KEYSTONE_TOL = 2e-3
+# the keystone's runs in f32: arch -> (layers kept, batch, S, decode steps, max_len)
+LM_KEYSTONES = {"qwen3-0.6b": (None, 2, 512, 4, 513),
+                "mixtral-8x22b": (2, 1, 4612, 4, 8192)}    # prefill 4,608 into a ring of 4,096
+LM_ARCH_CUTS = {"qwen1.5-0.5b": None, "mixtral-8x22b": 2, "deepseek-v3-671b": 4,
+                "nemotron-4-340b": 2}                        # layers kept at full width
+LM_ARCH_SHAPE = dict(batch=2, prompt=1024, steps=16)
+LM_CPU_TOL = 1e-5
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 on the tensor cores
+
+
+def lm_prompts(cfg, batch: int, seq: int, device="cuda"):
+    import torch
+    from repro_torch.data.pipeline import TokenStream
+
+    toks = TokenStream(cfg.vocab, batch, seq, seed=LM_PROMPT_SEED).batch_at(0)[0]
+    return torch.from_numpy(toks).to(device)
+
+
+def lm_leaves(tree: dict, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from lm_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def lm_tree_params(cfg, params) -> tuple:
+    """The tree's parameter count, checked against `param_count()` plus the
+    leaves the analytic count (the reference's too) leaves out: qk-norm
+    weights, QKV biases and MLA's two latent norms in every layer and the
+    MTP block, and one of the MTP block's four norms."""
+    n = sum(v.numel() for _, v in lm_leaves(params))
+    blocks = cfg.n_layers + (1 if cfg.mtp else 0)
+    per_block = 2 * cfg.d_head if cfg.qk_norm else 0
+    per_block += (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.d_head if cfg.qkv_bias else 0
+    per_block += cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank if cfg.mla else 0
+    left_out = blocks * per_block + (cfg.d_model if cfg.mtp else 0)
+    check(n == cfg.param_count() + left_out,
+          f"{cfg.name}: {n} parameters, param_count() {cfg.param_count()} + {left_out}")
+    return n, left_out
+
+
+def lm_init(cfg):
+    import torch
+    from repro_torch.models import transformer as tf
+
+    return tf.init_lm(torch.Generator(device="cuda").manual_seed(LM_SEED), cfg)
+
+
+class MoEDrops:
+    """Records the drop fraction of every `moe_ffn` call the transformer
+    makes inside the block (device scalars, read once at the end)."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tf
+
+        self.tf, self.orig, self.fracs = tf, tf.moe_ffn, []
+
+        def recording(*args, **kw):
+            out, metrics = self.orig(*args, **kw)
+            self.fracs.append(metrics.drop_frac)
+            return out, metrics
+
+        tf.moe_ffn = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.tf.moe_ffn = self.orig
+
+
+def lm_decode(params, cfg, logits, cache, steps: int):
+    """`steps` greedy `serve_step`s; returns the logits of each step, the
+    last cache and each step's ms by CUDA events."""
+    import torch
+    from repro_torch.configs import lm_cells as C
+
+    out, ms = [], []
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = C.serve_step(params, cfg, cache, tok)
+        end.record()
+        out.append(logits)
+        ms.append((start, end))
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    return out, cache, [s.elapsed_time(e) for s, e in ms]
+
+
+def all_finite(tensors) -> bool:
+    import torch
+
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def phase_lm_main():
+    """(a): qwen3-0.6b at full width and depth serving a batch of 8."""
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.configs import lm_cells as C
+
+    cfg = LM_ARCHS["qwen3-0.6b"].CONFIG
+    params = lm_init(cfg)
+    n_params, left_out = lm_tree_params(cfg, params)
+    w_bytes = sum(v.numel() * v.element_size() for p, v in lm_leaves(params) if p != ("embed",))
+    B, P, L, n = LM_MAIN["batch"], LM_MAIN["prompt"], LM_MAIN["cache"], LM_MAIN["steps"]
+    prompts = lm_prompts(cfg, B, P)
+    C.prefill_step(params, cfg, prompts[:1, :64])           # warm-up at a short prompt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def serve():
+        t0 = time.perf_counter()
+        logits, cache = C.prefill_step(params, cfg, prompts, max_len=L)
+        torch.cuda.synchronize()
+        t_prefill = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        out, cache, step_ms = lm_decode(params, cfg, logits, cache, n)
+        return logits, out, cache, t_prefill, step_ms, (time.perf_counter() - t0) * 1e3
+
+    (logits, out, cache, t_prefill, step_ms, t_decode), launches = counted(serve)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(not any(launches.values()), f"the LM launched port kernels: {launches}")
+    check(cache.nbytes() == LM_CACHE_BYTES and cache.length == L, "qwen3-0.6b cache size")
+    check(int(cache.pos) == P + n, "cache position after the decode steps")
+    check(all_finite([logits] + out), "qwen3-0.6b logits not finite")
+    med = statistics.median(step_ms)
+    bound = (w_bytes + cache.nbytes()) / HBM_BYTES_PER_S * 1e3
+    print(f"[lm] (a) qwen3-0.6b full CONFIG ({cfg.param_count():,} parameters by param_count(), "
+          f"{n_params:,} in the tree with the {left_out:,} qk-norm weights; bf16), batch {B}: "
+          f"prefill {P} tokens into a {L:,}-slot cache {t_prefill:.3f} ms; {n} greedy decode "
+          f"steps {t_decode:.3f} ms ({B * n / t_decode * 1e3:.1f} tokens/s), step median "
+          f"{med:.3f} ms (min {min(step_ms):.3f}, max {max(step_ms):.3f}) against a bound of "
+          f"{bound:.3f} ms (weights but embed {w_bytes / 1e9:.3f} GB + cache "
+          f"{cache.nbytes() / 1e9:.3f} GB over HBM); peak device memory {peak:.3f} GiB; "
+          f"port kernel launches 0; card {card_line()}", flush=True)
+    tok = torch.argmax(out[-1], dim=-1).to(torch.int32)
+    profile_call(lambda: C.serve_step(params, cfg, cache, tok),
+                 f"qwen3-0.6b decode step (B = {B}, {L:,} slots)")
+    del cache, out, logits
+    torch.cuda.empty_cache()
+    return cfg, params
+
+
+def phase_lm_prefill_32k(cfg, params) -> None:
+    """(b): one prompt at prefill_32k's length."""
+    import torch
+    from repro_torch.configs import lm_cells as C
+
+    S = LM_PREFILL_SEQ
+    tokens = lm_prompts(cfg, 1, S)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = C.prefill_step(params, cfg, tokens)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all_finite([logits]) and cache.length == S and int(cache.pos) == S, "prefill_32k")
+    attn = 4.0 * S * S * cfg.n_heads * cfg.d_head * cfg.n_layers
+    gemm = 2.0 * S * (cfg.param_count() - 2 * cfg.vocab * cfg.d_model) + 2.0 * cfg.d_model * cfg.vocab
+    bound = (attn / F32_OPS_PER_S + gemm / BF16_OPS_PER_S) * 1e3
+    print(f"[lm] (b) qwen3-0.6b prefill 1 x {S:,}: {ms:.3f} ms, peak device memory "
+          f"{peak:.3f} GiB; work {attn:.3e} f32 FLOPs in the attention recurrence (every chunk "
+          f"for every query) + {gemm:.3e} bf16 GEMM FLOPs, bound {bound:.3f} ms "
+          f"(operations); card {card_line()}", flush=True)
+    del logits, cache
+    torch.cuda.empty_cache()
+
+
+def keystone(cfg, B: int, S: int, k: int, max_len: int, label: str) -> None:
+    """Teacher-forced decode logits against the forward's, from a prefill
+    of S - k tokens (the reference's test_decode_matches_forward)."""
+    import torch
+    from repro_torch.configs import lm_cells as C
+    from repro_torch.models import transformer as tf
+
+    params = lm_init(cfg)
+    tokens = lm_prompts(cfg, B, S)
+    h, _, _ = tf.forward(params, cfg, tokens)
+    full = (h[:, S - k - 1:] @ tf._head_weight(params)).to(torch.float32)
+    del h
+    logits, cache = C.prefill_step(params, cfg, tokens[:, :S - k], max_len=max_len)
+    errs = []
+    for i in range(k + 1):
+        if i:
+            logits, cache = C.serve_step(params, cfg, cache, tokens[:, S - k - 1 + i])
+        want = full[:, i]
+        over = float(((logits - want).abs() - LM_KEYSTONE_TOL * (1 + want.abs())).max())
+        check(over <= 0, f"{label}: decode diverges from the forward at position "
+                         f"{S - k - 1 + i} by {over:.3e} past rtol = atol = {LM_KEYSTONE_TOL}")
+        errs.append(float((logits - want).abs().max()))
+    print(f"[lm] (c) keystone {label}: prefill {S - k} then {k} decode steps (ring "
+          f"{cache.length:,}, last slot {(S - 1) % cache.length:,}) against the forward's "
+          f"logits: max |err| per position {', '.join(f'{e:.3e}' for e in errs)} "
+          f"(rtol = atol = {LM_KEYSTONE_TOL})", flush=True)
+    del params, cache, full, logits
+    torch.cuda.empty_cache()
+
+
+def phase_lm_archs() -> None:
+    """(d): the other four archs at full width, depth cut."""
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.configs import lm_cells as C
+
+    B, P, n = LM_ARCH_SHAPE["batch"], LM_ARCH_SHAPE["prompt"], LM_ARCH_SHAPE["steps"]
+    for arch, layers in LM_ARCH_CUTS.items():
+        full = LM_ARCHS[arch].CONFIG
+        cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        params = lm_init(cfg)
+        n_params, _ = lm_tree_params(cfg, params)
+        prompts = lm_prompts(cfg, B, P)
+        C.prefill_step(params, cfg, prompts, max_len=P + n)     # warm-up, same shapes
+        torch.cuda.synchronize()
+        with MoEDrops() as drops:
+            t0 = time.perf_counter()
+            logits, cache = C.prefill_step(params, cfg, prompts, max_len=P + n)
+            torch.cuda.synchronize()
+            t_prefill = (time.perf_counter() - t0) * 1e3
+            out, cache, step_ms = lm_decode(params, cfg, logits, cache, n)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all_finite([logits] + out), f"{arch}: logits not finite")
+        n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.moe else 0
+        fracs = torch.stack(drops.fracs).view(1 + n, n_moe).cpu() if n_moe else None
+        drop_txt = ("" if fracs is None else
+                    "; drop fraction per MoE layer: prefill "
+                    + ", ".join(f"{float(f):.4f}" for f in fracs[0])
+                    + ", decode (mean of steps) "
+                    + ", ".join(f"{float(f):.4f}" for f in fracs[1:].mean(0)))
+        depth = "whole" if layers is None else f"{layers} of {full.n_layers} layers"
+        print(f"[lm] (d) {arch} full width, {depth} ({n_params:,} parameters, bf16): prefill "
+              f"{B} x {P} {t_prefill:.3f} ms; {n} greedy steps, median {statistics.median(step_ms):.3f} "
+              f"ms; peak device memory {peak:.3f} GiB{drop_txt}; finite logits; card "
+              f"{card_line()}", flush=True)
+        tok = torch.argmax(out[-1], dim=-1).to(torch.int32)
+        profile_call(lambda: C.serve_step(params, cfg, cache, tok), f"{arch} decode step")
+        del params, cache, out, logits
+        torch.cuda.empty_cache()
+
+
+def lm_serve_trace(params, cfg, prompts, steps):
+    """Prefill, then the steps teacher-forced; every call's logits and every
+    MoE call's expert ids, on the host."""
+    from repro_torch.configs import lm_cells as C
+    from repro_torch.models import moe
+
+    experts, assign = [], moe.assign_slots
+
+    def recording(e, n_experts, capacity):
+        experts.append(e.cpu())
+        return assign(e, n_experts, capacity)
+
+    moe.assign_slots = recording
+    try:
+        logits, cache = C.prefill_step(params, cfg, prompts,
+                                       max_len=prompts.shape[1] + steps.shape[1])
+        out = [logits.cpu()]
+        for i in range(steps.shape[1]):
+            logits, cache = C.serve_step(params, cfg, cache, steps[:, i])
+            out.append(logits.cpu())
+    finally:
+        moe.assign_slots = assign
+    return out, experts
+
+
+def phase_lm_cpu() -> None:
+    """(e): the SMOKE configs on the card against the CPU, same weights."""
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.models import transformer as tf
+
+    for arch, mod in sorted(LM_ARCHS.items()):
+        cfg = mod.SMOKE
+        params = tf.init_lm(torch.Generator().manual_seed(LM_SEED), cfg)
+        tree: dict = {}
+        for path, v in lm_leaves(params):
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = v.numpy()
+        card = tf.lm_params_from_numpy(tree, cfg, device="cuda")
+        toks = lm_prompts(cfg, 2, 16, device="cpu")
+        want, want_e = lm_serve_trace(params, cfg, toks[:, :12], toks[:, 12:])
+        toks = toks.cuda()
+        got, got_e = lm_serve_trace(card, cfg, toks[:, :12], toks[:, 12:])
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        check(all_finite(got) and err <= LM_CPU_TOL, f"{arch} SMOKE: card vs CPU {err:.3e}")
+        check(len(got_e) == len(want_e) and all(torch.equal(a, b) for a, b in zip(got_e, want_e)),
+              f"{arch} SMOKE: expert ids differ between the card and the CPU")
+        print(f"[lm] (e) {arch} SMOKE card vs CPU: prefill 2 x 12 + 4 decode steps, max |logit "
+              f"err| {err:.3e} (<= {LM_CPU_TOL}), {len(got_e)} MoE calls with equal expert ids",
+              flush=True)
+
+
+def phase_lm_launcher() -> None:
+    """(f): the serve launcher as users run it."""
+    proc = run_module("repro_torch.launch.serve", timeout=300)
+    check(proc.returncode == 0,
+          f"python -m repro_torch.launch.serve exited {proc.returncode}: {proc.stderr[-2000:]}")
+    print("[lm] (f) python -m repro_torch.launch.serve (defaults): exit 0; "
+          + " | ".join(proc.stdout.strip().splitlines()), flush=True)
+
+
+def phase_lm() -> None:
+    """Phase 13: LM serving (see the module docstring)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    from repro_torch.configs import LM_ARCHS
+
+    cfg, params = phase_lm_main()
+    phase_lm_prefill_32k(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    for arch, (layers, B, S, k, max_len) in LM_KEYSTONES.items():
+        cfg = LM_ARCHS[arch].CONFIG
+        cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers, dtype=torch.float32)
+        if cfg.moe is not None:     # decode and forward see other token counts: drop nothing
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+        keystone(cfg, B, S, k, max_len,
+                 f"{arch} f32{'' if layers is None else f', {layers} layers'}")
+    phase_lm_archs()
+    phase_lm_cpu()
+    phase_lm_launcher()
+    print(f"[lm] phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -3276,6 +3654,7 @@ def main() -> None:
     del train
     phase_train_loop()
     phase_gnn(errs)
+    phase_lm()
     for r in records:               # the later phases' checks too
         r["max_abs_err"] = errs[r["name"]]
     check(sorted(r["name"] for r in records) == sorted(KERNELS), "a kernel has no record")

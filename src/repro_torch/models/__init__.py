@@ -1,1 +1,3 @@
-"""Models of the port (counterpart of `repro.models`): DeepFM for now."""
+"""Models of the port (counterpart of `repro.models`): DeepFM, the GNN
+family (`gnn`) and the LM family (`lm_config`, `attention`, `moe`,
+`transformer`)."""

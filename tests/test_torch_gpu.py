@@ -20,7 +20,11 @@ both bag kernels stays within 1e-6 of the step through their plain
 versions.  The GNN cases: the split SpMV at GIN's widths (1,433, 64 and 3
 lanes) as above, GIN's tiled forward within 1e-4 (scale-normalised) of its
 segment forward, and the sampler's CSR built on the card equal to
-`build_csr`, every sampled slot a neighbour of its parent."""
+`build_csr`, every sampled slot a neighbour of its parent.  The LM (no
+kernel of its own): each arch's `SMOKE` config served on the card against
+the same weights served on the CPU, prefill and four decode steps in f32,
+logits within 1e-5 and every MoE call's expert ids equal; and, without a
+card, the LM's entry points raising on CUDA."""
 import dataclasses
 
 import numpy as np
@@ -1430,3 +1434,82 @@ def test_sampler_on_card(cuda_device):
                                             draws(gen, 64, (15, 10)))
     pairs += zip(ids[rcv.long()][emask].tolist(), ids[snd.long()][emask].tolist())
     assert pairs and all(c in nbrs[p] for p, c in pairs)
+
+
+LM_CPU_TOL = 1e-5       # the LM on the card against the LM on the CPU, f32 logits
+
+
+def _lm_serve_trace(params, cfg, prompts, steps, monkeypatch):
+    """Prefill `prompts`, then feed `steps` (B, n) teacher-forced; returns
+    the logits of every call and the expert ids of every MoE call."""
+    from repro_torch.configs import lm_cells as C
+    from repro_torch.models import moe
+
+    experts = []
+    assign = moe.assign_slots
+
+    def recording(e, n_experts, capacity):
+        experts.append(e.cpu())
+        return assign(e, n_experts, capacity)
+
+    monkeypatch.setattr(moe, "assign_slots", recording)
+    logits, cache = C.prefill_step(params, cfg, prompts, max_len=prompts.shape[1] + steps.shape[1])
+    out = [logits.cpu()]
+    for i in range(steps.shape[1]):
+        logits, cache = C.serve_step(params, cfg, cache, steps[:, i])
+        out.append(logits.cpu())
+    monkeypatch.setattr(moe, "assign_slots", assign)
+    return out, experts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "mixtral-8x22b", "nemotron-4-340b",
+                                  "qwen1.5-0.5b", "qwen3-0.6b"])
+def test_lm_serving_on_card_equals_cpu(cuda_device, arch, monkeypatch):
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import transformer as tf
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = LM_ARCHS[arch].SMOKE
+    params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+    tree = {}
+
+    def to_numpy(src, dst):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                to_numpy(v, dst.setdefault(k, {}))
+            else:
+                dst[k] = v.numpy()
+
+    to_numpy(params, tree)
+    card = tf.lm_params_from_numpy(tree, cfg, device=cuda_device)
+    toks = torch.from_numpy(TokenStream(cfg.vocab, 2, 16, seed=17).batch_at(0)[0])
+    prompts, steps = toks[:, :12], toks[:, 12:]
+    cpu_logits, cpu_experts = _lm_serve_trace(params, cfg, prompts, steps, monkeypatch)
+    card_logits, card_experts = _lm_serve_trace(card, cfg, prompts.to(cuda_device),
+                                                steps.to(cuda_device), monkeypatch)
+    for got, want in zip(card_logits, cpu_logits):
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= LM_CPU_TOL
+    assert len(card_experts) == len(cpu_experts) == (0 if cfg.moe is None else
+                                                     5 * (cfg.n_layers - cfg.n_dense_layers))
+    assert all(torch.equal(a, b) for a, b in zip(card_experts, cpu_experts))
+
+
+def test_lm_entry_points_raise_on_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    cfg = LM_ARCHS["qwen3-0.6b"].SMOKE
+    with pytest.raises(RuntimeError, match="cuda"):
+        tf.init_decode_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tf.lm_params_from_numpy({}, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.init_lm(torch.Generator(device="cuda"), cfg)

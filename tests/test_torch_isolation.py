@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: `repro_torch` and chip_smoke.py import
-neither jax nor anything of the JAX reference package `repro`."""
+neither jax (nor `ml_dtypes`, its bf16 numpy dtype) nor anything of the JAX
+reference package `repro`."""
 import ast
 import os
 import pathlib
@@ -26,7 +27,7 @@ def _imported_modules(path):
 def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):
         root = mod.split(".")[0]
-        assert root not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+        assert root not in ("jax", "jaxlib", "ml_dtypes", "repro"), f"{path.name} imports {mod}"
 
 
 def test_importing_the_port_loads_no_jax():
@@ -47,7 +48,14 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.models.gnn, repro_torch.graphs.sampler, repro_torch.configs\n"
         "import repro_torch.configs.gnn_cells, repro_torch.configs.gin_tu\n"
         "import repro_torch.configs.pna, repro_torch.configs.egnn, repro_torch.configs.mace\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+        "import repro_torch.models.lm_config, repro_torch.models.attention\n"
+        "import repro_torch.models.moe, repro_torch.models.transformer\n"
+        "import repro_torch.configs.lm_cells, repro_torch.configs.qwen3_0_6b\n"
+        "import repro_torch.configs.qwen15_0_5b, repro_torch.configs.mixtral_8x22b\n"
+        "import repro_torch.configs.deepseek_v3_671b, repro_torch.configs.nemotron4_340b\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'ml_dtypes', 'repro'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
