@@ -358,6 +358,43 @@ Phases, each fatal on failure:
              (f) `python -m repro_torch.launch.serve` at its defaults exits
                  0.
 
+ 14. lm-train LM training (run after phase 13), every `[lm-train]` line
+             beside the card's name and power limit; weights from a seeded
+             generator on the card, batches `TokenStream(vocab, B, S,
+             seed=17)`, bf16, TF32 off, `OptConfig(total_steps=10000)`:
+             (a) the main path: qwen3-0.6b's full CONFIG at train_4k's
+                 length, S = 4,096, its batch of 256 cut to 16 (the largest
+                 power of two that fits), remat "full": one warm-up step
+                 (every leaf's gradient checked finite) and 3 timed steps
+                 through `lm_cells.make_lm_train_step`, with every kernel's
+                 launch count set to 0 just before and read just after (all
+                 0: the LM runs none of the port's kernels); each step split
+                 by CUDA events into forward (to the loss), backward and
+                 optimizer, the median beside its bound (6·N·B·S bf16 FLOPs
+                 at 989 T/s plus the recurrence's f32 FLOPs over every chunk,
+                 4x the forward's, at 67 T/s), peak memory, finite losses;
+                 one more step under torch.profiler;
+             (b) remat holds: qwen3-0.6b cut to 2 layers, 1 x 4,096: step
+                 0's loss and every leaf's gradient norm under remat
+                 "full", "dots" and off within 1e-6 (relative), each one's
+                 peak memory above the weights;
+             (c) the other archs at full width where their state fits one
+                 card: qwen1.5-0.5b whole at (a)'s batch, mixtral-8x22b 1 of
+                 56 layers and deepseek-v3-671b cut to its 3 dense layers
+                 (MLA, the MTP loss), each 1 x 4,096 with its state donated
+                 (in-place AdamW); one warm-up and 2 timed steps split as in
+                 (a), peak memory, finite losses and gradients, each MoE
+                 layer's drop fraction; one line says what waits (deepseek's
+                 MoE layers, nemotron-4-340b);
+             (d) card against CPU: the five SMOKE configs' weights drawn on
+                 the CPU and carried to the card as numpy, one f32 train step
+                 on each side: the loss, every updated leaf and both moments
+                 within rtol = atol = 1e-5, every MoE call's expert ids
+                 equal;
+             (e) `python -m repro_torch.launch.train` at its defaults
+                 (cpu-small, 200 steps) exits 0 with its last loss below
+                 ln(vocab) - 0.3.
+
 The last three lines of standard output are, in order: the kernels JSON
 object (one record per kernel), the card's name and power limit as
 nvidia-smi gives them, and `{"ok": true, "device": {...}}`.
@@ -366,6 +403,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -3529,29 +3567,51 @@ def phase_lm_archs() -> None:
         torch.cuda.empty_cache()
 
 
+class ExpertIds:
+    """Records, on the host, the expert ids of every MoE call made inside
+    the block (`moe.assign_slots` wrapped)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.assign, self.ids = moe, moe.assign_slots, []
+
+        def recording(e, n_experts, capacity):
+            self.ids.append(e.cpu())
+            return self.assign(e, n_experts, capacity)
+
+        moe.assign_slots = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.assign_slots = self.assign
+
+
+def lm_numpy_tree(params) -> dict:
+    """The tree's leaves as numpy arrays, as `lm_params_from_numpy` takes
+    them."""
+    tree: dict = {}
+    for path, v in lm_leaves(params):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v.numpy()
+    return tree
+
+
 def lm_serve_trace(params, cfg, prompts, steps):
     """Prefill, then the steps teacher-forced; every call's logits and every
     MoE call's expert ids, on the host."""
     from repro_torch.configs import lm_cells as C
-    from repro_torch.models import moe
 
-    experts, assign = [], moe.assign_slots
-
-    def recording(e, n_experts, capacity):
-        experts.append(e.cpu())
-        return assign(e, n_experts, capacity)
-
-    moe.assign_slots = recording
-    try:
+    with ExpertIds() as experts:
         logits, cache = C.prefill_step(params, cfg, prompts,
                                        max_len=prompts.shape[1] + steps.shape[1])
         out = [logits.cpu()]
         for i in range(steps.shape[1]):
             logits, cache = C.serve_step(params, cfg, cache, steps[:, i])
             out.append(logits.cpu())
-    finally:
-        moe.assign_slots = assign
-    return out, experts
+    return out, experts.ids
 
 
 def phase_lm_cpu() -> None:
@@ -3563,13 +3623,7 @@ def phase_lm_cpu() -> None:
     for arch, mod in sorted(LM_ARCHS.items()):
         cfg = mod.SMOKE
         params = tf.init_lm(torch.Generator().manual_seed(LM_SEED), cfg)
-        tree: dict = {}
-        for path, v in lm_leaves(params):
-            node = tree
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = v.numpy()
-        card = tf.lm_params_from_numpy(tree, cfg, device="cuda")
+        card = tf.lm_params_from_numpy(lm_numpy_tree(params), cfg, device="cuda")
         toks = lm_prompts(cfg, 2, 16, device="cpu")
         want, want_e = lm_serve_trace(params, cfg, toks[:, :12], toks[:, 12:])
         toks = toks.cuda()
@@ -3616,6 +3670,339 @@ def phase_lm() -> None:
     print(f"[lm] phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+LM_TRAIN_SEQ = 4096                  # train_4k's length
+# train_4k's global batch of 256 cut to the largest power of two that fits
+# one card: 16 peaks at 55.6 GiB (state 9 GB, ~2.4 GB a sequence for the
+# recomputed layer's recurrence), so 32 would need ~100
+LM_TRAIN_BATCH = 16
+LM_TRAIN_TIMED = 3                   # timed steps after one warm-up, (a)
+LM_TRAIN_ARCH_TIMED = 2              # the same, (c)
+LM_TRAIN_OPT = dict(total_steps=10000)   # the reference train cell's OptConfig
+LM_REMAT_TOL = 1e-6                  # (b): loss and leaf gradient norms, relative
+LM_REMAT_CUT = dict(layers=2, batch=1)
+# (c): arch -> (layers kept, dense layers only, batch, sequence, donate the state)
+LM_TRAIN_ARCHS = {
+    "qwen1.5-0.5b": (None, False, LM_TRAIN_BATCH, LM_TRAIN_SEQ, False),
+    "mixtral-8x22b": (1, False, 1, LM_TRAIN_SEQ, True),
+    "deepseek-v3-671b": (3, True, 1, LM_TRAIN_SEQ, True),
+}
+LM_TRAIN_CPU_TOL = 1e-5              # (d): rtol = atol on the loss, parameters and moments
+TRAIN_LM_DIR = ROOT / "build" / "train_lm"
+
+
+def lm_batch(cfg, B: int, S: int, i: int):
+    """Batch i of `TokenStream(vocab, B, S, seed=17)` on the card."""
+    import torch
+    from repro_torch.data.pipeline import TokenStream
+
+    return tuple(torch.from_numpy(a).cuda()
+                 for a in TokenStream(cfg.vocab, B, S, seed=LM_PROMPT_SEED).batch_at(i))
+
+
+class TrainMarks:
+    """CUDA events inside `lm_cells.make_lm_train_step`: `transformer.lm_loss`
+    and `lm_cells.adamw_update` are wrapped while the marks are on, so a
+    step called as the user calls it records [start, loss returned,
+    optimizer entered, end]; `start` and `end` are recorded by the caller
+    around the step.  With `check_grads`, the optimizer's wrapper also
+    lists the leaves whose gradient is not finite (outside the timing)."""
+
+    def __init__(self):
+        self.marks, self.check_grads, self.bad = [], False, None
+
+    def new(self):
+        import torch
+
+        self.marks.append([torch.cuda.Event(enable_timing=True) for _ in range(4)])
+        self.marks[-1][0].record()
+
+    def end(self):
+        self.marks[-1][3].record()
+
+    def __enter__(self):
+        from repro_torch.configs import lm_cells as C
+        from repro_torch.models import transformer as tf
+        from repro_torch.train import tree as T
+
+        self.loss, self.update = tf.lm_loss, C.adamw_update
+
+        def lm_loss(*args, **kw):
+            out = self.loss(*args, **kw)
+            self.marks[-1][1].record()
+            return out
+
+        def adamw_update(opt_cfg, grads, *args, **kw):
+            self.marks[-1][2].record()
+            if self.check_grads:
+                import torch
+
+                self.bad = [i for i, g in enumerate(T.leaves(grads))
+                            if not bool(torch.isfinite(g).all())]
+            return self.update(opt_cfg, grads, *args, **kw)
+
+        tf.lm_loss, C.adamw_update = lm_loss, adamw_update
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.configs import lm_cells as C
+        from repro_torch.models import transformer as tf
+
+        tf.lm_loss, C.adamw_update = self.loss, self.update
+
+    def medians(self, skip: int = 1) -> dict:
+        marks = self.marks[skip:]
+        return {name: statistics.median(m[i].elapsed_time(m[j]) for m in marks)
+                for name, i, j in (("step", 0, 3), ("forward", 0, 1), ("backward", 1, 2),
+                                   ("optimizer", 2, 3))}
+
+
+def lm_train_bound(cfg, B: int, S: int) -> tuple:
+    """(ms, bf16 FLOPs, f32 FLOPs): 6·N_active·B·S on the tensor cores in
+    bf16, plus the attention recurrence's f32 products over every KV chunk
+    (the masked half too) for every layer and the MTP block, 4x the
+    forward's (forward, remat recompute, and backward's two)."""
+    from repro_torch.configs import lm_cells as C
+
+    if cfg.mla is not None:
+        d_qk, d_v = cfg.mla.d_nope + cfg.mla.d_rope, cfg.mla.d_v
+    else:
+        d_qk = d_v = cfg.d_head
+    blocks = cfg.n_layers + (1 if cfg.mtp else 0)
+    f32 = 4 * 2.0 * S * S * cfg.n_heads * (d_qk + d_v) * blocks * B
+    bf16 = C.lm_train_flops(cfg, B, S)
+    return (bf16 / BF16_OPS_PER_S + f32 / F32_OPS_PER_S) * 1e3, bf16, f32
+
+
+def lm_train_steps(cfg, B: int, S: int, timed: int, donate: bool = False, drops: bool = False):
+    """One warm-up step (gradients checked finite) and `timed` more through
+    `make_lm_train_step`, each on the next batch; returns (the last state,
+    the losses, TrainMarks, peak GiB, drop fractions of the warm-up's
+    forward MoE calls, launches)."""
+    import torch
+    from repro_torch.configs import lm_cells as C
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+
+    params = lm_init(cfg)
+    opt = adamw_init(params)
+    step = C.make_lm_train_step(cfg, OptConfig(**LM_TRAIN_OPT), donate=donate)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        nonlocal params, opt
+        losses = []
+        with TrainMarks() as marks, MoEDrops() as moe:
+            for i in range(1 + timed):
+                marks.check_grads = i == 0
+                batch = lm_batch(cfg, B, S, i)
+                marks.new()
+                params, opt, loss, _ = step(params, opt, *batch)
+                marks.end()
+                losses.append(loss)
+                if i == 0:
+                    fracs = list(moe.fracs)
+        return losses, marks, fracs
+
+    (losses, marks, fracs), launches = counted(run)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.moe else 0
+    # the warm-up's forward calls come first; remat calls the layer again in backward
+    fracs = [float(f) for f in fracs[:n_moe]]
+    check(not marks.bad, f"{cfg.name}: gradient not finite in leaves {marks.bad}")
+    check(all_finite(losses), f"{cfg.name}: loss not finite: {[float(x) for x in losses]}")
+    return (params, opt, step), [float(x) for x in losses], marks, peak, fracs, launches
+
+
+def split_txt(marks) -> str:
+    m = marks.medians()
+    return (f"step median {m['step']:.3f} ms = forward {m['forward']:.3f} + backward "
+            f"{m['backward']:.3f} + optimizer {m['optimizer']:.3f}")
+
+
+def phase_lm_train_main() -> None:
+    """(a): qwen3-0.6b whole at train_4k's length."""
+    from repro_torch.configs import LM_ARCHS
+
+    cfg = LM_ARCHS["qwen3-0.6b"].CONFIG
+    B, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    (params, opt, step), losses, marks, peak, _, launches = lm_train_steps(
+        cfg, B, S, LM_TRAIN_TIMED)
+    check(not any(launches.values()), f"LM training launched port kernels: {launches}")
+    bound, bf16, f32 = lm_train_bound(cfg, B, S)
+    med = marks.medians()["step"]
+    print(f"[lm-train] (a) qwen3-0.6b full CONFIG ({cfg.param_count():,} parameters, bf16, "
+          f"remat {cfg.remat_policy!r}), batch {B} x {S:,} (train_4k's batch of 256 cut to "
+          f"{B}): 1 warm-up + {LM_TRAIN_TIMED} steps through make_lm_train_step, "
+          f"{split_txt(marks)} ({B * S / med * 1e3:,.0f} tokens/s); bound {bound:.3f} ms "
+          f"({bf16:.3e} bf16 FLOPs = 6 N B S at {BF16_OPS_PER_S / 1e12:.0f} T/s + {f32:.3e} f32 "
+          f"FLOPs in the recurrence at {F32_OPS_PER_S / 1e12:.0f} T/s), step / bound "
+          f"{med / bound:.2f}; peak device memory {peak:.3f} GiB; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; every leaf's gradient finite; port "
+          f"kernel launches 0; card {card_line()}", flush=True)
+    batch = lm_batch(cfg, B, S, LM_TRAIN_TIMED + 1)
+    profile_call(lambda: step(params, opt, *batch), f"qwen3-0.6b train step (B = {B}, S = {S:,})")
+
+
+def phase_lm_train_remat() -> None:
+    """(b): remat "full", "dots" and off give the same loss and gradients."""
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.configs import lm_cells as C
+
+    full = LM_ARCHS["qwen3-0.6b"].CONFIG
+    cfg = dataclasses.replace(full, n_layers=LM_REMAT_CUT["layers"])
+    B, S = LM_REMAT_CUT["batch"], LM_TRAIN_SEQ
+    params = lm_init(cfg)
+    batch = lm_batch(cfg, B, S, 0)
+    runs = {}
+    for label, remat, policy in (("off", False, "full"), ("full", True, "full"),
+                                 ("dots", True, "dots")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, _, grads = C.lm_loss_and_grads(
+            params, dataclasses.replace(cfg, remat=remat, remat_policy=policy), *batch)
+        norms = [float(g.double().norm()) for _, g in lm_leaves(grads)]
+        ms = (time.perf_counter() - t0) * 1e3
+        runs[label] = (float(loss), norms, (torch.cuda.max_memory_allocated() - base) / 2**30, ms)
+        del grads
+    want_loss, want = runs["off"][:2]
+    txt = []
+    for label, (loss, norms, peak, ms) in runs.items():
+        err = max([abs(loss - want_loss) / abs(want_loss)]
+                  + [abs(a - b) / b if b else float(a != 0.0) for a, b in zip(norms, want)])
+        check(math.isfinite(loss) and err <= LM_REMAT_TOL,
+              f"remat {label}: loss {loss} or a gradient norm {err:.3e} apart from remat off")
+        txt.append(f"{label}: loss {loss:.6f}, global gradient norm "
+                   f"{math.sqrt(sum(n * n for n in norms)):.6f}, worst relative difference "
+                   f"from off {err:.3e}, peak above the weights {peak:.3f} GiB, {ms:.0f} ms")
+    print(f"[lm-train] (b) remat on qwen3-0.6b, {LM_REMAT_CUT['layers']} of {full.n_layers} "
+          f"layers, {B} x {S:,}, step 0's loss and gradients (<= {LM_REMAT_TOL} relative): "
+          + "; ".join(txt) + f"; card {card_line()}", flush=True)
+
+
+def phase_lm_train_archs() -> None:
+    """(c): the other archs at full width where the state fits one card."""
+    import torch
+    from repro_torch.configs import LM_ARCHS
+
+    for arch, (layers, dense_only, B, S, donate) in LM_TRAIN_ARCHS.items():
+        full = LM_ARCHS[arch].CONFIG
+        cfg = full
+        if layers is not None:
+            cfg = dataclasses.replace(full, n_layers=layers,
+                                      n_dense_layers=layers if dense_only else full.n_dense_layers)
+        (params, opt, _), losses, marks, peak, fracs, _ = lm_train_steps(
+            cfg, B, S, LM_TRAIN_ARCH_TIMED, donate=donate)
+        n_params, _ = lm_tree_params(cfg, params)
+        del params, opt
+        torch.cuda.empty_cache()
+        bound, _, _ = lm_train_bound(cfg, B, S)
+        depth = ("whole" if layers is None else
+                 f"{layers} of {full.n_layers} layers"
+                 + (" (its dense layers)" if dense_only else ""))
+        drop = (f"; drop fraction per MoE layer {', '.join(f'{f:.4f}' for f in fracs)}"
+                if fracs else "")
+        print(f"[lm-train] (c) {arch} full width, {depth}{', MLA, MTP loss' if cfg.mtp else ''} "
+              f"({n_params:,} parameters, bf16), batch {B} x {S:,}, state "
+              f"{'donated (in-place AdamW)' if donate else 'out of place'}: 1 warm-up + "
+              f"{LM_TRAIN_ARCH_TIMED} steps, {split_txt(marks)}, bound {bound:.3f} ms; peak "
+              f"device memory {peak:.3f} GiB; losses {', '.join(f'{x:.4f}' for x in losses)}; "
+              f"every leaf's gradient finite{drop}; card {card_line()}", flush=True)
+    print("[lm-train] (c) deepseek-v3-671b's MoE layers (15.797 B parameters with one) and "
+          "nemotron-4-340b (12.891 B a layer) wait: their AdamW state does not fit one card "
+          f"without ZeRO-1 and moe_shardmap; card {card_line()}", flush=True)
+
+
+def lm_train_trace(params, opt, cfg, tokens, targets):
+    """One f32 train step; (loss, new params, new moments, every MoE call's
+    expert ids) on the host."""
+    from repro_torch.configs import lm_cells as C
+    from repro_torch.train.optimizer import OptConfig
+
+    with ExpertIds() as experts:
+        p, o, loss, _ = C.make_lm_train_step(cfg, OptConfig(**LM_TRAIN_OPT))(
+            params, opt, tokens, targets)
+    host = [v.cpu() for tree in (p, o.m, o.v) for _, v in lm_leaves(tree)]
+    return float(loss), host, experts.ids
+
+
+def phase_lm_train_cpu() -> None:
+    """(d): one SMOKE train step on the card against the CPU, same weights."""
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import adamw_init
+
+    for arch, mod in sorted(LM_ARCHS.items()):
+        cfg = mod.SMOKE
+        params = tf.init_lm(torch.Generator().manual_seed(LM_SEED), cfg)
+        card = tf.lm_params_from_numpy(lm_numpy_tree(params), cfg, device="cuda")
+        toks = lm_prompts(cfg, 2, 17, device="cpu")
+        want_loss, want, want_e = lm_train_trace(params, adamw_init(params), cfg,
+                                                 toks[:, :-1], toks[:, 1:])
+        toks = toks.cuda()
+        loss, got, got_e = lm_train_trace(card, adamw_init(card), cfg, toks[:, :-1], toks[:, 1:])
+        pairs = list(zip(got + [torch.tensor(loss)], want + [torch.tensor(want_loss)]))
+        over = max(float(((a - b).abs() - LM_TRAIN_CPU_TOL * (1 + b.abs())).max())
+                   for a, b in pairs)
+        err = max(float((a - b).abs().max()) for a, b in pairs)
+        check(math.isfinite(loss) and over <= 0,
+              f"{arch} SMOKE train step: card vs CPU {over:.3e} past rtol = atol = "
+              f"{LM_TRAIN_CPU_TOL}")
+        check(len(got_e) == len(want_e) and all(torch.equal(a, b) for a, b in zip(got_e, want_e)),
+              f"{arch} SMOKE train step: expert ids differ between the card and the CPU")
+        print(f"[lm-train] (d) {arch} SMOKE train step card vs CPU (f32, 2 x 16): loss "
+              f"{loss:.6f} (CPU {want_loss:.6f}); the loss, the {len(got) // 3} updated leaves and "
+              f"both moments within rtol = atol = {LM_TRAIN_CPU_TOL}, max |err| {err:.3e}; "
+              f"{len(got_e)} MoE calls (forward and remat recompute) with equal expert ids; "
+              f"card {card_line()}", flush=True)
+
+
+def phase_lm_train_launcher() -> None:
+    """(e): the train launcher as users run it, at its defaults."""
+    import shutil
+
+    shutil.rmtree(TRAIN_LM_DIR, ignore_errors=True)
+    TRAIN_LM_DIR.mkdir(parents=True)
+    log = TRAIN_LM_DIR / "log.jsonl"
+    t0 = time.perf_counter()
+    proc = run_module("repro_torch.launch.train", "--ckpt-dir", str(TRAIN_LM_DIR / "ckpt"),
+                      "--log", str(log), timeout=300)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"python -m repro_torch.launch.train exited {proc.returncode}: {proc.stderr[-2000:]}")
+    recs = [json.loads(line) for line in log.read_text().splitlines()]
+    recs = [r for r in recs if "loss" in r]
+    vocab = 2048            # small_variant's
+    last = recs[-1]["loss"]
+    check(math.isfinite(last) and last < math.log(vocab) - 0.3,
+          f"launch.train: last loss {last} not below ln({vocab}) - 0.3")
+    print(f"[lm-train] (e) python -m repro_torch.launch.train (cpu-small, its defaults: "
+          f"{len(recs)} steps) exit 0 in {secs:.1f} s: loss {recs[0]['loss']:.4f} at step 0, "
+          f"{last:.4f} at step {recs[-1]['step']} (< ln {vocab} - 0.3 = "
+          f"{math.log(vocab) - 0.3:.4f}), median step "
+          f"{statistics.median(r['dt'] for r in recs) * 1e3:.3f} ms; "
+          + " | ".join(proc.stdout.strip().splitlines()[:2]) + f"; card {card_line()}", flush=True)
+
+
+def phase_lm_train() -> None:
+    """Phase 14: LM training (see the module docstring)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    phase_lm_train_main()
+    torch.cuda.empty_cache()
+    phase_lm_train_remat()
+    torch.cuda.empty_cache()
+    phase_lm_train_archs()
+    phase_lm_train_cpu()
+    phase_lm_train_launcher()
+    print(f"[lm-train] phase 14: {time.perf_counter() - t_phase:.1f} s; card {card_line()}",
+          flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -3655,6 +4042,7 @@ def main() -> None:
     phase_train_loop()
     phase_gnn(errs)
     phase_lm()
+    phase_lm_train()
     for r in records:               # the later phases' checks too
         r["max_abs_err"] = errs[r["name"]]
     check(sorted(r["name"] for r in records) == sorted(KERNELS), "a kernel has no record")

@@ -5,6 +5,8 @@ vocab 129280, sigmoid (aux-free-style) router (counterpart of
 `repro.configs.deepseek_v3_671b`)."""
 import torch
 
+from repro_torch.configs.lm_cells import lm_smoke
+from repro_torch.device import DeviceLike
 from repro_torch.models.lm_config import LMConfig, MLAConfig, MoEConfig
 
 ARCH_ID = "deepseek-v3-671b"
@@ -32,3 +34,8 @@ SMOKE = LMConfig(
     mtp=True,
     dtype=torch.float32, attn_chunk=16, loss_chunk=16,
 )
+
+
+def smoke(device: DeviceLike = "cuda") -> None:
+    """One train step, a prefill and a decode step of `SMOKE` (`lm_smoke`)."""
+    lm_smoke(SMOKE, device=device)

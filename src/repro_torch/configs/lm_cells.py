@@ -1,21 +1,26 @@
 """The LM family's cells (counterpart of the LM part of
 `repro.configs.common`): the assigned shapes, the analytic FLOP counts,
-and the two serve steps the reference's prefill and decode cells lower.
+the train cell's step (`make_lm_train_step`), the two serve steps the
+reference's prefill and decode cells lower, and `lm_smoke`, which each
+arch module's `smoke` runs.
 
 Left out, as `gnn_cells` leaves them out: the `Cell` / `ArchDef` registry
 and the mesh, sharding and dry-run machinery (`_dryrun_cfg`,
 `_with_stack_layers`, `_needs_fsdp`, the cost passes' unrolled
-variants).  The train cell's step (`make_lm_train_step`) waits for the
-LM's training slice.
+variants).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.lm_config import LMConfig
+from repro_torch.train import tree as T
+from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
 
 LM_SHAPES = {
     "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
@@ -42,6 +47,35 @@ def lm_decode_flops(cfg: LMConfig, batch: int, cache: int) -> float:
     return batch * (2.0 * n + attn)
 
 
+def lm_loss_and_grads(params, cfg: LMConfig, tokens: torch.Tensor, targets: torch.Tensor):
+    """`transformer.lm_loss` and its gradient with respect to every leaf
+    of `params`: (loss, metrics, grads); a leaf the loss does not reach
+    gets zeros, as `jax.value_and_grad` gives."""
+    leaves, spec = T.flatten(params)
+    leaves = [p.detach().requires_grad_() for p in leaves]
+    with torch.enable_grad():
+        loss, metrics = tf.lm_loss(T.unflatten(spec, leaves), cfg, tokens, targets)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            T.unflatten(spec, grads))
+
+
+def make_lm_train_step(cfg: LMConfig, opt_cfg: OptConfig, *, donate: bool = False):
+    """The train cell's step: (params, opt_state, tokens, targets) ->
+    (params, opt_state, loss, xent), the loss's gradient through autograd
+    and one AdamW update.  With `donate` the step writes the new state
+    into the one it is given (`adamw_update(in_place=True)`), as a jitted
+    step that donates its state: one copy of the state, not two."""
+    def train_step(params, opt_state, tokens, targets):
+        loss, metrics, grads = lm_loss_and_grads(params, cfg, tokens, targets)
+        params, opt_state, _ = adamw_update(opt_cfg, grads, opt_state, params,
+                                            in_place=donate)
+        return params, opt_state, loss, metrics["xent"]
+
+    return train_step
+
+
 def prefill_step(params, cfg: LMConfig, tokens: torch.Tensor,
                  max_len: Optional[int] = None):
     """The prefill cell's step: (last logits, cache).  The cell sizes the
@@ -54,3 +88,27 @@ def serve_step(params, cfg: LMConfig, cache: tf.DecodeCache, tokens: torch.Tenso
     """The decode cell's step: one token per sequence against the cache,
     which it consumes (`transformer.decode_step`)."""
     return tf.decode_step(params, cfg, cache, tokens)
+
+
+def lm_smoke(cfg_small: LMConfig, device: DeviceLike = "cuda") -> None:
+    """One train step on a reduced config, then a prefill and a decode step
+    of the updated weights; raises unless the loss and the last logits are
+    finite and the tree and the logits keep their shapes."""
+    dev = resolve_device(device)
+    params = tf.init_lm(torch.Generator(device=dev).manual_seed(0), cfg_small)
+    opt = adamw_init(params)
+    B, S = 2, 32
+    tokens = torch.randint(0, cfg_small.vocab, (B, S), dtype=torch.int32, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    targets = torch.roll(tokens, -1, dims=1)
+    step = make_lm_train_step(cfg_small, OptConfig(total_steps=100))
+    params2, _, loss, _ = step(params, opt, tokens, targets)
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"{cfg_small.name} smoke loss not finite: {float(loss)}")
+    if T.flatten(params2)[1] != T.flatten(params)[1]:
+        raise AssertionError(f"{cfg_small.name} smoke: the step changed the tree")
+    _, cache = tf.prefill(params2, cfg_small, tokens, max_len=S + 4)
+    logits, _ = tf.decode_step(params2, cfg_small, cache, tokens[:, -1])
+    if tuple(logits.shape) != (B, cfg_small.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg_small.name} smoke logits: shape {tuple(logits.shape)}, "
+                             "not all finite")

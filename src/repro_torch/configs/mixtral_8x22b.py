@@ -6,6 +6,8 @@ The only assigned LM arch with sub-quadratic attention structure: its
 decode cache is a ring of `window` slots."""
 import torch
 
+from repro_torch.configs.lm_cells import lm_smoke
+from repro_torch.device import DeviceLike
 from repro_torch.models.lm_config import LMConfig, MoEConfig
 
 ARCH_ID = "mixtral-8x22b"
@@ -25,3 +27,8 @@ SMOKE = LMConfig(
     moe=MoEConfig(n_experts=4, top_k=2, d_expert=96),
     dtype=torch.float32, attn_chunk=16, loss_chunk=16,
 )
+
+
+def smoke(device: DeviceLike = "cuda") -> None:
+    """One train step, a prefill and a decode step of `SMOKE` (`lm_smoke`)."""
+    lm_smoke(SMOKE, device=device)

@@ -3,6 +3,8 @@ d_ff=73728 vocab=256000, squared-ReLU, no gating (counterpart of
 `repro.configs.nemotron4_340b`)."""
 import torch
 
+from repro_torch.configs.lm_cells import lm_smoke
+from repro_torch.device import DeviceLike
 from repro_torch.models.lm_config import LMConfig
 
 ARCH_ID = "nemotron-4-340b"
@@ -20,3 +22,8 @@ SMOKE = LMConfig(
     d_ff=256, vocab=128, act="relu2",
     dtype=torch.float32, attn_chunk=16, loss_chunk=16,
 )
+
+
+def smoke(device: DeviceLike = "cuda") -> None:
+    """One train step, a prefill and a decode step of `SMOKE` (`lm_smoke`)."""
+    lm_smoke(SMOKE, device=device)

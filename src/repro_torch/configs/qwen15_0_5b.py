@@ -3,6 +3,8 @@ d_ff=2816 vocab=151936, QKV bias, SwiGLU, RoPE (counterpart of
 `repro.configs.qwen15_0_5b`)."""
 import torch
 
+from repro_torch.configs.lm_cells import lm_smoke
+from repro_torch.device import DeviceLike
 from repro_torch.models.lm_config import LMConfig
 
 ARCH_ID = "qwen1.5-0.5b"
@@ -20,3 +22,8 @@ SMOKE = LMConfig(
     d_ff=128, vocab=128, qkv_bias=True, act="swiglu",
     dtype=torch.float32, attn_chunk=16, loss_chunk=16,
 )
+
+
+def smoke(device: DeviceLike = "cuda") -> None:
+    """One train step, a prefill and a decode step of `SMOKE` (`lm_smoke`)."""
+    lm_smoke(SMOKE, device=device)

@@ -3,6 +3,8 @@ d_ff=3072 vocab=151936, qk-norm, head_dim=128, SwiGLU (counterpart of
 `repro.configs.qwen3_0_6b`)."""
 import torch
 
+from repro_torch.configs.lm_cells import lm_smoke
+from repro_torch.device import DeviceLike
 from repro_torch.models.lm_config import LMConfig
 
 ARCH_ID = "qwen3-0.6b"
@@ -20,3 +22,8 @@ SMOKE = LMConfig(
     d_ff=128, vocab=128, qk_norm=True, act="swiglu",
     dtype=torch.float32, attn_chunk=16, loss_chunk=16,
 )
+
+
+def smoke(device: DeviceLike = "cuda") -> None:
+    """One train step, a prefill and a decode step of `SMOKE` (`lm_smoke`)."""
+    lm_smoke(SMOKE, device=device)

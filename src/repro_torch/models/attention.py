@@ -10,6 +10,13 @@ computed for every query (a chunk wholly above the causal diagonal or
 outside the window is masked, not skipped), and the arithmetic is f32
 whatever the input dtype.
 
+Serving fills the masked scores and takes their exp in place, in the
+score buffer itself.  When autograd records (grad enabled and q, k or v
+requiring grad) the same two steps run out of place, since `amax` has
+saved the scores for its backward; the values are the same bits.  Each
+layer's chunks are then kept for backward, which the training step's
+per-layer remat bounds to one layer at a time.
+
 Masked scores are filled with the finite -1e30, never -inf: a query whose
 first chunks are all masked gets m = -1e30 and exp(s - m) = 1 on them, and
 the first chunk with a live key wipes that sum through
@@ -100,6 +107,9 @@ def flash_attention(
         S = S + pad
     n_chunks = S // chunk
     dev = q.device
+    # autograd records: the scores it saves must not be overwritten
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
 
     # (B, Hkv, S·G, dq): row s·G + g is query s of head i·G + g
     qg = torch.empty((B, Hkv, S, G, dq), dtype=torch.float32, device=dev)
@@ -122,9 +132,13 @@ def flash_attention(
             mask = mask & (q_pos[:, None] >= k_pos[None, :])
         if window is not None:
             mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
-        s.view(B, Hkv, S, G, chunk).masked_fill_(~mask[:, None, :], _NEG_INF)
+        if grad:
+            s = s.view(B, Hkv, S, G, chunk).masked_fill(~mask[:, None, :], _NEG_INF)
+            s = s.view(B, Hkv, S * G, chunk)
+        else:
+            s.view(B, Hkv, S, G, chunk).masked_fill_(~mask[:, None, :], _NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = s.sub_(m_new[..., None]).exp_()
+        p = (s - m_new[..., None]).exp() if grad else s.sub_(m_new[..., None]).exp_()
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.matmul(p, v_j)

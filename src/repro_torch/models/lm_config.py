@@ -9,12 +9,13 @@ One config type covers all five assigned LM architectures:
   deepseek-v3    MoE 1 shared + 256 routed top-8, MLA, MTP, 3 dense lead layers
 
 The fields and defaults are the reference's, with `dtype` a torch dtype.
-Left out: the knobs that steer XLA and compute nothing here — `unroll`
-(scans unrolled for the dry-run's cost pass), `remat` / `remat_policy`
-(activation checkpointing of the training step), `dp_axes` (sharding
-hints), and the MoE's `shard_experts` / `buf_pspec` (layouts of the expert
-buffers over a mesh).  `fuse_qkv` and `fuse_gate` change the parameter
-tree, so they stay.
+`remat` / `remat_policy` steer the training step's per-layer activation
+checkpointing (`torch.utils.checkpoint`; "full" keeps only each layer's
+input, "dots" also the 2-D matmul outputs).  Left out: the knobs that
+steer XLA and compute nothing here — `unroll` (scans unrolled for the
+dry-run's cost pass), `dp_axes` (sharding hints), and the MoE's
+`shard_experts` / `buf_pspec` (layouts of the expert buffers over a mesh).
+`fuse_qkv` and `fuse_gate` change the parameter tree, so they stay.
 """
 from __future__ import annotations
 
@@ -66,6 +67,8 @@ class LMConfig:
     dtype: torch.dtype = torch.bfloat16
     attn_chunk: int = 512          # KV-chunk for the online-softmax attention
     loss_chunk: int = 1024         # sequence chunk for the fused xent loss
+    remat: bool = True             # activation checkpointing per layer
+    remat_policy: str = "full"     # full | dots (save 2-D matmul outputs)
     fuse_qkv: bool = False         # single (D, (H+2Hkv)·dh) projection
     fuse_gate: bool = False        # swiglu w1‖w3 fused the same way
 

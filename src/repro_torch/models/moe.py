@@ -1,6 +1,10 @@
 """Mixture-of-Experts layer (counterpart of `repro.models.moe`): top-k
 routing with capacity-bounded dispatch.
 
+Top-k routing keeps `jax.lax.top_k`'s tie rule (`top_k`): the bf16
+router logits of the full configs tie often, and a tie broken otherwise
+sends a token to other experts.
+
 Dispatch is sort-based, as in the reference: flatten the (N, k)
 assignments, sort them by expert id (stably, so a token keeps its place
 within its expert's run), and read each assignment's rank within its
@@ -50,17 +54,27 @@ def expert_capacity(n_tokens: int, cfg: MoEConfig) -> int:
     return ((cap + 7) // 8) * 8
 
 
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest entries of each row (last axis) and their indices, in
+    `jax.lax.top_k`'s order: descending value, the lower index first among
+    equal values (`torch.topk` breaks ties otherwise).  A stable descending
+    sort of the row gives that order; the values are gathered from `x`, so
+    they keep its gradient.  For router rows (E <= 256)."""
+    idx = torch.sort(x.detach(), dim=-1, descending=True, stable=True).indices[..., :k]
+    return torch.gather(x, -1, idx), idx
+
+
 def route_topk(
     logits: torch.Tensor, cfg: MoEConfig
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(N, E) logits -> (weights (N,k), experts (N,k) int32, probs (N,E))."""
     if cfg.router == "softmax":
         probs = torch.softmax(logits.to(torch.float32), dim=-1)
-        topv, topi = torch.topk(probs, cfg.top_k, dim=-1)
+        topv, topi = top_k(probs, cfg.top_k)
         w = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
     elif cfg.router == "sigmoid":  # DeepSeek-V3 aux-loss-free style gates
         scores = torch.sigmoid(logits.to(torch.float32))
-        topv, topi = torch.topk(scores, cfg.top_k, dim=-1)
+        topv, topi = top_k(scores, cfg.top_k)
         w = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
         probs = scores / torch.clamp_min(scores.sum(-1, keepdim=True), 1e-9)
     else:

@@ -1,5 +1,6 @@
 """Unified LM transformer covering all five assigned architectures
-(counterpart of `repro.models.transformer`, its serving half).
+(counterpart of `repro.models.transformer`): forward, the chunked
+cross-entropy loss, decode, and optional per-layer remat.
 
 Params are plain nested dicts of tensors with the reference's leaf names,
 shapes and dtypes: the layers are stacked on a leading axis
@@ -10,9 +11,16 @@ Feature matrix (selected per LMConfig):
   GQA / MHA, QKV bias, qk-norm, RoPE, sliding-window, squared-ReLU or SwiGLU,
   MoE (top-k, shared experts, leading dense layers), MLA, MTP block.
 
-Forward only: `forward`, `prefill`, `decode_step` and the decode cache.
-The loss (`chunked_xent`, `mtp_loss`, `lm_loss`) and the remat wrappers of
-the training step are not ported yet.
+Training: `lm_loss` is the next-token cross-entropy (`chunked_xent`), plus
+0.01 of the MoE load-balance loss and, with `cfg.mtp`, 0.3 of the depth-1
+multi-token-prediction loss (`mtp_loss`).  While autograd records,
+`chunked_xent` checkpoints each sequence chunk (`torch.utils.checkpoint`),
+so no (B, S, V) logits are held: a chunk's logits are made again in its
+backward.  Under `cfg.remat` each layer of `forward` is checkpointed the
+same way: "full" keeps only the layer's input, "dots" also its 2-D matmul
+outputs (`aten.mm` / `aten.addmm`, the counterpart of the reference's
+`dots_with_no_batch_dims_saveable`) and recomputes the rest, the attention
+recurrence's batched products included.
 
 Dtypes as in the reference: `rms_norm`, RoPE and attention compute in f32
 and cast back to the activations' dtype; the projections run in the
@@ -27,10 +35,17 @@ device tensor, so a decode step needs no host sync.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (
@@ -352,6 +367,38 @@ def _ffn_forward(
     return _dense_ffn(p, cfg, h), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _layer_forward(lp: Params, cfg: LMConfig, is_moe: bool, x: torch.Tensor,
+                   positions: torch.Tensor):
+    """One layer: returns (x after the layer, its aux loss, its kv tensors)."""
+    upd, kv = _attn_forward(lp["attn"], cfg, x, positions)
+    x = x + upd
+    upd, aux = _ffn_forward(lp["ffn"], cfg, x, is_moe)
+    return x + upd, aux, kv
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the 2-D matmuls' outputs (the projections), recompute the rest."""
+    return CheckpointPolicy.MUST_SAVE if op in _MATMULS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(policy: str, fn, *args):
+    """fn(*args) under `torch.utils.checkpoint`, remat policy "full" or "dots"."""
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    if policy == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    raise ValueError(f"remat_policy {policy!r}: expected 'full' or 'dots'")
+
+
+def _recording(*tensors: torch.Tensor) -> bool:
+    """Autograd records ops on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def forward(
     params: Params,
     cfg: LMConfig,
@@ -360,20 +407,24 @@ def forward(
     collect_kv: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[list]]:
     """Returns (hidden (B,S,D), total aux loss, kv caches or None).  The kv
-    caches are one dict per layer stack, each leaf (L_stack, B, S, ...)."""
+    caches are one dict per layer stack, each leaf (L_stack, B, S, ...).
+    While autograd records (and no kv is collected), `cfg.remat`
+    checkpoints each layer."""
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = []
+    remat = cfg.remat and not collect_kv and _recording(x)
     for stack, is_moe in _layer_stacks(params):
         layer_kvs = []
         for i in range(_stack_len(stack)):
             lp = _layer(stack, i)
-            upd, kv = _attn_forward(lp["attn"], cfg, x, positions)
-            x = x + upd
-            upd, aux = _ffn_forward(lp["ffn"], cfg, x, is_moe)
-            x = x + upd
+            if remat:
+                x, aux, kv = _checkpointed(cfg.remat_policy, _layer_forward, lp, cfg, is_moe,
+                                           x, positions)
+            else:
+                x, aux, kv = _layer_forward(lp, cfg, is_moe, x, positions)
             aux_total = aux_total + aux
             if collect_kv:
                 layer_kvs.append(kv)
@@ -385,6 +436,80 @@ def forward(
 
 def _head_weight(params: Params) -> torch.Tensor:
     return params["head"] if "head" in params else params["embed"].T
+
+
+# --------------------------------------------------------------------------
+# loss (chunked fused cross-entropy — never materialise (B,S,V))
+# --------------------------------------------------------------------------
+
+def _xent_chunk(hx: torch.Tensor, head: torch.Tensor, tx: torch.Tensor) -> torch.Tensor:
+    """Σ of the chunk's token NLLs over targets >= 0, in f32."""
+    logits = (hx @ head).to(torch.float32)                  # (B, chunk, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, tx.clamp_min(0)[..., None])[..., 0]
+    return torch.where(tx >= 0, lse - tgt, 0.0).sum()
+
+
+def chunked_xent(
+    h: torch.Tensor,            # (B, S, D)
+    head: torch.Tensor,         # (D, V)
+    targets: torch.Tensor,      # (B, S) int; -1 = ignore
+    chunk: int,
+) -> torch.Tensor:
+    """Mean next-token NLL over the targets >= 0, a sequence chunk at a
+    time; a ragged S (MTP's S - 1) is padded with ignored targets.  While
+    autograd records, each chunk is checkpointed: its (B, chunk, V)
+    logits are freed after the forward and made again in the backward."""
+    B, S, D = h.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+        S += pad
+    remat = _recording(h, head)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for j in range(S // chunk):
+        hx, tx = h[:, j * chunk:(j + 1) * chunk], targets[:, j * chunk:(j + 1) * chunk]
+        if remat:
+            tot = tot + checkpoint(_xent_chunk, hx, head, tx, use_reentrant=False)
+        else:
+            tot = tot + _xent_chunk(hx, head, tx)
+    cnt = (targets >= 0).sum()
+    return tot / torch.clamp_min(cnt, 1)
+
+
+def mtp_loss(params: Params, cfg: LMConfig, h: torch.Tensor, tokens: torch.Tensor
+             ) -> torch.Tensor:
+    """DeepSeek-V3 multi-token prediction (depth 1): position t predicts t+2."""
+    p = params["mtp"]
+    B, S, D = h.shape
+    e_next = params["embed"][tokens[:, 1:].long()]          # (B, S-1, D)
+    m = torch.cat([rms_norm(h[:, :-1], p["norm_h"]), rms_norm(e_next, p["norm_e"])],
+                  dim=-1) @ p["proj"]                       # (B, S-1, D)
+    positions = torch.arange(S - 1, dtype=torch.int32, device=h.device).expand(B, S - 1)
+    m, _, _ = _layer_forward(p["block"], cfg, False, m, positions)
+    m = rms_norm(m, params["final_norm"])
+    # position i of m sees tokens <= i and the embedding of token i+1: it
+    # predicts token i+2
+    targets = F.pad(tokens[:, 2:], (0, 1), value=-1)        # (B, S-1)
+    return chunked_xent(m, _head_weight(params), targets, cfg.loss_chunk)
+
+
+def lm_loss(
+    params: Params, cfg: LMConfig, tokens: torch.Tensor, targets: torch.Tensor,
+    *, aux_weight: float = 0.01, mtp_weight: float = 0.3,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total loss, {"xent", "aux"[, "mtp"]}), as the reference's."""
+    h, aux, _ = forward(params, cfg, tokens)
+    loss = chunked_xent(h, _head_weight(params), targets, cfg.loss_chunk)
+    metrics = {"xent": loss, "aux": aux}
+    total = loss + aux_weight * aux
+    if cfg.mtp:
+        lm = mtp_loss(params, cfg, h, tokens)
+        metrics["mtp"] = lm
+        total = total + mtp_weight * lm
+    return total, metrics
 
 
 # --------------------------------------------------------------------------

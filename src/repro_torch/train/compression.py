@@ -8,9 +8,12 @@ of tensors (`train.tree`):
     grads'   = decompress_tree(comp)          # what gets all-reduced
     ef'      = (grads + ef_residual) - grads' # stays local
 
-The top k of |g| come from `torch.topk`.  Where |g| ties across the k-th
-place, it may keep other positions than `jax.lax.top_k`; on continuous
-values (the tests draw them) the two keep the same set.
+The top k of |g| follow `jax.lax.top_k`: descending |g|, the lower
+position first among equal values, so the kept positions and their order
+are the reference's, ties included (`torch.topk` breaks ties otherwise).
+The selection is O(n) in the leaf's size: the k-th largest value, every
+position above it, and the lowest-positioned ties to make up k; only the k
+kept entries are sorted.
 """
 from __future__ import annotations
 
@@ -31,10 +34,20 @@ def _is_compressed(x) -> bool:
     return isinstance(x, CompressedLeaf)
 
 
+def top_k_positions(a: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the k largest entries of the flat tensor `a`, in
+    `jax.lax.top_k`'s order (descending value, lower position first)."""
+    kth = torch.kthvalue(a, a.numel() - k + 1).values          # the k-th largest
+    above = torch.nonzero(a > kth).view(-1)
+    ties = torch.nonzero(a == kth).view(-1)[:k - above.numel()]
+    idx = torch.sort(torch.cat([above, ties])).values           # position order
+    return idx[torch.sort(a[idx], descending=True, stable=True).indices]
+
+
 def compress_leaf(g: torch.Tensor, ratio: float) -> CompressedLeaf:
     flat = g.reshape(-1).float()
     k = max(1, int(flat.numel() * ratio))
-    _, idx = torch.topk(flat.abs(), k)
+    idx = top_k_positions(flat.abs(), k)
     return CompressedLeaf(values=flat[idx], indices=idx.to(torch.int32), size=flat.numel())
 
 

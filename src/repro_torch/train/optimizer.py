@@ -6,7 +6,9 @@ Over trees of tensors (`train.tree`).  Moments are f32 whatever the
 parameters' dtype; decoupled weight decay applies to tensors of ndim >= 2
 only; `grad_norm` in the metrics is taken before clipping.  The update is
 out of place, as the reference's: it returns new parameters and moments,
-so a caller that retries a step still holds the last good state.  The
+so a caller that retries a step still holds the last good state; a caller
+that cannot hold two copies of the state asks for `in_place`, the
+counterpart of donating the state to the jitted step.  The
 step, the learning rate and the bias corrections stay tensors on the
 parameters' device (no host sync).  `zero1_specs` (the sharded moments)
 waits for the distributed port.
@@ -22,6 +24,10 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.train import tree as T
+
+# elements a block of the in-place update touches at a time: its f32
+# temporaries stay a few blocks in size whatever the leaf's
+_BLOCK = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,28 +75,45 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in T.leaves(tree)))
 
 
-def adamw_update(cfg: OptConfig, grads, state: AdamWState, params):
-    """Returns (new_params, new_state, metrics {grad_norm, lr})."""
+def adamw_update(cfg: OptConfig, grads, state: AdamWState, params, *, in_place: bool = False):
+    """Returns (new_params, new_state, metrics {grad_norm, lr}).
+
+    With `in_place` the new parameters and moments are written into
+    `params` and `state`'s moments, which the caller gives up (as buffers
+    donated to `jax.jit`), a block of `_BLOCK` elements at a time: the
+    update then needs no second copy of the state, and its values are the
+    same bits as the out-of-place update's."""
     gnorm = global_norm(grads)
     g_leaves, spec = T.flatten(grads)
+    scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-        g_leaves = [g * scale for g in g_leaves]
     step = state.step + 1
     lr = schedule(cfg, step)
     b1c = 1 - torch.pow(cfg.b1, step.float())
     b2c = 1 - torch.pow(cfg.b2, step.float())
 
-    def upd(g, m, v, p):
-        gf = g.float()
+    def upd(g, m, v, p, decay: bool):
+        gf = (g if scale is None else g * scale).float()
         m2 = cfg.b1 * m + (1 - cfg.b1) * gf
         v2 = cfg.b2 * v + (1 - cfg.b2) * gf * gf
         delta = (m2 / b1c) / (torch.sqrt(v2 / b2c) + cfg.eps)
-        if p.ndim >= 2:  # decoupled weight decay on matrices only
+        if decay:  # decoupled weight decay on matrices only
             delta = delta + cfg.weight_decay * p.float()
         return (p.float() - lr * delta).to(p.dtype), m2, v2
 
-    triples = [upd(g, m, v, p) for g, m, v, p in
+    def upd_into(g, m, v, p):
+        flat = [g.reshape(-1), m.view(-1), v.view(-1), p.view(-1)]
+        for lo in range(0, p.numel(), _BLOCK):
+            gb, mb, vb, pb = (x[lo:lo + _BLOCK] for x in flat)
+            p2, m2, v2 = upd(gb, mb, vb, pb, p.ndim >= 2)
+            pb.copy_(p2)
+            mb.copy_(m2)
+            vb.copy_(v2)
+        return p, m, v
+
+    triples = [upd_into(g, m, v, p) if in_place else upd(g, m, v, p, p.ndim >= 2)
+               for g, m, v, p in
                zip(g_leaves, T.leaves(state.m), T.leaves(state.v), T.leaves(params))]
     return (
         T.unflatten(spec, [t[0] for t in triples]),
@@ -105,11 +128,12 @@ def adamw_state_from_numpy(state, params_from_numpy: Callable,
     """The reference's `AdamWState` with numpy leaves, as the port's, on
     `device`: `params_from_numpy` maps each moment tree as it maps the
     parameters (for DeepFM, `models.deepfm.deepfm_params_from_numpy`, which
-    transposes the MLP weights)."""
+    transposes the MLP weights; for the LM, `lm_params_from_numpy` of an
+    f32 config)."""
     dev = resolve_device(device)
 
     def carry(tree):
-        return {k: v.to(dev) for k, v in params_from_numpy(tree).items()}
+        return T.tree_map(lambda v: v.to(dev), params_from_numpy(tree))
 
     return AdamWState(step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
                                         device=dev),

@@ -17,7 +17,7 @@ ARCHS = sorted(LM_ARCHS)
 REF_MODULES = {a: importlib.import_module(f"repro.configs.{m.__name__.rsplit('.', 1)[1]}")
                for a, m in LM_ARCHS.items()}
 # the reference's LMConfig fields that steer XLA only; the port leaves them out
-XLA_ONLY = {"unroll", "remat", "remat_policy", "dp_axes"}
+XLA_ONLY = {"unroll", "dp_axes"}
 
 
 def configs(arch, which="SMOKE", **changes):

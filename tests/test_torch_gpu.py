@@ -23,8 +23,13 @@ segment forward, and the sampler's CSR built on the card equal to
 `build_csr`, every sampled slot a neighbour of its parent.  The LM (no
 kernel of its own): each arch's `SMOKE` config served on the card against
 the same weights served on the CPU, prefill and four decode steps in f32,
-logits within 1e-5 and every MoE call's expert ids equal; and, without a
-card, the LM's entry points raising on CUDA."""
+logits within 1e-5 and every MoE call's expert ids equal; its training:
+one f32 train step of qwen3-0.6b at full width, 2 layers, on the card
+against the CPU's (loss, parameters and moments within 1e-5), remat
+"full", "dots" and off agreeing within 1e-6 on the card, and the
+attention recurrence's out-of-place forward (autograd recording) equal to
+the in-place one bit for bit; and, without a card, the LM's entry points
+raising on CUDA."""
 import dataclasses
 
 import numpy as np
@@ -1495,6 +1500,80 @@ def test_lm_serving_on_card_equals_cpu(cuda_device, arch, monkeypatch):
     assert len(card_experts) == len(cpu_experts) == (0 if cfg.moe is None else
                                                      5 * (cfg.n_layers - cfg.n_dense_layers))
     assert all(torch.equal(a, b) for a, b in zip(card_experts, cpu_experts))
+
+
+def _host_leaves(tree):
+    from repro_torch.train import tree as T
+
+    return [t.detach().cpu() for t in T.leaves(tree)]
+
+
+@pytest.mark.gpu
+def test_lm_train_step_on_card_equals_cpu(cuda_device, monkeypatch):
+    """qwen3-0.6b at full width, 2 of 28 layers, in f32: one train step
+    (B 1, S 128) on the card and on the CPU from the same weights."""
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.configs import lm_cells as C
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import OptConfig, adamw_init
+    from repro_torch.train import tree as T
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(LM_ARCHS["qwen3-0.6b"].CONFIG, n_layers=2, dtype=torch.float32)
+    params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+    card = T.tree_map(lambda t: t.to(cuda_device), params)
+    toks, tgts = (torch.from_numpy(a)
+                  for a in TokenStream(cfg.vocab, 1, 128, seed=17).batch_at(0))
+    step = C.make_lm_train_step(cfg, OptConfig(total_steps=10000))
+    want_p, want_o, want_loss, _ = step(params, adamw_init(params), toks, tgts)
+    got_p, got_o, loss, _ = step(card, adamw_init(card), toks.to(cuda_device),
+                                 tgts.to(cuda_device))
+    assert abs(float(loss) - float(want_loss)) <= LM_CPU_TOL * (1 + abs(float(want_loss)))
+    got = _host_leaves(got_p) + _host_leaves(got_o.m) + _host_leaves(got_o.v)
+    want = _host_leaves(want_p) + _host_leaves(want_o.m) + _host_leaves(want_o.v)
+    for a, b in zip(got, want):
+        assert float(((a - b).abs() - LM_CPU_TOL * (1 + b.abs())).max()) <= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v3-671b"])
+def test_lm_remat_modes_agree_on_card(cuda_device, arch):
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.configs import lm_cells as C
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(LM_ARCHS[arch].SMOKE, dtype=torch.bfloat16)
+    params = tf.init_lm(torch.Generator(device=cuda_device).manual_seed(0), cfg)
+    toks, tgts = (torch.from_numpy(a).to(cuda_device)
+                  for a in TokenStream(cfg.vocab, 2, 64, seed=17).batch_at(0))
+    runs = [C.lm_loss_and_grads(params, dataclasses.replace(cfg, remat=r, remat_policy=p),
+                                toks, tgts)
+            for r, p in ((False, "full"), (True, "full"), (True, "dots"))]
+    want_loss, _, want = runs[0]
+    for loss, _, grads in runs[1:]:
+        assert abs(float(loss) - float(want_loss)) <= 1e-6 * abs(float(want_loss))
+        for g, w in zip(_host_leaves(grads), _host_leaves(want)):
+            g, w = g.float(), w.float()
+            assert float((g - w).abs().max()) <= 1e-6 * max(float(w.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 512])
+def test_flash_attention_out_of_place_equals_in_place_on_card(cuda_device, window):
+    """qwen3-0.6b's attention shape (16 heads over 8 KV heads, d 128, bf16)
+    at S 2,048: the forward autograd records equals the serving one."""
+    from repro_torch.models.attention import flash_attention
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(1, 2048, h, 128, generator=g, device=cuda_device).to(torch.bfloat16)
+               for h in (16, 8, 8))
+    with torch.no_grad():
+        served = flash_attention(q, k, v, window=window)
+    trained = flash_attention(q.requires_grad_(), k, v, window=window)
+    assert trained.requires_grad
+    assert torch.equal(served, trained.detach())
 
 
 def test_lm_entry_points_raise_on_cuda_without_a_card():

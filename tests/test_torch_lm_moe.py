@@ -3,6 +3,11 @@ and sigmoid routers), `expert_capacity`, `load_balance_loss` and `moe_ffn`
 with capacity drops, shared experts and squared ReLU, fed the same numpy
 inputs.
 
+Expert ids are also held, in order, on bf16-quantised logits that tie
+(few levels, and routers with repeated columns), for both routers at E = 8
+and 256: the lower expert id first among equal gates, as `jax.lax.top_k`
+orders them.
+
 Expert ids and the drop mask are held exactly: the ids against the
 reference's `route_topk`, the port's drop mask and slots against a numpy
 transcription of the reference's rule (assignment j of token t, in the
@@ -46,6 +51,82 @@ def test_route_topk_matches(router, E, k):
     np.testing.assert_array_equal(experts.numpy(), np.asarray(rexperts))
     _close(w, rw, F32_TOL)
     _close(probs, rprobs, F32_TOL)
+
+
+def _tied_logits(rng, N, E, levels):
+    """bf16 logits on `levels` values: most rows tie across the k-th place."""
+    q = rng.integers(0, levels, (N, E)).astype(np.float32) * 0.25
+    return torch.from_numpy(q).to(torch.bfloat16).to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("router", ["softmax", "sigmoid"])
+@pytest.mark.parametrize("E,k", [(8, 2), (256, 8)])
+def test_route_topk_ties_match_in_order(router, E, k):
+    rng = np.random.default_rng(E + k + (router == "sigmoid"))
+    logits = _tied_logits(rng, 300, E, levels=3 if E == 8 else 5)
+    ref_cfg, cfg = _cfgs(n_experts=E, top_k=k, d_expert=8, router=router)
+    w, experts, _ = M.route_topk(torch.from_numpy(logits), cfg)
+    rw, rexperts, _ = RM.route_topk(jnp.asarray(logits), ref_cfg)
+    np.testing.assert_array_equal(experts.numpy(), np.asarray(rexperts))
+    _close(w, rw, F32_TOL)
+    # the rows really tie across the k-th place
+    srt = np.sort(logits, axis=1)[:, ::-1]
+    assert (srt[:, k - 1] == srt[:, k]).mean() > 0.5
+
+
+@pytest.mark.parametrize("router", ["softmax", "sigmoid"])
+def test_route_topk_minimal_tie(router):
+    """Gates [0,1,1,1,0,1,1,1], k = 2: experts [1, 2] (`torch.topk` gives
+    [6, 5] on the CPU)."""
+    logits = np.array([[0, 1, 1, 1, 0, 1, 1, 1]], np.float32)
+    ref_cfg, cfg = _cfgs(n_experts=8, top_k=2, d_expert=8, router=router)
+    _, experts, _ = M.route_topk(torch.from_numpy(logits), cfg)
+    _, rexperts, _ = RM.route_topk(jnp.asarray(logits), ref_cfg)
+    np.testing.assert_array_equal(np.asarray(rexperts), [[1, 2]])
+    np.testing.assert_array_equal(experts.numpy(), [[1, 2]])
+
+
+def test_top_k_keeps_the_gradient():
+    x = torch.tensor([[0.0, 1.0, 1.0, 0.5]], requires_grad=True)
+    v, i = M.top_k(x, 2)
+    v.sum().backward()
+    np.testing.assert_array_equal(i.numpy(), [[1, 2]])
+    np.testing.assert_array_equal(x.grad.numpy(), [[0, 1, 1, 0]])
+
+
+@pytest.mark.parametrize("router", ["softmax", "sigmoid"])
+@pytest.mark.parametrize("E,k", [(8, 2), (256, 8)])
+def test_moe_ffn_ties_match_in_order(router, E, k):
+    """bf16 tokens through a bf16 router whose columns repeat a few
+    distinct ones: every token's logits tie across experts.  The expert ids
+    `moe_ffn` routes by, in order, and its output are the reference's."""
+    D, N, F = 16, 64, 8
+    rng = np.random.default_rng(E * 3 + k)
+    ref_cfg, cfg = _cfgs(n_experts=E, top_k=k, d_expert=F, router=router,
+                         capacity_factor=4.0)
+    p = _moe_params(rng, E, D, F, 0, "swiglu")
+    distinct = rng.standard_normal((D, 3)).astype(np.float32)
+    p["router"] = distinct[:, rng.integers(0, 3, E)]
+    x = rng.standard_normal((N, D)).astype(np.float32)
+    tp = {k_: torch.from_numpy(v).to(torch.bfloat16) for k_, v in p.items()}
+    rp = {k_: jnp.asarray(v).astype(jnp.bfloat16) for k_, v in p.items()}
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    rx = jnp.asarray(x).astype(jnp.bfloat16)
+    seen, assign = [], M.assign_slots
+
+    def recording(e, n_experts, capacity):
+        seen.append(e.clone())
+        return assign(e, n_experts, capacity)
+
+    M.assign_slots = recording
+    try:
+        out, _ = M.moe_ffn(tp, tx, cfg, "swiglu")
+    finally:
+        M.assign_slots = assign
+    _, rexperts, _ = RM.route_topk(rx @ rp["router"], ref_cfg)
+    np.testing.assert_array_equal(seen[0].numpy(), np.asarray(rexperts))
+    rout, _ = RM.moe_ffn(rp, rx, ref_cfg, "swiglu")
+    _close(out, rout, BF16_TOL)
 
 
 def test_expert_capacity_matches():

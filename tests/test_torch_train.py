@@ -1,7 +1,9 @@
 """The port's training substrate (`repro_torch.train`, and the streams of
 `repro_torch.data.pipeline`) on the cases of tests/test_train_substrate.py,
 and against the JAX reference where both compute the same thing: schedule
-values, AdamW updates on a small tree, compression on tie-free inputs,
+values, AdamW updates on a small tree (out of place and in place),
+compression on tie-free inputs and on quantised ones whose |g| ties
+across the k-th place (the kept positions in `jax.lax.top_k`'s order),
 token batches, the order of a tree's leaves.  `zero1_specs` is not ported
 (it waits for the distributed port).  Everything runs on the CPU.
 
@@ -240,6 +242,23 @@ def test_checkpoint_restore_on_cuda_raises_without_a_card(tmp_path):
 # ---------------------------------------------------------------------------
 # gradient compression
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,ratio,levels", [(8, 0.25, 2), (1000, 0.05, 5), (4096, 0.1, 3),
+                                            (777, 1.0, 4), (64, 0.02, 1)])
+def test_compress_leaf_ties_match_reference(n, ratio, levels):
+    """|g| on a few levels, so it ties across the k-th place: the kept
+    positions, in order, and their values are `jax.lax.top_k`'s (descending
+    |g|, the lower position first)."""
+    rng = np.random.default_rng(n)
+    g_np = (rng.integers(-levels, levels + 1, n) * 0.5).astype(np.float32)
+    if n == 8:
+        g_np = np.array([0, 1, -1, 1, 0, 1, 1, -1], np.float32)
+    got = comp.compress_leaf(torch.from_numpy(g_np), ratio)
+    want = ref_compression.compress_leaf(jnp.asarray(g_np), ratio)
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))
+    np.testing.assert_array_equal(got.values.numpy(), np.asarray(want.values))
+    if n == 8:
+        np.testing.assert_array_equal(got.indices.numpy(), [1, 2])
 
 def test_error_feedback_lossless_over_time():
     """EF guarantees Σ applied = Σ true grads (up to the residual in flight)."""
