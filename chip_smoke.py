@@ -395,6 +395,40 @@ Phases, each fatal on failure:
                  (cpu-small, 200 steps) exits 0 with its last loss below
                  ln(vocab) - 0.3.
 
+ 15. dist    the distribution layer (run after phase 14), every `[dist]` line
+             beside the card's name and power limit, on a one-rank NCCL
+             group (`core.distributed.process_group`, as phase 10) and a
+             (1, 1) ("data", "model") `DeviceMesh`, destroyed after:
+             (a) qwen3-0.6b's full tree placed by `lm_param_specs`
+                 (`dist.distribute`) and gathered back (`full_tensor()`),
+                 bit-equal; a placed `checkpoint.save` and
+                 `reshard_checkpoint` of it, bit-equal, with the seconds;
+             (b) `make_lm_train_step(mesh=)` on qwen3-0.6b whole at S =
+                 4,096, 4 sequences, remat "full", over `place_lm_state`
+                 (ZeRO-1 moments) and `shard_batch`: the warm-up step's
+                 loss and every parameter and moment within 1e-6
+                 (relative to the leaf's largest entry) of the step
+                 without a mesh on the same state and batch; one timed
+                 step each way (CUDA events) and their peaks; then
+                 mixtral-8x22b at full width, one layer, 1 x 4,096, the
+                 state donated, so that the data-parallel MoE layer
+                 (`moe_ffn(dp=)`) runs: its step against the step without
+                 a mesh from the same seed, the loss, drop fraction and
+                 every parameter and moment (the latter's on the host)
+                 within 1e-6;
+             (c) DeepFM's full CONFIG `train_step(mesh=)` at B = 65,536
+                 through `VocabParallelBag` on the table's row block, with
+                 the launch counts set to 0 just before it: 2 bags, 2
+                 backwards, 1 slot sort; every parameter and moment within
+                 1e-6 of phase 11's step; the shard bag's sums, gathered
+                 rows and table gradient bit-equal to its plain version;
+             (d) `moe_ffn_shardmap` at deepseek-v3's MoE width (E = 256,
+                 k = 8, d_expert = 2,048, D = 7,168, one shared expert,
+                 bf16), 8,192 tokens at capacity factor 8 (none dropped,
+                 checked) against `moe_ffn`: expert ids, kept slots and
+                 slots equal, the output within 2^-8 of max |y| (one bf16
+                 step at the output's scale), ms of each.
+
 The last three lines of standard output are, in order: the kernels JSON
 object (one record per kernel), the card's name and power limit as
 nvidia-smi gives them, and `{"ok": true, "device": {...}}`.
@@ -4003,6 +4037,384 @@ def phase_lm_train() -> None:
           flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 15: the distribution layer on a one-rank NCCL group
+# --------------------------------------------------------------------------
+
+DIST_TOL = 1e-6                      # (b), (c): against the step without a mesh
+DIST_LM_BATCH = 4                    # (b): sequences of LM_TRAIN_SEQ tokens
+# (b): the MoE arch whose step runs `moe_ffn(dp=)`: (arch, layers kept,
+# sequences of LM_TRAIN_SEQ tokens); its state (2.9 B parameters, 35 GB
+# with its gradient) is donated
+DIST_LM_MOE = ("mixtral-8x22b", 1, 1)
+DIST_DIR = ROOT / "build" / "dist"
+# (d): deepseek-v3's MoE layer at full width on 8,192 tokens; capacity factor
+# 8 leaves every expert 2,056 slots, 8x the mean load, so none drops (checked)
+DIST_MOE_TOKENS = 8192
+DIST_MOE_CAPACITY = 8.0
+DIST_MOE_TOL = 2.0 ** -8             # of max |y|: one bf16 step at the output's scale
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b| (0 when both are 0)."""
+    a, b = a.float(), b.float()
+    den = float(b.abs().max()) if b.numel() else 0.0
+    num = float((a - b).abs().max()) if b.numel() else 0.0
+    return num / den if den else num
+
+
+def dist_mesh():
+    """A (1, 1) ("data", "model") DeviceMesh over the one-rank NCCL group."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.core.distributed import process_group
+
+    process_group(torch.device("cuda", torch.cuda.current_device()))
+    return DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                      mesh_dim_names=("data", "model"))
+
+
+def phase_dist_placement(mesh) -> None:
+    """(a): qwen3-0.6b's full tree placed and gathered back, and through a
+    placed save and reshard_checkpoint."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.dist import distribute, lm_param_specs, reshard_checkpoint
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import tree as T
+
+    cfg = LM_ARCHS["qwen3-0.6b"].CONFIG
+    params = lm_init(cfg)
+    t0 = time.perf_counter()
+    import torch.distributed.tensor  # noqa: F401  (its first import, timed apart)
+
+    t_import = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    placed = distribute(params, lm_param_specs(params, mesh), mesh)
+    torch.cuda.synchronize()
+    t_place = time.perf_counter() - t0
+    leaves = T.leaves(params)
+    check(all(torch.equal(p.full_tensor(), q) for p, q in zip(T.leaves(placed), leaves)),
+          "[dist] (a) distribute -> full_tensor() is not bit-equal")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpt.save(str(DIST_DIR), 0, placed)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = reshard_checkpoint(str(DIST_DIR), 0, mesh, lambda t, m: lm_param_specs(t, m))
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    check(T.flatten(back)[1] == T.flatten(params)[1], "[dist] (a) restored tree differs")
+    check(all(torch.equal(p.full_tensor(), q) for p, q in zip(T.leaves(back), leaves)),
+          "[dist] (a) save -> reshard_checkpoint is not bit-equal")
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"[dist] (a) qwen3-0.6b full tree ({len(leaves)} leaves, {nbytes / 2**30:.3f} GiB) "
+          f"on the (1, 1) mesh: importing DTensor {t_import:.1f} s, distribute {t_place:.3f} s, "
+          f"full_tensor() bit-equal; placed "
+          f"save {t_save:.1f} s -> reshard_checkpoint {t_restore:.1f} s, bit-equal",
+          flush=True)
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+
+
+def timed_step(fn):
+    """(output, ms by CUDA events, peak GiB of the call)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_dist_lm(mesh) -> None:
+    """(b): the data-parallel LM step on the (1, 1) mesh against the step
+    without one, qwen3-0.6b whole at S = 4,096."""
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.configs import lm_cells as C
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.dist import batch_spec
+    from repro_torch.train import tree as T
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+
+    cfg = LM_ARCHS["qwen3-0.6b"].CONFIG
+    B, S = DIST_LM_BATCH, LM_TRAIN_SEQ
+    params = lm_init(cfg)
+    opt = adamw_init(params)
+    batches = [lm_batch(cfg, B, S, i) for i in range(2)]
+    plain = C.make_lm_train_step(cfg, OptConfig(**LM_TRAIN_OPT))
+    placed_step = C.make_lm_train_step(cfg, OptConfig(**LM_TRAIN_OPT), mesh=mesh)
+    pp, po = C.place_lm_state(params, mesh)
+    (p1, o1, loss1, _), plain_ms, plain_peak = timed_step(lambda: plain(params, opt, *batches[0]))
+    (p2, o2, loss2, _), warm_ms, _ = timed_step(
+        lambda: placed_step(pp, po, *shard_batch(batches[0], mesh, batch_spec(mesh, 1))))
+    err = max(rel_err(b.full_tensor(), a) for a, b in
+              zip(T.leaves((p1, o1.m, o1.v)), T.leaves((p2, o2.m, o2.v))))
+    loss_err = abs(float(loss2) - float(loss1)) / abs(float(loss1))
+    check(err <= DIST_TOL and loss_err <= DIST_TOL,
+          f"[dist] (b) the placed LM step differs from the step without a mesh: leaves "
+          f"{err:.3g}, loss {loss_err:.3g} (tol {DIST_TOL})")
+    (_, _, loss3, _), ms, peak = timed_step(
+        lambda: placed_step(p2, o2, *shard_batch(batches[1], mesh, batch_spec(mesh, 1))))
+    (_, _, loss4, _), ms_plain, peak_plain = timed_step(lambda: plain(p1, o1, *batches[1]))
+    check(math.isfinite(float(loss3)) and abs(float(loss3) - float(loss4)) <= DIST_TOL * abs(
+        float(loss4)), f"[dist] (b) second step's loss {float(loss3)} vs {float(loss4)}")
+    print(f"[dist] (b) make_lm_train_step(mesh=(1, 1)) on qwen3-0.6b whole, {B} x {S:,}, remat "
+          f"{cfg.remat_policy!r}: loss {float(loss2):.6f}, every parameter and moment within "
+          f"{err:.3g} (relative to the leaf's max; tol {DIST_TOL}) of the step without a mesh, "
+          f"loss {loss_err:.3g}; warm-up {warm_ms:.3f} ms, timed step {ms:.3f} ms, peak "
+          f"{peak:.3f} GiB, beside the step without a mesh: {ms_plain:.3f} ms, peak "
+          f"{peak_plain:.3f} GiB (its first step {plain_ms:.3f} ms, peak {plain_peak:.3f} GiB; "
+          f"phase 14 runs it at batch {LM_TRAIN_BATCH}); card {card_line()}", flush=True)
+
+
+def phase_dist_lm_moe(mesh) -> None:
+    """(b), the MoE arch: the placed step through `moe_ffn(dp=)` against
+    the step without a mesh from the same seed, both donating their state;
+    the first step's state is compared from a host copy (two would not fit
+    the card)."""
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.configs import lm_cells as C
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.dist import batch_spec
+    from repro_torch.train import tree as T
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+
+    arch, layers, B = DIST_LM_MOE
+    cfg = dataclasses.replace(LM_ARCHS[arch].CONFIG, n_layers=layers)
+    S = LM_TRAIN_SEQ
+    batch = lm_batch(cfg, B, S, 0)
+    plain = C.make_lm_train_step(cfg, OptConfig(**LM_TRAIN_OPT), donate=True)
+    params = lm_init(cfg)
+    opt = adamw_init(params)
+    with MoEDrops() as plain_drops:
+        (params, opt, loss1, _), plain_ms, plain_peak = timed_step(
+            lambda: plain(params, opt, *batch))
+    want = [x.cpu() for x in T.leaves((params, opt.m, opt.v))]
+    n_params = sum(x.numel() for x in T.leaves(params))
+    del params, opt
+    torch.cuda.empty_cache()
+    placed_step = C.make_lm_train_step(cfg, OptConfig(**LM_TRAIN_OPT), donate=True, mesh=mesh)
+    pp, po = C.place_lm_state(lm_init(cfg), mesh)
+    with MoEDrops() as placed_drops:
+        (pp, po, loss2, _), ms, peak = timed_step(
+            lambda: placed_step(pp, po, *shard_batch(batch, mesh, batch_spec(mesh, 1))))
+    err = max(rel_err(b.full_tensor(), a.cuda()) for a, b in
+              zip(want, T.leaves((pp, po.m, po.v))))
+    loss_err = abs(float(loss2) - float(loss1)) / abs(float(loss1))
+    drops = [float(d) for d in plain_drops.fracs], [float(d) for d in placed_drops.fracs]
+    del pp, po, want
+    torch.cuda.empty_cache()
+    check(err <= DIST_TOL and loss_err <= DIST_TOL and drops[0] == drops[1]
+          and len(drops[0]) == layers,
+          f"[dist] (b) the placed {arch} step differs from the step without a mesh: leaves "
+          f"{err:.3g}, loss {loss_err:.3g} (tol {DIST_TOL}), drop fractions {drops}")
+    print(f"[dist] (b) make_lm_train_step(mesh=(1, 1), donate=True) on {arch} full width, "
+          f"{layers} of {LM_ARCHS[arch].CONFIG.n_layers} layers ({n_params:,} parameters, "
+          f"bf16), {B} x {S:,}, through moe_ffn(dp=): loss {float(loss2):.6f}, drop fraction "
+          f"{', '.join(f'{d:.4f}' for d in drops[1])} as without a mesh, every parameter and "
+          f"moment within {err:.3g} (tol {DIST_TOL}), loss {loss_err:.3g}; first step "
+          f"{ms:.3f} ms, peak {peak:.3f} GiB, beside the step without a mesh: {plain_ms:.3f} "
+          f"ms, peak {plain_peak:.3f} GiB; card {card_line()}", flush=True)
+
+
+def hold_shard_bag(mesh, model, params, fields, errs: dict) -> None:
+    """(c): the vocab-parallel bag on the table's row block, kernel against
+    plain: the forward sums and gathered rows, and the table's gradient."""
+    import torch
+    from repro_torch.dist.collectives import data_group
+    from repro_torch.hopper import embedding_bag as E
+    from repro_torch.models.deepfm import VocabParallelBag
+
+    dp = data_group(mesh, "the shard bag check")
+    flat = fields + model.offsets[None, :]
+    table = params["embed"].to_local().detach()
+    outs = {}
+    for name, bag in (("kernel", E.embedding_bag), ("plain", E.embedding_bag_plain)):
+        leaf = table.clone().requires_grad_()
+        with torch.enable_grad():
+            s, v = VocabParallelBag(dp, bag)(leaf, flat, gather=True)
+            g_s = torch.ones_like(s)
+            (grad,) = torch.autograd.grad((s, v), (leaf,), (g_s, torch.ones_like(v)))
+        outs[name] = (s.detach(), v.detach(), grad)
+        del leaf
+    for i, what in enumerate(("sums", "gathered rows")):
+        exact(errs, "embedding_bag", outs["kernel"][i], outs["plain"][i],
+              f"vocab-parallel bag {what} on the row block")
+    exact(errs, "embedding_bag_backward", outs["kernel"][2], outs["plain"][2],
+          "vocab-parallel bag's table gradient on the row block")
+
+
+def phase_dist_deepfm(mesh, errs: dict) -> None:
+    """(c): DeepFM's full CONFIG train_step on the (1, 1) mesh through the
+    vocab-parallel bag, against phase 11's step."""
+    import torch
+    from repro_torch.configs import deepfm as C
+    from repro_torch.data.pipeline import ClickStream, shard_batch
+    from repro_torch.dist import P, batch_spec, data_axes
+    from repro_torch.hopper import embedding_bag as E
+    from repro_torch.models import deepfm as M
+    from repro_torch.train import adamw_init
+
+    B = C.SHAPES["train_batch"]["batch"]
+    model = M.DeepFM(C.CONFIG, seed=0, device="cuda")
+    fields, labels = (torch.from_numpy(a).cuda()
+                      for a in ClickStream(C.FIELD_VOCABS, B, seed=0).batch_at(0))
+    params = C.train_params(model)
+    opt = adamw_init(params)
+    p1, o1, loss1 = C.train_step(model, params, opt, fields, labels)
+    pp, po = C.place_deepfm_state(params, mesh)
+    f = shard_batch(fields, mesh, batch_spec(mesh, 1))
+    lab = shard_batch(labels, mesh, P(data_axes(mesh)))
+    sorts = E.sort_slots.calls
+    (p2, o2, loss2), counts = counted(lambda: C.train_step(model, pp, po, f, lab, mesh=mesh))
+    sorts = E.sort_slots.calls - sorts
+    # warm: one more of each, timed
+    _, plain_ms, plain_peak = timed_step(lambda: C.train_step(model, params, opt, fields, labels))
+    _, ms, peak = timed_step(lambda: C.train_step(model, pp, po, f, lab, mesh=mesh))
+    want = {k: 0 for k in KERNELS}
+    want.update(embedding_bag=2, embedding_bag_backward=2)
+    check(counts == want, f"[dist] (c) placed train_step: launches {counts}, expected {want}")
+    check(sorts == 1, f"[dist] (c) placed train_step: {sorts} slot sorts, expected 1")
+    err = max(max_err(b[k].full_tensor(), a[k]) for a, b in ((p1, p2), (o1.m, o2.m), (o1.v, o2.v))
+              for k in a)
+    loss_err = abs(float(loss2) - float(loss1))
+    check(err <= DIST_TOL and loss_err <= DIST_TOL,
+          f"[dist] (c) placed DeepFM step vs phase 11's: max |err| {err}, loss {loss_err}")
+    hold_shard_bag(mesh, model, pp, fields, errs)
+    rows = pp["embed"].to_local().shape[0]
+    print(f"[dist] (c) DeepFM CONFIG train_step(mesh=(1, 1)), B = {B:,}, {rows:,} table rows on "
+          f"the rank, through the vocab-parallel bag: launches {counts}, {sorts} slot sort; loss "
+          f"{float(loss2):.6f}, every parameter and moment within {err:.3g} of phase 11's step "
+          f"(tol {DIST_TOL}), loss {loss_err:.3g}; warm {ms:.3f} ms, peak {peak:.3f} GiB (the "
+          f"step without a mesh {plain_ms:.3f} ms, {plain_peak:.3f} GiB); the shard bag's "
+          f"sums, rows and table "
+          f"gradient bit-equal to its plain version; card {card_line()}", flush=True)
+
+
+def moe_weights(cfg, E_lo: int, E_hi: int, seed: int = 0) -> dict:
+    """deepseek-v3's MoE leaves for experts [E_lo, E_hi) (bf16, N(0, 0.02²),
+    each expert drawn from its own seeded generator, so any rank can make
+    any expert's), the router (f32) and the shared expert whole."""
+    import torch
+
+    D, F, E = cfg.d_model, cfg.moe.d_expert, cfg.moe.n_experts
+    F_sh = F * cfg.moe.n_shared
+
+    def normal(shape, s, dtype=torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(s)
+        return (torch.randn(shape, generator=g, device="cuda", dtype=dtype) * 0.02).to(dtype)
+
+    out = {"router": normal((D, E), seed, torch.float32)}
+    for j, name in enumerate(("we1", "we3", "we2")):
+        shape = (D, F) if name != "we2" else (F, D)
+        stack = torch.empty((E_hi - E_lo,) + shape, dtype=torch.bfloat16, device="cuda")
+        for e in range(E_lo, E_hi):
+            stack[e - E_lo] = normal(shape, seed + 1 + 3 * e + j)
+        out[name] = stack
+    for j, (name, shape) in enumerate((("ws1", (D, F_sh)), ("ws3", (D, F_sh)),
+                                       ("ws2", (F_sh, D)))):
+        out[name] = normal(shape, seed + 1 + 3 * E + j)
+    return out
+
+
+class SlotSpy:
+    """Records (expert ids, keep, slot) of every `assign_slots` call that
+    `moe_ffn` and `moe_ffn_shardmap` make inside the block."""
+
+    def __enter__(self):
+        from repro_torch.models import moe, moe_shardmap
+
+        self.mods, self.orig, self.calls = (moe, moe_shardmap), moe.assign_slots, []
+
+        def spy(experts, E, C):
+            plan = self.orig(experts, E, C)
+            self.calls.append((experts.clone(), plan.keep.clone(), plan.slot.clone()))
+            return plan
+
+        for m in self.mods:
+            m.assign_slots = spy
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.assign_slots = self.orig
+
+
+def phase_dist_moe(mesh) -> None:
+    """(d): moe_ffn_shardmap at deepseek-v3's MoE width against moe_ffn."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.models.moe_shardmap import moe_ffn_shardmap
+
+    cfg = LM_ARCHS["deepseek-v3-671b"].CONFIG
+    moe_cfg = dataclasses.replace(cfg.moe, capacity_factor=DIST_MOE_CAPACITY)
+    E = moe_cfg.n_experts
+    params = moe_weights(cfg, 0, E)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((DIST_MOE_TOKENS, cfg.d_model), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    with torch.inference_mode():
+        with SlotSpy() as spy:
+            want, metrics = moe_ffn(params, x, moe_cfg, cfg.act)
+            got = moe_ffn_shardmap(params, x, moe_cfg, cfg.act, mesh)
+        # warm: one more of each, timed
+        _, ref_ms, ref_peak = timed_step(lambda: moe_ffn(params, x, moe_cfg, cfg.act))
+        _, ms, peak = timed_step(lambda: moe_ffn_shardmap(params, x, moe_cfg, cfg.act, mesh))
+    (ids_a, keep_a, slot_a), (ids_b, keep_b, slot_b) = spy.calls
+    check(torch.equal(ids_a, ids_b) and torch.equal(keep_a, keep_b)
+          and torch.equal(slot_a, slot_b), "[dist] (d) expert ids or kept slots differ")
+    check(bool(keep_a.all()) and float(metrics.drop_frac) == 0.0,
+          f"[dist] (d) capacity factor {DIST_MOE_CAPACITY} drops {float(metrics.drop_frac)}")
+    err = rel_err(got, want)
+    check(err <= DIST_MOE_TOL, f"[dist] (d) moe_ffn_shardmap vs moe_ffn: {err} of max |y|")
+    load = int(torch.bincount(ids_a.reshape(-1).long(), minlength=E).max())
+    print(f"[dist] (d) moe_ffn_shardmap on the (1, 1) mesh at deepseek-v3's MoE width (E = {E}, "
+          f"k = {moe_cfg.top_k}, d_expert = {moe_cfg.d_expert}, D = {cfg.d_model}, "
+          f"{moe_cfg.n_shared} shared, bf16), {DIST_MOE_TOKENS:,} tokens, capacity factor "
+          f"{DIST_MOE_CAPACITY} (busiest expert {load} assignments, none dropped): expert ids, "
+          f"keep and slots equal to moe_ffn's, output within {err:.3g} of max |y| (tol 2^-8); "
+          f"warm {ms:.3f} ms, peak {peak:.3f} GiB, against moe_ffn's {ref_ms:.3f} ms, "
+          f"{ref_peak:.3f} GiB; card "
+          f"{card_line()}", flush=True)
+
+
+def phase_dist(errs: dict) -> None:
+    """Phase 15: the distribution layer (see the module docstring)."""
+    import torch
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    mesh = dist_mesh()
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"[dist] group {dist.get_backend()} of {dist.get_world_size()}")
+        phase_dist_placement(mesh)
+        torch.cuda.empty_cache()
+        phase_dist_lm(mesh)
+        torch.cuda.empty_cache()
+        phase_dist_lm_moe(mesh)
+        torch.cuda.empty_cache()
+        phase_dist_deepfm(mesh, errs)
+        torch.cuda.empty_cache()
+        phase_dist_moe(mesh)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"[dist] phase 15: {time.perf_counter() - t_phase:.1f} s; card {card_line()}",
+          flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -4043,6 +4455,7 @@ def main() -> None:
     phase_gnn(errs)
     phase_lm()
     phase_lm_train()
+    phase_dist(errs)
     for r in records:               # the later phases' checks too
         r["max_abs_err"] = errs[r["name"]]
     check(sorted(r["name"] for r in records) == sorted(KERNELS), "a kernel has no record")

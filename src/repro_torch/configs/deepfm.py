@@ -5,21 +5,43 @@ embed_dim=10, MLP 400-400-400, FM interaction.  The counterpart of
 count, one step per serve shape, and the train_batch cell's train step
 (`deepfm_loss`, its gradients, one AdamW update).
 
+With `mesh=` (a `DeviceMesh`: batch axes and a 'model' axis of 1) the
+train and serve steps run data-parallel under `deepfm_specs`, placed by
+`place_deepfm_state` as the reference's train cell places them (the
+moments as the parameters): the tables' rows split over every rank,
+their bags through `models.deepfm.VocabParallelBag`, the MLP replicated,
+the loss the global batch's mean.
+
 Shapes: train_batch 65 536 / serve_p99 512 / serve_bulk 262 144 /
 retrieval_cand 1×1 000 000 candidates (padded to 1 000 448, a multiple of
 512, as the reference's cell pads them).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.func import functional_call
 
 from repro_torch.device import DeviceLike
+from repro_torch.dist.collectives import DEEPFM_MODEL_ITEM, data_group
+from repro_torch.dist.sharding import data_axes, deepfm_specs, distribute, local
 from repro_torch.hopper.embedding_bag import embedding_bag
-from repro_torch.models.deepfm import Bag, DeepFM, DeepFMConfig, bce_with_logits
-from repro_torch.train.optimizer import AdamWState, OptConfig, adamw_update
+from repro_torch.models.deepfm import (
+    Bag,
+    DeepFM,
+    DeepFMConfig,
+    VocabParallelBag,
+    bce_with_logits,
+)
+from repro_torch.train.optimizer import (
+    AdamWState,
+    OptConfig,
+    adamw_init_placed,
+    adamw_update,
+    adamw_update_placed,
+    partial_grads,
+)
 
 # Criteo-style skewed vocabularies (sum ≈ 33.9M, padded per-field to /16)
 _CAT = [10_000_000, 8_000_000, 5_000_000, 4_000_000, 2_000_000, 1_500_000,
@@ -54,10 +76,16 @@ def _fwd_flops(cfg: DeepFMConfig, batch: int) -> float:
     return f
 
 
-def serve_step(model: DeepFM, fields: torch.Tensor) -> torch.Tensor:
-    """serve_p99 / serve_bulk: (B, 39) int32 fields -> (B,) logits."""
+def serve_step(model: DeepFM, fields: torch.Tensor, *, params: Optional[Params] = None,
+               mesh=None) -> torch.Tensor:
+    """serve_p99 / serve_bulk: (B, 39) int32 fields -> (B,) logits.  With
+    `mesh`, `params` placed by `place_deepfm_state` and `fields` this
+    rank's block (or its DTensor): this rank's block of the logits."""
     with torch.inference_mode():
-        return model(fields)
+        if mesh is None:
+            return model(fields)
+        _, bag = _data_parallel(mesh, params)
+        return functional_call(model, _locals(params), (local(fields),), {"bag": bag})
 
 
 def retrieval_step(model: DeepFM, user_fields: torch.Tensor, cand_ids: torch.Tensor,
@@ -74,32 +102,82 @@ def train_params(model: DeepFM) -> Params:
     return {k: v.detach() for k, v in model.named_parameters()}
 
 
+def train_param_shapes(cfg: DeepFMConfig) -> Params:
+    """`train_params`' names and shapes as "meta" tensors (no allocation),
+    for the placement policies."""
+    V, d = cfg.total_vocab, cfg.embed_dim
+    shapes = {"embed": (V, d), "linear": (V,), "bias": ()}
+    dims = (cfg.n_fields * d,) + tuple(cfg.mlp_dims) + (1,)
+    for i, (n_in, n_out) in enumerate(zip(dims, dims[1:])):
+        shapes[f"mlp.layers.{i}.weight"] = (n_out, n_in)
+        shapes[f"mlp.layers.{i}.bias"] = (n_out,)
+    return {k: torch.empty(s, device="meta") for k, s in shapes.items()}
+
+
 def loss_and_grads(model: DeepFM, params: Params, fields: torch.Tensor,
-                   labels: torch.Tensor, *, bag: Bag = embedding_bag
+                   labels: torch.Tensor, *, bag: Bag = embedding_bag, total: Optional[int] = None
                    ) -> Tuple[torch.Tensor, Params]:
     """`deepfm_loss` of `model`'s structure with `params`' values
     (`torch.func.functional_call`), and its gradient with respect to each
     parameter.  Each table's gradient is one launch of the bag's backward
     kernel, the gather's gradient included, over one sort of the slots
-    (`bag`: its plain version, to hold the path against it)."""
+    (`bag`: its plain version, to hold the path against it).  With
+    `total`, the loss is this block's part of the mean over `total`
+    examples."""
     leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
     with torch.enable_grad():
         logits = functional_call(model, leaves, (fields,), {"bag": bag})
-        loss = bce_with_logits(logits, labels)
+        loss = bce_with_logits(logits, labels, total)
         grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads))
 
 
 def train_step(model: DeepFM, params: Params, opt: AdamWState, fields: torch.Tensor,
                labels: torch.Tensor, *, opt_cfg: OptConfig = TRAIN_OPT,
-               bag: Bag = embedding_bag) -> Tuple[Params, AdamWState, torch.Tensor]:
+               bag: Bag = embedding_bag, mesh=None) -> Tuple[Params, AdamWState, torch.Tensor]:
     """train_batch: the loss and gradients of `deepfm_loss` on (B, 39) int32
     fields and (B,) f32 labels, then one `adamw_update`.  Returns the new
     params, the new optimizer state and the loss; out of place, as the
-    reference's step."""
-    loss, grads = loss_and_grads(model, params, fields, labels, bag=bag)
-    params, opt, _ = adamw_update(opt_cfg, grads, opt, params)
-    return params, opt, loss
+    reference's step.
+
+    With `mesh`, the state placed by `place_deepfm_state` and the batch by
+    `shard_batch` (fields `batch_spec(mesh, 1)`, labels
+    `P(data_axes(mesh))`): each rank's part of the global mean, `bag`
+    through `VocabParallelBag` on the tables' row blocks, then
+    `adamw_update_placed`; the loss returned is the global batch's."""
+    if mesh is None:
+        loss, grads = loss_and_grads(model, params, fields, labels, bag=bag)
+        params, opt, _ = adamw_update(opt_cfg, grads, opt, params)
+        return params, opt, loss
+    dp, vbag = _data_parallel(mesh, params, bag)
+    labels = local(labels)
+    loss, grads = loss_and_grads(model, _locals(params), local(fields), labels, bag=vbag,
+                                 total=labels.shape[0] * dp.size)
+    grads = partial_grads(grads, params, mesh, set(data_axes(mesh)))
+    params, opt, _ = adamw_update_placed(opt_cfg, grads, opt, params)
+    return params, opt, dp.all_reduce(loss)
+
+
+def _locals(params: Params) -> Params:
+    return {k: local(v) for k, v in params.items()}
+
+
+def _data_parallel(mesh, params: Params, bag: Bag = embedding_bag):
+    """(DataGroup, the bag) of a step on `mesh`: the vocab-parallel bag
+    where the tables' rows are split, `bag` itself where they are whole."""
+    from torch.distributed.tensor import Shard
+
+    dp = data_group(mesh, "the DeepFM step", DEEPFM_MODEL_ITEM)
+    split = any(isinstance(q, Shard) for q in params["embed"].placements)
+    return dp, (VocabParallelBag(dp, bag) if split else bag)
+
+
+def place_deepfm_state(params: Params, mesh) -> Tuple[Params, AdamWState]:
+    """`train_params` (whole, the same on every rank) placed by
+    `deepfm_specs`, and zero AdamW moments placed as the parameters."""
+    specs = deepfm_specs(params, mesh)
+    placed = distribute(params, specs, mesh)
+    return placed, adamw_init_placed(placed, specs, mesh)
 
 
 def smoke(device: DeviceLike = "cuda") -> None:

@@ -5,8 +5,8 @@ same seed, and a restart that seeks to step k resumes the same sequence.
 `TokenStream` (LM batches), `ClickStream` (DeepFM), `GraphBatchStream`
 (molecule batches for the GNNs) and `prefetch`, a background thread that
 buffers a stream ahead of its consumer.  The reference module imports JAX,
-so its numpy code is copied rather than imported.  `shard_batch` waits for
-the distributed input feeding.
+so its numpy code is copied rather than imported.  `shard_batch` places a
+host batch on a mesh (the distributed input feeding).
 """
 from __future__ import annotations
 
@@ -125,3 +125,18 @@ def prefetch(it: Iterator, size: int = 2) -> Iterator:
         if item is stop:
             return
         yield item
+
+
+def shard_batch(batch, mesh, spec):
+    """A host batch (a tree of arrays or tensors, the same on every rank:
+    the streams are seeded) placed on `mesh` under `spec` (a
+    `dist.sharding.P`, e.g. `batch_spec(mesh, 1)`): every rank keeps the
+    block of its mesh coordinate on its device, as a DTensor."""
+    import torch
+
+    from repro_torch.dist.sharding import Sharding, mesh_device
+    from repro_torch.train import tree as T
+
+    dev = mesh_device(mesh)
+    sharding = Sharding(mesh, spec)
+    return T.tree_map(lambda x: sharding.place(torch.as_tensor(x), dev), batch)

@@ -22,13 +22,22 @@ slot), both over one sort of the slots (`SlotPlan`), so a step writes one
 dense gradient per table; `configs.deepfm.train_step` takes one AdamW
 step.
 
+Data parallel (`configs.deepfm.train_step(mesh=)`): the tables' rows are
+split over the ranks (`dist.sharding.deepfm_specs`) and the forward's
+bags run through `VocabParallelBag`, the `bag=` hook's vocab-parallel
+form: it all-gathers the fields, runs the bag kernel over this rank's
+rows of the table for the global batch (a slot whose row lies elsewhere
+weighs 0), and reduce-scatters the sums and gathered rows back to the
+batch blocks; backward, the gradients are all-gathered and the backward
+kernel writes this rank's rows.
+
 `retrieval_score` scores one user context against N candidate items of
 `item_field` as one matvec over the candidates' rows.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -121,11 +130,15 @@ def deepfm_logits(model: DeepFM, fields: torch.Tensor, *, bag: Bag = embedding_b
     return model.bias + lin + fm + deep
 
 
-def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
+                    total: Optional[int] = None) -> torch.Tensor:
     """The reference's stable binary cross-entropy on (B,) logits and {0, 1}
-    labels: mean(max(l, 0) − l·y + log1p(exp(−|l|)))."""
-    return torch.mean(torch.clamp(logits, min=0) - logits * labels
-                      + torch.log1p(torch.exp(-logits.abs())))
+    labels: mean(max(l, 0) − l·y + log1p(exp(−|l|))); with `total`, the
+    sum of the terms over `total` (this block's part of a larger batch's
+    mean)."""
+    terms = (torch.clamp(logits, min=0) - logits * labels
+             + torch.log1p(torch.exp(-logits.abs())))
+    return torch.mean(terms) if total is None else terms.sum() / total
 
 
 def deepfm_loss(model: DeepFM, fields: torch.Tensor, labels: torch.Tensor, *,
@@ -160,6 +173,41 @@ def retrieval_score(model: DeepFM, user_fields: torch.Tensor, cand_ids: torch.Te
     v_c = model.embed[cand_rows]                                         # (N, d)
     w_c = model.linear[cand_rows]                                        # (N,)
     return const + v_c @ s_user + w_c
+
+
+class VocabParallelBag:
+    """The `bag=` of `deepfm_logits` when each rank of `dp` (a
+    `dist.collectives.DataGroup`) holds rows [r·V_r, (r+1)·V_r) of the
+    tables and block r of the batch.  A call takes this rank's table rows
+    and its block of (global-row) indices and returns its block's sums
+    (and gathered rows): the indices are all-gathered, `bag` (the kernel's
+    wrapper, or its plain version) runs over the local rows for the
+    global batch with weight 0 on every slot whose row lies on another
+    rank (its index taken modulo V_r, a local row), and the results are
+    reduce-scattered.  The bags over one index tensor share one slot plan
+    over the local rows (made here: a `plan` given for the global rows is
+    not used), so a train step sorts once."""
+
+    def __init__(self, dp, bag: Bag = embedding_bag):
+        self.dp, self.bag = dp, bag
+        self._for, self._local = None, None
+
+    def __call__(self, table: torch.Tensor, indices: torch.Tensor,
+                 weights: Optional[torch.Tensor] = None, *, gather: bool = False, plan=None):
+        dp, V_r = self.dp, table.shape[0]
+        if self._for is not indices or self._local[0] != V_r:
+            glob = dp.all_gather(indices)
+            lo = dp.rank * V_r
+            local = torch.remainder(glob, V_r).to(torch.int32)
+            mask = ((glob >= lo) & (glob < lo + V_r)).to(torch.float32)
+            self._for, self._local = indices, (V_r, local, mask, SlotPlan(local, V_r))
+        _, local, mask, plan = self._local
+        w = mask if weights is None else mask * dp.all_gather(weights)
+        out = self.bag(table, local, w, gather=gather, plan=plan)
+        if not gather:
+            return dp.reduce_scatter(out)
+        s, rows = out
+        return dp.reduce_scatter(s), dp.reduce_scatter(rows * mask[..., None])
 
 
 def deepfm_params_from_numpy(params) -> Dict[str, torch.Tensor]:

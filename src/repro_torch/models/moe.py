@@ -12,6 +12,18 @@ expert off the sorted order.  Assignments ranked past the capacity are
 dropped (GShard semantics).  The dispatch and the combine are gathers: slot
 c of expert e names the token that fills it.
 
+Data parallel (`moe_ffn(dp=)`, a `dist.collectives.DataGroup` whose ranks
+hold consecutive blocks of the global batch's tokens): the layer is the
+global batch's, each rank computing its own tokens' rows.  The (N_local,
+k) expert ids are all-gathered, so `assign_slots` ranks every assignment
+of the global batch against the global capacity, as the one-device layer
+does; each rank keeps its own tokens' slots and dispatches only its own
+kept assignments, into a buffer of the largest count any expert holds of
+them (one host read a layer), so its expert work is its share, not the
+global (E, C) buffer.  The load-balance loss E·Σ f_e·P_e takes f from
+the global ids and is linear in P, so each rank's part is E·Σ f_e·(Σ of
+its own probabilities)_e / N and the parts sum to the global loss.
+
 The reference's `with_sharding_constraint` layout hints for the (E, C, D)
 buffers over a mesh compute nothing and have no counterpart here.
 """
@@ -111,13 +123,33 @@ def assign_slots(experts: torch.Tensor, n_experts: int, capacity: int) -> Expert
     return ExpertSlots(keep, slot, tok_for_slot, slot_valid)
 
 
+def _shared_experts(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    s1 = x @ params["ws1"].to(x.dtype)
+    s3 = x @ params["ws3"].to(x.dtype) if act == "swiglu" else None
+    return _activation(s1, s3, act) @ params["ws2"].to(x.dtype)
+
+
+def _expert_ffn(params: dict, buf: torch.Tensor, act: str) -> torch.Tensor:
+    """(E, C, D) dispatched tokens through each expert's FFN."""
+    h1 = torch.bmm(buf, params["we1"].to(buf.dtype))
+    h3 = torch.bmm(buf, params["we3"].to(buf.dtype)) if act == "swiglu" else None
+    return torch.bmm(_activation(h1, h3, act), params["we2"].to(buf.dtype))
+
+
 def moe_ffn(
     params: dict,
     x: torch.Tensor,            # (N, D) flattened tokens
     cfg: MoEConfig,
     act: str,
+    *,
+    dp=None,
 ) -> Tuple[torch.Tensor, MoEMetrics]:
-    """Top-k routed expert FFN + optional shared experts.  Returns (N, D)."""
+    """Top-k routed expert FFN + optional shared experts.  Returns (N, D).
+    With `dp`, x is this rank's block of the global batch's tokens (see
+    the module docstring), the aux loss this rank's part and the drop
+    fraction the global batch's."""
+    if dp is not None:
+        return _moe_ffn_data_parallel(params, x, cfg, act, dp)
     N, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = expert_capacity(N, cfg)
@@ -128,11 +160,7 @@ def moe_ffn(
     # ---- dispatch: a gather of the token filling each slot ---------------
     buf = x[plan.tok_for_slot] * plan.slot_valid[..., None].to(x.dtype)   # (E, C, D)
 
-    # ---- expert GEMMs ------------------------------------------------------
-    h1 = torch.bmm(buf, params["we1"].to(x.dtype))
-    h3 = torch.bmm(buf, params["we3"].to(x.dtype)) if act == "swiglu" else None
-    h = _activation(h1, h3, act)
-    y_buf = torch.bmm(h, params["we2"].to(x.dtype))                      # (E, C, D)
+    y_buf = _expert_ffn(params, buf, act)                                # (E, C, D)
 
     # ---- combine: k gathers ------------------------------------------------
     out = torch.zeros((N, D), dtype=x.dtype, device=x.device)
@@ -143,12 +171,55 @@ def moe_ffn(
 
     # ---- shared experts (DeepSeek): dense FFN on every token --------------
     if "ws1" in params:
-        s1 = x @ params["ws1"].to(x.dtype)
-        s3 = x @ params["ws3"].to(x.dtype) if act == "swiglu" else None
-        out = out + _activation(s1, s3, act) @ params["ws2"].to(x.dtype)
+        out = out + _shared_experts(params, x, act)
 
     metrics = MoEMetrics(
         aux_loss=load_balance_loss(probs, experts, E),
         drop_frac=1.0 - plan.keep.to(torch.float32).mean(),
     )
     return out, metrics
+
+
+def _moe_ffn_data_parallel(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str, dp
+                           ) -> Tuple[torch.Tensor, MoEMetrics]:
+    N_loc, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    w, experts, probs = route_topk(x @ params["router"].to(x.dtype), cfg)
+    ids = dp.all_gather(experts)                                  # (N, k), rank-major
+    N = ids.shape[0]
+    C = expert_capacity(N, cfg)
+    plan = assign_slots(ids, E, C)
+    lo = dp.rank * N_loc
+    keep, slot = plan.keep[lo:lo + N_loc], plan.slot[lo:lo + N_loc]
+    e_nk = experts.long()
+
+    # an expert's assignments rank in token order, so this rank's are a run
+    # of its slots starting after the earlier ranks' assignments to it
+    before = torch.bincount(ids[:lo].reshape(-1).long(), minlength=E)
+    own = torch.bincount(e_nk.reshape(-1), minlength=E)
+    own_kept = torch.minimum(torch.clamp_min(C - before, 0), own)
+    C_loc = max(8, -(-int(own_kept.max()) // 8) * 8)             # one host read
+    local_slot = slot - before[e_nk]
+
+    # ---- dispatch: this rank's kept assignments, (E, C_loc) slots ----------
+    kept = keep.reshape(-1)
+    e_kept, s_kept = e_nk.reshape(-1)[kept], local_slot.reshape(-1)[kept]
+    tok = torch.zeros((E, C_loc), dtype=torch.long, device=x.device)
+    valid = torch.zeros((E, C_loc), dtype=torch.bool, device=x.device)
+    tok[e_kept, s_kept] = torch.arange(N_loc, device=x.device).repeat_interleave(k)[kept]
+    valid[e_kept, s_kept] = True
+    y_buf = _expert_ffn(params, x[tok] * valid[..., None].to(x.dtype), act)
+
+    # ---- combine -------------------------------------------------------------
+    out = torch.zeros((N_loc, D), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        y_j = y_buf[e_nk[:, j], torch.clamp(local_slot[:, j], 0, C_loc - 1)]
+        y_j = torch.where(keep[:, j:j + 1], y_j, 0)
+        out = out + y_j * w[:, j:j + 1].to(x.dtype)
+    if "ws1" in params:
+        out = out + _shared_experts(params, x, act)
+
+    f = torch.bincount(ids.reshape(-1).long(), minlength=E).to(torch.float32) / (N * k)
+    aux = E * torch.sum(f * (probs.sum(dim=0) / N))
+    return out, MoEMetrics(aux_loss=aux,
+                           drop_frac=1.0 - plan.keep.to(torch.float32).mean())

@@ -22,6 +22,14 @@ outputs (`aten.mm` / `aten.addmm`, the counterpart of the reference's
 `dots_with_no_batch_dims_saveable`) and recomputes the rest, the attention
 recurrence's batched products included.
 
+Data parallel: with `dp` (a `dist.collectives.DataGroup`) `lm_loss` is
+one rank's part of the loss of the global batch, whose blocks the group's
+ranks hold: summed over the ranks, the parts and their gradients are the
+global loss's.  `chunked_xent` divides by the all-reduced count of
+targets >= 0 (MTP's last position and padding are not counted, so the
+ranks' counts differ), and every MoE layer routes by the global batch's
+expert ids (`moe.moe_ffn(dp=)`).  Without `dp` nothing changes.
+
 Dtypes as in the reference: `rms_norm`, RoPE and attention compute in f32
 and cast back to the activations' dtype; the projections run in the
 weights' dtype (bf16 for the full configs); logits are f32.
@@ -356,23 +364,23 @@ def _dense_ffn(p: Params, cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn_forward(
-    p: Params, cfg: LMConfig, x: torch.Tensor, is_moe: bool
+    p: Params, cfg: LMConfig, x: torch.Tensor, is_moe: bool, dp=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (residual update, aux loss)."""
     B, S, D = x.shape
     h = rms_norm(x, p["ln2"])
     if is_moe:
-        out, metrics = moe_ffn(p, h.reshape(B * S, D), cfg.moe, cfg.act)
+        out, metrics = moe_ffn(p, h.reshape(B * S, D), cfg.moe, cfg.act, dp=dp)
         return out.reshape(B, S, D), metrics.aux_loss
     return _dense_ffn(p, cfg, h), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _layer_forward(lp: Params, cfg: LMConfig, is_moe: bool, x: torch.Tensor,
-                   positions: torch.Tensor):
+                   positions: torch.Tensor, dp=None):
     """One layer: returns (x after the layer, its aux loss, its kv tensors)."""
     upd, kv = _attn_forward(lp["attn"], cfg, x, positions)
     x = x + upd
-    upd, aux = _ffn_forward(lp["ffn"], cfg, x, is_moe)
+    upd, aux = _ffn_forward(lp["ffn"], cfg, x, is_moe, dp)
     return x + upd, aux, kv
 
 
@@ -405,11 +413,13 @@ def forward(
     tokens: torch.Tensor,                 # (B, S) int
     *,
     collect_kv: bool = False,
+    dp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[list]]:
     """Returns (hidden (B,S,D), total aux loss, kv caches or None).  The kv
     caches are one dict per layer stack, each leaf (L_stack, B, S, ...).
     While autograd records (and no kv is collected), `cfg.remat`
-    checkpoints each layer."""
+    checkpoints each layer.  `dp`: this rank's block of a data-parallel
+    batch (the MoE layers route by the global batch)."""
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
@@ -422,9 +432,9 @@ def forward(
             lp = _layer(stack, i)
             if remat:
                 x, aux, kv = _checkpointed(cfg.remat_policy, _layer_forward, lp, cfg, is_moe,
-                                           x, positions)
+                                           x, positions, dp)
             else:
-                x, aux, kv = _layer_forward(lp, cfg, is_moe, x, positions)
+                x, aux, kv = _layer_forward(lp, cfg, is_moe, x, positions, dp)
             aux_total = aux_total + aux
             if collect_kv:
                 layer_kvs.append(kv)
@@ -455,11 +465,14 @@ def chunked_xent(
     head: torch.Tensor,         # (D, V)
     targets: torch.Tensor,      # (B, S) int; -1 = ignore
     chunk: int,
+    dp=None,
 ) -> torch.Tensor:
     """Mean next-token NLL over the targets >= 0, a sequence chunk at a
     time; a ragged S (MTP's S - 1) is padded with ignored targets.  While
     autograd records, each chunk is checkpointed: its (B, chunk, V)
-    logits are freed after the forward and made again in the backward."""
+    logits are freed after the forward and made again in the backward.
+    With `dp` the sum over this rank's block divided by the count over
+    every rank's."""
     B, S, D = h.shape
     chunk = min(chunk, S)
     pad = (-S) % chunk
@@ -476,11 +489,13 @@ def chunked_xent(
         else:
             tot = tot + _xent_chunk(hx, head, tx)
     cnt = (targets >= 0).sum()
+    if dp is not None:
+        cnt = dp.all_reduce(cnt)
     return tot / torch.clamp_min(cnt, 1)
 
 
-def mtp_loss(params: Params, cfg: LMConfig, h: torch.Tensor, tokens: torch.Tensor
-             ) -> torch.Tensor:
+def mtp_loss(params: Params, cfg: LMConfig, h: torch.Tensor, tokens: torch.Tensor,
+             dp=None) -> torch.Tensor:
     """DeepSeek-V3 multi-token prediction (depth 1): position t predicts t+2."""
     p = params["mtp"]
     B, S, D = h.shape
@@ -493,20 +508,22 @@ def mtp_loss(params: Params, cfg: LMConfig, h: torch.Tensor, tokens: torch.Tenso
     # position i of m sees tokens <= i and the embedding of token i+1: it
     # predicts token i+2
     targets = F.pad(tokens[:, 2:], (0, 1), value=-1)        # (B, S-1)
-    return chunked_xent(m, _head_weight(params), targets, cfg.loss_chunk)
+    return chunked_xent(m, _head_weight(params), targets, cfg.loss_chunk, dp)
 
 
 def lm_loss(
     params: Params, cfg: LMConfig, tokens: torch.Tensor, targets: torch.Tensor,
-    *, aux_weight: float = 0.01, mtp_weight: float = 0.3,
+    *, aux_weight: float = 0.01, mtp_weight: float = 0.3, dp=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(total loss, {"xent", "aux"[, "mtp"]}), as the reference's."""
-    h, aux, _ = forward(params, cfg, tokens)
-    loss = chunked_xent(h, _head_weight(params), targets, cfg.loss_chunk)
+    """(total loss, {"xent", "aux"[, "mtp"]}), as the reference's; with `dp`
+    this rank's part of each (their sums over the ranks are the global
+    batch's)."""
+    h, aux, _ = forward(params, cfg, tokens, dp=dp)
+    loss = chunked_xent(h, _head_weight(params), targets, cfg.loss_chunk, dp)
     metrics = {"xent": loss, "aux": aux}
     total = loss + aux_weight * aux
     if cfg.mtp:
-        lm = mtp_loss(params, cfg, h, tokens)
+        lm = mtp_loss(params, cfg, h, tokens, dp)
         metrics["mtp"] = lm
         total = total + mtp_weight * lm
     return total, metrics

@@ -1,13 +1,17 @@
 """The training substrate (counterpart of `repro.train`): AdamW, the
 fault-tolerant loop, checkpoints and gradient compression, over trees of
-tensors (`train.tree`).  `zero1_specs` waits for the distributed port."""
+tensors (`train.tree`); over placed trees (DTensor leaves), ZeRO-1's
+`zero1_specs` and `adamw_init_placed` / `adamw_update_placed`."""
 from repro_torch.train.optimizer import (
     AdamWState,
     OptConfig,
     adamw_init,
+    adamw_init_placed,
     adamw_update,
+    adamw_update_placed,
     global_norm,
     schedule,
+    zero1_specs,
 )
 from repro_torch.train.train_loop import LoopConfig, TrainLoop
 from repro_torch.train import checkpoint
@@ -19,7 +23,7 @@ from repro_torch.train.compression import (
 )
 
 __all__ = [
-    "AdamWState", "OptConfig", "adamw_init", "adamw_update", "global_norm",
-    "schedule", "LoopConfig", "TrainLoop", "checkpoint",
+    "AdamWState", "OptConfig", "adamw_init", "adamw_init_placed", "adamw_update",
+    "adamw_update_placed", "global_norm", "schedule", "zero1_specs", "LoopConfig", "TrainLoop", "checkpoint",
     "compress_tree", "decompress_tree", "compress_with_error_feedback", "ef_init",
 ]

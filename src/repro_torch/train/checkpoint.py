@@ -17,6 +17,12 @@ Format: one directory per step, as the reference's —
   per leaf.
 * Leaves are stored as whole tensors, one at a time, and restored onto the
   device the caller names (the card by default).
+* **placed trees** (DTensor leaves, `dist.sharding.distribute`): `save`
+  gathers each leaf on every rank of their mesh (`full_tensor()`), the
+  mesh's first rank writes, and every rank returns only once the
+  checkpoint is in place (`dist.collectives.mesh_barrier`);
+  `restore(placements=)` has every rank read each leaf and keep its own
+  block, the counterpart of the reference's `restore(shardings=)`.
 
 Where the reference's manifest is msgpack with a pickled treedef, this one
 is JSON with the tree's spec (`train.tree.flatten`): dict keys sorted,
@@ -87,17 +93,37 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
+def _mesh_of(leaves: List[Any]):
+    """The mesh of the first DTensor leaf, or None."""
+    from torch.distributed.tensor import DTensor
+
+    return next((x.device_mesh for x in leaves if isinstance(x, DTensor)), None)
+
+
 def save(ckpt_dir: str, step: int, tree: Any) -> str:
-    """Atomically write `tree` as checkpoint `step`.  Returns the final path."""
-    final = _step_dir(ckpt_dir, step)
-    tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(os.path.join(tmp, "arrays"), exist_ok=True)
+    """Atomically write `tree` as checkpoint `step`.  Returns the final path.
+
+    A tree with DTensor leaves is saved by every rank of their mesh
+    together: each leaf is gathered on every rank, the mesh's first rank
+    alone writes, and every rank returns only once the checkpoint is in
+    place."""
+    from repro_torch.dist.collectives import mesh_barrier
 
     leaves, spec = T.flatten(tree)
+    mesh = _mesh_of(leaves)
+    writer = mesh is None or not any(mesh.get_coordinate())
+    final = _step_dir(ckpt_dir, step)
+    tmp = final + ".tmp"
+    if writer:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(os.path.join(tmp, "arrays"), exist_ok=True)
     manifest: List[dict] = []
     for i, leaf in enumerate(leaves):
+        if mesh is not None and hasattr(leaf, "full_tensor"):
+            leaf = leaf.full_tensor()
+        if not writer:
+            continue
         t = torch.as_tensor(leaf).detach().cpu().contiguous()
         raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
         payload, codec = _compress(raw)
@@ -106,11 +132,14 @@ def save(ckpt_dir: str, step: int, tree: Any) -> str:
             f.write(payload)
         manifest.append(dict(file=fname, codec=codec, shape=list(t.shape),
                              dtype=_dtype_name(t.dtype), crc32=zlib.crc32(raw) & 0xFFFFFFFF))
-    with open(os.path.join(tmp, MANIFEST), "w") as f:
-        json.dump(dict(step=step, leaves=manifest, tree=spec), f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.replace(tmp, final)
+    if writer:
+        with open(os.path.join(tmp, MANIFEST), "w") as f:
+            json.dump(dict(step=step, leaves=manifest, tree=spec), f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+    if mesh is not None:
+        mesh_barrier(mesh)
     return final
 
 
@@ -128,12 +157,22 @@ def tree_shapes(ckpt_dir: str, step: int) -> Any:
         for m in meta["leaves"]])
 
 
-def restore(ckpt_dir: str, step: int, *, device: DeviceLike = "cuda") -> Any:
+def restore(ckpt_dir: str, step: int, *, device: DeviceLike = "cuda",
+            placements: Any = None) -> Any:
     """Restore checkpoint `step` with its leaves on `device`.  Raises
-    CorruptCheckpoint on a crc mismatch or a damaged payload."""
+    CorruptCheckpoint on a crc mismatch or a damaged payload.
+
+    `placements`, a tree of `dist.sharding.Sharding` of the checkpoint's
+    structure, places each leaf as a DTensor: every rank reads the leaf
+    and keeps its own block on `device`, one leaf at a time."""
     dev = resolve_device(device)
     path = _step_dir(ckpt_dir, step)
     meta = _read_manifest(path)
+    where = None
+    if placements is not None:
+        where, spec = T.flatten(placements)
+        if spec != meta["tree"]:
+            raise ValueError("the placements' tree is not the checkpoint's")
     leaves = []
     for i, m in enumerate(meta["leaves"]):
         with open(os.path.join(path, "arrays", m["file"]), "rb") as f:
@@ -146,7 +185,8 @@ def restore(ckpt_dir: str, step: int, *, device: DeviceLike = "cuda") -> Any:
         dtype = getattr(torch, m["dtype"])
         flat = (torch.frombuffer(bytearray(raw), dtype=dtype) if raw
                 else torch.empty(0, dtype=dtype))
-        leaves.append(flat.reshape(m["shape"]).to(dev))
+        full = flat.reshape(m["shape"])
+        leaves.append(full.to(dev) if where is None else where[i].place(full, dev))
     return T.unflatten(meta["tree"], leaves)
 
 

@@ -95,3 +95,31 @@ def tree_map(fn: Callable, tree: Any, *rest: Any, is_leaf: IsLeaf = None) -> Any
             raise ValueError("trees of different structure")
         others.append(got)
     return unflatten(spec, [fn(*xs) for xs in zip(first, *others)])
+
+
+def _paths(x, is_leaf: IsLeaf, path: tuple, out: List[tuple]) -> None:
+    if is_leaf is not None and is_leaf(x):
+        out.append(path)
+    elif x is None:
+        return
+    elif isinstance(x, dict):
+        for k in sorted(x):
+            _paths(x[k], is_leaf, path + (k,), out)
+    elif _is_namedtuple(x):
+        for name, c in zip(type(x)._fields, x):
+            _paths(c, is_leaf, path + (name,), out)
+    elif isinstance(x, (list, tuple)):
+        for i, c in enumerate(x):
+            _paths(c, is_leaf, path + (i,), out)
+    else:
+        out.append(path)
+
+
+def tree_map_with_path(fn: Callable, tree: Any, *rest: Any, is_leaf: IsLeaf = None) -> Any:
+    """`tree_map` with each leaf's path as fn's first argument: the tuple of
+    dict keys, NamedTuple field names and sequence indices (ints) from the
+    root, as `jax.tree_util.tree_map_with_path` gives them."""
+    out: List[tuple] = []
+    _paths(tree, is_leaf, (), out)
+    it = iter(out)
+    return tree_map(lambda *xs: fn(next(it), *xs), tree, *rest, is_leaf=is_leaf)

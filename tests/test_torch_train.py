@@ -4,8 +4,9 @@ and against the JAX reference where both compute the same thing: schedule
 values, AdamW updates on a small tree (out of place and in place),
 compression on tie-free inputs and on quantised ones whose |g| ties
 across the k-th place (the kept positions in `jax.lax.top_k`'s order),
-token batches, the order of a tree's leaves.  `zero1_specs` is not ported
-(it waits for the distributed port).  Everything runs on the CPU.
+token batches, the order of a tree's leaves.  `zero1_specs` is held to the
+reference's in tests/test_torch_dist.py, the placed AdamW across ranks in
+tests/test_torch_dist_train.py.  Everything runs on the CPU.
 
 Tolerances: the schedule within 5e-7 relative (a few ulps of f32: `cos`
 and the products around it round differently in XLA and torch; 2.3e-7
