@@ -428,6 +428,28 @@ Phases, each fatal on failure:
                  checked) against `moe_ffn`: expert ids, kept slots and
                  slots equal, the output within 2^-8 of max |y| (one bf16
                  step at the output's scale), ms of each.
+ 16. tp      the 'model' axis (run after phase 15), every `[tp]` line beside
+             the card's name and power limit, on a new one-rank NCCL group
+             and a (1, 1) ("data", "model") `DeviceMesh`, destroyed after.
+             Every run goes through the code a 'model' axis larger than 1
+             runs (every collective on the one-rank groups) and is held
+             bit-equal to the step without a mesh:
+             (a) qwen3-0.6b whole, 4 x 4,096, `place_lm_state(fsdp=True)`
+                 and `make_lm_train_step(mesh=, fsdp=True)`: a warm-up and
+                 a timed step, the loss and every parameter and moment
+                 after each;
+             (b) deepseek-v3's 3 dense layers with the MTP block at full
+                 width, 1 x 4,096, the state donated: one step each way
+                 from the same seed, every leaf by an exact fingerprint
+                 (the state does not fit twice);
+             (c) qwen3-0.6b's `prefill_step(mesh=)` of 8 x 512 into a
+                 32,768-slot cache placed by `cache_specs`, then 8 greedy
+                 `serve_step(mesh=)` calls: every step's logits, ms per
+                 step beside the steps without a mesh;
+             (d) DeepFM's full CONFIG over (data, model): `train_step(mesh=)`
+                 at B = 65,536 (2 bag launches, 2 backwards, 1 slot sort,
+                 counted from 0 just before it), serve_bulk and
+                 retrieval_cand (2 bag launches each).
 
 The last three lines of standard output are, in order: the kernels JSON
 object (one record per kernel), the card's name and power limit as
@@ -3429,9 +3451,10 @@ class MoEDrops:
         self.tf.moe_ffn = self.orig
 
 
-def lm_decode(params, cfg, logits, cache, steps: int):
-    """`steps` greedy `serve_step`s; returns the logits of each step, the
-    last cache and each step's ms by CUDA events."""
+def lm_decode(params, cfg, logits, cache, steps: int, mesh=None):
+    """`steps` greedy `serve_step`s (with `mesh`, the placed ones); returns
+    the logits of each step, the last cache and each step's ms by CUDA
+    events."""
     import torch
     from repro_torch.configs import lm_cells as C
 
@@ -3440,7 +3463,7 @@ def lm_decode(params, cfg, logits, cache, steps: int):
     for _ in range(steps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        logits, cache = C.serve_step(params, cfg, cache, tok)
+        logits, cache = C.serve_step(params, cfg, cache, tok, mesh=mesh)
         end.record()
         out.append(logits)
         ms.append((start, end))
@@ -4233,14 +4256,14 @@ def hold_shard_bag(mesh, model, params, fields, errs: dict) -> None:
     from repro_torch.hopper import embedding_bag as E
     from repro_torch.models.deepfm import VocabParallelBag
 
-    dp = data_group(mesh, "the shard bag check")
+    dp, tp = data_group(mesh, "the shard bag check")
     flat = fields + model.offsets[None, :]
     table = params["embed"].to_local().detach()
     outs = {}
     for name, bag in (("kernel", E.embedding_bag), ("plain", E.embedding_bag_plain)):
         leaf = table.clone().requires_grad_()
         with torch.enable_grad():
-            s, v = VocabParallelBag(dp, bag)(leaf, flat, gather=True)
+            s, v = VocabParallelBag(dp, tp, bag)(leaf, flat, gather=True)
             g_s = torch.ones_like(s)
             (grad,) = torch.autograd.grad((s, v), (leaf,), (g_s, torch.ones_like(v)))
         outs[name] = (s.detach(), v.detach(), grad)
@@ -4415,6 +4438,257 @@ def phase_dist(errs: dict) -> None:
           flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 16: the 'model' axis on a one-rank NCCL group
+# --------------------------------------------------------------------------
+
+TP_LM_BATCH = 4                      # (a): sequences of LM_TRAIN_SEQ tokens
+# (b): deepseek-v3's dense layers with the MTP block, phase 14 (c)'s cut: (layers,
+# sequences of LM_TRAIN_SEQ tokens); its state (51.5 GB) is donated
+TP_DEEPSEEK = (3, 1)
+TP_SERVE = dict(batch=8, prompt=512, cache=32_768, steps=8)   # (c): phase 13's cell, 8 steps
+_PRINT_BLOCK = 1 << 26
+
+
+def fingerprints(tree) -> list:
+    """An exact fingerprint of each leaf's bits (Σ bits · (i mod 65,521 +
+    1) in int64, a block at a time): two trees too large to hold twice are
+    compared leaf by leaf through them."""
+    import torch
+    from repro_torch.dist.sharding import local
+    from repro_torch.train import tree as T
+
+    out = []
+    for x in T.leaves(tree):
+        x = local(x).detach().reshape(-1)
+        bits = x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
+        tot = torch.zeros((), dtype=torch.int64, device=x.device)
+        for lo in range(0, bits.numel(), _PRINT_BLOCK):
+            b = bits[lo:lo + _PRINT_BLOCK].to(torch.int64)
+            tot += (b * (torch.arange(lo, lo + b.numel(), device=x.device) % 65_521 + 1)).sum()
+        out.append(tot)
+    return torch.stack(out).tolist()
+
+
+def same_leaves(a, b) -> bool:
+    """Every leaf of tree `a` bit-equal to the same leaf of placed tree `b`."""
+    import torch
+    from repro_torch.dist.sharding import local
+    from repro_torch.train import tree as T
+
+    la, lb = T.leaves(a), T.leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, local(y)) for x, y in zip(la, lb))
+
+
+def phase_tp_lm(mesh) -> None:
+    """(a): qwen3-0.6b whole through the tensor-parallel and FSDP step."""
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.configs import lm_cells as C
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.dist import batch_spec
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+
+    cfg = LM_ARCHS["qwen3-0.6b"].CONFIG
+    B, S = TP_LM_BATCH, LM_TRAIN_SEQ
+    params = lm_init(cfg)
+    opt = adamw_init(params)
+    pp, po = C.place_lm_state(params, mesh, fsdp=True)
+    plain = C.make_lm_train_step(cfg, OptConfig(**LM_TRAIN_OPT))
+    placed = C.make_lm_train_step(cfg, OptConfig(**LM_TRAIN_OPT), mesh=mesh, fsdp=True)
+    ms, peaks = {}, {}
+    for i, what in enumerate(("warm-up", "timed")):
+        batch = lm_batch(cfg, B, S, i)
+        (params, opt, loss1, _), plain_ms, plain_peak = timed_step(
+            lambda: plain(params, opt, *batch))
+        (pp, po, loss2, _), ms[what], peaks[what] = timed_step(
+            lambda: placed(pp, po, *shard_batch(batch, mesh, batch_spec(mesh, 1))))
+        check(torch.equal(loss1, loss2) and same_leaves((params, opt.m, opt.v), (pp, po.m, po.v)),
+              f"[tp] (a) qwen3-0.6b's {what} step through the 'model' axis and FSDP is "
+              f"not bit-equal to the step without a mesh (loss {float(loss2)!r} vs "
+              f"{float(loss1)!r})")
+    print(f"[tp] (a) make_lm_train_step(mesh=(1, 1), fsdp=True) on qwen3-0.6b whole, {B} x "
+          f"{S:,}: tensor-parallel blocks (vocab-parallel embedding and log-sum-exp, "
+          f"column / row projections), every layer's leaves gathered over 'data' as it runs: "
+          f"loss, every parameter and moment bit-equal to the step without a mesh after the "
+          f"warm-up and the timed step; warm-up {ms['warm-up']:.3f} ms, timed step "
+          f"{ms['timed']:.3f} ms, peak {peaks['timed']:.3f} GiB (without a mesh {plain_ms:.3f} "
+          f"ms, {plain_peak:.3f} GiB); card {card_line()}", flush=True)
+
+
+def phase_tp_deepseek(mesh) -> None:
+    """(b): deepseek-v3's 3 dense layers with MTP (MLA's latent gather,
+    MTP's gathered projection), both ways from the same seed, donated."""
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.configs import lm_cells as C
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.dist import batch_spec
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+
+    layers, B = TP_DEEPSEEK
+    full = LM_ARCHS["deepseek-v3-671b"].CONFIG
+    cfg = dataclasses.replace(full, n_layers=layers, n_dense_layers=layers)
+    S = LM_TRAIN_SEQ
+    batch = lm_batch(cfg, B, S, 0)
+    params = lm_init(cfg)
+    step = C.make_lm_train_step(cfg, OptConfig(**LM_TRAIN_OPT), donate=True)
+    (params, opt, loss1, _), plain_ms, plain_peak = timed_step(
+        lambda: step(params, adamw_init(params), *batch))
+    want = fingerprints((params, opt.m, opt.v))
+    del params, opt
+    torch.cuda.empty_cache()
+    pp, po = C.place_lm_state(lm_init(cfg), mesh)
+    placed = C.make_lm_train_step(cfg, OptConfig(**LM_TRAIN_OPT), donate=True, mesh=mesh)
+    (pp, po, loss2, _), ms, peak = timed_step(
+        lambda: placed(pp, po, *shard_batch(batch, mesh, batch_spec(mesh, 1))))
+    got = fingerprints((pp, po.m, po.v))
+    del pp, po
+    torch.cuda.empty_cache()
+    check(torch.equal(loss1, loss2) and got == want,
+          f"[tp] (b) deepseek's step through the 'model' axis is not bit-equal to the step "
+          f"without a mesh: loss {float(loss2)!r} vs {float(loss1)!r}, "
+          f"{sum(a != b for a, b in zip(got, want))} of {len(want)} leaves differ")
+    print(f"[tp] (b) make_lm_train_step(mesh=(1, 1), donate=True) on deepseek-v3-671b full "
+          f"width, its {layers} dense layers and the MTP block, {B} x {S:,}: loss "
+          f"{float(loss2):.6f}, every parameter and moment bit-equal to the step without a "
+          f"mesh ({len(want)} leaves by exact fingerprint); {ms:.3f} ms, peak {peak:.3f} GiB "
+          f"(without a mesh {plain_ms:.3f} ms, {plain_peak:.3f} GiB); card {card_line()}",
+          flush=True)
+
+
+def phase_tp_serve(mesh) -> None:
+    """(c): qwen3-0.6b's prefill and decode with the cache under
+    `cache_specs`, against the steps without a mesh."""
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.configs import lm_cells as C
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.dist import batch_spec, distribute, lm_param_specs
+
+    cfg = LM_ARCHS["qwen3-0.6b"].CONFIG
+    B, P, L, n = (TP_SERVE[k] for k in ("batch", "prompt", "cache", "steps"))
+    params = lm_init(cfg)
+    prompts = lm_prompts(cfg, B, P)
+    logits, cache = C.prefill_step(params, cfg, prompts, max_len=L)
+    want, cache, plain_ms = lm_decode(params, cfg, logits, cache, n)
+    want.insert(0, logits)
+    del cache
+    torch.cuda.empty_cache()
+    placed = distribute(params, lm_param_specs(params, mesh), mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = C.prefill_step(placed, cfg, shard_batch(prompts, mesh, batch_spec(mesh, 1)),
+                                   max_len=L, mesh=mesh)
+    torch.cuda.synchronize()
+    t_prefill = (time.perf_counter() - t0) * 1e3
+    got, cache, ms = lm_decode(placed, cfg, logits, cache, n, mesh=mesh)
+    got.insert(0, logits)
+    check(int(cache.pos) == P + n and cache.nbytes() == LM_CACHE_BYTES,
+          "[tp] (c) the placed cache's position or size")
+    placements = sorted({str([str(q) for q in v.placements]) for v in cache.data.values()})
+    del cache
+    torch.cuda.empty_cache()
+    check(all(torch.equal(a, b) for a, b in zip(want, got)),
+          "[tp] (c) the placed prefill or decode logits are not bit-equal to the steps "
+          "without a mesh")
+    print(f"[tp] (c) prefill_step / serve_step(mesh=(1, 1)) on qwen3-0.6b whole, batch {B}: "
+          f"{P} tokens into a {L:,}-slot cache placed by cache_specs ({placements[0]}), then "
+          f"{n} greedy steps: prefill {t_prefill:.3f} ms, logits of the prefill and every step "
+          f"bit-equal to the steps without a mesh; step median {statistics.median(ms):.3f} ms "
+          f"(without a mesh {statistics.median(plain_ms):.3f}; phase 13's cell at 32 steps); "
+          f"card {card_line()}", flush=True)
+
+
+def phase_tp_deepfm(mesh) -> dict:
+    """(d): DeepFM's full CONFIG train, serve_bulk and retrieval_cand steps
+    with the tables over ('data', 'model') and the tower over 'model'."""
+    import torch
+    from repro_torch.configs import deepfm as C
+    from repro_torch.data.pipeline import ClickStream, shard_batch
+    from repro_torch.dist import P, batch_spec, data_axes
+    from repro_torch.hopper import embedding_bag as E
+    from repro_torch.models import deepfm as M
+    from repro_torch.train import adamw_init
+
+    model = M.DeepFM(C.CONFIG, seed=0, device="cuda")
+    B = C.SHAPES["train_batch"]["batch"]
+    fields, labels = (torch.from_numpy(a).cuda()
+                      for a in ClickStream(C.FIELD_VOCABS, B, seed=0).batch_at(0))
+    params = C.train_params(model)
+    p1, o1, loss1 = C.train_step(model, params, adamw_init(params), fields, labels)
+    pp, po = C.place_deepfm_state(params, mesh)
+    f = shard_batch(fields, mesh, batch_spec(mesh, 1))
+    lab = shard_batch(labels, mesh, P(data_axes(mesh)))
+    sorts = E.sort_slots.calls
+    (p2, o2, loss2), train_counts = counted(lambda: C.train_step(model, pp, po, f, lab,
+                                                                 mesh=mesh))
+    sorts = E.sort_slots.calls - sorts
+    _, ms, _ = timed_step(lambda: C.train_step(model, pp, po, f, lab, mesh=mesh))
+    want = {k: 0 for k in KERNELS}
+    want.update(embedding_bag=2, embedding_bag_backward=2)
+    check(train_counts == want and sorts == 1,
+          f"[tp] (d) train_step launches {train_counts}, {sorts} slot sorts")
+    check(torch.equal(loss1, loss2) and same_leaves((p1, o1.m, o1.v), (p2, o2.m, o2.v)),
+          "[tp] (d) DeepFM's step over (data, model) is not bit-equal to the step without a "
+          "mesh")
+    del p1, o1, p2, o2
+    bulk = torch.from_numpy(ClickStream(C.FIELD_VOCABS, C.SHAPES["serve_bulk"]["batch"],
+                                        seed=0).batch_at(0)[0]).cuda()
+    plain_bulk = C.serve_step(model, bulk)
+    bulk_logits, bulk_counts = counted(lambda: C.serve_step(
+        model, shard_batch(bulk, mesh, batch_spec(mesh, 1)), params=pp, mesh=mesh))
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cands = torch.randint(0, C.FIELD_VOCABS[ITEM_FIELD], (C.RETRIEVAL_CANDIDATES,),
+                          generator=gen, device="cuda", dtype=torch.int32)
+    user = bulk[0]
+    plain_scores = C.retrieval_step(model, user, cands, ITEM_FIELD)
+    scores, ret_counts = counted(lambda: C.retrieval_step(
+        model, user, shard_batch(cands, mesh, P(tuple(mesh.mesh_dim_names))), ITEM_FIELD,
+        params=pp, mesh=mesh))
+    want = {k: 0 for k in KERNELS}
+    want.update(embedding_bag=2)
+    check(bulk_counts == want and ret_counts == want,
+          f"[tp] (d) serve_bulk launches {bulk_counts}, retrieval_cand {ret_counts}")
+    check(torch.equal(plain_bulk, bulk_logits) and torch.equal(plain_scores, scores),
+          "[tp] (d) DeepFM's serve_bulk logits or retrieval scores over (data, model) are not "
+          "bit-equal to the steps without a mesh")
+    bags = {what: {k: c[k] for k in ("embedding_bag", "embedding_bag_backward")}
+            for what, c in (("train_step", train_counts), ("serve_bulk", bulk_counts),
+                            ("retrieval_cand", ret_counts))}
+    print(f"[tp] (d) DeepFM CONFIG over (data, model) = (1, 1), the tables' rows on the "
+          f"rank's block: train_step B = {B:,}, launches {bags['train_step']} and {sorts} slot "
+          f"sort (the other kernels 0), loss and every parameter and moment bit-equal to the "
+          f"step without a mesh, {ms:.3f} ms warm; serve_bulk B = {bulk.shape[0]:,} launches "
+          f"{bags['serve_bulk']}, retrieval_cand {C.RETRIEVAL_CANDIDATES:,} candidates launches "
+          f"{bags['retrieval_cand']}, both bit-equal; card {card_line()}", flush=True)
+    return bags
+
+
+def phase_tp(errs: dict) -> None:
+    """Phase 16: the 'model' axis (see the module docstring)."""
+    import torch
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    mesh = dist_mesh()
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"[tp] group {dist.get_backend()} of {dist.get_world_size()}")
+        phase_tp_lm(mesh)
+        torch.cuda.empty_cache()
+        phase_tp_deepseek(mesh)
+        torch.cuda.empty_cache()
+        phase_tp_serve(mesh)
+        torch.cuda.empty_cache()
+        launches = phase_tp_deepfm(mesh)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"[tp] phase 16: {time.perf_counter() - t_phase:.1f} s, the bag kernels' launches "
+          f"{launches}; card {card_line()}", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -4456,6 +4730,7 @@ def main() -> None:
     phase_lm()
     phase_lm_train()
     phase_dist(errs)
+    phase_tp(errs)
     for r in records:               # the later phases' checks too
         r["max_abs_err"] = errs[r["name"]]
     check(sorted(r["name"] for r in records) == sorted(KERNELS), "a kernel has no record")

@@ -5,12 +5,17 @@ embed_dim=10, MLP 400-400-400, FM interaction.  The counterpart of
 count, one step per serve shape, and the train_batch cell's train step
 (`deepfm_loss`, its gradients, one AdamW update).
 
-With `mesh=` (a `DeviceMesh`: batch axes and a 'model' axis of 1) the
-train and serve steps run data-parallel under `deepfm_specs`, placed by
-`place_deepfm_state` as the reference's train cell places them (the
-moments as the parameters): the tables' rows split over every rank,
-their bags through `models.deepfm.VocabParallelBag`, the MLP replicated,
-the loss the global batch's mean.
+With `mesh=` (a `DeviceMesh` of one batch axis and a 'model' axis) the
+train, serve and retrieval steps run under `deepfm_specs`, placed by
+`place_deepfm_state` as the reference's cells place them (the moments as
+the parameters): the tables' rows split over every rank (over
+('data', 'model'), flat), their bags through
+`models.deepfm.VocabParallelBag` on each rank's rows, the batch split
+over the data ranks, the tower's first layers column-parallel over
+'model' (`models.deepfm.tower`), the loss the global batch's mean; the
+retrieval candidates split over every rank, scored by the ranks that
+hold their rows.  Each computes the function of the step without a
+mesh.
 
 Shapes: train_batch 65 536 / serve_p99 512 / serve_bulk 262 144 /
 retrieval_cand 1×1 000 000 candidates (padded to 1 000 448, a multiple of
@@ -24,7 +29,7 @@ import torch
 from torch.func import functional_call
 
 from repro_torch.device import DeviceLike
-from repro_torch.dist.collectives import DEEPFM_MODEL_ITEM, data_group
+from repro_torch.dist.collectives import data_group
 from repro_torch.dist.sharding import data_axes, deepfm_specs, distribute, local
 from repro_torch.hopper.embedding_bag import embedding_bag
 from repro_torch.models.deepfm import (
@@ -33,6 +38,7 @@ from repro_torch.models.deepfm import (
     DeepFMConfig,
     VocabParallelBag,
     bce_with_logits,
+    retrieval_score,
 )
 from repro_torch.train.optimizer import (
     AdamWState,
@@ -84,16 +90,26 @@ def serve_step(model: DeepFM, fields: torch.Tensor, *, params: Optional[Params] 
     with torch.inference_mode():
         if mesh is None:
             return model(fields)
-        _, bag = _data_parallel(mesh, params)
-        return functional_call(model, _locals(params), (local(fields),), {"bag": bag})
+        _, tp, bag = _parallel(mesh, params)
+        return functional_call(model, _locals(params), (local(fields),), {"bag": bag, "tp": tp})
 
 
 def retrieval_step(model: DeepFM, user_fields: torch.Tensor, cand_ids: torch.Tensor,
-                   item_field: int = 0) -> torch.Tensor:
+                   item_field: int = 0, *, params: Optional[Params] = None,
+                   mesh=None) -> torch.Tensor:
     """retrieval_cand: one user's (39,) fields against (N,) candidate ids of
-    `item_field` -> (N,) scores."""
+    `item_field` -> (N,) scores.  With `mesh`, `params` placed by
+    `place_deepfm_state`, `user_fields` whole and `cand_ids` this rank's
+    block of them over every rank (a DTensor, or its block; P(flat), the
+    candidates padded to a multiple of the ranks as `RETRIEVAL_CANDIDATES`
+    is of 512): this rank's block of the scores."""
     with torch.inference_mode():
-        return model.retrieval_score(user_fields, cand_ids, item_field)
+        if mesh is None:
+            return model.retrieval_score(user_fields, cand_ids, item_field)
+        _, tp, bag = _parallel(mesh, params)
+        return retrieval_score(model, local(user_fields), local(cand_ids), item_field,
+                               params=_locals(params), tp=tp,
+                               vp=bag if isinstance(bag, VocabParallelBag) else None)
 
 
 def train_params(model: DeepFM) -> Params:
@@ -115,18 +131,18 @@ def train_param_shapes(cfg: DeepFMConfig) -> Params:
 
 
 def loss_and_grads(model: DeepFM, params: Params, fields: torch.Tensor,
-                   labels: torch.Tensor, *, bag: Bag = embedding_bag, total: Optional[int] = None
-                   ) -> Tuple[torch.Tensor, Params]:
+                   labels: torch.Tensor, *, bag: Bag = embedding_bag, total: Optional[int] = None,
+                   tp=None) -> Tuple[torch.Tensor, Params]:
     """`deepfm_loss` of `model`'s structure with `params`' values
     (`torch.func.functional_call`), and its gradient with respect to each
     parameter.  Each table's gradient is one launch of the bag's backward
     kernel, the gather's gradient included, over one sort of the slots
     (`bag`: its plain version, to hold the path against it).  With
     `total`, the loss is this block's part of the mean over `total`
-    examples."""
+    examples; `tp`: the tower's model ranks (`models.deepfm.tower`)."""
     leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
     with torch.enable_grad():
-        logits = functional_call(model, leaves, (fields,), {"bag": bag})
+        logits = functional_call(model, leaves, (fields,), {"bag": bag, "tp": tp})
         loss = bce_with_logits(logits, labels, total)
         grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads))
@@ -149,10 +165,10 @@ def train_step(model: DeepFM, params: Params, opt: AdamWState, fields: torch.Ten
         loss, grads = loss_and_grads(model, params, fields, labels, bag=bag)
         params, opt, _ = adamw_update(opt_cfg, grads, opt, params)
         return params, opt, loss
-    dp, vbag = _data_parallel(mesh, params, bag)
+    dp, tp, vbag = _parallel(mesh, params, bag)
     labels = local(labels)
     loss, grads = loss_and_grads(model, _locals(params), local(fields), labels, bag=vbag,
-                                 total=labels.shape[0] * dp.size)
+                                 total=labels.shape[0] * dp.size, tp=tp)
     grads = partial_grads(grads, params, mesh, set(data_axes(mesh)))
     params, opt, _ = adamw_update_placed(opt_cfg, grads, opt, params)
     return params, opt, dp.all_reduce(loss)
@@ -162,14 +178,20 @@ def _locals(params: Params) -> Params:
     return {k: local(v) for k, v in params.items()}
 
 
-def _data_parallel(mesh, params: Params, bag: Bag = embedding_bag):
-    """(DataGroup, the bag) of a step on `mesh`: the vocab-parallel bag
-    where the tables' rows are split, `bag` itself where they are whole."""
-    from torch.distributed.tensor import Shard
+def _parallel(mesh, params: Params, bag: Bag = embedding_bag):
+    """(DataGroup, ModelGroup, the bag) of a step on `mesh`: the
+    vocab-parallel bag where `deepfm_specs` splits the tables' rows (over
+    every rank, or over 'model' alone), `bag` itself where they are
+    whole."""
+    from repro_torch.dist.sharding import _axis_size
 
-    dp = data_group(mesh, "the DeepFM step", DEEPFM_MODEL_ITEM)
-    split = any(isinstance(q, Shard) for q in params["embed"].placements)
-    return dp, (VocabParallelBag(dp, bag) if split else bag)
+    dp, tp = data_group(mesh, "the DeepFM step")
+    V = params["embed"].shape[0]
+    if V % _axis_size(mesh, tuple(mesh.mesh_dim_names)) == 0:
+        return dp, tp, VocabParallelBag(dp, tp, bag)
+    if tp is not None and tp.splits(V):
+        return dp, tp, VocabParallelBag(dp, tp, bag, over_data=False)
+    return dp, tp, bag
 
 
 def place_deepfm_state(params: Params, mesh) -> Tuple[Params, AdamWState]:

@@ -1,7 +1,7 @@
 """The distribution layer on `torch.distributed` (counterpart of
 `repro.dist`): partition-spec policies and their DTensor placements
-(`sharding`), the collectives of the data- and expert-parallel steps
-(`collectives`) and elastic restore (`elastic`)."""
+(`sharding`), the collectives of the data-, tensor- and expert-parallel
+steps (`collectives`) and elastic restore (`elastic`)."""
 from repro_torch.dist.sharding import (
     MeshShape,
     P,

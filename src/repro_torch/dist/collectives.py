@@ -1,15 +1,30 @@
-"""The collectives the data- and expert-parallel steps run, over a
-`torch.distributed` group.
+"""The collectives the data-, tensor- and expert-parallel steps run, over
+`torch.distributed` groups.
 
 `DataGroup` is the data-parallel group a step passes down to the model
 (`transformer.lm_loss(..., dp=)`, `moe.moe_ffn(..., dp=)`,
 `deepfm.VocabParallelBag`): its ranks hold consecutive blocks of the
 global batch, rank r block r.  Its non-differentiable collectives carry
 the global terms of a loss (counts, expert ids, fields); its
-`reduce_scatter` is differentiable, with an all-gather as its backward.
-`data_group(mesh, what)` gives it for a mesh whose batch axes are the
-whole group, and refuses a 'model' axis larger than 1, which no step of
-this package executes yet.
+`reduce_scatter` is differentiable, with an all-gather as its backward,
+and `gather_leaf` is FSDP's: an all-gather of a parameter's blocks whose
+backward reduce-scatters the gradient back to this rank's block.
+
+`ModelGroup` is the tensor-parallel group, the ranks of a mesh's 'model'
+axis (`tp=`).  Its ops are Megatron's pair and what a vocab-parallel
+softmax needs, each differentiable where the model differentiates it:
+`copy` (the identity, whose backward sums the gradient over the group: a
+replicated tensor entering a parallel region), `sum` (the sum over the
+group, whose backward is the identity: a parallel region's partial
+outputs leaving it), `gather` (an all-gather along a dim whose backward
+takes this rank's slice: a split tensor that replicated code reads
+whole) and `max` (no gradient).  A tensor computed the same way on every
+rank of the group gets the same gradient on every rank, so a leaf
+replicated over 'model' needs no reduction of its gradient over it.
+
+`data_group(mesh, what)` gives the (DataGroup, ModelGroup) pair of a mesh
+with one batch axis larger than 1 (or none) and an optional 'model' axis
+(None without one); a mesh with two batch axes larger than 1 raises.
 
 `mesh_barrier(mesh)` blocks the host until every rank of a mesh has
 reached it (a placed `checkpoint.save` ends with it).
@@ -29,11 +44,6 @@ from repro_torch.dist.sharding import _axes, mesh_device
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
-# ROADMAP.md's items for what the steps refuse
-MODEL_AXIS_ITEM = "ROADMAP.md Queue 1 [19].5 (the LM's model axis and FSDP)"
-DEEPFM_MODEL_ITEM = "ROADMAP.md Queue 1 [19].7 (DeepFM's MLP tower under 'model' > 1)"
-
-
 def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """(n, ...) on each rank -> (world · n, ...) in rank order, on every rank."""
     size = dist.get_world_size(group)
@@ -43,32 +53,92 @@ def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     return out
 
 
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's x concatenated along `dim` in rank order, contiguous."""
+    blocks = gather_rows(x.reshape((1,) + tuple(x.shape)), group)
+    return torch.cat(blocks.unbind(0), dim=dim)
+
+
+def _reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along `dim` of the sum over the group's ranks of x."""
+    size = dist.get_world_size(group)
+    if x.shape[dim] % size:
+        raise ValueError(f"{x.shape[dim]} entries of dim {dim} do not split over {size} ranks")
+    rows = x.movedim(dim, 0).contiguous()
+    out = rows.new_empty((rows.shape[0] // size,) + tuple(rows.shape[1:]))
+    _reduce_scatter(out, rows, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        size = dist.get_world_size(group)
-        if x.shape[0] % size:
-            raise ValueError(f"{x.shape[0]} rows do not split over {size} ranks")
-        out = x.new_empty((x.shape[0] // size,) + tuple(x.shape[1:]))
-        _reduce_scatter(out, x.contiguous(), group=group)
-        return out
+        return _reduce_scatter_dim(x, 0, group)
 
     @staticmethod
     def backward(ctx, grad):
         return gather_rows(grad, ctx.group), None
 
 
+class _GatherLeaf(torch.autograd.Function):
+    """FSDP: all-gather along `dim`; backward reduce-scatter along it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter_dim(grad, ctx.dim, ctx.group), None, None
+
+
+def _summed(x: torch.Tensor, group) -> torch.Tensor:
+    """Σ over the group's ranks of x, as a new tensor; a bf16 or f16 x is
+    summed in f32 and rounded once, as one device's matmul rounds its
+    f32 sum once, not after each step of the collective's ring."""
+    wide = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
+    out = x.to(wide, copy=True, memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out.to(x.dtype)
+
+
 class _SumOver(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return _summed(x, group)
 
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _Copy(torch.autograd.Function):
+    """The identity; backward the sum of the gradient over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad, ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along `dim`; backward this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).contiguous(), None, None
 
 
 def sum_over(x: torch.Tensor, group) -> torch.Tensor:
@@ -76,13 +146,22 @@ def sum_over(x: torch.Tensor, group) -> torch.Tensor:
     return _SumOver.apply(x, group)
 
 
-class DataGroup:
-    """The data-parallel ranks of a step (`group` None: the default group)."""
+class _Group:
+    """A step's group of ranks (`group` None: the default group)."""
 
     def __init__(self, group=None):
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """(size · n, ...) partial sums on each rank -> rank r's block of
+        their sum over ranks; its backward all-gathers the gradient."""
+        return _ReduceScatter.apply(x, self.group)
+
+
+class DataGroup(_Group):
+    """The data-parallel ranks of a step."""
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's block of rows, in rank order (no gradient)."""
@@ -94,30 +173,58 @@ class DataGroup:
         dist.all_reduce(out, group=self.group)
         return out
 
-    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
-        """(size · n, ...) partial sums on each rank -> rank r's block of
-        their sum over ranks; its backward all-gathers the gradient."""
-        return _ReduceScatter.apply(x, self.group)
+    def gather_leaf(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """FSDP: a parameter's blocks along `dim` gathered whole; backward
+        each rank's gradient (its part of the batch's) reduce-scattered
+        to its block, summed over the ranks."""
+        return _GatherLeaf.apply(x, dim, self.group)
 
 
-def data_group(mesh, what: str, item: str = MODEL_AXIS_ITEM) -> DataGroup:
-    """The DataGroup of a data-parallel step on `mesh`: every axis but
-    'model' is a batch axis and 'model' must be 1 (else the step would run
-    another layout: it raises, naming the ROADMAP item).  The group is the
-    one batch axis larger than 1 (or the first, if none is); a step over
-    several such axes ('pod' and 'data' both > 1) raises.  A CUDA mesh
-    needs an NCCL group."""
+class ModelGroup(_Group):
+    """The tensor-parallel ranks of a step: a mesh's 'model' axis."""
+
+    def splits(self, n: int) -> bool:
+        """Whether a dim of n entries splits evenly over the ranks: the
+        placement rule's test (`sharding._spec_with`), which on one rank
+        splits every dim into one block."""
+        return n % self.size == 0
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """x; backward Σ over the ranks of the gradient."""
+        return _Copy.apply(x, self.group)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Σ over the ranks of x; backward the identity."""
+        return _SumOver.apply(x, self.group)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's x concatenated along `dim`; backward this rank's
+        slice of the gradient (the code after it runs the same on every
+        rank)."""
+        return _Gather.apply(x, dim, self.group)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the ranks, as a new tensor (no gradient)."""
+        out = x.detach().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
+        return out
+
+
+def data_group(mesh, what: str):
+    """(DataGroup, ModelGroup or None) of a step on `mesh`: every axis but
+    'model' is a batch axis, and the data group is the one batch axis
+    larger than 1 (or the first, if none is); a step over several such
+    axes ('pod' and 'data' both > 1) raises.  The model group is the
+    'model' axis's, of any size (None if the mesh has no such axis).  A
+    CUDA mesh needs an NCCL group."""
     mesh_device(mesh)
     sizes = dict(_axes(mesh))
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{what} runs data-parallel only; a mesh with 'model' = {sizes['model']} "
-            f"waits for {item}")
     batch = [a for a in sizes if a != "model"]
     split = [a for a in batch if sizes[a] > 1]
     if len(split) > 1:
         raise NotImplementedError(f"{what} runs over one batch axis; {split} are all > 1")
-    return DataGroup(mesh.get_group((split or batch)[0]))
+    tp = ModelGroup(mesh.get_group("model")) if "model" in sizes else None
+    return DataGroup(mesh.get_group((split or batch)[0])), tp
 
 
 def mesh_all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, Sequence, Tuple, Union
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -156,19 +156,29 @@ def _spec_with(leaf, dim_from_end, axis, axis_size: int) -> P:
     return P(*parts)
 
 
+def fsdp_dim(spec: P, shape, dp_size: int) -> Optional[int]:
+    """The dim FSDP shards over the batch axes: the largest one `spec`
+    leaves replicated that divides by `dp_size` (None if none does).  On
+    one batch rank every dim divides: the step gathers that dim from one
+    block."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for i in sorted(range(len(parts)), key=lambda i: -shape[i]):
+        if parts[i] is None and shape[i] % dp_size == 0:
+            return i
+    return None
+
+
 def _fsdp_extend(spec: P, leaf, dp: Tuple[str, ...], dp_size: int) -> P:
     """ZeRO-3-style: shard the largest still-replicated dim over the batch
     axes (the rule of `optimizer.zero1_specs`)."""
     if dp_size <= 1:
         return spec
-    parts = list(spec)
-    while len(parts) < len(leaf.shape):
-        parts.append(None)
-    for i in sorted(range(len(parts)), key=lambda i: -leaf.shape[i]):
-        if parts[i] is None and leaf.shape[i] % dp_size == 0:
-            parts[i] = dp
-            return P(*parts)
-    return spec
+    i = fsdp_dim(spec, leaf.shape, dp_size)
+    if i is None:
+        return spec
+    parts = list(spec) + [None] * (len(leaf.shape) - len(spec))
+    parts[i] = dp
+    return P(*parts)
 
 
 def lm_param_specs(params: Any, mesh, *, fsdp: bool = False) -> Any:

@@ -24,6 +24,17 @@ global (E, C) buffer.  The load-balance loss E·Σ f_e·P_e takes f from
 the global ids and is linear in P, so each rank's part is E·Σ f_e·(Σ of
 its own probabilities)_e / N and the parts sum to the global loss.
 
+Tensor parallel (`moe_ffn(tp=)`, a `dist.collectives.ModelGroup`): the
+expert stacks split over E where it divides by the model ranks (else
+over d_expert), as `dist.sharding.lm_param_specs` places them.  Routing
+is the same on every model rank (the router is replicated; under `dp` by
+the global ids); each rank dispatches only to its experts, and the
+routed and shared outputs are summed over the model ranks.  The tokens
+and the combine weights enter that partial work through
+`ModelGroup.copy`, so the router's gradient and the one it passes to x
+are summed over the ranks, while the load-balance term, computed the same
+on every rank, is counted once.
+
 The reference's `with_sharding_constraint` layout hints for the (E, C, D)
 buffers over a mesh compute nothing and have no counterpart here.
 """
@@ -136,6 +147,68 @@ def _expert_ffn(params: dict, buf: torch.Tensor, act: str) -> torch.Tensor:
     return torch.bmm(_activation(h1, h3, act), params["we2"].to(buf.dtype))
 
 
+def _expert_tp(params: dict, cfg: MoEConfig, tp):
+    """(first expert, experts, tp) of this rank's routed work: under `tp`
+    its E/m experts where E splits (expert parallel), else every expert
+    on its block of d_expert (feature parallel); without either, every
+    expert whole and tp None."""
+    E = cfg.n_experts
+    if tp is None:
+        return 0, E, None
+    if tp.splits(E):
+        n = params["we1"].shape[0]
+        return tp.rank * n, n, tp
+    if tp.splits(cfg.d_expert):
+        return 0, E, tp
+    return 0, E, None
+
+
+def _routed(params: dict, x: torch.Tensor, w: torch.Tensor, e_nk: torch.Tensor,
+            keep: torch.Tensor, slot: torch.Tensor, tok: torch.Tensor, valid: torch.Tensor,
+            cfg: MoEConfig, act: str, tp) -> Tuple[torch.Tensor, object]:
+    """The routed experts' combined output for x's tokens: slot c of expert
+    e is filled by token tok[e, c] where valid[e, c]; token n's j-th choice
+    e_nk[n, j] reads its expert's slot slot[n, j] where keep[n, j], weighed
+    by w[n, j].  Returns (output, the tp it is partial over, or None)."""
+    N, D = x.shape
+    e_lo, n_e, tp = _expert_tp(params, cfg, tp)
+    if tp is not None:          # partial over the ranks: their gradients summed
+        x, w = tp.copy(x), tp.copy(w)
+    tok, valid = tok[e_lo:e_lo + n_e], valid[e_lo:e_lo + n_e]
+    C = tok.shape[1]
+
+    # ---- dispatch: a gather of the token filling each slot ---------------
+    y_buf = _expert_ffn(params, x[tok] * valid[..., None].to(x.dtype), act)   # (E, C, D)
+
+    # ---- combine: k gathers ------------------------------------------------
+    out = torch.zeros((N, D), dtype=x.dtype, device=x.device)
+    for j in range(e_nk.shape[1]):
+        e = e_nk[:, j] - e_lo
+        own = keep[:, j] & (e >= 0) & (e < n_e)
+        y_j = y_buf[e.clamp(0, n_e - 1), slot[:, j].clamp(0, C - 1)]          # (N, D)
+        y_j = torch.where(own[:, None], y_j, 0)
+        out = out + y_j * w[:, j:j + 1].to(x.dtype)
+    return out, tp
+
+
+def _combine(params: dict, x: torch.Tensor, routed: torch.Tensor, routed_tp, cfg: MoEConfig,
+             act: str, tp) -> torch.Tensor:
+    """The routed output plus the shared experts (DeepSeek: a dense FFN on
+    every token; under `tp` column- then row-parallel where their hidden
+    dim splits), the parts computed per rank summed over the ranks."""
+    if "ws1" not in params:
+        return routed if routed_tp is None else routed_tp.sum(routed)
+    shared_tp = tp if (tp is not None and tp.splits(cfg.d_expert * cfg.n_shared)) else None
+    shared = _shared_experts(params, x if shared_tp is None else shared_tp.copy(x), act)
+    if routed_tp is None and shared_tp is None:
+        return routed + shared
+    if routed_tp is not None and shared_tp is not None:
+        return tp.sum(routed + shared)
+    if routed_tp is not None:
+        return routed_tp.sum(routed) + shared
+    return routed + shared_tp.sum(shared)
+
+
 def moe_ffn(
     params: dict,
     x: torch.Tensor,            # (N, D) flattened tokens
@@ -143,36 +216,26 @@ def moe_ffn(
     act: str,
     *,
     dp=None,
+    tp=None,
 ) -> Tuple[torch.Tensor, MoEMetrics]:
     """Top-k routed expert FFN + optional shared experts.  Returns (N, D).
     With `dp`, x is this rank's block of the global batch's tokens (see
     the module docstring), the aux loss this rank's part and the drop
-    fraction the global batch's."""
+    fraction the global batch's.  With `tp` (the model ranks, `params`
+    their blocks) each rank runs its experts (or its block of every
+    expert's features) and the outputs are summed over the ranks; the
+    routing, the aux loss and the drop fraction are the same on every
+    rank."""
     if dp is not None:
-        return _moe_ffn_data_parallel(params, x, cfg, act, dp)
+        return _moe_ffn_data_parallel(params, x, cfg, act, dp, tp)
     N, D = x.shape
-    E, k = cfg.n_experts, cfg.top_k
+    E = cfg.n_experts
     C = expert_capacity(N, cfg)
     w, experts, probs = route_topk(x @ params["router"].to(x.dtype), cfg)
     plan = assign_slots(experts, E, C)
-    e_nk = experts.long()
-
-    # ---- dispatch: a gather of the token filling each slot ---------------
-    buf = x[plan.tok_for_slot] * plan.slot_valid[..., None].to(x.dtype)   # (E, C, D)
-
-    y_buf = _expert_ffn(params, buf, act)                                # (E, C, D)
-
-    # ---- combine: k gathers ------------------------------------------------
-    out = torch.zeros((N, D), dtype=x.dtype, device=x.device)
-    for j in range(k):
-        y_j = y_buf[e_nk[:, j], plan.slot[:, j]]                         # (N, D)
-        y_j = torch.where(plan.keep[:, j:j + 1], y_j, 0)
-        out = out + y_j * w[:, j:j + 1].to(x.dtype)
-
-    # ---- shared experts (DeepSeek): dense FFN on every token --------------
-    if "ws1" in params:
-        out = out + _shared_experts(params, x, act)
-
+    routed, routed_tp = _routed(params, x, w, experts.long(), plan.keep, plan.slot,
+                                plan.tok_for_slot, plan.slot_valid, cfg, act, tp)
+    out = _combine(params, x, routed, routed_tp, cfg, act, tp)
     metrics = MoEMetrics(
         aux_loss=load_balance_loss(probs, experts, E),
         drop_frac=1.0 - plan.keep.to(torch.float32).mean(),
@@ -180,8 +243,8 @@ def moe_ffn(
     return out, metrics
 
 
-def _moe_ffn_data_parallel(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str, dp
-                           ) -> Tuple[torch.Tensor, MoEMetrics]:
+def _moe_ffn_data_parallel(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str, dp,
+                           tp=None) -> Tuple[torch.Tensor, MoEMetrics]:
     N_loc, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     w, experts, probs = route_topk(x @ params["router"].to(x.dtype), cfg)
@@ -198,26 +261,21 @@ def _moe_ffn_data_parallel(params: dict, x: torch.Tensor, cfg: MoEConfig, act: s
     before = torch.bincount(ids[:lo].reshape(-1).long(), minlength=E)
     own = torch.bincount(e_nk.reshape(-1), minlength=E)
     own_kept = torch.minimum(torch.clamp_min(C - before, 0), own)
-    C_loc = max(8, -(-int(own_kept.max()) // 8) * 8)             # one host read
+    e_lo, n_e, _ = _expert_tp(params, cfg, tp)
+    C_loc = max(8, -(-int(own_kept[e_lo:e_lo + n_e].max()) // 8) * 8)   # one host read
     local_slot = slot - before[e_nk]
 
-    # ---- dispatch: this rank's kept assignments, (E, C_loc) slots ----------
-    kept = keep.reshape(-1)
-    e_kept, s_kept = e_nk.reshape(-1)[kept], local_slot.reshape(-1)[kept]
+    # ---- this rank's kept assignments, (E, C_loc) slots ----------------------
+    # (the model rank's own experts: the others' may hold more than C_loc)
+    e_flat = e_nk.reshape(-1)
+    kept = keep.reshape(-1) & (e_flat >= e_lo) & (e_flat < e_lo + n_e)
+    e_kept, s_kept = e_flat[kept], local_slot.reshape(-1)[kept]
     tok = torch.zeros((E, C_loc), dtype=torch.long, device=x.device)
     valid = torch.zeros((E, C_loc), dtype=torch.bool, device=x.device)
     tok[e_kept, s_kept] = torch.arange(N_loc, device=x.device).repeat_interleave(k)[kept]
     valid[e_kept, s_kept] = True
-    y_buf = _expert_ffn(params, x[tok] * valid[..., None].to(x.dtype), act)
-
-    # ---- combine -------------------------------------------------------------
-    out = torch.zeros((N_loc, D), dtype=x.dtype, device=x.device)
-    for j in range(k):
-        y_j = y_buf[e_nk[:, j], torch.clamp(local_slot[:, j], 0, C_loc - 1)]
-        y_j = torch.where(keep[:, j:j + 1], y_j, 0)
-        out = out + y_j * w[:, j:j + 1].to(x.dtype)
-    if "ws1" in params:
-        out = out + _shared_experts(params, x, act)
+    routed, routed_tp = _routed(params, x, w, e_nk, keep, local_slot, tok, valid, cfg, act, tp)
+    out = _combine(params, x, routed, routed_tp, cfg, act, tp)
 
     f = torch.bincount(ids.reshape(-1).long(), minlength=E).to(torch.float32) / (N * k)
     aux = E * torch.sum(f * (probs.sum(dim=0) / N))

@@ -30,6 +30,31 @@ targets >= 0 (MTP's last position and padding are not counted, so the
 ranks' counts differ), and every MoE layer routes by the global batch's
 expert ids (`moe.moe_ffn(dp=)`).  Without `dp` nothing changes.
 
+Tensor parallel: with `tp` (a `dist.collectives.ModelGroup`, the mesh's
+'model' ranks) `params` are this rank's blocks as
+`dist.sharding.lm_param_specs` places them, and every function computes
+the one-device function, the same on every model rank.  The residual
+stream stays whole on every rank; each parallel block takes it through
+`tp.copy` and leaves through `tp.sum` (Megatron's pair): attention on
+H/m query and Hkv/m KV heads (column-parallel q/k/v and biases,
+row-parallel `wo`), the FFN on d_ff/m hidden units, MoE on E/m experts
+(`moe.moe_ffn(tp=)`), the embedding vocab-parallel (each rank looks up
+its rows, zeros elsewhere, summed) and the head and `chunked_xent`
+vocab-parallel (the log-sum-exp combines the ranks' maxes and sums of
+exponentials; no rank makes more than its block of the logits).  Where
+the reference's layout splits a dim that replicated code reads whole,
+it is gathered: MLA's latent cq before `q_norm`, MTP's projected input
+before its block, a fused projection's output (`wqkv`, `w13`: a rank's
+block does not follow the q / k / v or gate / up boundary), and the
+serving logits.  A replicated leaf used inside a parallel block (the
+qk-norm weights) enters it through `copy`, so its gradient is summed.
+Where a head count or d_ff does not split over the ranks, the block's
+split leaves are gathered whole and it runs whole (`_whole`).  Without
+`tp` the same ops run with no collective, so on a one-rank group the
+function is the same bits.  FSDP (`fsdp=`, `configs.lm_cells.LayerGather`)
+gathers each layer's leaves over the batch ranks inside the layer's
+(checkpointed) call, again at its recompute.
+
 Dtypes as in the reference: `rms_norm`, RoPE and attention compute in f32
 and cast back to the activations' dtype; the projections run in the
 weights' dtype (bf16 for the full configs); logits are f32.
@@ -286,102 +311,249 @@ def _layer(stack: Params, i: int) -> Params:
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i]) for k, v in stack.items()}
 
 
-def _stack_len(stack: Params) -> int:
-    return stack["attn"]["ln1"].shape[0]
-
-
-def _layer_stacks(params: Params):
-    for name, is_moe in (("dense_layers", False), ("moe_layers", True)):
+def _layer_stacks(params: Params, cfg: LMConfig):
+    """(name, stack, its number of layers, is_moe) of each layer stack."""
+    n_moe = (cfg.n_layers - cfg.n_dense_layers) if cfg.moe else 0
+    for name, n, is_moe in (("dense_layers", cfg.n_layers - n_moe, False),
+                            ("moe_layers", n_moe, True)):
         if name in params:
-            yield params[name], is_moe
+            yield name, params[name], n, is_moe
+
+
+def _layer_at(stack: Params, name: str, i: int, fsdp=None) -> Params:
+    """Layer i of stack `name`: views, or with `fsdp` its leaves gathered
+    over the batch ranks."""
+    return _layer(stack, i) if fsdp is None else fsdp.layer(name, stack, i)
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism: which blocks split over the model ranks
+# --------------------------------------------------------------------------
+
+def _split(tp, n: int) -> bool:
+    """A dim of n entries splits over `tp`'s ranks (`ModelGroup.splits`)."""
+    return tp is not None and tp.splits(n)
+
+
+def _whole(p: Params, shapes: Dict[str, Leaf], tp) -> Params:
+    """The leaves of a block that `tp`'s placement rule split, gathered
+    whole (`dist.sharding._TP_FROM_END`): for a block whose heads or
+    hidden units do not divide over the ranks, which then runs whole, the
+    same on every rank.  The only whole gathers of model-split leaves."""
+    from repro_torch.dist.sharding import _TP_FROM_END
+
+    out = dict(p)
+    for name, (shape, _, _) in shapes.items():
+        dim = _TP_FROM_END.get(name)
+        if dim is not None and name in p and tp.splits(shape[len(shape) - dim]):
+            out[name] = tp.gather(p[name], p[name].ndim - dim)
+    return out
+
+
+def _attn_tp(p: Params, cfg: LMConfig, tp):
+    """(leaves, tp) of one attention block: `tp` where every head count
+    splits over its ranks (each rank holds H/m query and Hkv/m KV heads);
+    else the cut leaves gathered whole and None."""
+    if tp is None:
+        return p, None
+    heads = (cfg.n_heads,) if cfg.mla is not None else (cfg.n_heads, cfg.n_kv_heads)
+    if all(tp.splits(h) for h in heads):
+        return p, tp
+    return _whole(p, _attn_leaves(cfg), tp), None
+
+
+def _ffn_tp(p: Params, cfg: LMConfig, tp):
+    """(leaves, tp) of one dense FFN: `tp` where d_ff splits; else whole."""
+    if tp is None or tp.splits(cfg.d_ff):
+        return p, tp
+    return _whole(p, _dense_ffn_leaves(cfg, cfg.d_ff), tp), None
+
+
+def _blocks(y: torch.Tensor, sizes, tp) -> list:
+    """Block r of m (tp's rank and size; 0 of 1 without) of each of the
+    consecutive pieces of y's last dim of global `sizes`: a fused
+    projection's q, k, v (or gate and up) for this rank's heads."""
+    r, m = (tp.rank, tp.size) if tp is not None else (0, 1)
+    out, lo = [], 0
+    for n in sizes:
+        out.append(y[..., lo + r * n // m: lo + (r + 1) * n // m])
+        lo += n
+    return out
+
+
+def _fused(h: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
+    """h @ w for a fused projection, whole on every rank: each rank's block
+    of the output columns is all-gathered.  The ranks then take pieces
+    that do not follow the blocks, so the gradient is summed over them
+    first (`copy`) and each takes its block of the sum."""
+    if tp is None:
+        return h @ w
+    return tp.copy(tp.gather(tp.copy(h) @ w, -1))
+
+
+def _embed(params: Params, cfg: LMConfig, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """The embedding rows of `tokens`; vocab-parallel where the vocab splits:
+    each rank looks up the tokens its rows hold, zeros elsewhere, summed."""
+    table = params["embed"]
+    if tp is None or not tp.splits(cfg.vocab):
+        return table[tokens.long()]
+    V_r = table.shape[0]
+    idx = tokens.long() - tp.rank * V_r
+    own = (idx >= 0) & (idx < V_r)
+    return tp.sum(torch.where(own[..., None], table[idx.clamp(0, V_r - 1)], 0))
+
+
+def _vocab_tp(cfg: LMConfig, tp):
+    """`tp` where the head's vocab columns split over it, else None."""
+    return tp if _split(tp, cfg.vocab) else None
+
+
+def _logits(h: torch.Tensor, head: torch.Tensor, cfg: LMConfig, tp) -> torch.Tensor:
+    """f32 logits of h, whole over the vocab on every rank."""
+    logits = (h @ head).to(torch.float32)
+    return logits if _vocab_tp(cfg, tp) is None else tp.gather(logits, -1)
 
 
 # --------------------------------------------------------------------------
 # forward (prefill)
 # --------------------------------------------------------------------------
 
-def _qkv(p: Params, cfg: LMConfig, h: torch.Tensor):
-    """The dense attention's q, k, v projections of normed h (..., D)."""
+def _qkv(p: Params, cfg: LMConfig, h: torch.Tensor, tp=None):
+    """The dense attention's q, k, v projections of normed h (..., D), for
+    this rank's heads under `tp` (column-parallel)."""
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     if cfg.fuse_qkv:
-        q, k, v = torch.split(h @ p["wqkv"], [H * dh, Hkv * dh, Hkv * dh], dim=-1)
+        q, k, v = _blocks(_fused(h, p["wqkv"], tp), [H * dh, Hkv * dh, Hkv * dh], tp)
     else:
+        h = h if tp is None else tp.copy(h)
         q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q, k, v
 
 
+def _local_heads(cfg: LMConfig, tp) -> Tuple[int, int]:
+    """(query heads, KV heads) this rank computes."""
+    m = 1 if tp is None else tp.size
+    return cfg.n_heads // m, cfg.n_kv_heads // m
+
+
+def _row(y: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel projection's partial output summed over the ranks."""
+    return y if tp is None else tp.sum(y)
+
+
+def _mla_q(p: Params, cfg: LMConfig, h: torch.Tensor, tp) -> torch.Tensor:
+    """MLA's queries (..., H_local · (d_nope + d_rope)).  `w_dq`'s columns
+    split, so each rank's block of the latent cq is gathered whole before
+    `q_norm`, which normalises over all of it; `w_uq` is column-parallel
+    on the whole cq."""
+    m = cfg.mla
+    if _split(tp, m.q_lora_rank):
+        cq = tp.gather(tp.copy(h) @ p["w_dq"], -1)
+    else:
+        cq = h @ p["w_dq"]
+    cq = rms_norm(cq, p["q_norm"])
+    return (cq if tp is None else tp.copy(cq)) @ p["w_uq"]
+
+
+def _qk_norm(p: Params, q: torch.Tensor, k: torch.Tensor, tp):
+    """qk-norm of this rank's heads.  The norms' weights are replicated but
+    each rank's heads reach only its part of their gradient: they enter
+    through `copy`, which sums it over the ranks, in f32 (`rms_norm`
+    computes in f32 anyway), so that the parts, which cancel, are not each
+    rounded to the weights' bf16 before the sum."""
+    qn, kn = p["q_normh"], p["k_normh"]
+    if tp is not None:
+        qn, kn = tp.copy(qn.to(torch.float32)), tp.copy(kn.to(torch.float32))
+    return rms_norm(q, qn), rms_norm(k, kn)
+
+
 def _attn_forward(
-    p: Params, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor
+    p: Params, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor, tp=None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (residual update, kv-tensors-for-prefill)."""
+    """Returns (residual update, kv-tensors-for-prefill).  Under `tp` the
+    rank's heads (replicated `w_dkv`, `kv_norm` and MLA's latents, which
+    enter the per-head products through `copy`), the update summed."""
     B, S, D = x.shape
-    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    p, tp = _attn_tp(p, cfg, tp)
+    H, Hkv = _local_heads(cfg, tp)
+    dh = cfg.d_head
     h = rms_norm(x, p["ln1"])
     if cfg.mla is not None:
         m = cfg.mla
-        cq = rms_norm(h @ p["w_dq"], p["q_norm"])
-        q = (cq @ p["w_uq"]).reshape(B, S, H, m.d_nope + m.d_rope)
+        q = _mla_q(p, cfg, h, tp).reshape(B, S, H, m.d_nope + m.d_rope)
         q_nope, q_rope = q[..., : m.d_nope], q[..., m.d_nope:]
         dkv = h @ p["w_dkv"]
         ckv = rms_norm(dkv[..., : m.kv_lora_rank], p["kv_norm"])
         k_rope = dkv[..., m.kv_lora_rank:][:, :, None, :]        # (B,S,1,dr)
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
         k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
-        k_nope = torch.einsum("bsr,hdr->bshd", ckv, p["w_uk"])
-        v = torch.einsum("bsr,hrv->bshv", ckv, p["w_uv"])
+        ckv_h, k_rope_h = (ckv, k_rope) if tp is None else (tp.copy(ckv), tp.copy(k_rope))
+        k_nope = torch.einsum("bsr,hdr->bshd", ckv_h, p["w_uk"])
+        v = torch.einsum("bsr,hrv->bshv", ckv_h, p["w_uv"])
         q_full = torch.cat([q_nope, q_rope], dim=-1)
-        k_full = torch.cat([k_nope, k_rope.expand(B, S, H, m.d_rope)], dim=-1)
+        k_full = torch.cat([k_nope, k_rope_h.expand(B, S, H, m.d_rope)], dim=-1)
         o = flash_attention(
             q_full, k_full, v, causal=True, window=cfg.window, chunk=cfg.attn_chunk,
             scale=(m.d_nope + m.d_rope) ** -0.5,
         )
         kv = {"ckv": ckv, "krope": k_rope[:, :, 0, :]}
-        return o.reshape(B, S, H * m.d_v) @ p["wo"], kv
+        return _row(o.reshape(B, S, H * m.d_v) @ p["wo"], tp), kv
 
-    q, k, v = _qkv(p, cfg, h)
+    q, k, v = _qkv(p, cfg, h, tp)
     q = q.reshape(B, S, H, dh)
     k = k.reshape(B, S, Hkv, dh)
     v = v.reshape(B, S, Hkv, dh)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_normh"])
-        k = rms_norm(k, p["k_normh"])
+        q, k = _qk_norm(p, q, k, tp)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = flash_attention(q, k, v, causal=True, window=cfg.window, chunk=cfg.attn_chunk)
-    return o.reshape(B, S, H * dh) @ p["wo"], {"k": k, "v": v}
+    return _row(o.reshape(B, S, H * dh) @ p["wo"], tp), {"k": k, "v": v}
 
 
-def _dense_ffn(p: Params, cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
-    """The dense FFN of normed h (..., D)."""
+def _dense_ffn(p: Params, cfg: LMConfig, h: torch.Tensor, tp=None) -> torch.Tensor:
+    """The dense FFN of normed h (..., D); under `tp` column-parallel
+    `w1` / `w3` (`w13`: the rank's gate and up blocks) and row-parallel
+    `w2`, summed."""
+    p, tp = _ffn_tp(p, cfg, tp)
     if cfg.act == "swiglu" and cfg.fuse_gate:
-        h1, h3 = torch.chunk(h @ p["w13"], 2, dim=-1)
+        h1, h3 = _blocks(_fused(h, p["w13"], tp), [cfg.d_ff, cfg.d_ff], tp)
     else:
+        h = h if tp is None else tp.copy(h)
         h1 = h @ p["w1"]
         h3 = h @ p["w3"] if cfg.act == "swiglu" else None
-    return _activation(h1, h3, cfg.act) @ p["w2"]
+    return _row(_activation(h1, h3, cfg.act) @ p["w2"], tp)
 
 
 def _ffn_forward(
-    p: Params, cfg: LMConfig, x: torch.Tensor, is_moe: bool, dp=None
+    p: Params, cfg: LMConfig, x: torch.Tensor, is_moe: bool, dp=None, tp=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (residual update, aux loss)."""
     B, S, D = x.shape
     h = rms_norm(x, p["ln2"])
     if is_moe:
-        out, metrics = moe_ffn(p, h.reshape(B * S, D), cfg.moe, cfg.act, dp=dp)
+        out, metrics = moe_ffn(p, h.reshape(B * S, D), cfg.moe, cfg.act, dp=dp, tp=tp)
         return out.reshape(B, S, D), metrics.aux_loss
-    return _dense_ffn(p, cfg, h), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _dense_ffn(p, cfg, h, tp), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _layer_forward(lp: Params, cfg: LMConfig, is_moe: bool, x: torch.Tensor,
-                   positions: torch.Tensor, dp=None):
+                   positions: torch.Tensor, dp=None, tp=None):
     """One layer: returns (x after the layer, its aux loss, its kv tensors)."""
-    upd, kv = _attn_forward(lp["attn"], cfg, x, positions)
+    upd, kv = _attn_forward(lp["attn"], cfg, x, positions, tp)
     x = x + upd
-    upd, aux = _ffn_forward(lp["ffn"], cfg, x, is_moe, dp)
+    upd, aux = _ffn_forward(lp["ffn"], cfg, x, is_moe, dp, tp)
     return x + upd, aux, kv
+
+
+def _stack_layer(stack: Params, name: str, i: int, cfg: LMConfig, is_moe: bool,
+                 x: torch.Tensor, positions: torch.Tensor, dp=None, tp=None, fsdp=None):
+    """Layer i of stack `name`, its leaves taken (with `fsdp`, gathered)
+    inside the call, so that a checkpointed layer gathers them again at
+    its recompute and holds them no longer than the layer runs."""
+    return _layer_forward(_layer_at(stack, name, i, fsdp), cfg, is_moe, x, positions, dp, tp)
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -414,27 +586,31 @@ def forward(
     *,
     collect_kv: bool = False,
     dp=None,
+    tp=None,
+    fsdp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[list]]:
     """Returns (hidden (B,S,D), total aux loss, kv caches or None).  The kv
     caches are one dict per layer stack, each leaf (L_stack, B, S, ...).
     While autograd records (and no kv is collected), `cfg.remat`
     checkpoints each layer.  `dp`: this rank's block of a data-parallel
-    batch (the MoE layers route by the global batch)."""
+    batch (the MoE layers route by the global batch); `tp`: the model
+    ranks, `params` this rank's blocks of the leaves; `fsdp`: gathers each
+    layer's leaves over the batch ranks as the layer runs (the caller
+    gathers the rest, `fsdp.top`).  The kv caches hold this rank's heads."""
     B, S = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = _embed(params, cfg, tokens, tp)
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = []
     remat = cfg.remat and not collect_kv and _recording(x)
-    for stack, is_moe in _layer_stacks(params):
+    for name, stack, n, is_moe in _layer_stacks(params, cfg):
         layer_kvs = []
-        for i in range(_stack_len(stack)):
-            lp = _layer(stack, i)
+        for i in range(n):
+            args = (stack, name, i, cfg, is_moe, x, positions, dp, tp, fsdp)
             if remat:
-                x, aux, kv = _checkpointed(cfg.remat_policy, _layer_forward, lp, cfg, is_moe,
-                                           x, positions, dp)
+                x, aux, kv = _checkpointed(cfg.remat_policy, _stack_layer, *args)
             else:
-                x, aux, kv = _layer_forward(lp, cfg, is_moe, x, positions, dp)
+                x, aux, kv = _stack_layer(*args)
             aux_total = aux_total + aux
             if collect_kv:
                 layer_kvs.append(kv)
@@ -452,11 +628,31 @@ def _head_weight(params: Params) -> torch.Tensor:
 # loss (chunked fused cross-entropy — never materialise (B,S,V))
 # --------------------------------------------------------------------------
 
-def _xent_chunk(hx: torch.Tensor, head: torch.Tensor, tx: torch.Tensor) -> torch.Tensor:
-    """Σ of the chunk's token NLLs over targets >= 0, in f32."""
-    logits = (hx @ head).to(torch.float32)                  # (B, chunk, V)
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, tx.clamp_min(0)[..., None])[..., 0]
+def _xent_chunk(hx: torch.Tensor, head: torch.Tensor, tx: torch.Tensor,
+                tp=None) -> torch.Tensor:
+    """Σ of the chunk's token NLLs over targets >= 0, in f32.  Under `tp`
+    (vocab-parallel: `head` holds this rank's block of the vocab) each rank
+    makes only its block of the logits: the log-sum-exp combines the
+    ranks' maxes and sums of exponentials, and the target's logit comes
+    from the rank that holds it.  Without `tp` the same ops on the whole
+    vocab."""
+    if tp is not None:
+        hx = tp.copy(hx)
+    logits = (hx @ head).to(torch.float32)                  # (B, chunk, V_r)
+    V_r = logits.shape[-1]
+    mx = logits.detach().amax(dim=-1, keepdim=True)
+    if tp is not None:
+        mx = tp.max(mx)
+    sumexp = (logits - mx).exp().sum(dim=-1)
+    if tp is not None:
+        sumexp = tp.sum(sumexp)
+    lse = sumexp.log() + mx[..., 0]
+    idx = tx.long() - (0 if tp is None else tp.rank * V_r)
+    own = (idx >= 0) & (idx < V_r)
+    tgt = torch.where(own, torch.gather(logits, -1, idx.clamp(0, V_r - 1)[..., None])[..., 0],
+                      0.0)
+    if tp is not None:
+        tgt = tp.sum(tgt)
     return torch.where(tx >= 0, lse - tgt, 0.0).sum()
 
 
@@ -466,13 +662,15 @@ def chunked_xent(
     targets: torch.Tensor,      # (B, S) int; -1 = ignore
     chunk: int,
     dp=None,
+    tp=None,
 ) -> torch.Tensor:
     """Mean next-token NLL over the targets >= 0, a sequence chunk at a
     time; a ragged S (MTP's S - 1) is padded with ignored targets.  While
     autograd records, each chunk is checkpointed: its (B, chunk, V)
     logits are freed after the forward and made again in the backward.
     With `dp` the sum over this rank's block divided by the count over
-    every rank's."""
+    every rank's; with `tp` `head` is this rank's vocab block
+    (`_xent_chunk`)."""
     B, S, D = h.shape
     chunk = min(chunk, S)
     pad = (-S) % chunk
@@ -485,9 +683,9 @@ def chunked_xent(
     for j in range(S // chunk):
         hx, tx = h[:, j * chunk:(j + 1) * chunk], targets[:, j * chunk:(j + 1) * chunk]
         if remat:
-            tot = tot + checkpoint(_xent_chunk, hx, head, tx, use_reentrant=False)
+            tot = tot + checkpoint(_xent_chunk, hx, head, tx, tp, use_reentrant=False)
         else:
-            tot = tot + _xent_chunk(hx, head, tx)
+            tot = tot + _xent_chunk(hx, head, tx, tp)
     cnt = (targets >= 0).sum()
     if dp is not None:
         cnt = dp.all_reduce(cnt)
@@ -495,35 +693,45 @@ def chunked_xent(
 
 
 def mtp_loss(params: Params, cfg: LMConfig, h: torch.Tensor, tokens: torch.Tensor,
-             dp=None) -> torch.Tensor:
-    """DeepSeek-V3 multi-token prediction (depth 1): position t predicts t+2."""
+             dp=None, tp=None) -> torch.Tensor:
+    """DeepSeek-V3 multi-token prediction (depth 1): position t predicts t+2.
+    Under `tp` `proj` is column-parallel: its output is gathered whole for
+    the block, a full layer."""
     p = params["mtp"]
     B, S, D = h.shape
-    e_next = params["embed"][tokens[:, 1:].long()]          # (B, S-1, D)
-    m = torch.cat([rms_norm(h[:, :-1], p["norm_h"]), rms_norm(e_next, p["norm_e"])],
-                  dim=-1) @ p["proj"]                       # (B, S-1, D)
+    e_next = _embed(params, cfg, tokens[:, 1:], tp)         # (B, S-1, D)
+    m = torch.cat([rms_norm(h[:, :-1], p["norm_h"]), rms_norm(e_next, p["norm_e"])], dim=-1)
+    if _split(tp, D):
+        m = tp.gather(tp.copy(m) @ p["proj"], -1)           # (B, S-1, D)
+    else:
+        m = m @ p["proj"]
     positions = torch.arange(S - 1, dtype=torch.int32, device=h.device).expand(B, S - 1)
-    m, _, _ = _layer_forward(p["block"], cfg, False, m, positions)
+    m, _, _ = _layer_forward(p["block"], cfg, False, m, positions, tp=tp)
     m = rms_norm(m, params["final_norm"])
     # position i of m sees tokens <= i and the embedding of token i+1: it
     # predicts token i+2
     targets = F.pad(tokens[:, 2:], (0, 1), value=-1)        # (B, S-1)
-    return chunked_xent(m, _head_weight(params), targets, cfg.loss_chunk, dp)
+    return chunked_xent(m, _head_weight(params), targets, cfg.loss_chunk, dp,
+                        _vocab_tp(cfg, tp))
 
 
 def lm_loss(
     params: Params, cfg: LMConfig, tokens: torch.Tensor, targets: torch.Tensor,
-    *, aux_weight: float = 0.01, mtp_weight: float = 0.3, dp=None,
+    *, aux_weight: float = 0.01, mtp_weight: float = 0.3, dp=None, tp=None, fsdp=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total loss, {"xent", "aux"[, "mtp"]}), as the reference's; with `dp`
     this rank's part of each (their sums over the ranks are the global
-    batch's)."""
-    h, aux, _ = forward(params, cfg, tokens, dp=dp)
-    loss = chunked_xent(h, _head_weight(params), targets, cfg.loss_chunk, dp)
+    batch's); with `tp` the same on every model rank; with `fsdp`
+    `params` are the rank's blocks over the batch ranks too."""
+    if fsdp is not None:
+        params = fsdp.top(params)
+    h, aux, _ = forward(params, cfg, tokens, dp=dp, tp=tp, fsdp=fsdp)
+    loss = chunked_xent(h, _head_weight(params), targets, cfg.loss_chunk, dp,
+                        _vocab_tp(cfg, tp))
     metrics = {"xent": loss, "aux": aux}
     total = loss + aux_weight * aux
     if cfg.mtp:
-        lm = mtp_loss(params, cfg, h, tokens, dp)
+        lm = mtp_loss(params, cfg, h, tokens, dp, tp)
         metrics["mtp"] = lm
         total = total + mtp_weight * lm
     return total, metrics
@@ -548,8 +756,11 @@ class DecodeCache:
 
 
 def init_decode_cache(
-    cfg: LMConfig, batch: int, max_len: int, device: DeviceLike = "cuda"
+    cfg: LMConfig, batch: int, max_len: int, device: DeviceLike = "cuda", *, tp=None
 ) -> DecodeCache:
+    """A zero cache for `batch` sequences; with `tp` this rank's KV heads
+    where they split over the model ranks (`dist.sharding.cache_specs`),
+    MLA's latents whole."""
     dev = resolve_device(device)
     C = min(cfg.window, max_len) if cfg.window else max_len
     L = cfg.n_layers
@@ -557,7 +768,8 @@ def init_decode_cache(
         m = cfg.mla
         shapes = {"ckv": (L, batch, C, m.kv_lora_rank), "krope": (L, batch, C, m.d_rope)}
     else:
-        kv = (L, batch, C, cfg.n_kv_heads, cfg.d_head)
+        Hkv = cfg.n_kv_heads // tp.size if _split(tp, cfg.n_kv_heads) else cfg.n_kv_heads
+        kv = (L, batch, C, Hkv, cfg.d_head)
         shapes = {"k": kv, "v": kv}
     data = {k: torch.zeros(s, dtype=cfg.dtype, device=dev) for k, s in shapes.items()}
     return DecodeCache(data=data, pos=torch.zeros((), dtype=torch.int32, device=dev),
@@ -566,13 +778,15 @@ def init_decode_cache(
 
 def _decode_attn(
     p: Params, cfg: LMConfig, x: torch.Tensor, cache_l: Dict[str, torch.Tensor],
-    pos: torch.Tensor, ring: int,
+    pos: torch.Tensor, ring: int, tp=None,
 ) -> torch.Tensor:
     """x: (B, D) single token.  Writes the token's cache entries into slot
     `pos % ring` of `cache_l` (views of one layer's cache) and returns the
-    residual update."""
+    residual update; under `tp` for this rank's heads, as `_attn_forward`."""
     B, D = x.shape
-    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    p, tp = _attn_tp(p, cfg, tp)
+    H, Hkv = _local_heads(cfg, tp)
+    dh = cfg.d_head
     h = rms_norm(x, p["ln1"])
     idx = (pos % ring).long().view(1)      # ring slot for this absolute position
     pos1 = pos.view(1)                     # (1,) — rope positions for new token
@@ -582,8 +796,7 @@ def _decode_attn(
 
     if cfg.mla is not None:
         m = cfg.mla
-        cq = rms_norm(h @ p["w_dq"], p["q_norm"])
-        q = (cq @ p["w_uq"]).reshape(B, H, m.d_nope + m.d_rope)
+        q = _mla_q(p, cfg, h, tp).reshape(B, H, m.d_nope + m.d_rope)
         q_nope, q_rope = q[..., : m.d_nope], q[..., m.d_nope:]
         dkv = h @ p["w_dkv"]
         ckv = rms_norm(dkv[..., : m.kv_lora_rank], p["kv_norm"])
@@ -597,58 +810,66 @@ def _decode_attn(
             q_nope, q_rope, ckv_c, kr_c, valid, p["w_uk"], p["w_uv"],
             scale=(m.d_nope + m.d_rope) ** -0.5,
         )
-        return o.reshape(B, H * m.d_v) @ p["wo"]
+        return _row(o.reshape(B, H * m.d_v) @ p["wo"], tp)
 
-    q, k, v = _qkv(p, cfg, h)
+    q, k, v = _qkv(p, cfg, h, tp)
     q = q.reshape(B, H, dh)
     k = k.reshape(B, Hkv, dh)
     v = v.reshape(B, Hkv, dh)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_normh"])
-        k = rms_norm(k, p["k_normh"])
+        q, k = _qk_norm(p, q, k, tp)
     q = apply_rope(q[:, None], pos1[None, :], cfg.rope_theta)[:, 0]
     k = apply_rope(k[:, None], pos1[None, :], cfg.rope_theta)[:, 0]
     k_c, v_c = cache_l["k"], cache_l["v"]
     k_c.index_copy_(1, idx, k[:, None].to(k_c.dtype))
     v_c.index_copy_(1, idx, v[:, None].to(v_c.dtype))
     o = decode_attention(q, k_c, v_c, valid)
-    return o.reshape(B, H * dh) @ p["wo"]
+    return _row(o.reshape(B, H * dh) @ p["wo"], tp)
 
 
 def decode_step(
-    params: Params, cfg: LMConfig, cache: DecodeCache, tokens: torch.Tensor
+    params: Params, cfg: LMConfig, cache: DecodeCache, tokens: torch.Tensor,
+    *, dp=None, tp=None, fsdp=None,
 ) -> Tuple[torch.Tensor, DecodeCache]:
     """One decode step: tokens (B,) -> (logits (B,V) f32, the cache at
-    pos + 1).  Consumes `cache`: its buffers are written in place."""
-    x = params["embed"][tokens.long()]
+    pos + 1).  Consumes `cache`: its buffers are written in place.  `dp`,
+    `tp`, `fsdp` as `forward`'s (the cache this rank's block,
+    `init_decode_cache(tp=)`); the logits are whole over the vocab on
+    every model rank."""
+    if fsdp is not None:
+        params = fsdp.top(params)
+    x = _embed(params, cfg, tokens, tp)
     pos = cache.pos
     off = 0
-    for stack, is_moe in _layer_stacks(params):
-        n = _stack_len(stack)
+    for name, stack, n, is_moe in _layer_stacks(params, cfg):
         for i in range(n):
-            lp = _layer(stack, i)
+            lp = _layer_at(stack, name, i, fsdp)
             cache_l = {k: v[off + i] for k, v in cache.data.items()}
-            x = x + _decode_attn(lp["attn"], cfg, x, cache_l, pos, cache.length)
+            x = x + _decode_attn(lp["attn"], cfg, x, cache_l, pos, cache.length, tp)
             h = rms_norm(x, lp["ffn"]["ln2"])
             if is_moe:
-                out, _ = moe_ffn(lp["ffn"], h, cfg.moe, cfg.act)
+                out, _ = moe_ffn(lp["ffn"], h, cfg.moe, cfg.act, dp=dp, tp=tp)
             else:
-                out = _dense_ffn(lp["ffn"], cfg, h)
+                out = _dense_ffn(lp["ffn"], cfg, h, tp)
             x = x + out
         off += n
     h = rms_norm(x, params["final_norm"])
-    logits = (h @ _head_weight(params)).to(torch.float32)
+    logits = _logits(h, _head_weight(params), cfg, tp)
     return logits, DecodeCache(data=cache.data, pos=pos + 1, length=cache.length)
 
 
 def prefill(
-    params: Params, cfg: LMConfig, tokens: torch.Tensor, max_len: int
+    params: Params, cfg: LMConfig, tokens: torch.Tensor, max_len: int,
+    *, dp=None, tp=None, fsdp=None,
 ) -> Tuple[torch.Tensor, DecodeCache]:
     """Prefill S tokens, build the decode cache on the tokens' device.
-    Returns (last logits (B,V) f32, cache)."""
+    Returns (last logits (B,V) f32, cache); `dp`, `tp`, `fsdp` as
+    `decode_step`'s."""
     B, S = tokens.shape
-    h, _, kvs = forward(params, cfg, tokens, collect_kv=True)
-    cache = init_decode_cache(cfg, B, max_len, device=tokens.device)
+    if fsdp is not None:
+        params = fsdp.top(params)
+    h, _, kvs = forward(params, cfg, tokens, collect_kv=True, dp=dp, tp=tp, fsdp=fsdp)
+    cache = init_decode_cache(cfg, B, max_len, device=tokens.device, tp=tp)
     C = cache.length
     take = min(S, C)
     # ring slot for absolute position p is p % C — keep prefill and decode
@@ -660,7 +881,7 @@ def prefill(
         for k_name, buf in cache.data.items():
             buf[off:off + n].index_copy_(2, slots, kv[k_name][:, :, S - take:].to(buf.dtype))
         off += n
-    logits = (h[:, -1] @ _head_weight(params)).to(torch.float32)
+    logits = _logits(h[:, -1], _head_weight(params), cfg, tp)
     return logits, DecodeCache(
         data=cache.data, pos=torch.full((), S, dtype=torch.int32, device=tokens.device),
         length=C)

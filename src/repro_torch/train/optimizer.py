@@ -21,6 +21,11 @@ moments' placement (a reduce-scatter for a ZeRO-1 shard, an all-reduce
 for a replicated moment), the global norm sums every shard once and each
 replica once, each rank updates its block of the moments and of the
 parameter, and the new parameter is gathered back to its own placement.
+A leaf may be split over 'model' (tensor parallel: its gradient is this
+rank's block, `Shard` as the parameter), over the batch axes too (FSDP:
+the step already reduce-scattered its gradient), replicated over 'model'
+with the same gradient on every model rank (the tensor-parallel steps'
+convention), or partial over any axis named in `partial_grads`' `over`.
 On a one-rank mesh the values are the bits `adamw_update` gives.
 """
 from __future__ import annotations

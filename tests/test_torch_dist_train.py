@@ -11,8 +11,10 @@ temporary directory, one launch shared by the tests (a module fixture):
   capacity_factor=8.0)`, N = 64, D = 16) held to the reference's
   `moe_ffn` output with the same weights (2e-4, the reference test's
   tolerance) and every leaf's gradient of the output's sum, combined by
-  `moe_shardmap_grads`, to `jax.grad` of `moe_ffn`'s; the LM and DeepFM
-  steps refusing a 'model' axis > 1;
+  `moe_shardmap_grads`, to `jax.grad` of `moe_ffn`'s; one LM step (qwen3
+  SMOKE) and one DeepFM step on (2, 4), each returning the loss of the
+  step without a mesh (`test_steps_refuse_a_model_axis`, whose name stays
+  from when the steps refused a 'model' axis > 1);
 * then ranks 0-3 on a (4, 1) mesh: the data-parallel LM train step for qwen3,
   deepseek (MLA, sigmoid router, MTP) and mixtral SMOKE at a capacity
   factor that drops assignments (the drop fraction checked nonzero, and
@@ -136,16 +138,21 @@ for k, g in moe_shardmap_grads(grads, params, mesh).items():
     if rank == 0:
         save("moe_grad_" + k, full)
 
-# the steps refuse a model axis
-for name, make in (("lm", lambda: C.make_lm_train_step(LM_ARCHS["qwen3-0.6b"].SMOKE,
-                                                        OptConfig(), mesh=mesh)),
-                   ("deepfm", lambda: DF.train_step(None, {"embed": placed["w"]}, None,
-                                                    None, None, mesh=mesh))):
-    try:
-        make()
-        out["refuses_" + name] = ""
-    except NotImplementedError as e:
-        out["refuses_" + name] = str(e)
+# the steps on the model axis: one LM and one DeepFM step's loss
+from repro_torch.dist import data_axes
+from repro_torch.models import transformer as tf
+from repro_torch.models.deepfm import DeepFM
+cfg = LM_ARCHS["qwen3-0.6b"].SMOKE
+lm_params, lm_opt = C.place_lm_state(tf.init_lm(torch.Generator().manual_seed(0), cfg), mesh)
+step = C.make_lm_train_step(cfg, OptConfig(**meta["opt"]), mesh=mesh)
+batch = shard_batch((load("lm_tokens0"), load("lm_targets0")), mesh, batch_spec(mesh, 1))
+out["model_axis_lm"] = step(lm_params, lm_opt, *batch)[2].item()
+model = DeepFM(DF.SMOKE_CONFIG, seed=0, device="cpu")
+fm_params, fm_opt = DF.place_deepfm_state(DF.train_params(model), mesh)
+out["model_axis_deepfm"] = DF.train_step(
+    model, fm_params, fm_opt, shard_batch(load("fields0"), mesh, batch_spec(mesh, 1)),
+    shard_batch(load("labels0"), mesh, P(data_axes(mesh))), opt_cfg=OptConfig(**meta["opt"]),
+    mesh=mesh)[2].item()
 """
 
 # ranks 0-3 of the eight, a (4, 1) mesh, after the (2, 4) part
@@ -395,8 +402,23 @@ def test_moe_ffn_shardmap_gradient_equals_reference(ranks, leaf):
 
 @pytest.mark.parametrize("which", ["lm", "deepfm"])
 def test_steps_refuse_a_model_axis(ranks, which):
-    for out in ranks[3]:
-        assert "ROADMAP.md Queue 1 [19]." in out["refuses_" + which]
+    """No step refuses 'model' > 1 now: the LM step (qwen3 SMOKE, whose two
+    KV heads do not split over four model ranks) and the DeepFM step on
+    (2, 4) return the loss of the step without a mesh on every rank."""
+    if which == "lm":
+        cfg = LM_ARCHS["qwen3-0.6b"].SMOKE
+        params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+        tok, tgt = _lm_batches(cfg)[0]
+        want = C.make_lm_train_step(cfg, OptConfig(**OPT))(
+            params, adamw_init(params), torch.from_numpy(tok), torch.from_numpy(tgt))[2]
+    else:
+        model = DeepFM(DF.SMOKE_CONFIG, seed=0, device="cpu")
+        params = DF.train_params(model)
+        f, lab = _deepfm_batches()[0]
+        want = DF.train_step(model, params, adamw_init(params), torch.from_numpy(f),
+                             torch.from_numpy(lab), opt_cfg=OptConfig(**OPT))[2]
+    for r, out in enumerate(ranks[3]):
+        _close(out["model_axis_" + which], want.item(), f"{which} rank {r}")
 
 
 # --------------------------------------------------------------------------

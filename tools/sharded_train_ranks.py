@@ -3,7 +3,7 @@
 rank (card), the group NCCL at tcp://localhost on a free port:
 
     python3 tools/sharded_train_ranks.py [--ranks 4] [--device cuda|cpu]
-        [--only lm lm_moe deepfm moe ckpt]
+        [--only lm lm_moe deepfm moe ckpt lm_tp lm_tp_moe lm_fsdp decode_tp deepfm_tp]
 
   (a) lm: qwen3-0.6b whole on a (ranks, 1) ("data", "model") mesh,
       train_4k's length S = 4,096 and a global batch of 16 (4 sequences a
@@ -45,21 +45,55 @@ rank (card), the group NCCL at tcp://localhost on a free port:
   (d) ckpt: a placed `checkpoint.save` of a 64 MiB tree from every rank,
       then every rank restores it at once and holds it to the tree: no
       rank returns from the save before the writer has put the
-      checkpoint in place.
+      checkpoint in place;
+  (e) lm_tp: (a) for qwen3-0.6b whole at 16 x 4,096 global on a (1, 4)
+      and a (2, 2) mesh: the tensor-parallel step (`tp=`), its heads,
+      hidden units and vocab split over 'model'; besides (a)'s numbers,
+      the device ms of NCCL's kernels in one more profiled step as a
+      share of the step;
+  (f) lm_tp_moe: the same for mixtral-8x22b at full width in f32, one
+      layer, 1 x 4,096, on (1, 4) (2 experts a card; in bf16 a rounding
+      flips some tokens' experts, so only f32 holds the router to one
+      card's), and deepseek-v3's 3 dense layers with the MTP block (MLA,
+      the MTP projection gathered) at 1 x 2,048 (one card's comparison
+      step must fit beside an NCCL rank), both donated;
+  (g) lm_fsdp: nemotron-4-340b at full width, one layer (`FSDP_RUN`: its
+      154.7 GB of state fits no card), 2 x 4,096, drawn leaf by leaf onto
+      its blocks (no rank holds the whole tree), one donated step with
+      `fsdp=True` on (1, 4) and on (2, 2): ms, peak GiB and state bytes a
+      card; step 0's losses within 1e-3 relative of each other and of
+      rank 0's one-card forward of `lm_loss` on the same weights;
+  (h) decode_tp: on (1, ranks), qwen3-0.6b whole, nemotron-4-340b one
+      layer (2 KV heads a card) and deepseek-v3's 3 dense (MLA) layers:
+      `prefill_step(mesh=)` of 8 x 512 into a 32,768-slot cache placed
+      by `cache_specs`, then 16 `serve_step(mesh=)` calls fed rank 0's
+      one-card greedy tokens, ms a step beside one card's; every step's
+      logits within twice one card's own bf16 spread (the max |logit|
+      difference between its last decode step and a prefill of the same
+      tokens: two bf16 paths to one function, and the layout's run and
+      the one-card run each carry that spread), and the greedy tokens
+      equal wherever one card's top-2 margin exceeds that tolerance;
+  (i) deepfm_tp: (b) on a (2, ranks / 2) mesh: the tables over
+      ('data', 'model'), the tower's first layers over 'model'; (b) also
+      holds serve_bulk's logits and retrieval_cand's scores (its
+      candidates over every rank, the item field's rows on one) to one
+      card's within 1e-5, and times them.
 
 With `--device cpu` the ranks are gloo processes on the CPU and every
 config is cut to a CPU size (`launch.train.small_variant`, DeepFM's
-SMOKE_CONFIG, 8 experts of width 64, a 1 MiB checkpoint): a rehearsal
-of the same code.
+SMOKE_CONFIG, 8 experts of width 64, a 1 MiB checkpoint, 16-token
+prompts into a 48-slot cache): a rehearsal of the same code.
 Rank 0 prints one JSON line of every number (and writes it to
 chiprun_out/sharded_train_ranks.json), beside the card's name and power
-limit; the script exits non-zero if a rank fails or overruns `--timeout`,
-and stops every rank it started.
+limit, with the checks that failed (`failures`; every part runs all the
+same); the script exits non-zero if a check fails, a rank fails or
+overruns `--timeout`, and stops every rank it started.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import pathlib
 import socket
@@ -67,11 +101,36 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple, Optional
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 LM_SEQ, LM_TIMED = 4096, 3
-# part -> (arch, layers kept (None: whole), global batch, donate the state)
-LM_RUNS = {"lm": ("qwen3-0.6b", None, 16, False), "lm_moe": ("mixtral-8x22b", 1, 4, True)}
+
+
+class LMRun(NamedTuple):
+    arch: str
+    layers: Optional[int]             # layers kept (None: whole)
+    dense_only: bool                  # keep only dense layers
+    batch: int                        # global batch of `seq`-token sequences
+    donate: bool                      # the step writes its state in place
+    mesh: Optional[tuple] = None      # ("data", "model"); None: (ranks, 1)
+    seq: int = LM_SEQ
+    f32: bool = False                 # the config in f32 (bf16 as published)
+
+
+# part -> its runs.  mixtral's layer is held to one card in f32: in bf16 a
+# rounding upstream flips some tokens' top-2 experts (routing is not
+# continuous), which moved the router's m by 8 % in L2 on four H100s.
+# deepseek's dense layers run 2,048 tokens: one card's step at 4,096 peaks at
+# 70.9 GiB, which does not fit beside an NCCL rank.
+LM_RUNS = {
+    "lm": [LMRun("qwen3-0.6b", None, False, 16, False)],
+    "lm_moe": [LMRun("mixtral-8x22b", 1, False, 4, True)],
+    "lm_tp": [LMRun("qwen3-0.6b", None, False, 16, False, (1, 4)),
+              LMRun("qwen3-0.6b", None, False, 16, False, (2, 2))],
+    "lm_tp_moe": [LMRun("mixtral-8x22b", 1, False, 1, True, (1, 4), f32=True),
+                  LMRun("deepseek-v3-671b", 3, True, 1, True, (1, 4), seq=2048)],
+}
 DEEPFM_TIMED = 3
 MOE_TOKENS = 8192
 LM_LOSS_TOL = 1e-3
@@ -81,7 +140,19 @@ LM_LOSS_TOL = 1e-3
 LM_LEAF_TOL = 2.0 ** -5
 CKPT_FLOATS = 1 << 24                 # the placed save's large leaf, 64 MiB of f32
 DEEPFM_TOL = 1e-5
+RETRIEVAL_FIELD = 13                  # chip_smoke's item field: 1,000,000 rows, on one rank
 MOE_TOL = 2.0 ** -5
+# lm_fsdp: nemotron-4-340b at full width, layers kept (one layer: 12.891 B
+# parameters, 154.7 GB of training state; two would put ~76 GB on a card of
+# the (2, 2) layout, whose gathered embedding and head (and their gradients)
+# add ~19 GB), global batch of LM_SEQ tokens, the two layouts
+FSDP_RUN = ("nemotron-4-340b", 1, 2, ((1, 4), (2, 2)))
+FSDP_LOSS_TOL = 1e-3
+# decode_tp on (1, ranks): arch -> (layers kept, only dense layers); batch 8,
+# 512-token prompts into a 32,768-slot cache (decode_32k's), 16 greedy steps
+DECODE_RUNS = {"qwen3-0.6b": (None, False), "nemotron-4-340b": (1, False),
+               "deepseek-v3-671b": (3, True)}
+DECODE = dict(batch=8, prompt=512, cache=32_768, steps=16)
 
 
 def free_port() -> int:
@@ -117,6 +188,7 @@ class Rank:
                                 init_method=f"tcp://localhost:{args.port}",
                                 rank=args.rank, world_size=args.ranks, **kw)
         self.rank, self.size = args.rank, args.ranks
+        self.failures = []
 
     def mesh(self, shape, names=("data", "model")):
         from torch.distributed.device_mesh import DeviceMesh
@@ -171,8 +243,10 @@ class Rank:
 
 
 def fail(r: Rank, msg: str) -> None:
+    """A check failed: said at once, the rank goes on to the other parts
+    and exits non-zero at the end."""
     print(f"FAIL rank {r.rank}: {msg}", file=sys.stderr, flush=True)
-    sys.exit(1)
+    r.failures.append(msg)
 
 
 class StepRecorder:
@@ -224,7 +298,26 @@ def leaf_err(got, want) -> float:
     return num / den if den else num
 
 
-def part_lm(r: Rank, name: str) -> dict:
+def nccl_ms(r: Rank, fn):
+    """(fn(), the device ms of NCCL's kernels in it) by torch.profiler (the
+    card only: None on the CPU)."""
+    if not r.cuda:
+        return fn(), None
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        r.sync()
+    total = 0.0
+    for evt in prof.key_averages():
+        if "nccl" in evt.key.lower():
+            total += getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+    return out, total / 1e3
+
+
+def lm_run(r: Rank, run) -> dict:
+    """One LM run on its mesh against rank 0's one-card step (see the
+    module docstring, (a))."""
     import dataclasses
 
     import torch
@@ -237,14 +330,18 @@ def part_lm(r: Rank, name: str) -> dict:
     from repro_torch.train import tree as T
     from repro_torch.train.optimizer import OptConfig, adamw_init
 
-    arch, layers, B, donate = LM_RUNS[name]
-    cfg = LM_ARCHS[arch].CONFIG
+    arch, layers, dense_only, B, donate, shape, S, f32 = run
+    full = LM_ARCHS[arch].CONFIG
+    cfg = full
     if layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
-    S = LM_SEQ
+        cfg = dataclasses.replace(full, n_layers=layers,
+                                  n_dense_layers=layers if dense_only else full.n_dense_layers)
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    shape = shape or (r.size, 1)
     if not r.cuda:
         cfg, B, S = small_variant(cfg), 2 * r.size, 64
-    mesh = r.mesh((r.size, 1))
+    mesh = r.mesh(shape)
     opt_cfg = OptConfig(total_steps=10000)
     stream = TokenStream(cfg.vocab, B, S, seed=17)
 
@@ -264,22 +361,27 @@ def part_lm(r: Rank, name: str) -> dict:
     for x in T.leaves((params, opt.m, opt.v)):
         whole = x.full_tensor()
         if r.rank == 0:
-            kept.append(whole.cpu())
+            kept.append(whole.to("cpu", copy=True))   # not an alias of a donated leaf
         del whole
     took = []
     for i in range(1, 1 + LM_TIMED):
         batch = shard_batch(stream.batch_at(i), mesh, batch_spec(mesh, 1))
+        r.aligned()
         (params, opt, loss, _), ms = r.ms(lambda: step(params, opt, *batch))
         took.append(ms)
     peak = r.peak_gib()
     moment_bytes = sum(m.to_local().numel() * 4 for m in T.leaves(opt.m)) * 2
     whole_moments = sum(m.numel() * 4 for m in T.leaves(opt.m)) * 2
 
-    # the optimizer's collectives alone: gradients (as the step places them)
-    # reduce-scattered to the moments, each parameter's block gathered back
+    # the collectives: NCCL's kernels in one more profiled step, and the
+    # optimizer's alone (each gradient reduce-scattered to its moments,
+    # each parameter gathered back)
     from repro_torch.dist.sharding import data_axes
     from repro_torch.train.optimizer import partial_grads
 
+    batch = shard_batch(stream.batch_at(1 + LM_TIMED), mesh, batch_spec(mesh, 1))
+    r.aligned()
+    (params, opt, loss, _), step_nccl_ms = nccl_ms(r, lambda: step(params, opt, *batch))
     grads = partial_grads(T.tree_map(lambda p: torch.ones_like(p.to_local()), params), params,
                           mesh, set(data_axes(mesh)))
     coll = []
@@ -294,11 +396,15 @@ def part_lm(r: Rank, name: str) -> dict:
     r.free()
 
     out = {"config": cfg.name, "layers": cfg.n_layers, "global_batch": B, "seq": S,
-           "mesh": [r.size, 1], "donate": donate, "loss0": loss0, "grad_norm0": gnorm0,
+           "dtype": str(cfg.dtype),
+           "mesh": list(shape), "donate": donate, "loss0": loss0, "grad_norm0": gnorm0,
            "drop_frac0": drops0, "first_ms": first_ms,
            "step_ms": statistics.median(took), "steps_ms": took,
            "collectives_ms": statistics.median(coll),
            "collective_share": statistics.median(coll) / statistics.median(took),
+           "step_nccl_ms": step_nccl_ms,
+           "step_nccl_share": None if step_nccl_ms is None else
+           step_nccl_ms / statistics.median(took),
            "peak_gib": r.gather(peak), "moment_bytes_card": moment_bytes,
            "moment_bytes_whole": whole_moments, "losses": [loss0, float(loss)]}
     r.dist.barrier()
@@ -310,22 +416,35 @@ def part_lm(r: Rank, name: str) -> dict:
         with StepRecorder() as rec:
             (params, opt, loss1, _), one_ms = r.ms(lambda: one(params, opt, tok, tgt))
         gnorm1 = float(rec.grad_norms[0])
-        errs = {}
+        errs, worst = {}, {}
         groups = (("params", params), ("m", opt.m), ("v", opt.v))
         mine = iter(kept)
         for what, tree in groups:
-            errs[what] = max(leaf_err(next(mine).to(r.dev), x) for x in T.leaves(tree))
+            paths = []
+            T.tree_map_with_path(lambda path, x: paths.append("/".join(map(str, path))), tree)
+            each = [leaf_err(next(mine).to(r.dev), x) for x in T.leaves(tree)]
+            errs[what] = max(each)
+            worst[what] = paths[each.index(errs[what])]
         out.update(one_card_loss0=float(loss1), one_card_grad_norm0=gnorm1, one_card_ms=one_ms,
                    one_card_drop_frac0=[float(d) for d in rec.drops], leaf_rel_err=errs,
+                   worst_leaf=worst,
                    loss_rel_err=abs(loss0 - float(loss1)) / abs(float(loss1)),
                    grad_norm_rel_err=abs(gnorm0 - gnorm1) / gnorm1)
         del params, opt, kept
         r.free()
         if (out["loss_rel_err"] > LM_LOSS_TOL or out["grad_norm_rel_err"] > LM_LEAF_TOL
                 or max(errs.values()) > LM_LEAF_TOL):
-            fail(r, f"{name}: step 0 against one card: {out}")
+            fail(r, f"{cfg.name} on {shape}: step 0 against one card: {out}")
     r.dist.barrier()
     return out
+
+
+def part_lm(r: Rank, name: str) -> dict:
+    """Each of the part's runs (`LM_RUNS`); one run's numbers as they are."""
+    outs = [lm_run(r, run) for run in LM_RUNS[name]]
+    if len(outs) == 1:
+        return outs[0]
+    return {f"{o['config']} {tuple(o['mesh'])}": o for o in outs}
 
 
 def part_ckpt(r: Rank) -> dict:
@@ -361,7 +480,7 @@ def part_ckpt(r: Rank) -> dict:
             "save_s": [t for _, t in found]}
 
 
-def part_deepfm(r: Rank) -> dict:
+def part_deepfm(r: Rank, shape=None) -> dict:
     import torch
     from repro_torch.configs import deepfm as C
     from repro_torch.data.pipeline import ClickStream, shard_batch
@@ -371,9 +490,11 @@ def part_deepfm(r: Rank) -> dict:
     from repro_torch.train import adamw_init
 
     cfg, B = C.CONFIG, C.SHAPES["train_batch"]["batch"]
+    n_bulk, n_cands = C.SHAPES["serve_bulk"]["batch"], C.RETRIEVAL_CANDIDATES
     if not r.cuda:
-        cfg, B = C.SMOKE_CONFIG, 64 * r.size
-    mesh = r.mesh((r.size, 1))
+        cfg, B, n_bulk, n_cands = C.SMOKE_CONFIG, 64 * r.size, 128 * r.size, 512
+    shape = shape or (r.size, 1)
+    mesh = r.mesh(shape)
     stream = ClickStream(cfg.field_vocabs, B, seed=0)
     model = DeepFM(cfg, seed=0, device=r.dev)
     params, opt = C.place_deepfm_state(C.train_params(model), mesh)
@@ -402,12 +523,29 @@ def part_deepfm(r: Rank) -> dict:
         took.append(ms)
     peak = r.peak_gib()
     rows = params["embed"].to_local().shape[0]
-    del p, o, params, opt, params1, opt1, batches
+    # serving through the placed tables (the step-0 state): serve_bulk's
+    # logits (this rank's block of the batch) and retrieval_cand's scores
+    # (this rank's block of the candidates, over every rank)
+    bulk = ClickStream(cfg.field_vocabs, n_bulk, seed=1).batch_at(0)[0]
+    cands = torch.randint(0, cfg.field_vocabs[RETRIEVAL_FIELD], (n_cands,),
+                          generator=torch.Generator().manual_seed(13), dtype=torch.int32)
+    user = torch.from_numpy(bulk[0]).to(r.dev)
+    flat = P(tuple(mesh.mesh_dim_names))
+    bulk_placed = shard_batch(bulk, mesh, batch_spec(mesh, 1))
+    cands_placed = shard_batch(cands, mesh, flat)
+    logits, bulk_ms = r.ms(lambda: C.serve_step(model, bulk_placed, params=params1, mesh=mesh))
+    scores, ret_ms = r.ms(lambda: C.retrieval_step(model, user, cands_placed, RETRIEVAL_FIELD,
+                                                   params=params1, mesh=mesh))
+    served = {"logits": logits.cpu(), "scores": scores.cpu()}
+    del p, o, params, opt, params1, opt1, batches, logits, scores
     r.free()
-    out = {"config": "CONFIG" if r.cuda else "SMOKE_CONFIG", "batch": B, "mesh": [r.size, 1],
+    out = {"config": "CONFIG" if r.cuda else "SMOKE_CONFIG", "batch": B, "mesh": list(shape),
            "rows_card": rows, "rows": cfg.total_vocab, "loss0": loss0, "first_ms": first_ms,
            "step_ms": statistics.median(took), "steps_ms": took, "peak_gib": r.gather(peak),
-           "launches_step0_rank": launches}
+           "launches_step0_rank": launches, "serve_bulk_ms": bulk_ms,
+           "retrieval_cand_ms": ret_ms}
+    # every rank's blocks, on rank 0
+    blocks = r.gather((served, list(mesh.get_coordinate())))
     r.dist.barrier()
     if r.rank == 0:
         params = C.train_params(model)
@@ -416,15 +554,225 @@ def part_deepfm(r: Rank) -> dict:
         p1, _, loss1 = C.train_step(model, params, opt, fields, labels)
         _, one_ms = r.ms(lambda: C.train_step(model, params, opt, fields, labels))   # warm
         err = max(float((full[k] - p1[k]).abs().max()) for k in p1)
+        model.load_state_dict(p1, strict=False)
+        want_logits = C.serve_step(model, torch.from_numpy(bulk).to(r.dev)).cpu()
+        want_scores = C.retrieval_step(model, user, cands.to(r.dev), RETRIEVAL_FIELD).cpu()
+        n, m = n_bulk // shape[0], n_cands // r.size
+        serve_err = max(float((b["logits"] - want_logits[c[0] * n:(c[0] + 1) * n]).abs().max())
+                        for b, c in blocks)
+        ret_err = max(float((b["scores"] - want_scores[i * m:(i + 1) * m]).abs().max())
+                      for i, (b, _) in enumerate(blocks))
         out.update(one_card_loss0=float(loss1), one_card_ms=one_ms, max_param_err=err,
-                   loss_err=abs(loss0 - float(loss1)))
-        if err > DEEPFM_TOL or out["loss_err"] > DEEPFM_TOL:
-            fail(r, f"deepfm: step 0 against one card: {out}")
+                   loss_err=abs(loss0 - float(loss1)), serve_bulk_err=serve_err,
+                   retrieval_cand_err=ret_err)
+        if max(err, out["loss_err"], serve_err, ret_err) > DEEPFM_TOL:
+            fail(r, f"deepfm: step 0, serve_bulk or retrieval_cand against one card: {out}")
         del p1, params, opt
     del full, model
     r.free()
     r.dist.barrier()
     return out
+
+
+def part_deepfm_tp(r: Rank) -> dict:
+    return part_deepfm(r, (2, r.size // 2))
+
+
+def seeded_lm(cfg, dev, specs=None, mesh=None):
+    """An LM tree at `cfg`'s widths drawn leaf by leaf, each leaf from its
+    own generator (seeded by its path) with `init_lm`'s kinds of values:
+    with `specs` each rank keeps its block of each leaf as a DTensor and
+    frees the whole leaf at once, so no rank ever holds the whole tree."""
+    import zlib
+
+    import torch
+    from repro_torch.dist.sharding import Sharding
+    from repro_torch.models import transformer as tf
+
+    tree = {}
+    for path, shape, dt, init in tf._walk(tf._tree_spec(cfg)):
+        if init == "ones":
+            leaf = torch.ones(shape, dtype=dt, device=dev)
+        elif init == "zeros":
+            leaf = torch.zeros(shape, dtype=dt, device=dev)
+        else:
+            leaf = torch.empty(shape, dtype=dt, device=dev)
+            g = torch.Generator(device=dev).manual_seed(zlib.crc32("/".join(path).encode()))
+            tf._draw_into(g, leaf, init)
+        if specs is not None:
+            node = specs
+            for k in path:
+                node = node[k]
+            leaf = Sharding(mesh, node).place(leaf, dev)
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def part_lm_fsdp(r: Rank) -> dict:
+    """nemotron-4-340b at full width, its state on no one card, one step on
+    each layout with FSDP; step 0's losses against each other and against
+    one card's forward of `lm_loss` on rank 0."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.configs import lm_cells as C
+    from repro_torch.data.pipeline import TokenStream, shard_batch
+    from repro_torch.dist import batch_spec
+    from repro_torch.dist.sharding import _axis_size, data_axes, lm_param_specs
+    from repro_torch.launch.train import small_variant
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import tree as T
+    from repro_torch.train.optimizer import OptConfig, adamw_init_placed, zero1_specs
+
+    arch, layers, B, shapes = FSDP_RUN
+    cfg = dataclasses.replace(LM_ARCHS[arch].CONFIG, n_layers=layers)
+    S = LM_SEQ
+    if not r.cuda:
+        cfg, B, S = dataclasses.replace(small_variant(cfg), n_layers=layers), 4, 64
+    shapes = [(1, r.size), (2, r.size // 2)] if r.size != 4 else list(shapes)
+    tok, tgt = TokenStream(cfg.vocab, B, S, seed=17).batch_at(0)
+    meta = T.tree_map(lambda x: torch.empty(x[0], dtype=x[1], device="meta"),
+                      tf.param_shapes(cfg), is_leaf=lambda x: isinstance(x, tuple))
+    n_params = sum(x.numel() for x in T.leaves(meta))
+    out = {"config": cfg.name, "layers": layers, "params": n_params, "global_batch": B,
+           "seq": S, "state_bytes_whole": sum(x.numel() * (x.element_size() + 8)
+                                              for x in T.leaves(meta))}
+    if r.rank == 0:         # one card's forward of the same weights, whole
+        params = seeded_lm(cfg, r.dev)
+        with torch.inference_mode():
+            loss, _ = tf.lm_loss(params, cfg, torch.from_numpy(tok).to(r.dev),
+                                 torch.from_numpy(tgt).to(r.dev))
+        out["one_card_forward_loss"] = float(loss)
+        del params
+        r.free()
+    r.dist.barrier()
+    for shape in shapes:
+        mesh = r.mesh(tuple(shape))
+        specs = lm_param_specs(meta, mesh, fsdp=True)
+        dp = data_axes(mesh)
+        r.reset_peak()
+        params = seeded_lm(cfg, r.dev, specs, mesh)
+        opt = adamw_init_placed(params, zero1_specs(specs, meta, mesh_axis=dp,
+                                                    mesh_size=_axis_size(mesh, dp)), mesh)
+        state = (sum(x.to_local().numel() * x.to_local().element_size()
+                     for x in T.leaves(params))
+                 + sum(x.to_local().numel() * 4 for x in T.leaves((opt.m, opt.v))))
+        step = C.make_lm_train_step(cfg, OptConfig(total_steps=10000), donate=True, mesh=mesh,
+                                    fsdp=True)
+        batch = shard_batch((tok, tgt), mesh, batch_spec(mesh, 1))
+        r.aligned()
+        (params, opt, loss, _), ms = r.ms(lambda: step(params, opt, *batch))
+        out[f"{tuple(shape)}"] = {"loss0": float(loss), "step_ms": ms,
+                                  "peak_gib": r.gather(r.peak_gib()),
+                                  "state_bytes_card": r.gather(state)}
+        del params, opt, batch
+        r.free()
+        r.dist.barrier()
+    losses = [out[f"{tuple(s)}"]["loss0"] for s in shapes]
+    errs = [abs(x - losses[0]) / abs(losses[0]) for x in losses[1:]]
+    if "one_card_forward_loss" in out:
+        one = out["one_card_forward_loss"]
+        errs += [abs(x - one) / abs(one) for x in losses]
+    out["loss_rel_errs"] = errs
+    if max(errs) > FSDP_LOSS_TOL or not all(map(math.isfinite, losses)):
+        fail(r, f"lm_fsdp: step 0's losses disagree: {out}")
+    return out
+
+
+def _decode(r: Rank, params, cfg, prompts, L: int, feed, mesh=None):
+    """Prefill `prompts`, then one `serve_step` for each of `feed`'s tokens
+    (or, with `feed` None, greedily): (the logits of the prefill and of
+    each step, the tokens fed, each step's ms)."""
+    import torch
+    from repro_torch.configs import lm_cells as C
+
+    logits, cache = C.prefill_step(params, cfg, prompts, max_len=L, mesh=mesh)
+    out, toks, ms = [logits], [], []
+    for i in range(DECODE["steps"]):
+        tok = torch.argmax(logits, dim=-1).to(torch.int32) if feed is None else feed[i]
+        toks.append(tok)
+        (logits, cache), t = r.ms(lambda: C.serve_step(params, cfg, cache, tok, mesh=mesh))
+        out.append(logits)
+        ms.append(t)
+    del cache
+    return torch.stack(out), toks, ms
+
+
+def cache_bytes(cfg, batch: int, length: int) -> int:
+    """A whole decode cache's bytes (`transformer.init_decode_cache`)."""
+    C = min(cfg.window, length) if cfg.window else length
+    per_slot = ((cfg.mla.kv_lora_rank + cfg.mla.d_rope) if cfg.mla is not None
+                else 2 * cfg.n_kv_heads * cfg.d_head)
+    return cfg.n_layers * batch * C * per_slot * 2
+
+
+def decode_run(r: Rank, arch: str) -> dict:
+    """One arch's prefill and decode on (1, ranks) against rank 0's one card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.configs import lm_cells as C
+    from repro_torch.data.pipeline import TokenStream, shard_batch
+    from repro_torch.dist import batch_spec, distribute, lm_param_specs
+    from repro_torch.launch.train import small_variant
+    from repro_torch.models import transformer as tf
+
+    layers, dense_only = DECODE_RUNS[arch]
+    full = LM_ARCHS[arch].CONFIG
+    cfg = full
+    if layers is not None:
+        cfg = dataclasses.replace(full, n_layers=layers,
+                                  n_dense_layers=layers if dense_only else full.n_dense_layers)
+    B, P, L = DECODE["batch"], DECODE["prompt"], DECODE["cache"]
+    if not r.cuda:
+        cfg, P, L = small_variant(cfg), 16, 48
+    mesh = r.mesh((1, r.size))
+    prompts = torch.from_numpy(TokenStream(cfg.vocab, B, P, seed=17).batch_at(0)[0]).to(r.dev)
+    whole = tf.init_lm(torch.Generator(device=r.dev).manual_seed(0), cfg)
+    placed = distribute(whole, lm_param_specs(whole, mesh), mesh)
+    feed = None
+    if r.rank == 0:         # one card: greedy, then one prefill of every token fed
+        want, feed, one_ms = _decode(r, whole, cfg, prompts, L, None)
+        full_prompt = torch.cat([prompts, torch.stack(feed, dim=1)], dim=1)
+        again, _ = C.prefill_step(whole, cfg, full_prompt, max_len=full_prompt.shape[1])
+        spread = float((again - want[-1]).abs().max())
+        margin = want.topk(2, dim=-1).values
+        margin = (margin[..., 0] - margin[..., 1])
+    whole = None
+    r.free()
+    feed = r.gather(None if feed is None else [t.cpu() for t in feed])[0]
+    feed = [t.to(r.dev) for t in feed]
+    r.reset_peak()
+    r.aligned()
+    got, _, ms = _decode(r, placed, cfg, shard_batch(prompts, mesh, batch_spec(mesh, 1)), L,
+                         feed, mesh=mesh)
+    peak = r.peak_gib()
+    out = {"config": cfg.name, "layers": cfg.n_layers, "batch": B, "prompt": P, "cache": L,
+           "cache_bytes_whole": cache_bytes(cfg, B, L), "step_ms": statistics.median(ms),
+           "steps_ms": ms,
+           "peak_gib": r.gather(peak)}
+    if r.rank == 0:
+        tol = 2 * spread
+        err = float((got - want).abs().max())
+        sure = margin > tol
+        same = bool((got.argmax(-1) == want.argmax(-1))[sure].all())
+        out.update(one_card_step_ms=statistics.median(one_ms), spread=spread, tol=tol,
+                   max_logit_err=err, greedy_checked=int(sure.sum()), greedy_equal=same)
+        if not err <= tol or not same:
+            fail(r, f"decode_tp {arch}: against one card: {out}")
+    del placed, got
+    r.free()
+    r.dist.barrier()
+    return out
+
+
+def part_decode_tp(r: Rank) -> dict:
+    return {arch: decode_run(r, arch) for arch in DECODE_RUNS}
 
 
 def part_moe(r: Rank) -> dict:
@@ -541,7 +889,9 @@ def part_moe(r: Rank) -> dict:
 
 
 PARTS = {"lm": lambda r: part_lm(r, "lm"), "lm_moe": lambda r: part_lm(r, "lm_moe"),
-         "deepfm": part_deepfm, "moe": part_moe, "ckpt": part_ckpt}
+         "deepfm": part_deepfm, "moe": part_moe, "ckpt": part_ckpt,
+         "lm_tp": lambda r: part_lm(r, "lm_tp"), "lm_tp_moe": lambda r: part_lm(r, "lm_tp_moe"),
+         "lm_fsdp": part_lm_fsdp, "decode_tp": part_decode_tp, "deepfm_tp": part_deepfm_tp}
 
 
 def rank_main(args) -> None:
@@ -557,10 +907,13 @@ def rank_main(args) -> None:
     if r.rank == 0:
         if r.cuda:
             out["card"] = card_line()
+        out["failures"] = r.failures
         line = json.dumps(out)
         (ROOT / "chiprun_out").mkdir(exist_ok=True)
         (ROOT / "chiprun_out" / "sharded_train_ranks.json").write_text(line + "\n")
         print(line, flush=True)
+    if r.failures:
+        sys.exit(1)
 
 
 def main() -> None:
@@ -584,7 +937,11 @@ def main() -> None:
     port = free_port()
     cmd = [sys.executable, str(pathlib.Path(__file__).resolve()), "--ranks", str(args.ranks),
            "--device", args.device, "--only", *args.only, "--port", str(port)]
-    procs = [subprocess.Popen(cmd + ["--rank", str(r)]) for r in range(args.ranks)]
+    # the one-card comparisons run beside NCCL's buffers: deepseek's dense
+    # layers peak at 70.9 GiB alone, so the allocator must not strand
+    # reserved blocks
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen(cmd + ["--rank", str(r)], env=env) for r in range(args.ranks)]
     deadline = time.monotonic() + args.timeout
     rc = 0
     try:
