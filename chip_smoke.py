@@ -450,6 +450,27 @@ Phases, each fatal on failure:
                  at B = 65,536 (2 bag launches, 2 backwards, 1 slot sort,
                  counted from 0 just before it), serve_bulk and
                  retrieval_cand (2 bag launches each).
+ 17. products ogb_products' full-graph step with the graph split (run after
+             phase 16), every `[products]` line beside the card's name and
+             power limit, on a new one-rank NCCL group and a (1, 1)
+             ("data", "model") `DeviceMesh`, destroyed after.  For each of
+             gin-tu, pna, egnn and mace at the shape's widths (d_feat 100,
+             47 classes) and average degree, the vertices cut to
+             `PRODUCTS_CUTS` (gin-tu a quarter: 612,257 vertices, about
+             30.9 M half-edges; pna 1/32, egnn 1/16, mace 1/128): the stand-in (`products_inputs`), split by
+             `dist.graph.split_graph`; the step without a mesh from one
+             state, and from it again on the graph relabelled two ways
+             (vertices and edges in other orders), whose largest
+             difference from the first is its run-to-run spread
+             (`index_add_` sums with float atomics in an order that changes
+             from run to run; the split sums over vertices and edges in
+             other orders too); then `full_graph_step(split=)` from that state over
+             `place_gnn_state`, held to the first within twice the spread
+             (no less than twice 2^-23) in the loss, the gradient norm and
+             every leaf of m and sqrt(v) (relative in L2); then 3 more
+             placed steps, median
+             ms split by CUDA events into forward, backward and optimizer,
+             peak GiB, no port kernel launched (ogb_products runs none).
 
 The last three lines of standard output are, in order: the kernels JSON
 object (one record per kernel), the card's name and power limit as
@@ -4689,6 +4710,212 @@ def phase_tp(errs: dict) -> None:
           f"{launches}; card {card_line()}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 17: ogb_products' full-graph step over a split graph
+# --------------------------------------------------------------------------
+
+# arch -> the fraction of ogb_products' 2,449,029 vertices phase 17 runs, at
+# the shape's widths and average degree: gin-tu at a quarter (30.9 M
+# half-edges, 12.4 GB a layer-1 message tensor); the others where their
+# activations fit one card beside the inputs' relabelled copies (pna at
+# 1/16 peaks at 74 GiB alone and ran out of memory beside them; PERF.md
+# section 4)
+PRODUCTS_CUTS = {"gin-tu": 1 / 4, "pna": 1 / 32, "egnn": 1 / 16, "mace": 1 / 128}
+PRODUCTS_SEED = 0
+PRODUCTS_TIMED = 3
+# the floor of a run-to-run spread: two runs that happen to round alike
+# still differ from a third by an f32 rounding
+SPREAD_FLOOR = 2.0 ** -23
+SPREAD_SEEDS = (0, 1)       # the relabelled runs behind a spread
+
+
+class UpdateMetrics:
+    """While open, records the `grad_norm` (before clipping) of every AdamW
+    update the GNN steps make, placed or not."""
+
+    def __enter__(self):
+        from repro_torch.configs import gnn_cells as C
+        from repro_torch.train import optimizer as O
+
+        self.names = [(C, "adamw_update"), (O, "adamw_update_placed")]
+        self.orig = [getattr(mod, name) for mod, name in self.names]
+        self.grad_norms = []
+
+        def wrap(fn):
+            def recording(*args, **kw):
+                out = fn(*args, **kw)
+                self.grad_norms.append(float(out[2]["grad_norm"]))
+                return out
+            return recording
+
+        for (mod, name), fn in zip(self.names, self.orig):
+            setattr(mod, name, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.names, self.orig):
+            setattr(mod, name, fn)
+
+
+def step_groups(loss, opt, grad_norm: float) -> dict:
+    """One step's outputs as the groups phase 17 compares: the loss, the
+    gradient norm and each leaf of m and of v (as sqrt(v), the gradient's
+    scale), local blocks of placed leaves."""
+    from repro_torch.dist.sharding import local
+
+    return {"loss": float(loss), "grad_norm": grad_norm,
+            "m": {k: local(x) for k, x in opt.m.items()},
+            "v": {k: local(x).sqrt() for k, x in opt.v.items()}}
+
+
+def l2_err(a, b) -> float:
+    """||a - b|| / ||b|| in f64 (||a - b|| when b is 0)."""
+    import torch
+
+    num = float(torch.linalg.vector_norm((a.double() - b.double()).reshape(-1)))
+    den = float(torch.linalg.vector_norm(b.double().reshape(-1)))
+    return num / den if den else num
+
+
+def group_errs(got: dict, want: dict) -> dict:
+    """Per group: the relative error of the loss and gradient norm; for m
+    and v the largest over the leaves of the relative error in L2."""
+    out = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("loss", "grad_norm")}
+    for k in ("m", "v"):
+        out[k] = max(l2_err(got[k][leaf], want[k][leaf]) for leaf in want[k])
+    return out
+
+
+def relabelled(edges, rows, seed: int) -> list:
+    """The full-graph step's inputs (feats, coords, senders, receivers,
+    mask, labels) on the same graph with its vertices and its edges in
+    another order (permutations seeded with `seed`): the same loss and
+    gradients in exact arithmetic, summed in another order."""
+    import torch
+
+    s, r, m = edges
+    n = rows[0].shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    order = torch.randperm(n, generator=gen).to(s.device)          # new row i: old order[i]
+    new_id = torch.empty_like(order)
+    new_id[order] = torch.arange(n, device=s.device)
+    e_order = torch.randperm(s.shape[0], generator=gen).to(s.device)
+    feats, coords, labels = (x[order] for x in rows)
+    return [feats, coords, new_id[s[e_order].long()].to(s.dtype),
+            new_id[r[e_order].long()].to(r.dtype), m[e_order], labels]
+
+
+def products_arch(a, mesh, fraction: float) -> float:
+    """One arch of phase 17 at `fraction` of ogb_products' vertices: the
+    step without a mesh from one state, and again from it on the graph
+    relabelled with each of SPREAD_SEEDS (`relabelled`: the largest
+    difference from the first is the step's run-to-run spread, that of the
+    order it sums in: `index_add_` sums with float atomics in an order that
+    changes from run to run, as `tools/gnn_f32_spread.py` measures it on
+    the CPU), then `full_graph_step(split=)` on the one-rank mesh from that state,
+    held to the first within twice the spread per group (no less than
+    twice SPREAD_FLOOR); then PRODUCTS_TIMED more placed steps split by
+    CUDA events, with the launches of every port kernel counted from 0
+    before them (none may launch).  Returns the seconds it took."""
+    import torch
+    from repro_torch.configs import gnn_cells as C
+    from repro_torch.dist.graph import split_graph
+    from repro_torch.train import adamw_init
+
+    t0 = time.perf_counter()
+    n = C.products_nodes(fraction)
+    label = f"[products] {a.arch_id} at 1/{round(1 / fraction)}"
+    s, r, m, feats, coords, labels = C.products_inputs(n, seed=PRODUCTS_SEED, device="cuda")
+    t_graph = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    split = split_graph(s, r, m, n, mesh)
+    t_split = time.perf_counter() - t1
+    edges = [x.cuda() for x in (s, r, m)]
+    n_edges = s.shape[0]
+    del s, r, m
+    shape = C.GNN_SHAPES["ogb_products"]
+    model = a.init(shape["d_feat"], shape["n_out"], seed=PRODUCTS_SEED, device="cuda")
+    params = C.train_params(model)
+    opt = adamw_init(params)
+    runs = []
+    with UpdateMetrics() as rec:
+        for seed in (None,) + SPREAD_SEEDS:
+            inputs = ([feats, coords, *edges, labels] if seed is None
+                      else relabelled(edges, (feats, coords, labels), seed))
+            _, o, loss = C.full_graph_step(a, model, params, opt, *inputs)
+            runs.append(step_groups(loss, o, rec.grad_norms[-1]))
+            del o, inputs
+            torch.cuda.empty_cache()
+        del edges
+        rows = [split.rows(x) for x in (feats, coords, labels)]
+        del feats, coords, labels
+        placed, popt = C.place_gnn_state(params, mesh)
+        placed, popt, loss = C.full_graph_step(a, model, placed, popt, *rows[:2], *split.edges,
+                                               rows[2], split=split)
+        got = step_groups(loss, popt, rec.grad_norms[-1])
+    spreads = [group_errs(x, runs[0]) for x in runs[1:]]
+    spread = {k: max(x[k] for x in spreads) for k in spreads[0]}
+    errs = group_errs(got, runs[0])
+    tols = {k: 2 * max(v, SPREAD_FLOOR) for k, v in spread.items()}
+    for k in errs:
+        check(errs[k] <= tols[k], f"{label}: the placed step's {k} is {errs[k]:.3g} from the "
+              f"step without a mesh, over twice the spread ({spread[k]:.3g})")
+    del runs, got, params, opt
+    torch.cuda.empty_cache()
+
+    marks = StepMarks(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers().values():
+        w.launches = 0
+    losses = []
+    with marks:
+        for _ in range(PRODUCTS_TIMED):
+            marks.new()
+            placed, popt, loss = C.full_graph_step(a, model, placed, popt, *rows[:2],
+                                                   *split.edges, rows[2], split=split)
+            marks.marks[-1][4].record()
+            losses.append(loss)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {k: w.launches for k, w in wrappers().items() if w.launches}
+    check(not counts, f"{label}: a train step launched port kernels {counts}")
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"{label}: timed losses {losses}")
+    parts = marks.medians()
+    errs_txt = ", ".join(f"{k} {errs[k]:.3g} (spread {spread[k]:.3g})" for k in errs)
+    print(f"{label}: {n:,} vertices, {n_edges:,} half-edges (host graph {t_graph:.1f} s, "
+          f"split {t_split:.1f} s); the placed step on the one-rank mesh against the step "
+          f"without one: {errs_txt}, each within twice its spread; median ms a step over "
+          f"{PRODUCTS_TIMED} {parts['step']:.3f} (forward {parts['forward']:.3f}, backward "
+          f"{parts['backward']:.3f}, optimizer {parts['optimizer']:.3f}); peak device memory "
+          f"{peak:.3f} GiB; port kernel launches 0", flush=True)
+    del placed, popt, rows, split, model, marks
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def phase_products() -> None:
+    """Phase 17: ogb_products' full-graph step over a split graph (see the
+    module docstring)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import GNN_ARCHS
+
+    t_phase = time.perf_counter()
+    mesh = dist_mesh()
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"[products] group {dist.get_backend()} of {dist.get_world_size()}")
+        took = {a: products_arch(GNN_ARCHS[a], mesh, f) for a, f in PRODUCTS_CUTS.items()}
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"[products] phase 17: {time.perf_counter() - t_phase:.1f} s "
+          f"({', '.join(f'{a} {t:.1f}' for a, t in took.items())}); ogb_products launches no "
+          f"port kernel; card {card_line()}", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -4731,6 +4958,7 @@ def main() -> None:
     phase_lm_train()
     phase_dist(errs)
     phase_tp(errs)
+    phase_products()
     for r in records:               # the later phases' checks too
         r["max_abs_err"] = errs[r["name"]]
     check(sorted(r["name"] for r in records) == sorted(KERNELS), "a kernel has no record")

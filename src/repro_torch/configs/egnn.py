@@ -11,8 +11,8 @@ def _init(d_in, n_out, *, seed=0, device="cuda"):
                 device=device)
 
 
-def _node_logits(model, params, feats, coords, s, r, mask):
-    _, _, logits = call(model, params, feats, coords, s, r, mask)
+def _node_logits(model, params, feats, coords, s, r, mask, split=None):
+    _, _, logits = call(model, params, feats, coords, s, r, mask, split=split)
     return logits
 
 

@@ -3,7 +3,7 @@ assigned shapes and the train steps the reference's cell builders wrap.
 
 Each arch file (`gin_tu`, `pna`, `egnn`, `mace`) supplies a `GNNArch`:
   init(d_in, n_out, *, seed, device) -> nn.Module
-  node_logits(model, params, feats, coords, s, r, mask) -> (N, n_out)
+  node_logits(model, params, feats, coords, s, r, mask, split=None) -> (N, n_out)
   graph_energy(model, params, feats, coords, s, r, mask, n_graphs) -> (n_graphs,)
   fwd_flops(n_nodes, n_edges, d_feat) -> float
 where `params` is a plain {state-dict name: tensor} dict run through the
@@ -22,9 +22,17 @@ the reference vmaps `graph_energy` over the molecules: the same function,
 since every op is local to a vertex or an edge, with the energy summed per
 molecule and PNA's δ taken per molecule (`n_graphs`).
 
-Left out, as `configs.deepfm` leaves them out: the `Cell` / mesh /
-sharding machinery and `_pad512` (dry-run shapes padded to shard over 512
-chips); the steps take the true sizes.
+`ogb_products` runs the full-graph step with the graph split over the
+ranks of a mesh (`split=`, a `dist.graph.GraphSplit`): each rank holds a
+block of the vertices and the half-edges into them, its part of the loss
+is its vertices' cross-entropy over the global N, the gradients of the
+replicated parameters are summed over the ranks and AdamW runs on the
+state `place_gnn_state` places (`P()` everywhere, as the reference's
+cell).  `products_inputs` / `products_part` build the shape's stand-in.
+
+Left out, as `configs.deepfm` leaves them out: the `Cell` machinery and
+`_pad512` (dry-run shapes padded to shard over 512 chips); the steps take
+the true sizes.
 """
 from __future__ import annotations
 
@@ -56,7 +64,7 @@ Params = Dict[str, torch.Tensor]
 class GNNArch:
     arch_id: str
     init: Callable          # (d_in, n_out, *, seed, device) -> nn.Module
-    node_logits: Callable   # (model, params, feats, coords, s, r, mask) -> (N, n_out)
+    node_logits: Callable   # (model, params, feats, coords, s, r, mask, split=None) -> (N, n_out)
     graph_energy: Callable  # (model, params, feats, coords, s, r, mask, n_graphs) -> (n_graphs,)
     fwd_flops: Callable     # (n_nodes, n_edges, d_feat) -> float
 
@@ -73,11 +81,16 @@ def per_graph_sum(x: torch.Tensor, n_graphs: int) -> torch.Tensor:
     return x.reshape(n_graphs, -1).sum(dim=1)
 
 
-def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _xent_terms(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each row's cross-entropy, in f32."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
-    return torch.mean(lse - tgt)
+    return lse - tgt
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.mean(_xent_terms(logits, labels))
 
 
 def train_params(model: torch.nn.Module) -> Params:
@@ -109,16 +122,97 @@ def _step(loss_fn, params: Params, opt: AdamWState, opt_cfg: OptConfig):
 # --------------------------------------------------------------------------
 
 def full_graph_loss(a: GNNArch, model, params: Optional[Params], feats, coords, senders,
-                    receivers, mask, labels) -> torch.Tensor:
-    """Mean cross-entropy of `node_logits` over every vertex."""
-    return _xent(a.node_logits(model, params, feats, coords, senders, receivers, mask), labels)
+                    receivers, mask, labels, *, split=None) -> torch.Tensor:
+    """Mean cross-entropy of `node_logits` over every vertex.  With `split`
+    (see `full_graph_step`): this rank's vertices' cross-entropy summed and
+    divided by the global N, summed over the ranks (backward the identity),
+    so every rank returns the whole graph's loss."""
+    if split is None:
+        return _xent(a.node_logits(model, params, feats, coords, senders, receivers, mask),
+                     labels)
+    logits = a.node_logits(model, params, feats, coords, senders, receivers, mask, split=split)
+    return split.sum(torch.sum(_xent_terms(logits, labels)) / split.n_nodes)
 
 
 def full_graph_step(a: GNNArch, model, params: Params, opt: AdamWState, feats, coords,
-                    senders, receivers, mask, labels, *, opt_cfg: OptConfig = TRAIN_OPT):
-    """full_graph_sm / ogb_products: returns (params, opt, loss)."""
-    return _step(lambda p: full_graph_loss(a, model, p, feats, coords, senders, receivers,
-                                           mask, labels), params, opt, opt_cfg)
+                    senders, receivers, mask, labels, *, opt_cfg: OptConfig = TRAIN_OPT,
+                    split=None):
+    """full_graph_sm / ogb_products: returns (params, opt, loss).
+
+    With `split` (a `dist.graph.GraphSplit` of the graph over a mesh), the
+    state placed by `place_gnn_state` on the split's mesh, feats, coords
+    and labels this rank's vertex rows (`split.rows`) and the edges the
+    split's (`*split.edges`): each rank's part of the loss and its
+    gradients, the gradients summed over every rank of the mesh, then
+    `adamw_update_placed` (its norm the summed gradient's); the loss
+    returned is the whole graph's."""
+    if split is None:
+        return _step(lambda p: full_graph_loss(a, model, p, feats, coords, senders, receivers,
+                                               mask, labels), params, opt, opt_cfg)
+    from repro_torch.dist.sharding import local
+    from repro_torch.train.optimizer import adamw_update_placed, partial_grads
+
+    loss, grads = loss_and_grads(
+        lambda p: full_graph_loss(a, model, p, feats, coords, senders, receivers, mask, labels,
+                                  split=split), {k: local(v) for k, v in params.items()})
+    grads = partial_grads(grads, params, split.mesh, set(split.mesh.mesh_dim_names))
+    params, opt, _ = adamw_update_placed(opt_cfg, grads, opt, params)
+    return params, opt, loss
+
+
+def place_gnn_state(params: Params, mesh) -> Tuple[Params, AdamWState]:
+    """`train_params` (whole, the same on every rank) replicated on `mesh`
+    (`P()`, as the reference's full-graph cell places them) and zero AdamW
+    moments placed alike."""
+    from repro_torch.dist.sharding import P, distribute
+    from repro_torch.train.optimizer import adamw_init_placed
+
+    specs = {k: P() for k in params}
+    placed = distribute(params, specs, mesh)
+    return placed, adamw_init_placed(placed, specs, mesh)
+
+
+def products_nodes(fraction: float = 1.0) -> int:
+    """ogb_products' vertex count cut to `fraction` of it (rounded)."""
+    return int(round(GNN_SHAPES["ogb_products"]["n_nodes"] * fraction))
+
+
+def products_inputs(n_nodes: Optional[int] = None, *, seed: int = 0,
+                    device: DeviceLike = "cuda"):
+    """ogb_products' stand-in, whole, at its widths and average degree with
+    `n_nodes` vertices (the shape's 2,449,029 by default): (senders,
+    receivers, mask) of `erdos_renyi(n_nodes, 2E / N, seed)` on the host
+    (no padding: every edge real), then features (N, 100) f32, coordinates
+    (N, 3) f32 and labels (N,) int32 in [0, 47) on `device`, drawn in that
+    order from one generator seeded with `seed` there."""
+    from repro_torch.device import resolve_device
+    from repro_torch.graphs.generators import erdos_renyi
+
+    shape = GNN_SHAPES["ogb_products"]
+    n = shape["n_nodes"] if n_nodes is None else int(n_nodes)
+    dev = resolve_device(device)
+    g = erdos_renyi(n, avg_deg=2 * shape["n_edges"] / shape["n_nodes"], seed=seed,
+                    device="cpu")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.randn((n, shape["d_feat"]), generator=gen, device=dev)
+    coords = torch.randn((n, 3), generator=gen, device=dev)
+    labels = torch.randint(0, shape["n_out"], (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    return g.senders, g.receivers, g.edge_mask, feats, coords, labels
+
+
+def products_part(mesh, n_nodes: Optional[int] = None, *, seed: int = 0):
+    """This rank's part of `products_inputs(n_nodes, seed=seed)` on the
+    mesh's device: (split, feats, coords, labels), the rows this rank's.
+    Every rank draws the whole stand-in the same and keeps its part."""
+    from repro_torch.dist.graph import split_graph
+    from repro_torch.dist.sharding import mesh_device
+
+    senders, receivers, mask, *rows = products_inputs(n_nodes, seed=seed,
+                                                      device=mesh_device(mesh))
+    split = split_graph(senders, receivers, mask, rows[0].shape[0], mesh)
+    del senders, receivers, mask
+    return (split, *(split.rows(x) for x in rows))
 
 
 # --------------------------------------------------------------------------

@@ -12,9 +12,9 @@ def _init(d_in, n_out, *, seed=0, device="cuda"):
                device=device)
 
 
-def _node_logits(model, params, feats, coords, s, r, mask):
+def _node_logits(model, params, feats, coords, s, r, mask, split=None):
     del coords
-    _, logits = call(model, params, feats, s, r, mask)
+    _, logits = call(model, params, feats, s, r, mask, split=split)
     return logits
 
 

@@ -1,7 +1,8 @@
 """The distribution layer on `torch.distributed` (counterpart of
 `repro.dist`): partition-spec policies and their DTensor placements
 (`sharding`), the collectives of the data-, tensor- and expert-parallel
-steps (`collectives`) and elastic restore (`elastic`)."""
+steps (`collectives`), elastic restore (`elastic`) and a full graph's
+vertices and edges split over a mesh's ranks (`graph`)."""
 from repro_torch.dist.sharding import (
     MeshShape,
     P,
@@ -16,9 +17,10 @@ from repro_torch.dist.sharding import (
     shardings,
 )
 from repro_torch.dist.elastic import reshard_checkpoint
+from repro_torch.dist.graph import GraphSplit, split_graph
 
 __all__ = [
     "MeshShape", "P", "Sharding", "batch_spec", "cache_specs", "data_axes",
     "deepfm_specs", "distribute", "lm_param_specs", "placements", "shardings",
-    "reshard_checkpoint",
+    "reshard_checkpoint", "GraphSplit", "split_graph",
 ]

@@ -12,6 +12,11 @@ batches and sampled trees.  The segment ops follow `jax.ops.segment_sum` /
 `segment_max` with `num_segments`: every id must lie in [0, num_segments)
 (callers route masked edges to vertex 0, as the reference's cells do), an
 empty segment sums to 0 and its max is -inf.
+
+A full graph split over ranks (`dist.graph.GraphSplit`, the models'
+`split=`) runs the same ops over a rank's vertex block and the edges into
+it: the segment ops take its local receivers and block size, and what an
+edge reads of its sender comes from the rows gathered from every rank.
 """
 from __future__ import annotations
 
@@ -81,9 +86,13 @@ def segment_mean(x: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
 
 
 def gather_scatter_sum(h: torch.Tensor, senders: torch.Tensor, receivers: torch.Tensor,
-                       mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
-    """Σ_{j∈N(i)} h_j, the canonical message-passing primitive."""
-    msg = torch.where(mask[:, None], h[senders.long()], 0)
+                       mask: torch.Tensor, n_nodes: int, split=None) -> torch.Tensor:
+    """Σ_{j∈N(i)} h_j, the canonical message-passing primitive.  With
+    `split` (a `dist.graph.GraphSplit`), h holds this rank's vertex rows,
+    the senders read the rows gathered from every rank and the receivers
+    and `n_nodes` are the rank's own."""
+    src = h if split is None else split.gather(h)
+    msg = torch.where(mask[:, None], src[senders.long()], 0)
     return segment_sum(msg, receivers, n_nodes)
 
 

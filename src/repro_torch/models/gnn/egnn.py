@@ -52,11 +52,14 @@ class EGNN(nn.Module):
         self.head = MLP((d_hidden, n_out), generator=gen, device=dev)
 
     def forward(self, h: torch.Tensor, x: torch.Tensor, senders: torch.Tensor,
-                receivers: torch.Tensor, mask: torch.Tensor
+                receivers: torch.Tensor, mask: torch.Tensor, *, split=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """h (N, d_in) invariants, x (N, 3) coordinates -> (h', x', head
         output (N, n_out)); the reference's energy is the head output's
-        sum over the graph."""
+        sum over the graph.  `split`: a `dist.graph.GraphSplit`, h, x and
+        the outputs this rank's vertex rows, the edges the split's; the
+        senders' h and x (which moves every layer and carries gradient)
+        are gathered together once a layer."""
         n = h.shape[0]
         s, r = senders.long(), receivers.long()
         w = mask.to(h.dtype)[:, None]
@@ -64,9 +67,13 @@ class EGNN(nn.Module):
         inv_deg = (1.0 / torch.clamp(deg, min=1.0))[:, None]
 
         for layer in self.layers:
-            rel = x[r] - x[s]                                   # (E, 3)
+            h_src, x_src = h, x
+            if split is not None:
+                hx = split.gather(torch.cat([h, x], dim=-1))
+                h_src, x_src = hx[:, :h.shape[-1]], hx[:, h.shape[-1]:]
+            rel = x[r] - x_src[s]                               # (E, 3)
             d2 = torch.sum(rel * rel, dim=-1, keepdim=True)
-            m = layer.phi_e(torch.cat([h[r], h[s], d2], dim=-1)) * w
+            m = layer.phi_e(torch.cat([h[r], h_src[s], d2], dim=-1)) * w
             # a tanh-bounded coefficient and a distance-normalised direction
             # keep the 4-layer coordinate recursion stable
             coef = torch.tanh(layer.phi_x(m))                   # (E, 1)

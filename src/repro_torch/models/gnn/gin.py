@@ -54,18 +54,22 @@ class GIN(nn.Module):
         self.head = MLP((d_hidden, n_out), generator=gen, device=dev)
 
     def forward(self, h: torch.Tensor, senders: torch.Tensor, receivers: torch.Tensor,
-                mask: torch.Tensor, *, tiled=None, backend: str = "segment"
+                mask: torch.Tensor, *, tiled=None, backend: str = "segment", split=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """h (N, d_in) -> (node embeddings (N, d_hidden), head output (N,
-        n_out)).  `tiled`: the graph's `BlockTiledGraph`, for "tiled"."""
+        n_out)).  `tiled`: the graph's `BlockTiledGraph`, for "tiled".
+        `split`: a `dist.graph.GraphSplit`, h and the outputs this rank's
+        vertex rows, the edges the split's (segment backend only)."""
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; valid: {BACKENDS}")
+        if split is not None and backend != "segment":
+            raise ValueError('a split graph runs on backend="segment"')
         n = h.shape[0]
         for layer in self.layers:
             if backend == "tiled":
                 agg = _tiled_sum(tiled, h)
             else:
-                agg = gather_scatter_sum(h, senders, receivers, mask, n)
+                agg = gather_scatter_sum(h, senders, receivers, mask, n, split)
             h = layer.mlp((1.0 + layer.eps) * h + agg)
         return h, self.head(h)
 

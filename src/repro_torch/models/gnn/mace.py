@@ -190,22 +190,28 @@ class MACE(nn.Module):
         return [getattr(self, f"coupling_{p}") for p in range(len(coupling_tensors()))]
 
     def forward(self, feats: torch.Tensor, coords: torch.Tensor, senders: torch.Tensor,
-                receivers: torch.Tensor, mask: torch.Tensor) -> Tuple[Feats, torch.Tensor]:
+                receivers: torch.Tensor, mask: torch.Tensor, *, split=None
+                ) -> Tuple[Feats, torch.Tensor]:
         """feats (N, d_in), coords (N, 3) -> (h {l: (N, 2l+1, C)}, readout
-        (N, n_out)); the reference's energy is the readout's sum."""
+        (N, n_out)); the reference's energy is the readout's sum.  `split`:
+        a `dist.graph.GraphSplit`, the inputs and outputs this rank's vertex
+        rows, the edges the split's; the senders' coordinates are gathered
+        once, each h[l] once a layer."""
         n = feats.shape[0]
         s = senders.long()
         h: Feats = {0: self.embed(feats)[:, None, :]}
         C = h[0].shape[-1]
 
-        rel = coords[receivers.long()] - coords[s]
+        src = coords if split is None else split.gather(coords)
+        rel = coords[receivers.long()] - src[s]
         r = torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-12)
         unit = rel / torch.clamp(r, min=1e-6)[:, None]
         Y = real_sph_harm(unit)
         rbf = bessel_rbf(r, self.n_rbf, self.r_cut) * mask.to(torch.float32)[:, None]
 
         for layer in self.layers:
-            A = self._interaction(layer, h, Y, rbf, s, receivers, mask, n)
+            h_src = h if split is None else {l: split.gather(x) for l, x in h.items()}
+            A = self._interaction(layer, h_src, Y, rbf, s, receivers, mask, n)
             # every l present for the product basis
             for l in range(LMAX + 1):
                 A.setdefault(l, feats.new_zeros((n, 2 * l + 1, C)))
@@ -222,7 +228,9 @@ class MACE(nn.Module):
     def _interaction(self, layer: MACELayer, h: Feats, Y: Dict[int, torch.Tensor],
                      rbf: torch.Tensor, s: torch.Tensor, receivers: torch.Tensor,
                      mask: torch.Tensor, n: int) -> Feats:
-        """A-features: radial-weighted (Y ⊗ h_j) couplings, scattered to nodes."""
+        """A-features: radial-weighted (Y ⊗ h_j) couplings, scattered to
+        nodes; `h` the senders' features (every rank's, gathered, on a
+        split graph)."""
         C = h[0].shape[-1]
         R = layer.radial(rbf).reshape(rbf.shape[0], len(coupling_tensors()), C)
         w_edge = mask.to(torch.float32)[:, None, None]

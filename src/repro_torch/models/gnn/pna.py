@@ -45,14 +45,23 @@ class PNA(nn.Module):
         self.head = MLP((d_hidden, n_out), generator=gen, device=dev)
 
     def forward(self, h: torch.Tensor, senders: torch.Tensor, receivers: torch.Tensor,
-                mask: torch.Tensor, *, n_graphs: int = 1
+                mask: torch.Tensor, *, n_graphs: int = 1, split=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """h (N, d_in) -> (node embeddings, head output (N, n_out)).  The N
-        vertices are `n_graphs` equal blocks with no edge between them."""
+        vertices are `n_graphs` equal blocks with no edge between them.
+        `split`: a `dist.graph.GraphSplit` of one graph, h and the outputs
+        this rank's vertex rows, the edges the split's: degrees and the
+        aggregations stay on the rank (every in-edge of a vertex is on its
+        rank), δ is the mean over the whole graph (Σ over the ranks / N)."""
         n = h.shape[0]
         deg = degrees_from_edges(receivers, mask, n)
         log_deg = torch.log1p(deg)
-        delta = log_deg.reshape(n_graphs, -1).mean(dim=1).repeat_interleave(n // n_graphs)
+        if split is None:
+            delta = log_deg.reshape(n_graphs, -1).mean(dim=1).repeat_interleave(n // n_graphs)
+        elif n_graphs == 1:
+            delta = (split.all_sum(log_deg.sum()) / split.n_nodes).expand(n)
+        else:
+            raise ValueError("a split graph is one graph (n_graphs=1)")
         delta = torch.maximum(delta, delta.new_tensor(1e-6))[:, None]
         log_deg = log_deg[:, None]
         s_amp = log_deg / delta                                          # amplification
@@ -61,7 +70,8 @@ class PNA(nn.Module):
 
         s, r = senders.long(), receivers.long()
         for layer in self.layers:
-            m = layer.msg(torch.cat([h[r], h[s]], dim=-1))
+            src = h if split is None else split.gather(h)
+            m = layer.msg(torch.cat([h[r], src[s]], dim=-1))
             mean, mx, mn, std, _ = aggregate(m, receivers, mask, n)
             aggs = torch.cat([mean, mx, mn, std], dim=-1)                # (N, 4d)
             scaled = torch.cat([aggs, aggs * s_amp, aggs * s_att], dim=-1)  # (N, 12d)

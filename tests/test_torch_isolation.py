@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: `repro_torch` and chip_smoke.py import
-neither jax (nor `ml_dtypes`, its bf16 numpy dtype) nor anything of the JAX
+"""The PyTorch port stands alone: `repro_torch`, chip_smoke.py,
+tools/sharded_train_ranks.py and tools/products_probe.py import neither
+jax (nor `ml_dtypes`, its bf16 numpy dtype) nor anything of the JAX
 reference package `repro`."""
 import ast
 import os
@@ -10,7 +11,9 @@ import sys
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "tools" / "sharded_train_ranks.py",
+    REPO / "tools" / "products_probe.py"]
 
 
 def _imported_modules(path):
@@ -54,6 +57,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.configs.qwen15_0_5b, repro_torch.configs.mixtral_8x22b\n"
         "import repro_torch.configs.deepseek_v3_671b, repro_torch.configs.nemotron4_340b\n"
         "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "import repro_torch.dist, repro_torch.dist.graph, repro_torch.dist.collectives\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'ml_dtypes', 'repro'))\n"
         "assert not bad, bad\n"

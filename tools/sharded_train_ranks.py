@@ -3,7 +3,8 @@
 rank (card), the group NCCL at tcp://localhost on a free port:
 
     python3 tools/sharded_train_ranks.py [--ranks 4] [--device cuda|cpu]
-        [--only lm lm_moe deepfm moe ckpt lm_tp lm_tp_moe lm_fsdp decode_tp deepfm_tp]
+        [--only lm lm_moe deepfm moe ckpt lm_tp lm_tp_moe lm_fsdp decode_tp deepfm_tp
+                gnn_products]
 
   (a) lm: qwen3-0.6b whole on a (ranks, 1) ("data", "model") mesh,
       train_4k's length S = 4,096 and a global batch of 16 (4 sequences a
@@ -77,12 +78,34 @@ rank (card), the group NCCL at tcp://localhost on a free port:
       ('data', 'model'), the tower's first layers over 'model'; (b) also
       holds serve_bulk's logits and retrieval_cand's scores (its
       candidates over every rank, the item field's rows on one) to one
-      card's within 1e-5, and times them.
+      card's within 1e-5, and times them;
+  (j) gnn_products: ogb_products' full-graph step, the graph split over
+      the ranks (`gnn_cells.products_inputs` drawn whole on every rank,
+      `dist.graph.split_graph`, `full_graph_step(split=)` over
+      `place_gnn_state`): gin-tu on the whole stand-in (2,449,029
+      vertices, about 123.7 M half-edges) on (ranks, 1) and (2, ranks /
+      2), 3 steps each (the loss must fall), ms a step (the median after
+      the first), NCCL's device ms in one more profiled step and its share
+      of the step, each card's peak GiB; step 0's loss within
+      GNN_LOSS_TOL of rank 0's one-card forward under no_grad with the
+      edges summed CHUNK_EDGES at a time; pna, egnn and mace the same at
+      PRODUCTS_4's fractions (the losses finite); then each arch at
+      PRODUCTS_1's fraction, one placed step against rank 0's one-card
+      step from the same state: the loss, the gradient norm and every leaf
+      of m and sqrt(v) (relative in L2) within twice one card's
+      run-to-run spread (the largest difference from it of the one-card
+      step on the graph relabelled three ways, vertices and edges in other
+      orders, and of the step with its GEMMs on cuBLASLt: the order of its
+      sums over edges, over vertices and inside each GEMM, which the split
+      changes too, a card's GEMMs running on its quarter of the rows), no
+      less than twice 2^-23.  Rank 0 prints
+      each run's numbers as a `[gnn_products]` line when it ends.
 
 With `--device cpu` the ranks are gloo processes on the CPU and every
 config is cut to a CPU size (`launch.train.small_variant`, DeepFM's
 SMOKE_CONFIG, 8 experts of width 64, a 1 MiB checkpoint, 16-token
-prompts into a 48-slot cache): a rehearsal of the same code.
+prompts into a 48-slot cache, ogb_products' stand-in at GNN_CPU_NODES
+vertices for the whole): a rehearsal of the same code.
 Rank 0 prints one JSON line of every number (and writes it to
 chiprun_out/sharded_train_ranks.json), beside the card's name and power
 limit, with the checks that failed (`failures`; every part runs all the
@@ -153,6 +176,24 @@ FSDP_LOSS_TOL = 1e-3
 DECODE_RUNS = {"qwen3-0.6b": (None, False), "nemotron-4-340b": (1, False),
                "deepseek-v3-671b": (3, True)}
 DECODE = dict(batch=8, prompt=512, cache=32_768, steps=16)
+# gnn_products: ogb_products' stand-in at its widths and average degree,
+# fractions of its 2,449,029 vertices (PERF.md section 4 reckons the bytes):
+# gin-tu whole on both layouts; pna, egnn and mace at the largest power of
+# two that four cards hold; each arch held to one card where rank 0's card
+# holds it beside NCCL's buffers (6.4 GB outside PyTorch there: pna's one
+# card step at 1/16, 74 GiB alone, ran out of memory)
+GNN_WHOLE = ("gin-tu", 1.0, ((4, 1), (2, 2)))
+PRODUCTS_4 = {"pna": 1 / 4, "egnn": 1 / 4, "mace": 1 / 32}
+PRODUCTS_1 = {"gin-tu": 1 / 4, "pna": 1 / 32, "egnn": 1 / 16, "mace": 1 / 256}
+GNN_STEPS = 3
+GNN_SEED = 0
+GNN_CPU_NODES = 4096          # the whole stand-in's vertices on the CPU
+# step 0's loss against the chunked one-card forward, relative: f32 sums of
+# about 50 messages a vertex in other orders through five layers
+GNN_LOSS_TOL = 1e-5
+CHUNK_EDGES = 1 << 24
+SPREAD_FLOOR = 2.0 ** -23     # two runs that happen to round alike
+SPREAD_SEEDS = (0, 1, 2)      # the relabelled one-card runs behind a spread
 
 
 def free_port() -> int:
@@ -888,10 +929,297 @@ def part_moe(r: Rank) -> dict:
     return out
 
 
+class GNNNorms:
+    """While open, records the `grad_norm` (taken before clipping) of every
+    AdamW update the GNN steps make, placed or not."""
+
+    def __enter__(self):
+        from repro_torch.configs import gnn_cells
+        from repro_torch.train import optimizer
+
+        self.names = [(gnn_cells, "adamw_update"), (optimizer, "adamw_update_placed")]
+        self.orig = [getattr(mod, name) for mod, name in self.names]
+        self.grad_norms = []
+
+        def wrap(fn):
+            def recording(*args, **kw):
+                out = fn(*args, **kw)
+                self.grad_norms.append(float(out[2]["grad_norm"]))
+                return out
+            return recording
+
+        for (mod, name), fn in zip(self.names, self.orig):
+            setattr(mod, name, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.names, self.orig):
+            setattr(mod, name, fn)
+
+
+def products_graph(r: Rank, fraction: float):
+    """ogb_products' stand-in at `fraction` of its vertices (the vertex
+    count cut to CPU sizes on the CPU), drawn whole on every rank: (n,
+    host edges, feats, coords, labels on this rank's device)."""
+    from repro_torch.configs import gnn_cells as C
+
+    n = C.products_nodes(fraction) if r.cuda else max(int(fraction * GNN_CPU_NODES), 8 * r.size)
+    s, rcv, m, *rows = C.products_inputs(n, seed=GNN_SEED, device=r.dev)
+    return n, (s, rcv, m), rows
+
+
+def gnn_model(r: Rank, arch: str):
+    from repro_torch.configs import GNN_ARCHS
+    from repro_torch.configs import gnn_cells as C
+
+    shape = C.GNN_SHAPES["ogb_products"]
+    return GNN_ARCHS[arch].init(shape["d_feat"], shape["n_out"], seed=GNN_SEED, device=r.dev)
+
+
+def gnn_groups(loss, opt, grad_norm: float) -> dict:
+    """One step's loss, gradient norm and each leaf of m and sqrt(v) (v
+    holds the gradient's squares), whole, on the host."""
+    from repro_torch.dist.sharding import local
+
+    return {"loss": float(loss), "grad_norm": grad_norm,
+            "m": {k: local(x).float().cpu() for k, x in opt.m.items()},
+            "v": {k: local(x).float().sqrt().cpu() for k, x in opt.v.items()}}
+
+
+def gnn_errs(got: dict, want: dict) -> tuple:
+    """(errors, worst leaves): the relative errors of the loss and gradient
+    norm; for m and v the largest over the leaves of ||got - want|| /
+    ||want|| (`leaf_err`), and which leaf it is."""
+    out = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("loss", "grad_norm")}
+    worst = {}
+    for k in ("m", "v"):
+        each = {leaf: leaf_err(got[k][leaf], want[k][leaf]) for leaf in want[k]}
+        worst[k] = max(each, key=each.get)
+        out[k] = each[worst[k]]
+    return out, worst
+
+
+def products_steps(r: Rank, arch: str, split, rows, mesh, steps: int) -> dict:
+    """`steps` placed steps of `arch` on `split` (re-pointed at `mesh`) from
+    a fresh state, every rank aligned before each (CUDA events), then one
+    profiled step: the losses, step ms, NCCL's device ms in the profiled
+    step and each card's peak GiB."""
+    import dataclasses
+
+    from repro_torch.configs import GNN_ARCHS
+    from repro_torch.configs import gnn_cells as C
+
+    a = GNN_ARCHS[arch]
+    split = dataclasses.replace(split, mesh=mesh)
+    model = gnn_model(r, arch)
+    params, opt = C.place_gnn_state(C.train_params(model), mesh)
+    r.reset_peak()
+    losses, took = [], []
+    for _ in range(steps):
+        r.aligned()
+        (params, opt, loss), ms = r.ms(lambda: C.full_graph_step(
+            a, model, params, opt, *rows[:2], *split.edges, rows[2], split=split))
+        losses.append(float(loss))
+        took.append(ms)
+    peak = r.peak_gib()
+    r.aligned()
+    (params, opt, loss), step_nccl_ms = nccl_ms(r, lambda: C.full_graph_step(
+        a, model, params, opt, *rows[:2], *split.edges, rows[2], split=split))
+    timed = took[1:] or took
+    del params, opt, model
+    r.free()
+    return {"mesh": list(mesh.shape), "losses": losses, "first_ms": took[0],
+            "step_ms": statistics.median(timed), "steps_ms": took, "step_nccl_ms": step_nccl_ms,
+            "step_nccl_share": None if step_nccl_ms is None else
+            step_nccl_ms / statistics.median(timed), "peak_gib": r.gather(peak),
+            "edges_card": r.gather(int(split.senders.numel()))}
+
+
+def chunked_gin_loss(r: Rank, edges, rows) -> float:
+    """gin-tu's step-0 loss on one card under no_grad, the whole graph, its
+    edges summed into each layer's aggregate CHUNK_EDGES at a time (the
+    same model, seed and function as the step's forward)."""
+    import torch
+    from repro_torch.configs import gnn_cells as C
+
+    model = gnn_model(r, "gin-tu")
+    s, rcv, m = edges
+    feats, _, labels = rows
+    with torch.no_grad():
+        h = feats
+        for layer in model.layers:
+            agg = torch.zeros_like(h)
+            for lo in range(0, s.shape[0], CHUNK_EDGES):
+                sl = slice(lo, lo + CHUNK_EDGES)
+                msg = torch.where(m[sl].to(r.dev)[:, None], h[s[sl].to(r.dev).long()], 0)
+                agg.index_add_(0, rcv[sl].to(r.dev).long(), msg)
+                del msg
+            h = layer.mlp((1.0 + layer.eps) * h + agg)
+            del agg
+        loss = C._xent(model.head(h), labels)
+    return float(loss)
+
+
+def relabelled(edges, rows, seed: int) -> list:
+    """The full-graph step's inputs (feats, coords, senders, receivers,
+    mask, labels) on the same graph with its vertices and its edges in
+    another order (permutations seeded with `seed`): the same loss and
+    gradients in exact arithmetic, summed in another order."""
+    import torch
+
+    s, rcv, m = edges
+    n = rows[0].shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    order = torch.randperm(n, generator=gen).to(s.device)          # new row i: old order[i]
+    new_id = torch.empty_like(order)
+    new_id[order] = torch.arange(n, device=s.device)
+    e_order = torch.randperm(s.shape[0], generator=gen).to(s.device)
+    feats, coords, labels = (x[order] for x in rows)
+    return [feats, coords, new_id[s[e_order].long()].to(s.dtype),
+            new_id[rcv[e_order].long()].to(rcv.dtype), m[e_order], labels]
+
+
+def products_vs_one_card(r: Rank, arch: str, fraction: float, mesh) -> dict:
+    """One placed step of `arch` on (ranks, 1) at `fraction` against rank
+    0's one-card step on the same stand-in from the same state; then that
+    step again on the graph relabelled with each of SPREAD_SEEDS
+    (`relabelled`) and, on the card, once with its GEMMs on cuBLASLt: the
+    largest difference of those runs from the first is one card's
+    run-to-run spread, that of the order it sums in, over edges (its float
+    atomics), over vertices and within each GEMM (the kernel cuBLAS picks),
+    which is what the split changes too: a card's GEMMs run on its quarter
+    of the rows, where cuBLAS picks other kernels.  The loss, the gradient
+    norm and every leaf of m and sqrt(v), each group within twice the
+    spread (no less than twice SPREAD_FLOOR)."""
+    import torch
+    from repro_torch.configs import GNN_ARCHS
+    from repro_torch.configs import gnn_cells as C
+    from repro_torch.dist.graph import split_graph
+    from repro_torch.train import adamw_init
+
+    a = GNN_ARCHS[arch]
+    n, edges, rows = products_graph(r, fraction)
+    split = split_graph(*edges, n, mesh)
+    local_rows = [split.rows(x) for x in rows]
+    model = gnn_model(r, arch)
+    params, opt = C.place_gnn_state(C.train_params(model), mesh)
+    r.aligned()
+    with GNNNorms() as rec:
+        (params, opt, loss), ms = r.ms(lambda: C.full_graph_step(
+            a, model, params, opt, *local_rows[:2], *split.edges, local_rows[2], split=split))
+        got = gnn_groups(loss, opt, rec.grad_norms[-1])
+    out = {"vertices": n, "half_edges": int(edges[0].shape[0]), "placed_ms": ms}
+    del params, opt, local_rows, split
+    r.free()
+    r.dist.barrier()
+    if r.rank == 0:
+        e = [x.to(r.dev) for x in edges]
+        params = C.train_params(model)
+        runs, one_ms = [], []
+        # the first run, then the spread's: relabelled, and on the other BLAS
+        # library (the card's only; its GEMMs pick other kernels)
+        variants = [("first", None)] + [(f"relabelled {k}", k) for k in SPREAD_SEEDS]
+        if r.cuda:
+            variants.append(("cuBLASLt", None))
+        with GNNNorms() as rec:
+            for name, seed in variants:
+                inputs = ([*rows[:2], *e, rows[2]] if seed is None
+                          else relabelled(e, rows, seed))
+                blas = torch.backends.cuda.preferred_blas_library() if r.cuda else None
+                if name == "cuBLASLt":
+                    torch.backends.cuda.preferred_blas_library("cublaslt")
+                try:
+                    (_, o, loss), ms = r.ms(lambda: C.full_graph_step(
+                        a, model, params, adamw_init(params), *inputs))
+                finally:
+                    if blas is not None:
+                        torch.backends.cuda.preferred_blas_library(blas)
+                runs.append(gnn_groups(loss, o, rec.grad_norms[-1]))
+                one_ms.append(ms)
+                del o, inputs
+        spreads = {name: gnn_errs(x, runs[0])[0]
+                   for (name, _), x in zip(variants[1:], runs[1:])}
+        spread = {k: max(x[k] for x in spreads.values()) for k in ("loss", "grad_norm", "m", "v")}
+        errs, worst = gnn_errs(got, runs[0])
+        tol = {k: 2 * max(v, SPREAD_FLOOR) for k, v in spread.items()}
+        out.update(one_card_ms=one_ms, spread=spread, spreads=spreads, errs=errs,
+                   worst_leaf=worst, tol=tol, loss=got["loss"], one_card_loss=runs[0]["loss"])
+        if any(errs[k] > tol[k] for k in errs):
+            fail(r, f"gnn_products {arch} at {fraction}: four cards against one: {out}")
+        del e, runs, params
+    del model, rows, edges
+    r.free()
+    r.dist.barrier()
+    return out
+
+
+def part_gnn_products(r: Rank) -> dict:
+    """ogb_products (see the module docstring, (j))."""
+    from repro_torch.dist.graph import split_graph
+
+    out = {}
+    arch, fraction, shapes = GNN_WHOLE
+    if r.size != 4:
+        shapes = ((r.size, 1), (2, r.size // 2))
+    # one mesh a layout for the whole part: each new DeviceMesh brings new
+    # NCCL communicators, whose buffers stay on the card
+    meshes = {shape: r.mesh(tuple(shape)) for shape in shapes}
+    flat = meshes[shapes[0]]
+    n, edges, rows = products_graph(r, fraction)
+    split = split_graph(*edges, n, flat)
+    local_rows = [split.rows(x) for x in rows]
+    runs = {}
+    for shape, mesh in meshes.items():
+        runs[f"{tuple(shape)}"] = products_steps(r, arch, split, local_rows, mesh, GNN_STEPS)
+    del split, local_rows
+    r.free()
+    whole = {"vertices": n, "half_edges": int(edges[0].shape[0]), **runs}
+    r.dist.barrier()
+    if r.rank == 0:
+        one = chunked_gin_loss(r, edges, rows)
+        whole["one_card_forward_loss0"] = one
+        whole["loss0_rel_errs"] = [abs(v["losses"][0] - one) / abs(one) for v in runs.values()]
+        bad = [k for k, v in runs.items()
+               if not (all(map(math.isfinite, v["losses"])) and v["losses"][-1] < v["losses"][0])]
+        if bad or max(whole["loss0_rel_errs"]) > GNN_LOSS_TOL:
+            fail(r, f"gnn_products {arch} whole: losses not falling on {bad}, or step 0 against "
+                    f"the chunked one-card forward: {whole}")
+    del edges, rows
+    r.free()
+    r.dist.barrier()
+    out[f"{arch} whole"] = whole
+    said(r, f"{arch} whole", whole)
+    for arch, fraction in PRODUCTS_4.items():
+        n, edges, rows = products_graph(r, fraction)
+        split = split_graph(*edges, n, flat)
+        local_rows = [split.rows(x) for x in rows]
+        del edges, rows
+        run = products_steps(r, arch, split, local_rows, flat, GNN_STEPS)
+        if not all(map(math.isfinite, run["losses"])):
+            fail(r, f"gnn_products {arch} at {fraction}: losses {run['losses']}")
+        out[f"{arch} 1/{round(1 / fraction)}"] = {"vertices": n, **run}
+        said(r, f"{arch} 1/{round(1 / fraction)}", out[f"{arch} 1/{round(1 / fraction)}"])
+        del split, local_rows
+        r.free()
+        r.dist.barrier()
+    for arch, fraction in PRODUCTS_1.items():
+        key = f"{arch} 1/{round(1 / fraction)} vs one card"
+        out[key] = products_vs_one_card(r, arch, fraction, flat)
+        said(r, key, out[key])
+    return out
+
+
+def said(r: Rank, key: str, run: dict) -> None:
+    """Rank 0 prints a run's numbers as soon as it ends."""
+    if r.rank == 0:
+        print(f"[gnn_products] {key} {json.dumps(run)}", flush=True)
+
+
 PARTS = {"lm": lambda r: part_lm(r, "lm"), "lm_moe": lambda r: part_lm(r, "lm_moe"),
          "deepfm": part_deepfm, "moe": part_moe, "ckpt": part_ckpt,
          "lm_tp": lambda r: part_lm(r, "lm_tp"), "lm_tp_moe": lambda r: part_lm(r, "lm_tp_moe"),
-         "lm_fsdp": part_lm_fsdp, "decode_tp": part_decode_tp, "deepfm_tp": part_deepfm_tp}
+         "lm_fsdp": part_lm_fsdp, "decode_tp": part_decode_tp, "deepfm_tp": part_deepfm_tp,
+         "gnn_products": part_gnn_products}
 
 
 def rank_main(args) -> None:
@@ -945,15 +1273,18 @@ def main() -> None:
     deadline = time.monotonic() + args.timeout
     rc = 0
     try:
-        for p in procs:
-            try:
-                rc = rc or p.wait(timeout=max(deadline - time.monotonic(), 1.0))
-            except subprocess.TimeoutExpired:
+        # a rank that fails stops the run at once: the others would wait
+        # for it in their next collective
+        while True:
+            codes = [p.poll() for p in procs]
+            rc = next((c for c in codes if c), 0)
+            if rc or all(c == 0 for c in codes):
+                break
+            if time.monotonic() > deadline:
                 print(f"FAIL: a rank ran past {args.timeout} s", file=sys.stderr)
                 rc = 1
                 break
-            if rc:
-                break
+            time.sleep(0.5)
     finally:
         for p in procs:
             if p.poll() is None:
