@@ -254,11 +254,12 @@ def build_distributed_mis(sharded: ShardedTiledGraph, group=None,
                       else torch.full_like(pri.select, _NEG))
         select_l, resolve_l = select[off:off + n_local], resolve[off:off + n_local]
 
-        alive_g = gather(torch.arange(n_local, device=dev) + off < sharded.n_nodes)
+        alive_g = gather(torch.arange(n_local, dtype=torch.int32, device=dev) + off
+                         < sharded.n_nodes)
         in_mis_l = torch.zeros(n_local, dtype=torch.bool, device=dev)
         rhs = torch.zeros((n_padded, cfg.lanes), dtype=torch.float32, device=dev)
         rounds = 0
-        while rounds < cfg.max_rounds and bool(alive_g.any()):
+        while rounds < cfg.max_rounds and bool(alive_g.any()):  # repro-lint: disable=RPT010 the one sanctioned sync a round: every rank reads the gathered alive set's any()
             alive_l = alive_g[off:off + n_local]
             # ① the local max against the global select keys
             max_np = _local_nbr_max(slab, select, alive_g)

@@ -101,13 +101,13 @@ def tile_spmv(
     T = tile_size
     L = rhs.shape[-1]
     mask = dense_tile_mask(tiles, T).to(torch.float32)       # (nt, T, T)
-    cols = tile_cols.long()
-    gathered = rhs.reshape(-1, T, L)[cols].to(torch.float32)  # (nt, T, L)
+    # int32 indices: subscripts and index_add_ take them as they are
+    gathered = rhs.reshape(-1, T, L)[tile_cols].to(torch.float32)  # (nt, T, L)
     if col_flags is not None:
-        gathered = gathered * col_flags[cols][:, None, None].to(torch.float32)
+        gathered = gathered * col_flags[tile_cols][:, None, None].to(torch.float32)
     prod = torch.bmm(mask, gathered)
     out = torch.zeros((n_block_rows, T, L), dtype=torch.float32, device=rhs.device)
-    out.index_add_(0, tile_rows.long(), prod)
+    out.index_add_(0, tile_rows, prod)
     return out.reshape(n_block_rows * T, L)
 
 
@@ -127,8 +127,7 @@ def tile_neighbor_max(
     tile_max = vals.amax(dim=2).to(torch.int32)               # (nt, T)
     out = torch.full((n_block_rows, T), INT32_MIN, dtype=torch.int32,
                      device=pm.device)
-    index = tile_rows.long()[:, None].expand(-1, T)
-    out.scatter_reduce_(0, index, tile_max, "amax")
+    out.scatter_reduce_(0, tile_rows.long()[:, None].expand(-1, T), tile_max, "amax")
     return out.reshape(n_block_rows * T)
 
 
@@ -182,14 +181,13 @@ def tile_spmv_bits(
     column hits nothing.  Returns (n_block_rows, W) hit words; rows no tile
     maps to are 0."""
     T = int(tile_size)
-    cols = tile_cols.long()
-    gathered = rhs_words[cols]                                    # (nt, W)
+    gathered = rhs_words[tile_cols]                               # (nt, W)
     if col_flags is not None:
-        gathered = gathered * col_flags[cols][:, None].to(torch.int32)
+        gathered = gathered * col_flags[tile_cols][:, None].to(torch.int32)
     hit = ((tiles_bits & gathered[:, None, :]) != 0).any(dim=2)   # (nt, T)
     acc = torch.zeros((n_block_rows, T), dtype=torch.int32, device=rhs_words.device)
-    index = tile_rows.long()[:, None].expand(-1, T)
-    acc.scatter_reduce_(0, index, hit.to(torch.int32), "amax")
+    acc.scatter_reduce_(0, tile_rows.long()[:, None].expand(-1, T), hit.to(torch.int32),
+                        "amax")
     return pack_frontier_bits(acc, T)
 
 
@@ -209,15 +207,13 @@ def tile_neighbor_max_bits(
     priorities.  Returns (n_block_rows·T,) int32: `_NEG` where a tile row
     has no live neighbour, int32 min where no tile maps."""
     T = int(tile_size)
-    cols = tile_cols.long()
-    m = tiles_sorted & mask_sorted_words[cols][:, None, :]        # (nt, T, W)
+    m = tiles_sorted & mask_sorted_words[tile_cols][:, None, :]   # (nt, T, W)
     first = torch.full(m.shape[:2], T, dtype=torch.int32, device=m.device)
     for w in range(m.shape[-1]):
         word = m[..., w]
         at = torch.where(word != 0, w * 32 + clz32(word), T)
         first = torch.minimum(first, at)
-    idx = first.clamp(max=T - 1).long()
-    val = torch.gather(p_sorted[cols], 1, idx)
+    val = torch.gather(p_sorted[tile_cols], 1, first.clamp(max=T - 1).long())
     tile_max = torch.where(first < T, val, _NEG).to(torch.int32)
     out = torch.full((n_block_rows, T), INT32_MIN, dtype=torch.int32, device=m.device)
     out.scatter_reduce_(0, tile_rows.long()[:, None].expand(-1, T), tile_max, "amax")

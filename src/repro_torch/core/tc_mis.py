@@ -168,19 +168,29 @@ def run_tc_mis(
         g, tiled, generator, config, priorities, alive0, col_gate,
         member_rounds, in_mis0,
     )
+    if not getattr(config, "telemetry", False):
+        return _result(_converge(engine, ctx, pri, state, config), g, tiled)
+    buf = torch.full((int(config.max_rounds), TELEMETRY_COLS), TELEMETRY_FILL,
+                     dtype=torch.int32, device=tiled.device)
+    return _result(_converge(engine, ctx, pri, state, config, buf), g, tiled), buf
+
+
+def _converge(engine, ctx: EngineContext, pri: Priorities, state: MISRoundState,
+              config, buf: torch.Tensor | None = None) -> MISRoundState:
+    """The convergence loop alone (the hot-path lint's seed; its set-up
+    and epilogue run once a solve, in `run_tc_mis`): rounds until nothing
+    is alive or `config.max_rounds`, each one engine step, with telemetry
+    (`buf` given) the instrumented step writing its row of `buf`."""
     # max(rnd) equals the rounds run so far in both counting modes while
     # anything is alive, so the host count bounds the loop exactly like the
     # reference's `max(rnd) < max_rounds`
     rounds = 0
-    if not getattr(config, "telemetry", False):
-        while rounds < config.max_rounds and bool(state.alive.any()):
+    if buf is None:
+        while rounds < config.max_rounds and bool(state.alive.any()):  # repro-lint: disable=RPT010 the one sanctioned sync a round: the loop's exit test reads alive.any()
             state = engine.step(ctx, pri, state)
             rounds += 1
-        return _result(state, g, tiled)
-
-    buf = torch.full((int(config.max_rounds), TELEMETRY_COLS), TELEMETRY_FILL,
-                     dtype=torch.int32, device=tiled.device)
-    while rounds < config.max_rounds and bool(state.alive.any()):
+        return state
+    while rounds < config.max_rounds and bool(state.alive.any()):  # repro-lint: disable=RPT010 the one sanctioned sync a round: the loop's exit test reads alive.any()
         new, row = engine.step_with_stats(ctx, pri, state)
         # the current round's index: rnd, or max(rnd) when it counts per
         # vertex (a vertex alive now has counted every round so far)
@@ -188,10 +198,10 @@ def run_tc_mis(
         buf.index_copy_(0, at.reshape(1).long(), row[None])
         state = new
         rounds += 1
-    return _result(state, g, tiled), buf
+    return state
 
 
-def run_phases(
+def run_phases(  # repro-lint: disable=RPT005,RPT010,RPT011 host-stepped profiler twin: per-phase wall timing requires sync
     g: Graph,
     tiled: BlockTiledGraph,
     generator: torch.Generator | None,

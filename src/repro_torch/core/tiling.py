@@ -586,8 +586,8 @@ def sorted_tile_bits(
     for lo in range(0, nt, chunk):
         hi = min(lo + chunk, nt)
         mask = dense_tile_mask(tiles[lo:hi], T)                   # (c, T, T)
-        g_order = order[tile_cols[lo:hi].long()].long()           # (c, T)
-        permuted = torch.gather(mask, 2, g_order[:, None, :].expand(-1, T, -1))
+        g_order = order[tile_cols[lo:hi]]                         # (c, T)
+        permuted = torch.gather(mask, 2, g_order.long()[:, None, :].expand(-1, T, -1))
         out[lo:hi] = pack_sorted_frontier_bits(permuted, T)
     return out
 

@@ -135,7 +135,7 @@ def warm_start(
         hit_w = _seed_cover_bits(config, engine, tiled, in_mis_w)
         # ~in_mis_w and ~hit_w set the padding bits too: mask with the
         # real-vertex words, or dead padding slots would wake up alive
-        real = torch.arange(tiled.n_padded, device=in_mis0.device) < n
+        real = torch.arange(tiled.n_padded, dtype=torch.int32, device=in_mis0.device) < n
         alive_w = pack_frontier_words(real, T) & ~in_mis_w & ~hit_w
         return alive_w, in_mis_w
     alive0 = ~in_mis0 & ~_seed_cover(config, g, tiled, in_mis0)

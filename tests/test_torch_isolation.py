@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: `repro_torch`, chip_smoke.py,
-tools/sharded_train_ranks.py and tools/products_probe.py import neither
+tools/sharded_train_ranks.py, tools/products_probe.py and
+tools/profiler_drops.py import neither
 jax (nor `ml_dtypes`, its bf16 numpy dtype) nor anything of the JAX
 reference package `repro`."""
 import ast
@@ -13,7 +14,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "sharded_train_ranks.py",
-    REPO / "tools" / "products_probe.py"]
+    REPO / "tools" / "products_probe.py", REPO / "tools" / "profiler_drops.py"]
 
 
 def _imported_modules(path):
