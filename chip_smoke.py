@@ -458,7 +458,10 @@ Phases, each fatal on failure:
              gin-tu, pna, egnn and mace at the shape's widths (d_feat 100,
              47 classes) and average degree, the vertices cut to
              `PRODUCTS_CUTS` (gin-tu a quarter: 612,257 vertices, about
-             30.9 M half-edges; pna 1/32, egnn 1/16, mace 1/128): the stand-in (`products_inputs`), split by
+             30.9 M half-edges; pna 1/64, egnn 1/32, mace 1/128; pna and
+             egnn checked in f64, GNN_CPU_F64, as phase 12 compares them:
+             their f32 gradients are ill-conditioned, two f32 runs summing
+             in other orders lie up to 6e-5 apart): the stand-in (`products_inputs`), split by
              `dist.graph.split_graph`; the step without a mesh from one
              state, and from it again on the graph relabelled two ways
              (vertices and edges in other orders), whose largest
@@ -467,11 +470,39 @@ Phases, each fatal on failure:
              from run to run; the split sums over vertices and edges in
              other orders too); then `full_graph_step(split=)` from that state over
              `place_gnn_state`, held to the first within twice the spread
-             (no less than twice 2^-23) in the loss, the gradient norm and
-             every leaf of m and sqrt(v) (relative in L2); then 3 more
-             placed steps, median
-             ms split by CUDA events into forward, backward and optimizer,
-             peak GiB, no port kernel launched (ogb_products runs none).
+             (no less than twice the dtype's epsilon) in the loss, the
+             gradient norm and every leaf of m and sqrt(v) (relative in
+             L2); for pna and egnn then the f32 witness on the same graph
+             (printed, not held): the f32 step without a mesh in the three
+             orders and the f32 placed step, each one's distance from the
+             f64 step without a mesh; then 3 more placed steps in f32,
+             median ms split by CUDA events into forward, backward and
+             optimizer, peak GiB, no port kernel launched (ogb_products
+             runs none).
+ 19. dryrun  the dry run held against the card (run after phase 14),
+             every `[dryrun]` line beside the card's name and power limit;
+             each prediction is `launch.dryrun.count_pass` of a cell's
+             production program on fake CUDA tensors as rank 0 of a fake
+             one-rank group (nothing allocated), each measurement a step
+             an earlier phase ran, its peak taken as the dry run counts it
+             (its arguments' bytes plus the most it allocated above what
+             was live when the peak was reset):
+             (a) qwen3-0.6b train_4k at phase 14's batch (16 x 4,096) on a
+                 (1, 1) mesh against phase 14 (a)'s steps: predicted peak
+                 within 10 % + 256 MiB of the measured; the counted FLOPs
+                 beside `lm_train_flops`; no kernel record;
+             (b) DeepFM train_batch on a (1, 1) mesh against phase 11
+                 (b)'s step: the peak within 10 % + 256 MiB; the fake
+                 branches' launches (2 bags, 2 backwards, 1 sort) those of
+                 the card's step;
+             (c) one round of the sharded MIS (`core.distributed.mis_round`)
+                 on G2 (T = 16, int8, one slab) on a one-rank NCCL group,
+                 the launch counts set to 0 just before it: tc_spmv once,
+                 every other kernel 0; its outputs' shapes and dtypes those
+                 of the dry run's fake round (`configs.tcmis.round_step`) on
+                 the same shapes; `tc_spmv` launched and through its fake
+                 branch on the same inputs, the same shape and dtype; both
+                 peaks printed.  The group is destroyed after.
  18. lint    the hot-path lint held against the card (run after phase 9,
              while G2 and phase 3's plans are held), every `[lint]` line
              beside the card's name and power limit:
@@ -1931,7 +1962,9 @@ def phase_train(errs: dict) -> dict:
     params = C.train_params(model)
     opt = adamw_init(params)
     sorts = E.sort_slots.calls
+    before = step_memory_start()
     (p1, s1, loss), counts = counted(lambda: C.train_step(model, params, opt, fields, labels))
+    STEP_PEAKS["deepfm train_batch"] = step_peak(before, (params, opt, fields, labels))
     sorts = E.sort_slots.calls - sorts
     want = {k: 0 for k in KERNELS}
     want.update(embedding_bag=2, embedding_bag_backward=2)
@@ -4014,11 +4047,14 @@ def lm_train_steps(cfg, B: int, S: int, timed: int, donate: bool = False, drops:
     from repro_torch.configs import lm_cells as C
     from repro_torch.train.optimizer import OptConfig, adamw_init
 
+    from repro_torch.data.pipeline import TokenStream
+
     params = lm_init(cfg)
     opt = adamw_init(params)
     step = C.make_lm_train_step(cfg, OptConfig(**LM_TRAIN_OPT), donate=donate)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    batch_bytes = sum(a.nbytes for a in TokenStream(cfg.vocab, B, S, seed=LM_PROMPT_SEED)
+                      .batch_at(0))
+    before = step_memory_start()
 
     def run():
         nonlocal params, opt
@@ -4037,6 +4073,7 @@ def lm_train_steps(cfg, B: int, S: int, timed: int, donate: bool = False, drops:
 
     (losses, marks, fracs), launches = counted(run)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    STEP_PEAKS[f"{cfg.name} train B={B}"] = step_peak(before, (params, opt), batch_bytes)
     n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.moe else 0
     # the warm-up's forward calls come first; remat calls the layer again in backward
     fracs = [float(f) for f in fracs[:n_moe]]
@@ -4232,6 +4269,194 @@ def phase_lm_train() -> None:
     phase_lm_train_cpu()
     phase_lm_train_launcher()
     print(f"[lm-train] phase 14: {time.perf_counter() - t_phase:.1f} s; card {card_line()}",
+          flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 19: the dry run held against the card
+# --------------------------------------------------------------------------
+
+DRYRUN_REL, DRYRUN_ABS = 0.10, 256 * 2 ** 20   # a predicted peak within 10 % + 256 MiB
+STEP_PEAKS = {}      # steps earlier phases ran: name -> {"total", "peak", "before", "args"}
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of the distinct storages the tensors of `tree` hold."""
+    import torch
+    from torch.utils._pytree import tree_flatten
+
+    seen = {}
+    for t in tree_flatten(tree)[0]:
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def step_memory_start() -> int:
+    """Sync, reset the peak, return the bytes allocated now."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def step_peak(before: int, args, extra_args: int = 0) -> dict:
+    """A step's peak as the dry run counts it: its arguments' bytes plus
+    the most it allocated above what was live when the peak was reset (the
+    arguments among it), so that other phases' leftovers drop out."""
+    import torch
+
+    peak = torch.cuda.max_memory_allocated()
+    arg = tensor_bytes(args) + extra_args
+    return dict(total=peak - before + arg, peak=peak, before=before, args=arg)
+
+
+def dryrun_pass(cell, shape=(1, 1), names=("data", "model")) -> dict:
+    """`launch.dryrun.count_pass` of `cell`'s memory variant as rank 0 of a
+    fake group of `shape` (fake CUDA tensors: nothing allocated)."""
+    from repro_torch.launch.dryrun import count_pass, fake_group
+
+    with fake_group(shape, names) as mesh:
+        return count_pass(cell, mesh, "memory")
+
+
+def hold_peak(label: str, predicted: dict, measured: dict) -> None:
+    want, got = measured["total"], predicted["memory"]["total_per_device"]
+    err = abs(got - want)
+    print(f"[dryrun] {label}: predicted peak {got / 2**30:.3f} GiB (arguments "
+          f"{predicted['memory']['argument_bytes'] / 2**30:.3f}, outputs "
+          f"{predicted['memory']['output_bytes'] / 2**30:.3f}, temporaries "
+          f"{predicted['memory']['temp_bytes'] / 2**30:.3f}), measured {want / 2**30:.3f} GiB "
+          f"(arguments {measured['args'] / 2**30:.3f} + the step's "
+          f"{(measured['peak'] - measured['before']) / 2**30:.3f} above what was live); off "
+          f"by {err / 2**30:.3f} GiB = {100 * err / want:.2f} % (bound 10 % + 256 MiB); "
+          f"dry-run host {predicted['build_s'] + predicted['run_s']:.1f} s; card "
+          f"{card_line()}", flush=True)
+    check(err <= DRYRUN_REL * want + DRYRUN_ABS,
+          f"[dryrun] {label}: predicted peak {got} B against measured {want} B")
+
+
+def phase_dryrun_lm() -> None:
+    """(a): qwen3-0.6b train_4k at phase 14's batch on a one-rank mesh."""
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.configs import common as C
+
+    cfg = LM_ARCHS["qwen3-0.6b"].CONFIG
+    B, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    pred = dryrun_pass(C._lm_train_cell("qwen3-0.6b", cfg, "train_4k", batch=B))
+    hold_peak(f"(a) qwen3-0.6b train_4k, batch {B} x {S:,}, one-rank mesh (phase 14's step)",
+              pred, STEP_PEAKS[f"qwen3-0.6b train B={B}"])
+    model = C.lm_train_flops(cfg, B, S)
+    print(f"[dryrun] (a) counted FLOPs {pred['cost']['flops']:.4e} beside lm_train_flops "
+          f"6 N B S = {model:.4e} (ratio {pred['cost']['flops'] / model:.3f}: remat's "
+          f"recompute and the f32 recurrence); counted bytes "
+          f"{pred['cost']['bytes_accessed']:.4e}; kernel records {pred['kernels']}; card "
+          f"{card_line()}", flush=True)
+    check(not pred["kernels"], f"[dryrun] (a) the LM step reported kernels {pred['kernels']}")
+
+
+def phase_dryrun_deepfm() -> None:
+    """(b): DeepFM train_batch on a one-rank mesh, against phase 11's step."""
+    from repro_torch.configs import deepfm as DF
+
+    pred = dryrun_pass(DF.ARCH.cells["train_batch"])
+    hold_peak("(b) deepfm train_batch (B = 65,536), one-rank mesh (phase 11's step)", pred,
+              STEP_PEAKS["deepfm train_batch"])
+    got = {k: r["launches"] for k, r in pred["kernels"].items()}
+    want = {"embedding_bag": 2, "embedding_bag_backward": 2, "sort_slots": 1}
+    check(got == want, f"[dryrun] (b) fake-branch launches {got}, the card's step {want}")
+    print(f"[dryrun] (b) fake-branch launches {got}, as phase 11's step launched them; "
+          f"their reported bytes {sum(r['bytes'] for r in pred['kernels'].values()):.4e}; "
+          f"card {card_line()}", flush=True)
+
+
+def phase_dryrun_round() -> None:
+    """(c): one G2 round of the sharded MIS on a one-rank NCCL group, the
+    split SpMV launched, beside the dry run's fake round."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.common import Cell
+    from repro_torch.configs.tcmis import DRYRUN_LANES, round_step
+    from repro_torch.core import distributed as D
+    from repro_torch.core.heuristics import make_priorities
+    from repro_torch.core.tiling import build_block_tiles
+    from repro_torch.graphs import grid2d
+    from repro_torch.hopper import tc_spmv as K
+    from repro_torch.hopper.launch import fake_mode
+
+    g2 = grid2d(*G2_SHAPE, device="cuda")
+    sh = D.shard_tiled(build_block_tiles(g2, tile_size=16), 1)
+    slab, T, rps, n = sh.slab(0), sh.tile_size, sh.rows_per_shard, sh.n_padded
+    cell = Cell(arch="tcmis", shape="G2 stand-in", kind="mis", model_flops=0.0,
+                build=lambda mesh, variant="memory": round_step(
+                    mesh, n_nodes=g2.n_nodes, tile_size=T, rows_per_shard=rps,
+                    nt_pad=slab.n_tiles_pad, n_tiles=slab.n_tiles))
+    pred = dryrun_pass(cell, (1,), ("flat",))
+
+    D.process_group(torch.device("cuda", torch.cuda.current_device()))
+    try:
+        pri = make_priorities("h3", torch.Generator(device="cuda").manual_seed(0), g2.n_nodes,
+                              g2.degrees())
+        select, resolve = (torch.nn.functional.pad(k, (0, n - g2.n_nodes), value=-(1 << 30))
+                           for k in (pri.select, pri.resolve))
+
+        def gather(x):
+            return D.gather_bool(x, T)
+
+        alive = gather(torch.arange(rps * T, dtype=torch.int32, device="cuda") < g2.n_nodes)
+        in_mis = torch.zeros(rps * T, dtype=torch.bool, device="cuda")
+        rhs = torch.zeros((n, DRYRUN_LANES), dtype=torch.float32, device="cuda")
+        args = (slab.tiles, slab.tile_rows, slab.tile_cols, slab.row_starts, select, resolve,
+                alive, in_mis, rhs)
+        before = step_memory_start()
+        out, counts = counted(lambda: D.mis_round(slab, gather, select, resolve, alive, in_mis,
+                                                  rhs, off=0, two_pass=True))
+        measured = step_peak(before, args)
+        want = {k: 1 if k == "tc_spmv" else 0 for k in KERNELS}
+        check(counts == want, f"[dryrun] (c) the round's launches {counts}, expected {want}")
+        got = [(tuple(t.shape), str(t.dtype)) for t in out]
+        check(got == pred["outputs"], f"[dryrun] (c) the round's outputs {got}, the dry "
+              f"run's {pred['outputs']}")
+        flags = torch.ones((slab.n_block_cols,), dtype=torch.int32, device="cuda")
+        real = K.tc_spmv(slab, rhs, col_flags=flags)
+        with fake_mode() as fm:
+            fake_slab = dataclasses.replace(slab, **{
+                f: fm.from_tensor(getattr(slab, f))
+                for f in ("tiles", "tile_rows", "tile_cols", "row_starts")})
+            fake = K.tc_spmv(fake_slab, fm.from_tensor(rhs), col_flags=fm.from_tensor(flags))
+        check((tuple(real.shape), real.dtype) == (tuple(fake.shape), fake.dtype),
+              f"[dryrun] (c) tc_spmv {tuple(real.shape)} {real.dtype}, its fake branch "
+              f"{tuple(fake.shape)} {fake.dtype}")
+        rec = pred["kernels"].get("tc_spmv", {})
+        print(f"[dryrun] (c) one G2 round (T = 16, int8, {slab.n_tiles:,} tiles, {n:,} rows) on "
+              f"a one-rank NCCL group: launches {counts['tc_spmv']} tc_spmv, every other "
+              f"kernel 0; outputs {got} equal to the fake round's; tc_spmv {tuple(real.shape)} "
+              f"{real.dtype} launched and from its fake branch alike (reported "
+              f"{rec.get('bytes', 0):.4e} bytes, {rec.get('flops', 0):.4e} FLOPs); peak "
+              f"predicted {pred['memory']['total_per_device'] / 2**30:.3f} GiB, measured "
+              f"{measured['total'] / 2**30:.3f} GiB (arguments {measured['args'] / 2**30:.3f}); "
+              f"card {card_line()}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dryrun() -> None:
+    """Phase 19: the dry run's predictions held against the card (see the
+    module docstring)."""
+    import torch
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "[dryrun] a process group outlived its phase")
+    phase_dryrun_lm()
+    phase_dryrun_deepfm()
+    phase_dryrun_round()
+    torch.cuda.empty_cache()
+    print(f"[dryrun] phase 19: {time.perf_counter() - t_phase:.1f} s; card {card_line()}",
           flush=True)
 
 
@@ -4878,19 +5103,26 @@ def phase_tp(errs: dict) -> None:
 # the shape's widths and average degree: gin-tu at a quarter (30.9 M
 # half-edges, 12.4 GB a layer-1 message tensor); the others where their
 # activations fit one card beside the inputs' relabelled copies (pna at
-# 1/16 peaks at 74 GiB alone and ran out of memory beside them; PERF.md
-# section 4)
-PRODUCTS_CUTS = {"gin-tu": 1 / 4, "pna": 1 / 32, "egnn": 1 / 16, "mace": 1 / 128}
+# 1/16 peaks at 74 GiB alone in f32 and ran out of memory beside them;
+# PERF.md section 4); pna and egnn are checked in f64 (GNN_CPU_F64), at
+# half the f32 cuts that fit: the same bytes
+PRODUCTS_CUTS = {"gin-tu": 1 / 4, "pna": 1 / 64, "egnn": 1 / 32, "mace": 1 / 128}
 PRODUCTS_SEED = 0
 PRODUCTS_TIMED = 3
-# the floor of a run-to-run spread: two runs that happen to round alike
-# still differ from a third by an f32 rounding
-SPREAD_FLOOR = 2.0 ** -23
+# the floor of a run-to-run spread (`spread_floor`): two runs that happen
+# to round alike still differ from a third by a rounding of the dtype
 SPREAD_SEEDS = (0, 1)       # the relabelled runs behind a spread
 # more relabelled runs, taken only when the placed step lies over twice the
 # spread of SPREAD_SEEDS: a third draw of pure summation-order noise lands
 # over twice the larger of two such draws about one time in eight
 SPREAD_MORE_SEEDS = (2, 3, 4, 5, 6, 7)
+
+
+def spread_floor(dtype) -> float:
+    """The least run-to-run spread of a step in `dtype`: its epsilon."""
+    import torch
+
+    return torch.finfo(dtype).eps
 
 
 class UpdateMetrics:
@@ -4978,10 +5210,12 @@ def products_arch(a, mesh, fraction: float) -> float:
     changes from run to run, as `tools/gnn_f32_spread.py` measures it on
     the CPU), then `full_graph_step(split=)` on the one-rank mesh from that state,
     held to the first within twice the spread per group (no less than
-    twice SPREAD_FLOOR), the spread taken again over SPREAD_MORE_SEEDS as
-    well when a group lies over it; then PRODUCTS_TIMED more placed steps split by
-    CUDA events, with the launches of every port kernel counted from 0
-    before them (none may launch).  Returns the seconds it took."""
+    twice `spread_floor`), the spread taken again over SPREAD_MORE_SEEDS as
+    well when a group lies over it.  The archs of GNN_CPU_F64 take these
+    steps in f64, then the f32 witness on the same graph (`f32_witness`).
+    Then PRODUCTS_TIMED more placed steps in f32 split by CUDA events,
+    with the launches of every port kernel counted from 0 before them
+    (none may launch).  Returns the seconds it took."""
     import torch
     from repro_torch.configs import gnn_cells as C
     from repro_torch.dist.graph import split_graph
@@ -4989,8 +5223,10 @@ def products_arch(a, mesh, fraction: float) -> float:
 
     t0 = time.perf_counter()
     n = C.products_nodes(fraction)
-    label = f"[products] {a.arch_id} at 1/{round(1 / fraction)}"
+    dtype = torch.float64 if a.arch_id in GNN_CPU_F64 else torch.float32
+    label = f"[products] {a.arch_id} at 1/{round(1 / fraction)} in {str(dtype)[6:]}"
     s, r, m, feats, coords, labels = C.products_inputs(n, seed=PRODUCTS_SEED, device="cuda")
+    feats, coords = feats.to(dtype), coords.to(dtype)
     t_graph = time.perf_counter() - t0
     t1 = time.perf_counter()
     split = split_graph(s, r, m, n, mesh)
@@ -4999,7 +5235,7 @@ def products_arch(a, mesh, fraction: float) -> float:
     n_edges = s.shape[0]
     del s, r, m
     shape = C.GNN_SHAPES["ogb_products"]
-    model = a.init(shape["d_feat"], shape["n_out"], seed=PRODUCTS_SEED, device="cuda")
+    model = a.init(shape["d_feat"], shape["n_out"], seed=PRODUCTS_SEED, device="cuda").to(dtype)
     params = C.train_params(model)
     opt = adamw_init(params)
     runs = []
@@ -5026,7 +5262,8 @@ def products_arch(a, mesh, fraction: float) -> float:
                                                rows[2], split=split)
         got = step_groups(loss, popt, rec.grad_norms[-1])
         errs, spread = group_errs(got, runs[0]), spread_of()
-        over = [k for k in errs if errs[k] > 2 * max(spread[k], SPREAD_FLOOR)]
+        floor = spread_floor(dtype)
+        over = [k for k in errs if errs[k] > 2 * max(spread[k], floor)]
         if over:
             print(f"{label}: " + ", ".join(f"{k} {errs[k]:.3g} (spread {spread[k]:.3g})"
                                            for k in over)
@@ -5035,13 +5272,19 @@ def products_arch(a, mesh, fraction: float) -> float:
             for seed in SPREAD_MORE_SEEDS:
                 reference(seed)
             spread = spread_of()
-        del edges, feats, coords, labels
-    tols = {k: 2 * max(v, SPREAD_FLOOR) for k, v in spread.items()}
+    tols = {k: 2 * max(v, floor) for k, v in spread.items()}
     for k in errs:
         check(errs[k] <= tols[k], f"{label}: the placed step's {k} is {errs[k]:.3g} from the "
               f"step without a mesh, over twice the spread ({spread[k]:.3g})")
     n_relabelled = len(runs) - 1
+    truth = runs[0]
     del runs, got, params, opt
+    torch.cuda.empty_cache()
+    if dtype != torch.float32:
+        del placed, popt
+        model, placed, popt, rows = f32_witness(a, mesh, split, edges, (feats, coords, labels),
+                                                truth, label)
+    del edges, feats, coords, labels, truth
     torch.cuda.empty_cache()
 
     marks = StepMarks(model)
@@ -5068,13 +5311,53 @@ def products_arch(a, mesh, fraction: float) -> float:
     errs_txt += f" over {n_relabelled} relabelled runs"
     print(f"{label}: {n:,} vertices, {n_edges:,} half-edges (host graph {t_graph:.1f} s, "
           f"split {t_split:.1f} s); the placed step on the one-rank mesh against the step "
-          f"without one: {errs_txt}, each within twice its spread; median ms a step over "
-          f"{PRODUCTS_TIMED} {parts['step']:.3f} (forward {parts['forward']:.3f}, backward "
+          f"without one: {errs_txt}, each within twice its spread; median ms a float32 step "
+          f"over {PRODUCTS_TIMED} {parts['step']:.3f} (forward {parts['forward']:.3f}, backward "
           f"{parts['backward']:.3f}, optimizer {parts['optimizer']:.3f}); peak device memory "
           f"{peak:.3f} GiB; port kernel launches 0", flush=True)
     del placed, popt, rows, split, model, marks
     torch.cuda.empty_cache()
     return time.perf_counter() - t0
+
+
+def f32_witness(a, mesh, split, edges, rows_f64, truth: dict, label: str):
+    """The f32 witness of an arch that phase 17 checks in f64: on the same
+    graph and from the same weights, the f32 step without a mesh in the
+    original order and relabelled with each of SPREAD_SEEDS, and the f32
+    placed step; each one's distance from the f64 step without a mesh
+    (`truth`) per group, printed, not held.  Returns the f32 model, the
+    placed state after its step and this rank's f32 rows, which the timed
+    steps go on from."""
+    import torch
+    from repro_torch.configs import gnn_cells as C
+    from repro_torch.train import adamw_init
+
+    feats, coords, labels = rows_f64[0].float(), rows_f64[1].float(), rows_f64[2]
+    shape = C.GNN_SHAPES["ogb_products"]
+    model = a.init(shape["d_feat"], shape["n_out"], seed=PRODUCTS_SEED, device="cuda")
+    params = C.train_params(model)
+    opt = adamw_init(params)
+    dists = []
+    with UpdateMetrics() as rec:
+        for seed in (None,) + SPREAD_SEEDS:
+            inputs = ([feats, coords, *edges, labels] if seed is None
+                      else relabelled(edges, (feats, coords, labels), seed))
+            _, o, loss = C.full_graph_step(a, model, params, opt, *inputs)
+            dists.append(group_errs(step_groups(loss, o, rec.grad_norms[-1]), truth))
+            del o, inputs
+            torch.cuda.empty_cache()
+        rows = [split.rows(x) for x in (feats, coords, labels)]
+        placed, popt = C.place_gnn_state(params, mesh)
+        placed, popt, loss = C.full_graph_step(a, model, placed, popt, *rows[:2], *split.edges,
+                                               rows[2], split=split)
+        got = group_errs(step_groups(loss, popt, rec.grad_norms[-1]), truth)
+    print(f"{label}: f32 witness on the same graph, each f32 step's distance from the f64 "
+          f"step without a mesh: placed " + ", ".join(f"{k} {got[k]:.3g}" for k in got)
+          + "; without a mesh, in the original order and "
+          f"{len(SPREAD_SEEDS)} relabelled: "
+          + ", ".join(f"{k} " + "/".join(f"{d[k]:.3g}" for d in dists) for k in got)
+          + f" (printed, not held); card {card_line()}", flush=True)
+    return model, placed, popt, rows
 
 
 def phase_products() -> None:
@@ -5140,6 +5423,7 @@ def main() -> None:
     phase_gnn(errs)
     phase_lm()
     phase_lm_train()
+    phase_dryrun()
     phase_dist(errs)
     phase_tp(errs)
     phase_products()

@@ -20,6 +20,10 @@ mesh.
 Shapes: train_batch 65 536 / serve_p99 512 / serve_bulk 262 144 /
 retrieval_cand 1×1 000 000 candidates (padded to 1 000 448, a multiple of
 512, as the reference's cell pads them).
+
+The dry run's cells (`ARCH.cells`) build these steps with `mesh=` on
+fake inputs: the state placed by `place_deepfm_state`, the batch by
+`batch_spec(mesh, 1)` / `P(data_axes)`, the candidates over every rank.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.func import functional_call
 
+from repro_torch.configs.common import ArchDef, Cell, placed, register
 from repro_torch.device import DeviceLike
 from repro_torch.dist.collectives import data_group
 from repro_torch.dist.sharding import data_axes, deepfm_specs, distribute, local
@@ -222,3 +227,100 @@ def smoke(device: DeviceLike = "cuda") -> None:
     sc = retrieval_step(model, fields[0], torch.arange(32, dtype=torch.int32, device=dev))
     if sc.shape != (32,) or not bool(torch.isfinite(sc).all()):
         raise AssertionError(f"smoke retrieval: shape {tuple(sc.shape)}, not all finite")
+
+
+# --------------------------------------------------------------------------
+# the dry run's cells
+# --------------------------------------------------------------------------
+
+def _placed_model(mesh):
+    """The CONFIG model with fake parameters on the mesh's device
+    (`configs.common.fake_module`) and its state placed by
+    `place_deepfm_state`, with the specs."""
+    from repro_torch.configs.common import fake_module
+    from repro_torch.dist.sharding import mesh_device
+
+    model = fake_module(lambda: DeepFM(CONFIG, seed=0, device="cpu"), mesh_device(mesh))
+    whole = train_params(model)
+    params, opt = place_deepfm_state(whole, mesh)
+    return model, params, opt, deepfm_specs(whole, mesh)
+
+
+def _fields(mesh, batch: int):
+    from repro_torch.dist.sharding import batch_spec, mesh_device
+
+    spec = batch_spec(mesh, 1)
+    x = torch.empty((batch, CONFIG.n_fields), dtype=torch.int32, device=mesh_device(mesh))
+    return placed(x, spec, mesh), spec
+
+
+def _train_cell() -> Cell:
+    B = SHAPES["train_batch"]["batch"]
+
+    def build(mesh, variant: str = "memory"):
+        from repro_torch.dist.sharding import P, mesh_device
+
+        model, params, opt, p_specs = _placed_model(mesh)
+        fields, f_spec = _fields(mesh, B)
+        l_spec = P(data_axes(mesh))
+        labels = placed(torch.empty((B,), device=mesh_device(mesh)), l_spec, mesh)
+
+        def step(params, opt, fields, labels):
+            return train_step(model, params, opt, fields, labels, mesh=mesh)
+
+        return step, (params, opt, fields, labels), (
+            p_specs, AdamWState(step=P(), m=p_specs, v=p_specs), f_spec, l_spec)
+
+    return Cell(arch="deepfm", shape="train_batch", kind="train", build=build,
+                model_flops=3.0 * _fwd_flops(CONFIG, B))
+
+
+def _serve_cell(shape_name: str) -> Cell:
+    B = SHAPES[shape_name]["batch"]
+
+    def build(mesh, variant: str = "memory"):
+        model, params, _, p_specs = _placed_model(mesh)
+        fields, f_spec = _fields(mesh, B)
+
+        def step(params, fields):
+            return serve_step(model, fields, params=params, mesh=mesh)
+
+        return step, (params, fields), (p_specs, f_spec)
+
+    return Cell(arch="deepfm", shape=shape_name, kind="serve", build=build,
+                model_flops=_fwd_flops(CONFIG, B))
+
+
+def _retrieval_cell() -> Cell:
+    NC = RETRIEVAL_CANDIDATES
+
+    def build(mesh, variant: str = "memory"):
+        from repro_torch.dist.sharding import P, mesh_device
+
+        dev = mesh_device(mesh)
+        model, params, _, p_specs = _placed_model(mesh)
+        c_spec = P(tuple(mesh.mesh_dim_names))
+        user = torch.empty((CONFIG.n_fields,), dtype=torch.int32, device=dev)
+        cands = placed(torch.empty((NC,), dtype=torch.int32, device=dev), c_spec, mesh)
+
+        def step(params, user_fields, cand_ids):
+            return retrieval_step(model, user_fields, cand_ids, params=params, mesh=mesh)
+
+        return step, (params, user, cands), (p_specs, P(), c_spec)
+
+    return Cell(arch="deepfm", shape="retrieval_cand", kind="serve", build=build,
+                model_flops=2.0 * NC * CONFIG.embed_dim,
+                note="1 user × 1M candidates, factorised FM matvec")
+
+
+ARCH = register(ArchDef(
+    arch_id="deepfm", family="recsys",
+    cells={
+        "train_batch": _train_cell(),
+        "serve_p99": _serve_cell("serve_p99"),
+        "serve_bulk": _serve_cell("serve_bulk"),
+        "retrieval_cand": _retrieval_cell(),
+    },
+    smoke=smoke,
+    config=CONFIG,
+))

@@ -5,6 +5,7 @@ vocab 129280, sigmoid (aux-free-style) router (counterpart of
 `repro.configs.deepseek_v3_671b`)."""
 import torch
 
+from repro_torch.configs.common import ArchDef, lm_cells, register
 from repro_torch.configs.lm_cells import lm_smoke
 from repro_torch.device import DeviceLike
 from repro_torch.models.lm_config import LMConfig, MLAConfig, MoEConfig
@@ -39,3 +40,7 @@ SMOKE = LMConfig(
 def smoke(device: DeviceLike = "cuda") -> None:
     """One train step, a prefill and a decode step of `SMOKE` (`lm_smoke`)."""
     lm_smoke(SMOKE, device=device)
+
+
+ARCH = register(ArchDef(arch_id=ARCH_ID, family="lm", cells=lm_cells(ARCH_ID, CONFIG),
+                        smoke=smoke, config=CONFIG))

@@ -1,6 +1,7 @@
 """egnn [arXiv:2102.09844]: 4 layers, d_hidden=64, E(n) equivariance
 (counterpart of `repro.configs.egnn`)."""
-from repro_torch.configs.gnn_cells import GNNArch, call, per_graph_sum
+from repro_torch.configs.common import ArchDef, register
+from repro_torch.configs.gnn_cells import GNNArch, call, gnn_cells, gnn_smoke, per_graph_sum
 from repro_torch.models.gnn.egnn import EGNN
 
 D_HIDDEN, N_LAYERS = 64, 4
@@ -33,3 +34,5 @@ def _fwd_flops(n, e, d_feat):
 
 
 GNN = GNNArch("egnn", _init, _node_logits, _graph_energy, _fwd_flops)
+ARCH = register(ArchDef(arch_id=GNN.arch_id, family="gnn", cells=gnn_cells(GNN),
+                        smoke=lambda device="cuda": gnn_smoke(GNN, device=device), config=GNN))

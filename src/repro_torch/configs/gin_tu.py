@@ -2,7 +2,8 @@
 learnable ε (counterpart of `repro.configs.gin_tu`).  Sum aggregation is
 A × H, so this arch also runs the paper's tiled SpMM (`GIN(...,
 backend="tiled")`); its cells train on the segment backend."""
-from repro_torch.configs.gnn_cells import GNNArch, call, per_graph_sum
+from repro_torch.configs.common import ArchDef, register
+from repro_torch.configs.gnn_cells import GNNArch, call, gnn_cells, gnn_smoke, per_graph_sum
 from repro_torch.models.gnn.gin import GIN
 
 D_HIDDEN, N_LAYERS = 64, 5
@@ -32,3 +33,5 @@ def _fwd_flops(n, e, d_feat):
 
 
 GNN = GNNArch("gin-tu", _init, _node_logits, _graph_energy, _fwd_flops)
+ARCH = register(ArchDef(arch_id=GNN.arch_id, family="gnn", cells=gnn_cells(GNN),
+                        smoke=lambda device="cuda": gnn_smoke(GNN, device=device), config=GNN))

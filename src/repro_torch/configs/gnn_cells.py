@@ -30,9 +30,17 @@ replicated parameters are summed over the ranks and AdamW runs on the
 state `place_gnn_state` places (`P()` everywhere, as the reference's
 cell).  `products_inputs` / `products_part` build the shape's stand-in.
 
-Left out, as `configs.deepfm` leaves them out: the `Cell` machinery and
-`_pad512` (dry-run shapes padded to shard over 512 chips); the steps take
-the true sizes.
+The dry run's cells (`gnn_cells`, `configs.common.Cell`) build these
+steps on fake inputs of the reference cells' shapes (`_pad512`: padded
+to shard over 512 ranks): full_graph_sm and ogb_products through
+`full_graph_step(split=)` over the flat mesh, rank 0's vertex block and
+its `_pad512(2E) / R` half-edges; minibatch_lg and molecule through
+`minibatch_step(mesh=)` and `molecule_step(mesh=)` on this rank's block of
+the seeds or molecules (the batch split over the batch axes, as the
+reference's `P(d)`), the state placed by `place_gnn_state`, the gradients
+summed over the batch axes before AdamW.  Where the reference splits
+minibatch_lg's tables over the flat mesh, the port replicates them: they
+fit one card.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch.func import functional_call
 
+from repro_torch.configs.common import Cell
 from repro_torch.device import DeviceLike
 from repro_torch.graphs.sampler import sample_neighbors
 from repro_torch.train.optimizer import AdamWState, OptConfig, adamw_update
@@ -56,6 +65,12 @@ GNN_SHAPES = {
     "molecule": dict(n_nodes=30, n_edges=64, batch=128, d_feat=16),
 }
 TRAIN_OPT = OptConfig(total_steps=1000)     # every GNN cell's
+
+
+def _pad512(n: int) -> int:
+    """The reference's dry-run shapes shard over up to 512 ranks: arrays
+    zero-padded to a multiple of 512."""
+    return -(-n // 512) * 512
 
 Params = Dict[str, torch.Tensor]
 
@@ -111,10 +126,26 @@ def loss_and_grads(loss_fn: Callable[[Params], torch.Tensor], params: Params
                            for (k, p), g in zip(leaves.items(), grads)}
 
 
-def _step(loss_fn, params: Params, opt: AdamWState, opt_cfg: OptConfig):
-    loss, grads = loss_and_grads(loss_fn, params)
-    params, opt, _ = adamw_update(opt_cfg, grads, opt, params)
-    return params, opt, loss
+def _step(loss_fn, params: Params, opt: AdamWState, opt_cfg: OptConfig, mesh=None):
+    """One AdamW step on loss_fn's gradients.  With `mesh`, data parallel:
+    `params` and `opt` placed by `place_gnn_state`, loss_fn this rank's
+    block of the batch (equal blocks over the batch ranks); its mean's
+    gradients summed over the batch axes (`partial_grads`), then
+    `adamw_update_placed`; the loss returned is the global batch's."""
+    if mesh is None:
+        loss, grads = loss_and_grads(loss_fn, params)
+        params, opt, _ = adamw_update(opt_cfg, grads, opt, params)
+        return params, opt, loss
+    from repro_torch.dist.collectives import data_group
+    from repro_torch.dist.sharding import data_axes, local
+    from repro_torch.train.optimizer import adamw_update_placed, partial_grads
+
+    dp, _ = data_group(mesh, "a GNN train step")
+    loss, grads = loss_and_grads(lambda p: loss_fn(p) / dp.size,
+                                 {k: local(v) for k, v in params.items()})
+    grads = partial_grads(grads, params, mesh, set(data_axes(mesh)))
+    params, opt, _ = adamw_update_placed(opt_cfg, grads, opt, params)
+    return params, opt, dp.all_reduce(loss)
 
 
 # --------------------------------------------------------------------------
@@ -255,12 +286,13 @@ def minibatch_loss(a: GNNArch, model, params: Optional[Params], tree, feats_tab,
 
 def minibatch_step(a: GNNArch, model, params: Params, opt: AdamWState, draws, indptr, indices,
                    feats_tab, coords_tab, labels_tab, seeds, *,
-                   opt_cfg: OptConfig = TRAIN_OPT):
+                   opt_cfg: OptConfig = TRAIN_OPT, mesh=None):
     """minibatch_lg: sample the tree from `draws` (`graphs.sampler.draws`
-    at the shape's fanout; the reference takes a PRNG key) and take one step on it."""
+    at the shape's fanout; the reference takes a PRNG key) and take one step on it.
+    With `mesh`, `seeds` and `draws` are this rank's block (`_step`)."""
     tree = minibatch_tree(indptr, indices, seeds, draws)
     return _step(lambda p: minibatch_loss(a, model, p, tree, feats_tab, coords_tab,
-                                          labels_tab, seeds), params, opt, opt_cfg)
+                                          labels_tab, seeds), params, opt, opt_cfg, mesh)
 
 
 # --------------------------------------------------------------------------
@@ -286,10 +318,11 @@ def molecule_loss(a: GNNArch, model, params: Optional[Params], feats, coords, se
 
 
 def molecule_step(a: GNNArch, model, params: Params, opt: AdamWState, feats, coords, senders,
-                  receivers, mask, energy, *, opt_cfg: OptConfig = TRAIN_OPT):
-    """molecule: returns (params, opt, loss)."""
+                  receivers, mask, energy, *, opt_cfg: OptConfig = TRAIN_OPT, mesh=None):
+    """molecule: returns (params, opt, loss).  With `mesh`, the molecules
+    are this rank's block (`_step`)."""
     return _step(lambda p: molecule_loss(a, model, p, feats, coords, senders, receivers,
-                                         mask, energy), params, opt, opt_cfg)
+                                         mask, energy), params, opt, opt_cfg, mesh)
 
 
 def gnn_smoke(a: GNNArch, device: DeviceLike = "cuda") -> None:
@@ -321,3 +354,144 @@ def gnn_smoke(a: GNNArch, device: DeviceLike = "cuda") -> None:
         e = a.graph_energy(model, None, feats, coords, s, r, mask, 1)
     if not bool(torch.isfinite(e).all()):
         raise AssertionError(f"{a.arch_id} smoke energy {e.tolist()} not finite")
+
+
+# --------------------------------------------------------------------------
+# the dry run's cells
+# --------------------------------------------------------------------------
+
+def _fake_model(a: GNNArch, d_in: int, n_out: int, device):
+    """The arch's module with fake parameters on `device`
+    (`configs.common.fake_module`) and those as `train_params` gives them."""
+    from repro_torch.configs.common import fake_module
+
+    model = fake_module(lambda: a.init(d_in, n_out, seed=0, device="cpu"), device)
+    return model, train_params(model)
+
+
+def _batch_block(mesh, n: int) -> int:
+    """This rank's share of n examples split over the batch axes."""
+    from repro_torch.dist.sharding import _axis_size, data_axes
+
+    return -(-n // _axis_size(mesh, data_axes(mesh)))
+
+
+def _full_graph_cell(a: GNNArch, shape_name: str) -> Cell:
+    s = GNN_SHAPES[shape_name]
+    N, E, DF, NO = s["n_nodes"], s["n_edges"], s["d_feat"], s["n_out"]
+    E2 = 2 * E  # both directions
+
+    def build(mesh, variant: str = "memory"):
+        from repro_torch.dist.collectives import DataGroup
+        from repro_torch.dist.graph import GraphSplit, _flat_group
+        from repro_torch.dist.sharding import P, mesh_device
+
+        dev = mesh_device(mesh)
+        group = DataGroup(_flat_group(mesh))
+        block = -(-N // group.size)
+        n_edges = _pad512(E2) // group.size
+        split = GraphSplit(mesh, group, N, 0, block, block,
+                           torch.empty((n_edges,), dtype=torch.int64, device=dev),
+                           torch.empty((n_edges,), dtype=torch.int64, device=dev),
+                           torch.empty((n_edges,), dtype=torch.bool, device=dev))
+        model, whole = _fake_model(a, DF, NO, dev)
+        params, opt = place_gnn_state(whole, mesh)
+
+        def step(params, opt, feats, coords, senders, receivers, mask, labels):
+            return full_graph_step(a, model, params, opt, feats, coords, senders, receivers,
+                                   mask, labels, split=split)
+
+        inputs = (params, opt, torch.empty((block, DF), device=dev),
+                  torch.empty((block, 3), device=dev), *split.edges,
+                  torch.empty((block,), dtype=torch.int32, device=dev))
+        flat = tuple(mesh.mesh_dim_names)
+        p_specs = {k: P() for k in whole}
+        specs = (p_specs, AdamWState(step=P(), m=p_specs, v=p_specs), P(flat, None),
+                 P(flat, None), P(flat), P(flat), P(flat), P(flat))
+        return step, inputs, specs
+
+    return Cell(arch=a.arch_id, shape=shape_name, kind="train", build=build,
+                model_flops=3.0 * a.fwd_flops(N, E2, DF))
+
+
+def _minibatch_cell(a: GNNArch) -> Cell:
+    s = GNN_SHAPES["minibatch_lg"]
+    N, E, DF, NO = s["n_nodes"], s["n_edges"], s["d_feat"], s["n_out"]
+    B, fanout = s["batch_nodes"], s["fanout"]
+    # sampled tree size: B + B·f1 + B·f1·f2 nodes, B·f1 + B·f1·f2 edges
+    n_tree = B * (1 + fanout[0] + fanout[0] * fanout[1])
+    e_tree = B * (fanout[0] + fanout[0] * fanout[1])
+
+    def build(mesh, variant: str = "memory"):
+        from repro_torch.dist.sharding import P, data_axes, mesh_device
+
+        dev = mesh_device(mesh)
+        b = _batch_block(mesh, B)
+        model, whole = _fake_model(a, DF, NO, dev)
+        params, opt = place_gnn_state(whole, mesh)
+        NP, EP = _pad512(N + 1), _pad512(E)
+        f1, f2 = fanout
+
+        def step(params, opt, u1, u2, indptr, indices, feats_tab, coords_tab, labels_tab,
+                 seeds):
+            return minibatch_step(a, model, params, opt, (u1, u2), indptr, indices, feats_tab,
+                                  coords_tab, labels_tab, seeds, mesh=mesh)
+
+        def i32(*shape):
+            return torch.empty(shape, dtype=torch.int32, device=dev)
+
+        inputs = (params, opt, i32(b, f1), i32(b, f1, f2), i32(NP), i32(EP),
+                  torch.empty((NP, DF), device=dev), torch.empty((NP, 3), device=dev), i32(NP),
+                  i32(b))
+        d = data_axes(mesh)
+        p_specs = {k: P() for k in whole}
+        specs = (p_specs, AdamWState(step=P(), m=p_specs, v=p_specs), P(d, None, None),
+                 P(d, None, None, None), P(), P(), P(), P(), P(), P(d))
+        return step, inputs, specs
+
+    return Cell(arch=a.arch_id, shape="minibatch_lg", kind="train", build=build,
+                model_flops=3.0 * a.fwd_flops(n_tree, e_tree, DF),
+                note="fixed-fanout 15×10 neighbour sampling on device; the port replicates "
+                     "the tables (they fit one card), where the reference splits them over "
+                     "the flat mesh")
+
+
+def _molecule_cell(a: GNNArch) -> Cell:
+    s = GNN_SHAPES["molecule"]
+    N, E, B, DF = s["n_nodes"], s["n_edges"], s["batch"], s["d_feat"]
+
+    def build(mesh, variant: str = "memory"):
+        from repro_torch.dist.sharding import P, data_axes, mesh_device
+
+        dev = mesh_device(mesh)
+        b = _batch_block(mesh, B)
+        model, whole = _fake_model(a, DF, 1, dev)
+        params, opt = place_gnn_state(whole, mesh)
+
+        def step(params, opt, feats, coords, senders, receivers, mask, energy):
+            return molecule_step(a, model, params, opt, feats, coords, senders, receivers,
+                                 mask, energy, mesh=mesh)
+
+        inputs = (params, opt, torch.empty((b, N, DF), device=dev),
+                  torch.empty((b, N, 3), device=dev),
+                  torch.empty((b, E), dtype=torch.int32, device=dev),
+                  torch.empty((b, E), dtype=torch.int32, device=dev),
+                  torch.empty((b, E), dtype=torch.bool, device=dev),
+                  torch.empty((b,), device=dev))
+        d = data_axes(mesh)
+        p_specs = {k: P() for k in whole}
+        specs = (p_specs, AdamWState(step=P(), m=p_specs, v=p_specs), P(d, None, None),
+                 P(d, None, None), P(d, None), P(d, None), P(d, None), P(d))
+        return step, inputs, specs
+
+    return Cell(arch=a.arch_id, shape="molecule", kind="train", build=build,
+                model_flops=3.0 * B * a.fwd_flops(N, E, DF))
+
+
+def gnn_cells(a: GNNArch) -> Dict[str, Cell]:
+    return {
+        "full_graph_sm": _full_graph_cell(a, "full_graph_sm"),
+        "minibatch_lg": _minibatch_cell(a),
+        "ogb_products": _full_graph_cell(a, "ogb_products"),
+        "molecule": _molecule_cell(a),
+    }

@@ -2,7 +2,8 @@
 order 3, n_rbf=8, E(3)-ACE product basis (counterpart of
 `repro.configs.mace`).  A classification cell (n_out != 1) widens the
 readout to C -> 16 -> n_out, where the reference draws a new readout."""
-from repro_torch.configs.gnn_cells import GNNArch, call, per_graph_sum
+from repro_torch.configs.common import ArchDef, register
+from repro_torch.configs.gnn_cells import GNNArch, call, gnn_cells, gnn_smoke, per_graph_sum
 from repro_torch.models.gnn.mace import MACE, coupling_tensors
 
 CHANNELS, N_LAYERS, N_RBF = 128, 2, 8
@@ -38,3 +39,5 @@ def _fwd_flops(n, e, d_feat):
 
 
 GNN = GNNArch("mace", _init, _node_logits, _graph_energy, _fwd_flops)
+ARCH = register(ArchDef(arch_id=GNN.arch_id, family="gnn", cells=gnn_cells(GNN),
+                        smoke=lambda device="cuda": gnn_smoke(GNN, device=device), config=GNN))

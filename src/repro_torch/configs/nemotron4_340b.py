@@ -3,6 +3,7 @@ d_ff=73728 vocab=256000, squared-ReLU, no gating (counterpart of
 `repro.configs.nemotron4_340b`)."""
 import torch
 
+from repro_torch.configs.common import ArchDef, lm_cells, register
 from repro_torch.configs.lm_cells import lm_smoke
 from repro_torch.device import DeviceLike
 from repro_torch.models.lm_config import LMConfig
@@ -27,3 +28,7 @@ SMOKE = LMConfig(
 def smoke(device: DeviceLike = "cuda") -> None:
     """One train step, a prefill and a decode step of `SMOKE` (`lm_smoke`)."""
     lm_smoke(SMOKE, device=device)
+
+
+ARCH = register(ArchDef(arch_id=ARCH_ID, family="lm", cells=lm_cells(ARCH_ID, CONFIG),
+                        smoke=smoke, config=CONFIG))

@@ -1,7 +1,8 @@
 """pna [arXiv:2004.05718]: 4 layers, d_hidden=75, aggregators
 mean/max/min/std, scalers identity/amplification/attenuation (counterpart
 of `repro.configs.pna`)."""
-from repro_torch.configs.gnn_cells import GNNArch, call, per_graph_sum
+from repro_torch.configs.common import ArchDef, register
+from repro_torch.configs.gnn_cells import GNNArch, call, gnn_cells, gnn_smoke, per_graph_sum
 from repro_torch.models.gnn.pna import PNA
 
 D_HIDDEN, N_LAYERS = 75, 4
@@ -36,3 +37,5 @@ def _fwd_flops(n, e, d_feat):
 
 
 GNN = GNNArch("pna", _init, _node_logits, _graph_energy, _fwd_flops)
+ARCH = register(ArchDef(arch_id=GNN.arch_id, family="gnn", cells=gnn_cells(GNN),
+                        smoke=lambda device="cuda": gnn_smoke(GNN, device=device), config=GNN))

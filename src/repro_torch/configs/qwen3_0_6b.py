@@ -3,6 +3,7 @@ d_ff=3072 vocab=151936, qk-norm, head_dim=128, SwiGLU (counterpart of
 `repro.configs.qwen3_0_6b`)."""
 import torch
 
+from repro_torch.configs.common import ArchDef, lm_cells, register
 from repro_torch.configs.lm_cells import lm_smoke
 from repro_torch.device import DeviceLike
 from repro_torch.models.lm_config import LMConfig
@@ -27,3 +28,7 @@ SMOKE = LMConfig(
 def smoke(device: DeviceLike = "cuda") -> None:
     """One train step, a prefill and a decode step of `SMOKE` (`lm_smoke`)."""
     lm_smoke(SMOKE, device=device)
+
+
+ARCH = register(ArchDef(arch_id=ARCH_ID, family="lm", cells=lm_cells(ARCH_ID, CONFIG),
+                        smoke=smoke, config=CONFIG))

@@ -22,7 +22,8 @@ CPU tensors a gloo group; nothing is staged through the host.
 
 The loop is a Python loop with one host read a round
 (`alive.any()` of the gathered, identical alive set), so every rank runs
-the same rounds.
+the same rounds; the round itself (`mis_round`) reads nothing back, and
+the dry run's tcmis cells (`configs.tcmis`) count one of it.
 """
 from __future__ import annotations
 
@@ -218,6 +219,44 @@ def _local_nbr_max(slab: BlockTiledGraph, p_global: torch.Tensor,
     return neighbor_max_tiled(slab, p_global, mask_global, backend="ref")
 
 
+def mis_round(slab: BlockTiledGraph, gather, select: torch.Tensor, resolve: torch.Tensor,
+              alive_g: torch.Tensor, in_mis_l: torch.Tensor, rhs: torch.Tensor, *,
+              off: int, two_pass: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One round of the sharded MIS on this rank's slab (counterpart of the
+    body of the reference's `make_mis_step_fn`): (alive_g, in_mis_l) after
+    the round.
+
+    `select` / `resolve` are the (n_padded,) global keys, padded with
+    `_NEG`; `alive_g` the (n_padded,) gathered alive set, `in_mis_l` this
+    rank's (n_local,) members, where n_local = the slab's rows · T and
+    this rank's rows start at `off`; `rhs` an (n_padded, L) f32 buffer
+    the round writes its lanes into; `gather` maps an (n_local,) bool to
+    the (n_padded,) concatenation over the ranks (`gather_bool`).  No host
+    read: the caller decides whether another round runs."""
+    from repro_torch.hopper.tc_spmv import tc_spmv
+
+    T = slab.tile_size
+    n_local = slab.n_block_rows * T
+    alive_l = alive_g[off:off + n_local]
+    select_l = select[off:off + n_local]
+    # ① the local max against the global select keys
+    max_np = _local_nbr_max(slab, select, alive_g)
+    if two_pass:
+        pend_l = alive_l & (select_l >= max_np)
+        max_res = _local_nbr_max(slab, resolve, gather(pend_l))
+        cand_l = pend_l & (resolve[off:off + n_local] > max_res)
+    else:
+        cand_l = alive_l & (select_l > max_np)
+    # ② the slab against the gathered candidates; every rank sees the
+    # same gathered set, so the column skip is exact on every slab
+    cand_g = gather(cand_l)
+    rhs[:, 0] = cand_g
+    rhs[:, 1] = alive_g
+    n_c = tc_spmv(slab, rhs, col_flags=block_col_flags(cand_g, T))[:, 0]
+    # ③ the own-state update, then the new alive set
+    return gather(alive_l & ~cand_l & ~(n_c > 0)), in_mis_l | cand_l
+
+
 def build_distributed_mis(sharded: ShardedTiledGraph, group=None,
                           cfg: DistConfig = DistConfig()):
     """This rank's sharded MIS over `group` (None: the default group, which
@@ -227,9 +266,7 @@ def build_distributed_mis(sharded: ShardedTiledGraph, group=None,
 
     `pri` holds (n_nodes,) or (n_padded,) keys on the slab's device, the
     same on every rank; `two_pass` defaults to `pri.resolve is not None`.
-    Every rank must call `run` together."""
-    from repro_torch.hopper.tc_spmv import tc_spmv
-
+    Every rank must call `run` together.  Each round is `mis_round`."""
     rank = dist.get_rank(group)
     size = dist.get_world_size(group)
     if size != sharded.n_shards:
@@ -252,32 +289,14 @@ def build_distributed_mis(sharded: ShardedTiledGraph, group=None,
         select = pad(pri.select)
         resolve = pad(pri.resolve if pri.resolve is not None
                       else torch.full_like(pri.select, _NEG))
-        select_l, resolve_l = select[off:off + n_local], resolve[off:off + n_local]
-
         alive_g = gather(torch.arange(n_local, dtype=torch.int32, device=dev) + off
                          < sharded.n_nodes)
         in_mis_l = torch.zeros(n_local, dtype=torch.bool, device=dev)
         rhs = torch.zeros((n_padded, cfg.lanes), dtype=torch.float32, device=dev)
         rounds = 0
         while rounds < cfg.max_rounds and bool(alive_g.any()):  # repro-lint: disable=RPT010 the one sanctioned sync a round: every rank reads the gathered alive set's any()
-            alive_l = alive_g[off:off + n_local]
-            # ① the local max against the global select keys
-            max_np = _local_nbr_max(slab, select, alive_g)
-            if two:
-                pend_l = alive_l & (select_l >= max_np)
-                max_res = _local_nbr_max(slab, resolve, gather(pend_l))
-                cand_l = pend_l & (resolve_l > max_res)
-            else:
-                cand_l = alive_l & (select_l > max_np)
-            # ② the slab against the gathered candidates; every rank sees the
-            # same gathered set, so the column skip is exact on every slab
-            cand_g = gather(cand_l)
-            rhs[:, 0] = cand_g
-            rhs[:, 1] = alive_g
-            n_c = tc_spmv(slab, rhs, col_flags=block_col_flags(cand_g, T))[:, 0]
-            # ③ the own-state update, then the new alive set
-            in_mis_l = in_mis_l | cand_l
-            alive_g = gather(alive_l & ~cand_l & ~(n_c > 0))
+            alive_g, in_mis_l = mis_round(slab, gather, select, resolve, alive_g, in_mis_l,
+                                          rhs, off=off, two_pass=two)
             rounds += 1
         return DistMISResult(in_mis=gather(in_mis_l), rounds=rounds)
 

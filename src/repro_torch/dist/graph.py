@@ -71,7 +71,10 @@ def _flat_group(mesh):
     """The group of every rank of `mesh` in its flat (row-major) order: the
     default group when the mesh holds ranks 0 .. world - 1 in order, else
     the group of a one-dimensional mesh."""
-    flat = mesh.mesh.flatten().tolist()
+    from repro_torch.hopper.launch import outside_fake_mode
+
+    with outside_fake_mode():           # the rank table is real, in the dry run too
+        flat = mesh.mesh.flatten().tolist()
     if flat == list(range(dist.get_world_size())):
         return None
     if mesh.ndim == 1:

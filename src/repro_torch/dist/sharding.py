@@ -302,14 +302,18 @@ _BACKEND_FOR = {"cuda": "nccl", "cpu": "gloo"}
 
 def mesh_device(mesh) -> torch.device:
     """This rank's device on `mesh`.  Raises unless the default group's
-    backend takes its tensors: a CUDA mesh needs NCCL, a CPU one gloo."""
+    backend takes its tensors: a CUDA mesh needs NCCL, a CPU one gloo; the
+    dry run's "fake" group takes either (its CUDA device is "cuda:0")."""
     import torch.distributed as dist
 
+    backend = str(dist.get_backend())
+    if backend == "fake":       # the dry run's group: fake tensors, no card needed
+        return torch.device(mesh.device_type, 0) if mesh.device_type == "cuda" \
+            else torch.device(mesh.device_type)
     if mesh.device_type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
     else:
         dev = torch.device(mesh.device_type)
-    backend = str(dist.get_backend())
     if _BACKEND_FOR[dev.type] not in backend:
         raise ValueError(f"the process group's backend {backend!r} cannot take tensors on "
                          f"{dev}: it needs {_BACKEND_FOR[dev.type]!r}")
@@ -339,12 +343,15 @@ class Sharding:
 
     def place(self, full: torch.Tensor, device=None):
         """The DTensor of `full` under this sharding, its block on `device`
-        (the mesh's by default).  A replicated leaf already there is not
-        copied."""
+        (the mesh's by default), in storage of its own, so the rank holds
+        only its block once the caller drops `full`.  A leaf already there
+        whose block is the whole is not copied."""
         from torch.distributed.tensor import DTensor
 
         dev = mesh_device(self.mesh) if device is None else device
         local = self.block(full).to(dev).contiguous()
+        if local.untyped_storage().nbytes() != local.numel() * local.element_size():
+            local = local.clone()       # a block of the whole: its own storage
         return DTensor.from_local(local, self.mesh, self.placements, run_check=False,
                                   shape=full.shape, stride=_strides(full.shape))
 

@@ -17,7 +17,9 @@ launches its kernel on the current stream, or raises; on CPU tensors it
 runs its plain-torch version below (what the CPU tests use and
 `chip_smoke.py` holds each kernel against).  `embedding_bag.launches` and
 `embedding_bag_backward.launches` count the launches, `sort_slots.calls`
-the sorts.
+the sorts.  On fake tensors (the dry run's) each of the three has a fake
+branch: empty outputs of its kernel's shapes, the launch reported
+(`hopper.launch.report`), nothing launched or counted, no plain version.
 
 Where a gradient of the table is wanted, `embedding_bag` (and
 `embedding_bag_plain`, with both plain versions) runs as a
@@ -37,7 +39,16 @@ from typing import Optional
 
 import torch
 
-from repro_torch.hopper.launch import check, entry, on_cpu, ptr, raise_on_error, stream
+from repro_torch.hopper.launch import (
+    check,
+    entry,
+    fake,
+    on_cpu,
+    ptr,
+    raise_on_error,
+    report,
+    stream,
+)
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 TABLE_DTYPES = (torch.float32, torch.bfloat16)
@@ -80,9 +91,26 @@ def _launch(table: torch.Tensor, indices: torch.Tensor,
     return out
 
 
+def _fake_forward(table: torch.Tensor, indices: torch.Tensor,
+                  weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """The bag's fake branch: an empty (B, D) f32 output; reported by the
+    bound's arithmetic (`chip_smoke.py` `bound_bag`) with every gathered
+    row distinct, at most V (a fake tensor holds no indices): those rows,
+    the indices and weights read once, the output written once; an add
+    (and a multiply) per gathered element."""
+    (V, D), (B, K) = table.shape, indices.shape
+    nbytes = (min(B * K, V) * D * table.element_size() + indices.numel() * 4
+              + (0 if weights is None else weights.numel() * 4) + B * D * 4)
+    report("embedding_bag", nbytes, B * K * D * (1 if weights is None else 2))
+    return torch.empty((B, D), dtype=torch.float32, device=table.device)
+
+
 def _forward(table: torch.Tensor, indices: torch.Tensor,
              weights: Optional[torch.Tensor]) -> torch.Tensor:
-    """The kernel on CUDA tensors (counted), the plain sum on CPU ones."""
+    """The kernel on CUDA tensors (counted), the plain sum on CPU ones, the
+    fake branch on fake ones."""
+    if fake(table, indices, weights):
+        return _fake_forward(table, indices, weights)
     if on_cpu(table, indices, weights):
         return _bag_sum_plain(table, indices, weights)
     out = _launch(table, indices, weights)
@@ -150,7 +178,17 @@ def sort_slots(indices: torch.Tensor, n_rows: int) -> SortedSlots:
     index in [0, n_rows)).  On CUDA tensors csrc/slot_sort.cu (CUB's radix
     sort on the key bits n_rows needs, 32-bit slots, run-length encoding;
     no host sync), counted in `sort_slots.calls`; on CPU tensors
-    `sort_slots_plain`.  Both give the same arrays up to `n_runs`."""
+    `sort_slots_plain`.  Both give the same arrays up to `n_runs`.  On fake
+    indices: an empty plan, reported as the indices read once and the plan
+    written once (a sort counts no operations here)."""
+    if fake(indices):
+        n, dev = indices.numel(), indices.device
+
+        def i32(size):
+            return torch.empty((size,), dtype=torch.int32, device=dev)
+
+        report("sort_slots", n * 4 + 3 * n * 4 + (n + 1) * 4 + 4, 0.0)
+        return SortedSlots(i32(n), i32(n), i32(n), i32(n + 1), i32(1))
     if on_cpu(indices):
         return sort_slots_plain(indices, n_rows)
     dev = indices.device
@@ -301,7 +339,19 @@ def embedding_bag_backward(grad_out: torch.Tensor, indices: torch.Tensor,
     plain version), so two calls give the same bits, equal to the plain
     version's.  One call launches the kernels of `csrc/embedding_bag.cu`
     (segment sums, run sums, each dense-write CTA's first run, the dense
-    write) and counts one."""
+    write) and counts one.  On fake tensors: an empty gradient, reported by
+    the bound's arithmetic (`chip_smoke.py` `bound_bag_backward`): the
+    dense gradient written once, the indices, weights, grad_out and
+    `extra` read once; an add (a multiply, the gather term's add) per slot
+    and element."""
+    if fake(grad_out, indices, weights, extra):
+        (B, K), D = indices.shape, grad_out.shape[1]
+        nbytes = (n_rows * D * 4 + indices.numel() * 4 + grad_out.numel() * 4
+                  + (0 if weights is None else weights.numel() * 4)
+                  + (0 if extra is None else extra.numel() * 4))
+        report("embedding_bag_backward", nbytes,
+               B * K * D * (1 + (weights is not None) + (extra is not None)))
+        return torch.empty((n_rows, D), dtype=torch.float32, device=grad_out.device)
     if on_cpu(grad_out, indices, weights, extra):
         return embedding_bag_backward_plain(grad_out, indices, weights, n_rows, extra=extra,
                                             slots=slots)

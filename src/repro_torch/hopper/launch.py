@@ -1,10 +1,19 @@
 """What every Hopper kernel wrapper shares: the device rule, argument
-checks, and the ctypes binding of a built library's C entry point.
+checks, the fake branch's test and report, and the ctypes binding of a
+built library's C entry point.
 
 A wrapper runs its plain-torch version only when every tensor it was
 given lies on the CPU; for CUDA tensors it checks what the kernel relies
 on (device, dtype, shape, contiguity), launches on the current stream and
 raises on a nonzero `cudaError_t`.  Nothing falls back.
+
+Given fake tensors (the dry run's, `torch._subclasses.fake_tensor`), a
+wrapper with a fake branch (`fake`) returns empty outputs of its kernel's
+shapes and dtypes and reports the launch's bytes and FLOPs
+(`report`); it neither launches nor runs its plain version.  A wrapper
+without one refuses fake tensors (`on_cpu` raises).  `fake`,
+`fake_mode` and `outside_fake_mode` are the port's one use of that
+private module: the dry run and the code it reaches call these.
 """
 from __future__ import annotations
 
@@ -12,12 +21,40 @@ import ctypes
 from typing import Optional, Sequence
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode, unset_fake_temporarily
 
 TILE_SIZES = (8, 16, 32, 64, 128)
 
 
+def fake(*tensors) -> bool:
+    """True iff a given tensor is a fake tensor: the dry run's."""
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
+def fake_mode() -> FakeTensorMode:
+    """A new mode whose tensors are fake: shapes, dtypes and devices only."""
+    return FakeTensorMode()
+
+
+def outside_fake_mode():
+    """A context in which tensors made are real, inside a fake mode too."""
+    return unset_fake_temporarily()
+
+
+def report(name: str, nbytes: float, flops: float) -> None:
+    """A fake branch's launch, to the dry run's counting mode: the bytes
+    its kernel moves (each input read once, each output written once) and
+    the operations it does, the arithmetic of its bound."""
+    from repro_torch.perf.counting import record_kernel
+
+    record_kernel(name, nbytes, flops)
+
+
 def on_cpu(*tensors) -> bool:
-    """True iff every given tensor lies on the CPU; raises on a mix."""
+    """True iff every given tensor lies on the CPU; raises on a mix, and on
+    fake tensors (a wrapper with a fake branch tests `fake` first)."""
+    if fake(*tensors):
+        raise ValueError("fake tensors reached a kernel wrapper without a fake branch")
     devices = {t.device.type for t in tensors if t is not None}
     if len(devices) != 1:
         raise ValueError(f"tensors on mixed devices: {sorted(devices)}")

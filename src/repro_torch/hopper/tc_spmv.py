@@ -27,6 +27,9 @@ name returns.  On CUDA tensors it launches its kernel on the current
 stream, or raises; on CPU tensors it runs the plain-torch version below,
 which the CPU parity tests use and `chip_smoke.py` holds the kernel
 against.  Each wrapper counts its kernel launches in `<wrapper>.launches`.
+`tc_spmv`, the one the sharded route and the dry run's tcmis cells reach,
+has a fake branch (`hopper.launch.fake`): on fake tensors it returns an
+empty n_c and reports the launch (`_fake_spmv`).
 
 Inputs (T = tile size, W = max(T // 32, 1), L = lanes, nbr/nbc = block
 rows/cols):
@@ -60,9 +63,11 @@ from repro_torch.hopper.launch import (
     check_aligned,
     check_tiling,
     entry,
+    fake,
     on_cpu,
     ptr,
     raise_on_error,
+    report,
     stream,
 )
 
@@ -199,6 +204,23 @@ def _launch_bits(tiled: BlockTiledGraph, tiles_words, cand_words, alive_words, c
     return hit, new_alive, mis_add
 
 
+def _fake_spmv(tiled: BlockTiledGraph, rhs: torch.Tensor, col_flags) -> torch.Tensor:
+    """The split SpMV's fake branch: an empty (nbr·T, L) f32 n_c, and the
+    launch's bytes and FLOPs by its bound's arithmetic (`chip_smoke.py`
+    `bound_spmv`) with every column active, since a fake tensor holds no
+    flags: the real tiles and the RHS slabs of the columns they reach read
+    once, the tile schedule and flags read, n_c written; a multiply-add per
+    cell of every real tile per lane, as the tensor cores do them."""
+    T, nbr, nbc, nt = tiled.tile_size, tiled.n_block_rows, tiled.n_block_cols, tiled.n_tiles
+    L = int(rhs.shape[1])
+    tile_bytes = tiled.tiles[0].numel() * tiled.tiles.element_size()
+    nbytes = (nt * tile_bytes + (tiled.tile_cols.numel() + tiled.row_starts.numel()) * 4
+              + (0 if col_flags is None else col_flags.numel() * 4)
+              + min(nt, nbc) * T * L * rhs.element_size() + nbr * T * L * 4)
+    report("tc_spmv", nbytes, 2.0 * nt * T * T * L)
+    return torch.empty((nbr * T, L), dtype=torch.float32, device=rhs.device)
+
+
 # --------------------------------------------------------------------------
 # the wrappers
 # --------------------------------------------------------------------------
@@ -212,6 +234,8 @@ def tc_spmv(
 ) -> torch.Tensor:
     """Phase ②: N = A × rhs on the block-tiled adjacency, (nbr·T, L) f32."""
     del skip_dma
+    if fake(tiled.tiles, rhs, col_flags):
+        return _fake_spmv(tiled, rhs, col_flags)
     if on_cpu(tiled.tiles, rhs, col_flags):
         return tc_spmv_plain(tiled, rhs, col_flags=col_flags)
     out = _launch(tiled, rhs, col_flags, None)

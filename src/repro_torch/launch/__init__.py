@@ -4,11 +4,14 @@
                  `serve_mis.MISService`
   serve          LM serving: prefill a batch of prompts, then decode with a
                  KV cache, on `small_variant` of an arch's config
-  train          `small_variant` only; the LM training launcher's `main`
-                 waits for the LM's training slice (ROADMAP.md, Queue 1
-                 item 19)
+  train          LM training: `main` steps an arch (`small_variant` or its
+                 full config) through the TrainLoop
+  dryrun         every (arch × shape × mesh) cell of `configs.REGISTRY`
+                 built on fake tensors as rank 0 of a fake 256- or 512-rank
+                 group and run once under `perf.counting.CountingMode`:
+                 memory per device, FLOPs, bytes, collectives, roofline
 
-`dryrun` lowers cells through XLA and waits with the cost model's XLA
-terms (item 17).  `mesh` has no counterpart: a `torch.distributed` group
-is its caller's, given its address, world size and rank.
+`mesh` has no counterpart: a `torch.distributed` group is its caller's,
+given its address, world size and rank (the dry run's production meshes
+live in `dryrun`).
 """

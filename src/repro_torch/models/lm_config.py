@@ -14,8 +14,12 @@ checkpointing (`torch.utils.checkpoint`; "full" keeps only each layer's
 input, "dots" also the 2-D matmul outputs).  Left out: the knobs that
 steer XLA and compute nothing here — `unroll` (scans unrolled for the
 dry-run's cost pass), `dp_axes` (sharding hints), and the MoE's
-`shard_experts` / `buf_pspec` (layouts of the expert buffers over a mesh).
-`fuse_qkv` and `fuse_gate` change the parameter tree, so they stay.
+`shard_experts` (a legacy layout toggle).  `fuse_qkv` and `fuse_gate`
+change the parameter tree, so they stay.  The MoE's `buf_pspec` stays: the
+dry run's cells set it (`configs.common._dryrun_cfg`) as the reference's
+do, and where it is set the data-parallel route holds the buffer the
+reference's placement gives a rank, its capacity split over the batch
+ranks, without reading the routing (`models.moe`).
 """
 from __future__ import annotations
 
@@ -33,6 +37,8 @@ class MoEConfig:
     n_shared: int = 0              # always-on shared experts (DeepSeek)
     capacity_factor: float = 1.25  # tokens/expert buffer = avg·cf (GShard-style)
     router: str = "softmax"        # softmax (Mixtral) | sigmoid (DeepSeek aux-free)
+    buf_pspec: Optional[tuple] = None  # the (E, C, D) dispatch buffers' placement, e.g.
+                                       # ('model', ('data',), None); set: the static bound
 
 
 @dataclasses.dataclass(frozen=True)

@@ -105,10 +105,18 @@ def route_topk(
     return w, topi.to(torch.int32), probs
 
 
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) int64 counts of each id in [0, n): `torch.bincount(ids,
+    minlength=n)`'s values at a shape known without reading the ids."""
+    flat = ids.reshape(-1).long()
+    return torch.zeros((n,), dtype=torch.int64, device=ids.device).index_add_(
+        0, flat, torch.ones_like(flat))
+
+
 def load_balance_loss(probs: torch.Tensor, experts: torch.Tensor, n_experts: int):
     """Switch-style aux loss: E · Σ_e f_e · P_e."""
     N = probs.shape[0]
-    f = torch.bincount(experts.reshape(-1).long(), minlength=n_experts).to(torch.float32)
+    f = _counts(experts, n_experts).to(torch.float32)
     f = f / (N * experts.shape[-1])
     p = probs.mean(dim=0)
     return n_experts * torch.sum(f * p)
@@ -243,6 +251,18 @@ def moe_ffn(
     return out, metrics
 
 
+def _local_capacity(own_kept: torch.Tensor, capacity: int, ranks: int, static: bool) -> int:
+    """Slots of this rank's expert buffer: the most kept assignments any of
+    its experts has, up to a multiple of 8 (one host read).  With `static`
+    (`MoEConfig.buf_pspec` set: the dry run, which reads no data) the
+    bound the reference's buffer has on a device, its capacity split over
+    the batch ranks (`buf_pspec`), up to a multiple of 8; an assignment
+    past it is then dropped."""
+    if static:
+        return max(8, -(-(-(-capacity // ranks)) // 8) * 8)
+    return max(8, -(-int(own_kept.max()) // 8) * 8)   # one host read
+
+
 def _moe_ffn_data_parallel(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str, dp,
                            tp=None) -> Tuple[torch.Tensor, MoEMetrics]:
     N_loc, D = x.shape
@@ -258,26 +278,31 @@ def _moe_ffn_data_parallel(params: dict, x: torch.Tensor, cfg: MoEConfig, act: s
 
     # an expert's assignments rank in token order, so this rank's are a run
     # of its slots starting after the earlier ranks' assignments to it
-    before = torch.bincount(ids[:lo].reshape(-1).long(), minlength=E)
-    own = torch.bincount(e_nk.reshape(-1), minlength=E)
+    before = _counts(ids[:lo], E)
+    own = _counts(e_nk, E)
     own_kept = torch.minimum(torch.clamp_min(C - before, 0), own)
     e_lo, n_e, _ = _expert_tp(params, cfg, tp)
-    C_loc = max(8, -(-int(own_kept[e_lo:e_lo + n_e].max()) // 8) * 8)   # one host read
+    static = cfg.buf_pspec is not None
+    C_loc = _local_capacity(own_kept[e_lo:e_lo + n_e], C, dp.size, static)
     local_slot = slot - before[e_nk]
+    if static:                  # an assignment past the static bound is dropped
+        keep = keep & (local_slot < C_loc)
 
     # ---- this rank's kept assignments, (E, C_loc) slots ----------------------
-    # (the model rank's own experts: the others' may hold more than C_loc)
+    # (the model rank's own experts: the others' may hold more than C_loc);
+    # an assignment not kept writes to a spare column C_loc, cut off after
     e_flat = e_nk.reshape(-1)
     kept = keep.reshape(-1) & (e_flat >= e_lo) & (e_flat < e_lo + n_e)
-    e_kept, s_kept = e_flat[kept], local_slot.reshape(-1)[kept]
-    tok = torch.zeros((E, C_loc), dtype=torch.long, device=x.device)
-    valid = torch.zeros((E, C_loc), dtype=torch.bool, device=x.device)
-    tok[e_kept, s_kept] = torch.arange(N_loc, device=x.device).repeat_interleave(k)[kept]
-    valid[e_kept, s_kept] = True
+    s_flat = torch.where(kept, local_slot.reshape(-1), C_loc)
+    tok = torch.zeros((E, C_loc + 1), dtype=torch.long, device=x.device)
+    valid = torch.zeros((E, C_loc + 1), dtype=torch.bool, device=x.device)
+    tok[e_flat, s_flat] = torch.arange(N_loc, device=x.device).repeat_interleave(k)
+    valid[e_flat, s_flat] = kept
+    tok, valid = tok[:, :C_loc], valid[:, :C_loc]
     routed, routed_tp = _routed(params, x, w, e_nk, keep, local_slot, tok, valid, cfg, act, tp)
     out = _combine(params, x, routed, routed_tp, cfg, act, tp)
 
-    f = torch.bincount(ids.reshape(-1).long(), minlength=E).to(torch.float32) / (N * k)
+    f = _counts(ids, E).to(torch.float32) / (N * k)
     aux = E * torch.sum(f * (probs.sum(dim=0) / N))
     return out, MoEMetrics(aux_loss=aux,
                            drop_frac=1.0 - plan.keep.to(torch.float32).mean())

@@ -240,5 +240,5 @@ def test_moe_ffn_bf16_matches():
 def test_moe_config_fields_are_the_reference_s_but_its_layout_knobs():
     ref = {f.name: f.default for f in dataclasses.fields(RefMoEConfig)}
     port = {f.name: f.default for f in dataclasses.fields(MoEConfig)}
-    assert set(ref) - set(port) == {"shard_experts", "buf_pspec"}
+    assert set(ref) - set(port) == {"shard_experts"}
     assert {k: ref[k] for k in port} == port
