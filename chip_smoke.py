@@ -450,7 +450,20 @@ Phases, each fatal on failure:
              (d) DeepFM's full CONFIG over (data, model): `train_step(mesh=)`
                  at B = 65,536 (2 bag launches, 2 backwards, 1 slot sort,
                  counted from 0 just before it), serve_bulk and
-                 retrieval_cand (2 bag launches each).
+                 retrieval_cand (2 bag launches each);
+             (e) the query-head path: qwen3-0.6b full width cut to 4
+                 layers, its KV heads read as not splitting (`Layouts`), so
+                 each rank computes its query heads and the KV heads they
+                 read off wk / wv gathered whole (a prefill: all, into a
+                 whole cache): a train step at 2 x 4,096, a prefill of 2 x
+                 512 and 4 greedy steps.
+             Each LM line names the layout its step took (`Layouts`: the
+             residual stream sequence-parallel between the layers where
+             S % 8 == 0, as the reference's; the attention's and FFN's
+             split).  A `[bench]` line then writes the phase's step times
+             as a stamped bench document (`obs.bench.write_bench`) under a
+             temporary directory and prints the stamp read on the card:
+             device_name, power_limit, torch_version, cuda_version.
  17. products ogb_products' full-graph step with the graph split (run after
              phase 16), every `[products]` line beside the card's name and
              power limit, on a new one-rank NCCL group and a (1, 1)
@@ -4853,6 +4866,8 @@ TP_LM_BATCH = 4                      # (a): sequences of LM_TRAIN_SEQ tokens
 # sequences of LM_TRAIN_SEQ tokens); its state (51.5 GB) is donated
 TP_DEEPSEEK = (3, 1)
 TP_SERVE = dict(batch=8, prompt=512, cache=32_768, steps=8)   # (c): phase 13's cell, 8 steps
+# (e): (layers, sequences, their tokens, a prompt's tokens, decode steps)
+TP_QUERY_HEADS = (4, 2, LM_TRAIN_SEQ, 512, 4)
 _PRINT_BLOCK = 1 << 26
 
 
@@ -4886,8 +4901,61 @@ def same_leaves(a, b) -> bool:
     return len(la) == len(lb) and all(torch.equal(x, local(y)) for x, y in zip(la, lb))
 
 
-def phase_tp_lm(mesh) -> None:
-    """(a): qwen3-0.6b whole through the tensor-parallel and FSDP step."""
+class Layouts:
+    """The layouts the LM steps took over the 'model' axis while it is
+    entered, as the transformer chose them: the residual stream between
+    the layers (`_seq`), each attention block (`_attn_tp`: heads split,
+    query heads split with the KV heads whole, or whole) and each dense
+    FFN (`_ffn_tp`).  `kv_whole` makes attention read the KV heads as not
+    splitting, so that the query-head path runs on the one-rank group."""
+
+    def __init__(self, kv_whole: bool = False):
+        self.kv_whole, self.seen = kv_whole, set()
+
+    def __enter__(self):
+        import copy
+
+        from repro_torch.models import transformer as tf
+
+        self.tf = tf
+        self.saved = (tf._seq, tf._attn_tp, tf._ffn_tp)
+        seq, attn_tp, ffn_tp = self.saved
+
+        def seq_spy(tp, S):
+            out = seq(tp, S)
+            self.seen.add(f"residual stream {'sequence-parallel' if out else 'whole'} at S = "
+                          f"{S:,}")
+            return out
+
+        def attn_spy(p, cfg, tp, seq=False):
+            if self.kv_whole and tp is not None and cfg.mla is None:
+                real, tp = tp, copy.copy(tp)
+                tp.splits = lambda n: n != cfg.n_kv_heads and real.splits(n)
+            p, blk, reads = attn_tp(p, cfg, tp, seq)
+            self.seen.add("attention " + (
+                "whole" if not blk.split else "heads split" if reads is None else
+                f"query heads split, KV heads {reads[0]}-{reads[0] + reads[1] - 1} read of "
+                f"{cfg.n_kv_heads} whole"))
+            return p, blk, reads
+
+        def ffn_spy(p, cfg, tp, seq=False):
+            p, blk = ffn_tp(p, cfg, tp, seq)
+            self.seen.add(f"FFN {'split' if blk.split else 'whole'}")
+            return p, blk
+
+        tf._seq, tf._attn_tp, tf._ffn_tp = seq_spy, attn_spy, ffn_spy
+        return self
+
+    def __exit__(self, *exc):
+        self.tf._seq, self.tf._attn_tp, self.tf._ffn_tp = self.saved
+
+    def text(self) -> str:
+        return "; ".join(sorted(self.seen))
+
+
+def phase_tp_lm(mesh) -> float:
+    """(a): qwen3-0.6b whole through the tensor-parallel and FSDP step;
+    returns the timed step's ms."""
     import torch
     from repro_torch.configs import LM_ARCHS
     from repro_torch.configs import lm_cells as C
@@ -4907,24 +4975,30 @@ def phase_tp_lm(mesh) -> None:
         batch = lm_batch(cfg, B, S, i)
         (params, opt, loss1, _), plain_ms, plain_peak = timed_step(
             lambda: plain(params, opt, *batch))
-        (pp, po, loss2, _), ms[what], peaks[what] = timed_step(
-            lambda: placed(pp, po, *shard_batch(batch, mesh, batch_spec(mesh, 1))))
+        with Layouts() as layouts:
+            (pp, po, loss2, _), ms[what], peaks[what] = timed_step(
+                lambda: placed(pp, po, *shard_batch(batch, mesh, batch_spec(mesh, 1))))
         check(torch.equal(loss1, loss2) and same_leaves((params, opt.m, opt.v), (pp, po.m, po.v)),
               f"[tp] (a) qwen3-0.6b's {what} step through the 'model' axis and FSDP is "
               f"not bit-equal to the step without a mesh (loss {float(loss2)!r} vs "
               f"{float(loss1)!r})")
     print(f"[tp] (a) make_lm_train_step(mesh=(1, 1), fsdp=True) on qwen3-0.6b whole, {B} x "
           f"{S:,}: tensor-parallel blocks (vocab-parallel embedding and log-sum-exp, "
-          f"column / row projections), every layer's leaves gathered over 'data' as it runs: "
+          f"column / row projections), every layer's leaves gathered over 'data' as it runs; "
+          f"layout: {layouts.text()}: "
           f"loss, every parameter and moment bit-equal to the step without a mesh after the "
           f"warm-up and the timed step; warm-up {ms['warm-up']:.3f} ms, timed step "
           f"{ms['timed']:.3f} ms, peak {peaks['timed']:.3f} GiB (without a mesh {plain_ms:.3f} "
           f"ms, {plain_peak:.3f} GiB); card {card_line()}", flush=True)
+    check(f"residual stream sequence-parallel at S = {S:,}" in layouts.seen,
+          f"[tp] (a) the layers did not run sequence-parallel: {layouts.text()}")
+    return ms["timed"]
 
 
-def phase_tp_deepseek(mesh) -> None:
+def phase_tp_deepseek(mesh) -> float:
     """(b): deepseek-v3's 3 dense layers with MTP (MLA's latent gather,
-    MTP's gathered projection), both ways from the same seed, donated."""
+    MTP's gathered projection), both ways from the same seed, donated;
+    returns the placed step's ms."""
     import torch
     from repro_torch.configs import LM_ARCHS
     from repro_torch.configs import lm_cells as C
@@ -4946,8 +5020,9 @@ def phase_tp_deepseek(mesh) -> None:
     torch.cuda.empty_cache()
     pp, po = C.place_lm_state(lm_init(cfg), mesh)
     placed = C.make_lm_train_step(cfg, OptConfig(**LM_TRAIN_OPT), donate=True, mesh=mesh)
-    (pp, po, loss2, _), ms, peak = timed_step(
-        lambda: placed(pp, po, *shard_batch(batch, mesh, batch_spec(mesh, 1))))
+    with Layouts() as layouts:
+        (pp, po, loss2, _), ms, peak = timed_step(
+            lambda: placed(pp, po, *shard_batch(batch, mesh, batch_spec(mesh, 1))))
     got = fingerprints((pp, po.m, po.v))
     del pp, po
     torch.cuda.empty_cache()
@@ -4956,16 +5031,19 @@ def phase_tp_deepseek(mesh) -> None:
           f"without a mesh: loss {float(loss2)!r} vs {float(loss1)!r}, "
           f"{sum(a != b for a, b in zip(got, want))} of {len(want)} leaves differ")
     print(f"[tp] (b) make_lm_train_step(mesh=(1, 1), donate=True) on deepseek-v3-671b full "
-          f"width, its {layers} dense layers and the MTP block, {B} x {S:,}: loss "
+          f"width, its {layers} dense layers and the MTP block, {B} x {S:,}; layout: "
+          f"{layouts.text()} (the MTP block's stream whole, as the reference's): loss "
           f"{float(loss2):.6f}, every parameter and moment bit-equal to the step without a "
           f"mesh ({len(want)} leaves by exact fingerprint); {ms:.3f} ms, peak {peak:.3f} GiB "
           f"(without a mesh {plain_ms:.3f} ms, {plain_peak:.3f} GiB); card {card_line()}",
           flush=True)
+    return ms
 
 
-def phase_tp_serve(mesh) -> None:
+def phase_tp_serve(mesh) -> tuple:
     """(c): qwen3-0.6b's prefill and decode with the cache under
-    `cache_specs`, against the steps without a mesh."""
+    `cache_specs`, against the steps without a mesh; returns the placed
+    prefill's ms and the decode steps' median."""
     import torch
     from repro_torch.configs import LM_ARCHS
     from repro_torch.configs import lm_cells as C
@@ -4984,11 +5062,13 @@ def phase_tp_serve(mesh) -> None:
     placed = distribute(params, lm_param_specs(params, mesh), mesh)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = C.prefill_step(placed, cfg, shard_batch(prompts, mesh, batch_spec(mesh, 1)),
-                                   max_len=L, mesh=mesh)
-    torch.cuda.synchronize()
-    t_prefill = (time.perf_counter() - t0) * 1e3
-    got, cache, ms = lm_decode(placed, cfg, logits, cache, n, mesh=mesh)
+    with Layouts() as layouts:
+        logits, cache = C.prefill_step(placed, cfg,
+                                       shard_batch(prompts, mesh, batch_spec(mesh, 1)),
+                                       max_len=L, mesh=mesh)
+        torch.cuda.synchronize()
+        t_prefill = (time.perf_counter() - t0) * 1e3
+        got, cache, ms = lm_decode(placed, cfg, logits, cache, n, mesh=mesh)
     got.insert(0, logits)
     check(int(cache.pos) == P + n and cache.nbytes() == LM_CACHE_BYTES,
           "[tp] (c) the placed cache's position or size")
@@ -5000,15 +5080,20 @@ def phase_tp_serve(mesh) -> None:
           "without a mesh")
     print(f"[tp] (c) prefill_step / serve_step(mesh=(1, 1)) on qwen3-0.6b whole, batch {B}: "
           f"{P} tokens into a {L:,}-slot cache placed by cache_specs ({placements[0]}), then "
-          f"{n} greedy steps: prefill {t_prefill:.3f} ms, logits of the prefill and every step "
+          f"{n} greedy steps; layout: {layouts.text()} (decode's one token never splits): "
+          f"prefill {t_prefill:.3f} ms, logits of the prefill and every step "
           f"bit-equal to the steps without a mesh; step median {statistics.median(ms):.3f} ms "
           f"(without a mesh {statistics.median(plain_ms):.3f}; phase 13's cell at 32 steps); "
           f"card {card_line()}", flush=True)
+    check(f"residual stream sequence-parallel at S = {P:,}" in layouts.seen,
+          f"[tp] (c) the prefill did not run sequence-parallel: {layouts.text()}")
+    return t_prefill, statistics.median(ms)
 
 
-def phase_tp_deepfm(mesh) -> dict:
+def phase_tp_deepfm(mesh) -> tuple:
     """(d): DeepFM's full CONFIG train, serve_bulk and retrieval_cand steps
-    with the tables over ('data', 'model') and the tower over 'model'."""
+    with the tables over ('data', 'model') and the tower over 'model';
+    returns (the bag kernels' launches, the warm train step's ms)."""
     import torch
     from repro_torch.configs import deepfm as C
     from repro_torch.data.pipeline import ClickStream, shard_batch
@@ -5068,7 +5153,98 @@ def phase_tp_deepfm(mesh) -> dict:
           f"step without a mesh, {ms:.3f} ms warm; serve_bulk B = {bulk.shape[0]:,} launches "
           f"{bags['serve_bulk']}, retrieval_cand {C.RETRIEVAL_CANDIDATES:,} candidates launches "
           f"{bags['retrieval_cand']}, both bit-equal; card {card_line()}", flush=True)
-    return bags
+    return bags, ms
+
+
+def phase_tp_query_heads(mesh) -> tuple:
+    """(e): the query-head path on the one-rank group: qwen3-0.6b cut to
+    `TP_QUERY_HEADS`'s layers, its KV heads read as not splitting
+    (`Layouts(kv_whole=True)`), so each layer gathers wk / wv whole and
+    computes the KV heads its query heads read (a prefill: all of them,
+    into a whole cache); a train step and a prefill + decode, each held
+    bit-equal to the steps without a mesh.  Returns (train ms, prefill ms)."""
+    import torch
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.configs import lm_cells as C
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.dist import P as Spec
+    from repro_torch.dist import batch_spec, data_axes
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+
+    layers, B, S, prompt, steps = TP_QUERY_HEADS
+    cfg = dataclasses.replace(LM_ARCHS["qwen3-0.6b"].CONFIG, n_layers=layers)
+    params = lm_init(cfg)
+    opt = adamw_init(params)
+    pp, po = C.place_lm_state(params, mesh)
+    batch = lm_batch(cfg, B, S, 0)
+    plain = C.make_lm_train_step(cfg, OptConfig(**LM_TRAIN_OPT))
+    placed = C.make_lm_train_step(cfg, OptConfig(**LM_TRAIN_OPT), mesh=mesh)
+    params, opt, loss1, _ = plain(params, opt, *batch)
+    with Layouts(kv_whole=True) as layouts:
+        (pp, po, loss2, _), ms, _ = timed_step(
+            lambda: placed(pp, po, *shard_batch(batch, mesh, batch_spec(mesh, 1))))
+    check(torch.equal(loss1, loss2) and same_leaves((params, opt.m, opt.v), (pp, po.m, po.v)),
+          "[tp] (e) the train step through the query-head path is not bit-equal to the step "
+          "without a mesh")
+    prompts = lm_prompts(cfg, B, prompt)
+    logits, cache = C.prefill_step(params, cfg, prompts, max_len=prompt + steps)
+    want = [logits]
+    for i in range(steps):
+        logits, cache = C.serve_step(params, cfg, cache, logits.argmax(-1).to(torch.int32))
+        want.append(logits)
+    with Layouts(kv_whole=True) as serve_layouts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = C.prefill_step(pp, cfg, shard_batch(prompts, mesh, batch_spec(mesh, 1)),
+                                       max_len=prompt + steps, mesh=mesh)
+        torch.cuda.synchronize()
+        t_prefill = (time.perf_counter() - t0) * 1e3
+        got = [logits]
+        for i in range(steps):
+            toks = shard_batch(logits.argmax(-1).to(torch.int32), mesh, Spec(data_axes(mesh)))
+            logits, cache = C.serve_step(pp, cfg, cache, toks, mesh=mesh)
+            got.append(logits)
+    check(all(torch.equal(a, b) for a, b in zip(want, got)),
+          "[tp] (e) the prefill or decode logits through the query-head path are not "
+          "bit-equal to the steps without a mesh")
+    heads = f"query heads split, KV heads 0-{cfg.n_kv_heads - 1} read of {cfg.n_kv_heads} whole"
+    check(f"attention {heads}" in layouts.seen and f"attention {heads}" in serve_layouts.seen,
+          f"[tp] (e) the query-head path did not run: {layouts.text()}")
+    print(f"[tp] (e) qwen3-0.6b full width, {layers} layers, its {cfg.n_kv_heads} KV heads read "
+          f"as not splitting over the (1, 1) mesh: train step {B} x {S:,}, layout: "
+          f"{layouts.text()}: loss, every parameter and moment bit-equal to the step without "
+          f"a mesh, {ms:.3f} ms; prefill {B} x {prompt} + {steps} greedy steps, layout: "
+          f"{serve_layouts.text()}: every logit bit-equal, prefill {t_prefill:.3f} ms; card "
+          f"{card_line()}", flush=True)
+    return ms, t_prefill
+
+
+def phase_tp_bench(times: dict) -> None:
+    """Phase 16's step times as a stamped bench document
+    (`repro_torch.obs.bench.write_bench`) under a temporary directory, its
+    history read back; prints the stamp as read on the card."""
+    import tempfile
+
+    import torch
+    from repro_torch.obs import bench
+
+    with tempfile.TemporaryDirectory() as tmp:
+        doc = dict(bench="tp", quick=False, results=[
+            dict(op=op, mesh="(1, 1)", us_per_call=round(ms * 1e3, 3))
+            for op, ms in times.items()])
+        stamped = bench.write_bench(doc, str(pathlib.Path(tmp) / "BENCH_tp.json"),
+                                    history_dir=str(pathlib.Path(tmp) / "hist"))
+        records = bench.load_records(str(pathlib.Path(tmp) / "hist"))
+    check(len(records) == len(times) and stamped["backend"] == "cuda"
+          and stamped["device_name"] != "none" and card_line().startswith(stamped["device_name"])
+          and stamped["cuda_version"] == torch.version.cuda,
+          f"[bench] the stamp or its {len(records)} history records: "
+          f"{ {k: stamped[k] for k in ('backend', 'device_name', 'cuda_version')} }")
+    print(f"[bench] phase 16's {len(records)} step times written as a stamped bench document "
+          f"and read back from its history: device_name {stamped['device_name']!r}, "
+          f"power_limit {stamped['power_limit']!r}, torch_version "
+          f"{stamped['torch_version']!r}, cuda_version {stamped['cuda_version']!r}, backend "
+          f"{stamped['backend']!r}, git_sha {stamped['git_sha']!r}", flush=True)
 
 
 def phase_tp(errs: dict) -> None:
@@ -5081,16 +5257,20 @@ def phase_tp(errs: dict) -> None:
     try:
         check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
               f"[tp] group {dist.get_backend()} of {dist.get_world_size()}")
-        phase_tp_lm(mesh)
+        times = {"qwen3-0.6b train": phase_tp_lm(mesh)}
         torch.cuda.empty_cache()
-        phase_tp_deepseek(mesh)
+        times["deepseek-v3-671b train"] = phase_tp_deepseek(mesh)
         torch.cuda.empty_cache()
-        phase_tp_serve(mesh)
+        times["qwen3-0.6b prefill"], times["qwen3-0.6b decode"] = phase_tp_serve(mesh)
         torch.cuda.empty_cache()
-        launches = phase_tp_deepfm(mesh)
+        launches, times["deepfm train"] = phase_tp_deepfm(mesh)
+        torch.cuda.empty_cache()
+        times["qwen3-0.6b train, query heads"], times["qwen3-0.6b prefill, query heads"] = \
+            phase_tp_query_heads(mesh)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
+    phase_tp_bench(times)
     print(f"[tp] phase 16: {time.perf_counter() - t_phase:.1f} s, the bag kernels' launches "
           f"{launches}; card {card_line()}", flush=True)
 

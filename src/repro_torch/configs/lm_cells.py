@@ -135,10 +135,11 @@ def make_lm_train_step(cfg: LMConfig, opt_cfg: OptConfig, *, donate: bool = Fals
     `shard_batch` placed: each batch rank takes its part of the loss of
     the global batch (`transformer.lm_loss(dp=)`), each model rank its
     blocks of the leaves (`tp=`: heads, hidden units, experts and vocab
-    split over 'model', Megatron's `copy` and `sum` around each parallel
-    block, so a leaf replicated over 'model' gets the same gradient on
-    every model rank), and with `fsdp` each layer's leaves gathered over
-    the batch ranks as it runs (`LayerGather`);
+    split over 'model', the layer carry this rank's block of the
+    sequence where it splits, an all-gather into each parallel block and a
+    reduce-scatter out of it, so a leaf replicated over 'model' gets the
+    same gradient on every model rank), and with `fsdp` each layer's
+    leaves gathered over the batch ranks as it runs (`LayerGather`);
     `adamw_update_placed` reduce-scatters the gradients to the ZeRO-1
     moments and gathers the parameters back; the loss and xent returned
     are the global batch's, on every rank.  Every collective runs on a

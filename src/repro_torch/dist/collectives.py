@@ -21,6 +21,15 @@ takes this rank's slice: a split tensor that replicated code reads
 whole) and `max` (no gradient).  A tensor computed the same way on every
 rank of the group gets the same gradient on every rank, so a leaf
 replicated over 'model' needs no reduction of its gradient over it.
+Sequence parallelism (Megatron's) adds the pair that replaces `copy` and
+`sum` at a layer's blocks: `gather_sum` (an all-gather along a dim whose
+backward reduce-scatters the gradient: each rank's code after it
+computes its part of it) and `scatter_sum` (a reduce-scatter whose
+backward all-gathers); with them `block` (this rank's block of a dim, a
+view) and `part` (the identity, whose backward keeps this rank's block
+of the gradient: a value every rank computes whole entering code where
+gradients are parts).  Every sum over the ranks of a bf16 tensor runs
+in f32 and rounds once, so that on one rank each op is the identity.
 
 `data_group(mesh, what)` gives the (DataGroup, ModelGroup) pair of a mesh
 with one batch axis larger than 1 (or none) and an optional 'model' axis
@@ -59,15 +68,24 @@ def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return torch.cat(blocks.unbind(0), dim=dim)
 
 
-def _reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """This rank's block along `dim` of the sum over the group's ranks of x."""
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a sum over ranks of `dtype` runs in: f32 for bf16 and f16."""
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
+
+
+def _reduce_scatter_dim(x: torch.Tensor, dim: int, group, wide: bool = False) -> torch.Tensor:
+    """This rank's block along `dim` of the sum over the group's ranks of x;
+    with `wide` a bf16 or f16 x is summed in f32 and rounded once."""
     size = dist.get_world_size(group)
     if x.shape[dim] % size:
         raise ValueError(f"{x.shape[dim]} entries of dim {dim} do not split over {size} ranks")
-    rows = x.movedim(dim, 0).contiguous()
+    rows = x.movedim(dim, 0)
+    if wide:
+        rows = rows.to(_wide(x.dtype), memory_format=torch.contiguous_format)
+    rows = rows.contiguous()
     out = rows.new_empty((rows.shape[0] // size,) + tuple(rows.shape[1:]))
     _reduce_scatter(out, rows, group=group)
-    return out.movedim(0, dim).contiguous()
+    return out.movedim(0, dim).to(x.dtype).contiguous()
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -82,24 +100,55 @@ class _ReduceScatter(torch.autograd.Function):
 
 
 class _GatherLeaf(torch.autograd.Function):
-    """FSDP: all-gather along `dim`; backward reduce-scatter along it."""
+    """All-gather along `dim`; backward reduce-scatter along it (`wide`:
+    a bf16 gradient summed in f32)."""
 
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
+    def forward(ctx, x, dim, group, wide=False):
+        ctx.dim, ctx.group, ctx.wide = dim, group, wide
         return _gather_dim(x, dim, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return _reduce_scatter_dim(grad, ctx.dim, ctx.group), None, None
+        return _reduce_scatter_dim(grad, ctx.dim, ctx.group, ctx.wide), None, None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Reduce-scatter along `dim` (a bf16 x summed in f32); backward
+    all-gather along it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter_dim(x, dim, group, wide=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_dim(grad, ctx.dim, ctx.group), None, None
+
+
+class _Part(torch.autograd.Function):
+    """The identity; backward this rank's block of the gradient along
+    `dim`, zeros elsewhere."""
+
+    @staticmethod
+    def forward(ctx, x, dim, rank, size):
+        ctx.dim, ctx.rank, ctx.size = dim, rank, size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = grad.shape[ctx.dim] // ctx.size
+        out = torch.zeros_like(grad)
+        out.narrow(ctx.dim, ctx.rank * n, n).copy_(grad.narrow(ctx.dim, ctx.rank * n, n))
+        return out, None, None, None
 
 
 def _summed(x: torch.Tensor, group) -> torch.Tensor:
     """Σ over the group's ranks of x, as a new tensor; a bf16 or f16 x is
     summed in f32 and rounded once, as one device's matmul rounds its
     f32 sum once, not after each step of the collective's ring."""
-    wide = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
-    out = x.to(wide, copy=True, memory_format=torch.contiguous_format)
+    out = x.to(_wide(x.dtype), copy=True, memory_format=torch.contiguous_format)
     dist.all_reduce(out, group=group)
     return out.to(x.dtype)
 
@@ -202,6 +251,31 @@ class ModelGroup(_Group):
         slice of the gradient (the code after it runs the same on every
         rank)."""
         return _Gather.apply(x, dim, self.group)
+
+    def gather_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's x concatenated along `dim`; backward the sum over
+        the ranks of the gradient, this rank's block of it (a
+        reduce-scatter, bf16 summed in f32): each rank's code after it
+        computes its part of the gradient."""
+        return _GatherLeaf.apply(x, dim, self.group, True)
+
+    def scatter_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block along `dim` of Σ over the ranks of x (a
+        reduce-scatter; a bf16 x summed in f32 and rounded once, so that
+        on one rank it is x); backward all-gathers the gradient."""
+        return _ScatterSum.apply(x, dim, self.group)
+
+    def block(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of x along `dim` (a view; no collective)."""
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * n, n)
+
+    def part(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """x; backward this rank's block of the gradient along `dim`, zeros
+        elsewhere: a value computed whole on every rank, whose gradient
+        each rank computes in full, handed to code where each rank's
+        gradient is its part."""
+        return _Part.apply(x, dim, self.rank, self.size)
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the ranks, as a new tensor (no gradient)."""

@@ -13,8 +13,11 @@ The fields and defaults are the reference's, with `dtype` a torch dtype.
 checkpointing (`torch.utils.checkpoint`; "full" keeps only each layer's
 input, "dots" also the 2-D matmul outputs).  Left out: the knobs that
 steer XLA and compute nothing here — `unroll` (scans unrolled for the
-dry-run's cost pass), `dp_axes` (sharding hints), and the MoE's
-`shard_experts` (a legacy layout toggle).  `fuse_qkv` and `fuse_gate`
+dry-run's cost pass), `dp_axes` (sharding hints: where the reference sets
+it, the port's steps pass their groups, and a step with a 'model' group
+holds the layer carry sequence-parallel as the reference's hint does,
+`models.transformer`), and the MoE's `shard_experts` (a legacy layout
+toggle).  `fuse_qkv` and `fuse_gate`
 change the parameter tree, so they stay.  The MoE's `buf_pspec` stays: the
 dry run's cells set it (`configs.common._dryrun_cfg`) as the reference's
 do, and where it is set the data-parallel route holds the buffer the

@@ -35,6 +35,17 @@ and the combine weights enter that partial work through
 are summed over the ranks, while the load-balance term, computed the same
 on every rank, is counted once.
 
+Sequence parallel (`moe_ffn(tp=, seq=(B, S))`): x is the whole of the
+model ranks' blocks of S, all-gathered with `ModelGroup.gather_sum`, so
+each rank's gradient of x is its part of the gradient.  Nothing enters
+the partial work through `copy` then; the replicated leaves that code
+computed the same on every rank reads (the router, experts or shared
+experts that run whole) do (`_seq_leaves`), the load-balance term reads
+the probabilities through `ModelGroup.part` (each rank's gradient of
+them its block of the tokens), and the output leaves as this rank's
+block of S: partial sums reduce-scattered (`scatter_sum`), an output
+computed whole on every rank cut (`_leave`).
+
 The reference's `with_sharding_constraint` layout hints for the (E, C, D)
 buffers over a mesh compute nothing and have no counterpart here.
 """
@@ -171,16 +182,44 @@ def _expert_tp(params: dict, cfg: MoEConfig, tp):
     return 0, E, None
 
 
+def _seq_leaves(params: dict, cfg: MoEConfig, tp) -> dict:
+    """Under sequence parallelism (`moe_ffn(seq=)`) each rank computes a
+    part of the gradient of every replicated leaf that code computed the
+    same on every rank reads (the router; the experts or the shared
+    experts where they run whole): they enter through `copy`."""
+    p = dict(params)
+    names = ["router"]
+    if _expert_tp(params, cfg, tp)[2] is None:
+        names += ["we1", "we2", "we3"]
+    if "ws1" in p and not tp.splits(cfg.d_expert * cfg.n_shared):
+        names += ["ws1", "ws2", "ws3"]
+    for name in names:
+        if name in p:
+            p[name] = tp.copy(p[name])
+    return p
+
+
+def _leave(y: torch.Tensor, partial: bool, tp, seq) -> torch.Tensor:
+    """The layer's output (N, D): partial sums over `tp` summed, or with
+    `seq` ((B, S) of the N tokens) this rank's block of S of their sum
+    (reduce-scattered) or of an output computed whole on every rank."""
+    if seq is None:
+        return tp.sum(y) if partial else y
+    y = y.reshape(tuple(seq) + y.shape[1:])
+    y = tp.scatter_sum(y, 1) if partial else tp.block(y, 1)
+    return y.reshape((-1,) + y.shape[2:])
+
+
 def _routed(params: dict, x: torch.Tensor, w: torch.Tensor, e_nk: torch.Tensor,
             keep: torch.Tensor, slot: torch.Tensor, tok: torch.Tensor, valid: torch.Tensor,
-            cfg: MoEConfig, act: str, tp) -> Tuple[torch.Tensor, object]:
+            cfg: MoEConfig, act: str, tp, seq=None) -> Tuple[torch.Tensor, object]:
     """The routed experts' combined output for x's tokens: slot c of expert
     e is filled by token tok[e, c] where valid[e, c]; token n's j-th choice
     e_nk[n, j] reads its expert's slot slot[n, j] where keep[n, j], weighed
     by w[n, j].  Returns (output, the tp it is partial over, or None)."""
     N, D = x.shape
     e_lo, n_e, tp = _expert_tp(params, cfg, tp)
-    if tp is not None:          # partial over the ranks: their gradients summed
+    if tp is not None and seq is None:  # partial over the ranks: their gradients summed
         x, w = tp.copy(x), tp.copy(w)
     tok, valid = tok[e_lo:e_lo + n_e], valid[e_lo:e_lo + n_e]
     C = tok.shape[1]
@@ -200,21 +239,20 @@ def _routed(params: dict, x: torch.Tensor, w: torch.Tensor, e_nk: torch.Tensor,
 
 
 def _combine(params: dict, x: torch.Tensor, routed: torch.Tensor, routed_tp, cfg: MoEConfig,
-             act: str, tp) -> torch.Tensor:
+             act: str, tp, seq=None) -> torch.Tensor:
     """The routed output plus the shared experts (DeepSeek: a dense FFN on
     every token; under `tp` column- then row-parallel where their hidden
-    dim splits), the parts computed per rank summed over the ranks."""
+    dim splits), the parts computed per rank summed over the ranks
+    (`_leave`)."""
     if "ws1" not in params:
-        return routed if routed_tp is None else routed_tp.sum(routed)
+        return _leave(routed, routed_tp is not None, tp, seq)
     shared_tp = tp if (tp is not None and tp.splits(cfg.d_expert * cfg.n_shared)) else None
-    shared = _shared_experts(params, x if shared_tp is None else shared_tp.copy(x), act)
-    if routed_tp is None and shared_tp is None:
-        return routed + shared
-    if routed_tp is not None and shared_tp is not None:
-        return tp.sum(routed + shared)
-    if routed_tp is not None:
-        return routed_tp.sum(routed) + shared
-    return routed + shared_tp.sum(shared)
+    xs = x if shared_tp is None or seq is not None else shared_tp.copy(x)
+    shared = _shared_experts(params, xs, act)
+    if (routed_tp is None) == (shared_tp is None):
+        return _leave(routed + shared, routed_tp is not None, tp, seq)
+    return (_leave(routed, routed_tp is not None, tp, seq)
+            + _leave(shared, shared_tp is not None, tp, seq))
 
 
 def moe_ffn(
@@ -225,6 +263,7 @@ def moe_ffn(
     *,
     dp=None,
     tp=None,
+    seq=None,
 ) -> Tuple[torch.Tensor, MoEMetrics]:
     """Top-k routed expert FFN + optional shared experts.  Returns (N, D).
     With `dp`, x is this rank's block of the global batch's tokens (see
@@ -233,19 +272,24 @@ def moe_ffn(
     their blocks) each rank runs its experts (or its block of every
     expert's features) and the outputs are summed over the ranks; the
     routing, the aux loss and the drop fraction are the same on every
-    rank."""
+    rank.  With `seq` ((B, S): x holds B sequences of S tokens, gathered
+    over the model ranks from their blocks of S by `gather_sum`), the
+    output is this rank's block of S, (B·S/m, D), its partial sums
+    reduce-scattered (see the module docstring)."""
+    if tp is not None and seq is not None:
+        params = _seq_leaves(params, cfg, tp)
     if dp is not None:
-        return _moe_ffn_data_parallel(params, x, cfg, act, dp, tp)
+        return _moe_ffn_data_parallel(params, x, cfg, act, dp, tp, seq)
     N, D = x.shape
     E = cfg.n_experts
     C = expert_capacity(N, cfg)
     w, experts, probs = route_topk(x @ params["router"].to(x.dtype), cfg)
     plan = assign_slots(experts, E, C)
     routed, routed_tp = _routed(params, x, w, experts.long(), plan.keep, plan.slot,
-                                plan.tok_for_slot, plan.slot_valid, cfg, act, tp)
-    out = _combine(params, x, routed, routed_tp, cfg, act, tp)
+                                plan.tok_for_slot, plan.slot_valid, cfg, act, tp, seq)
+    out = _combine(params, x, routed, routed_tp, cfg, act, tp, seq)
     metrics = MoEMetrics(
-        aux_loss=load_balance_loss(probs, experts, E),
+        aux_loss=load_balance_loss(_aux_probs(probs, tp, seq), experts, E),
         drop_frac=1.0 - plan.keep.to(torch.float32).mean(),
     )
     return out, metrics
@@ -263,8 +307,16 @@ def _local_capacity(own_kept: torch.Tensor, capacity: int, ranks: int, static: b
     return max(8, -(-int(own_kept.max()) // 8) * 8)   # one host read
 
 
+def _aux_probs(probs: torch.Tensor, tp, seq) -> torch.Tensor:
+    """The router probabilities as the load-balance loss reads them: with
+    `seq` each rank's gradient of them is its part (`ModelGroup.part`: its
+    block of the tokens), as every other gradient that reaches x; the loss
+    itself is computed whole on every rank."""
+    return probs if tp is None or seq is None else tp.part(probs, 0)
+
+
 def _moe_ffn_data_parallel(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str, dp,
-                           tp=None) -> Tuple[torch.Tensor, MoEMetrics]:
+                           tp=None, seq=None) -> Tuple[torch.Tensor, MoEMetrics]:
     N_loc, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     w, experts, probs = route_topk(x @ params["router"].to(x.dtype), cfg)
@@ -299,10 +351,11 @@ def _moe_ffn_data_parallel(params: dict, x: torch.Tensor, cfg: MoEConfig, act: s
     tok[e_flat, s_flat] = torch.arange(N_loc, device=x.device).repeat_interleave(k)
     valid[e_flat, s_flat] = kept
     tok, valid = tok[:, :C_loc], valid[:, :C_loc]
-    routed, routed_tp = _routed(params, x, w, e_nk, keep, local_slot, tok, valid, cfg, act, tp)
-    out = _combine(params, x, routed, routed_tp, cfg, act, tp)
+    routed, routed_tp = _routed(params, x, w, e_nk, keep, local_slot, tok, valid, cfg, act, tp,
+                                seq)
+    out = _combine(params, x, routed, routed_tp, cfg, act, tp, seq)
 
     f = _counts(ids, E).to(torch.float32) / (N * k)
-    aux = E * torch.sum(f * (probs.sum(dim=0) / N))
+    aux = E * torch.sum(f * (_aux_probs(probs, tp, seq).sum(dim=0) / N))
     return out, MoEMetrics(aux_loss=aux,
                            drop_frac=1.0 - plan.keep.to(torch.float32).mean())

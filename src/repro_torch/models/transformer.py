@@ -33,27 +33,44 @@ expert ids (`moe.moe_ffn(dp=)`).  Without `dp` nothing changes.
 Tensor parallel: with `tp` (a `dist.collectives.ModelGroup`, the mesh's
 'model' ranks) `params` are this rank's blocks as
 `dist.sharding.lm_param_specs` places them, and every function computes
-the one-device function, the same on every model rank.  The residual
-stream stays whole on every rank; each parallel block takes it through
-`tp.copy` and leaves through `tp.sum` (Megatron's pair): attention on
-H/m query and Hkv/m KV heads (column-parallel q/k/v and biases,
-row-parallel `wo`), the FFN on d_ff/m hidden units, MoE on E/m experts
-(`moe.moe_ffn(tp=)`), the embedding vocab-parallel (each rank looks up
-its rows, zeros elsewhere, summed) and the head and `chunked_xent`
-vocab-parallel (the log-sum-exp combines the ranks' maxes and sums of
-exponentials; no rank makes more than its block of the logits).  Where
-the reference's layout splits a dim that replicated code reads whole,
-it is gathered: MLA's latent cq before `q_norm`, MTP's projected input
-before its block, a fused projection's output (`wqkv`, `w13`: a rank's
-block does not follow the q / k / v or gate / up boundary), and the
-serving logits.  A replicated leaf used inside a parallel block (the
-qk-norm weights) enters it through `copy`, so its gradient is summed.
-Where a head count or d_ff does not split over the ranks, the block's
-split leaves are gathered whole and it runs whole (`_whole`).  Without
-`tp` the same ops run with no collective, so on a one-rank group the
-function is the same bits.  FSDP (`fsdp=`, `configs.lm_cells.LayerGather`)
-gathers each layer's leaves over the batch ranks inside the layer's
-(checkpointed) call, again at its recompute.
+the one-device function, the same on every model rank.  Each block splits
+as the placement does: attention on H/m query and Hkv/m KV heads
+(column-parallel q/k/v and biases, row-parallel `wo`), or, where the KV
+heads do not split, on H/m query heads and the KV heads they read
+(`_kv_reads`: wk / wv gathered whole, each rank reading other columns, so
+their gradients are summed; a prefill computes every KV head, since the
+cache holds them all, as the reference's `cache_specs` places it); the
+FFN on d_ff/m hidden units, MoE on E/m experts (`moe.moe_ffn(tp=)`), the
+embedding vocab-parallel (each rank looks up its rows, zeros elsewhere,
+summed) and the head and `chunked_xent` vocab-parallel (the log-sum-exp
+combines the ranks' maxes and sums of exponentials; no rank makes more
+than its block of the logits).  Where the reference's layout splits a dim
+that replicated code reads whole, it is gathered: MLA's latent cq before
+`q_norm`, MTP's projected input before its block, a fused projection's
+output (`wqkv`, `w13`: a rank's block does not follow the q / k / v or
+gate / up boundary), and the serving logits.  Where a head count or d_ff
+does not split (or the query heads' grouping does not follow the ranks'
+blocks), the block's split leaves are gathered whole and it runs whole
+(`_whole`).
+
+The residual stream between the layers is sequence-parallel wherever the
+reference's `_make_layer_fn` holds its carry as P(dp, "model", None):
+under `tp`, where S % 8 == 0 and S splits over the ranks (`_seq`;
+Megatron's sequence parallelism).  The carry, which remat keeps, is then
+this rank's block of S, (B, S/m, D).  A layer norms its block (the norm
+weights entering through `copy` in f32: each rank's gradient is its
+part), all-gathers the normed activations along S (`gather_sum`, whose
+backward reduce-scatters), runs the block as above and reduce-scatters
+its partial output along S (`scatter_sum`), where the whole stream took
+`copy` in and `sum` out (`_Block` says which ops each block takes); the
+embedding's vocab-parallel sum is a reduce-scatter, the final norm runs
+on the block, and h is gathered whole before the head.  Decode (S = 1)
+and the MTP block (S - 1 tokens; the reference constrains only the layer
+scan) keep the stream whole.  Without `tp` the same ops run with no
+collective, so on a one-rank group the function is the same bits.  FSDP
+(`fsdp=`, `configs.lm_cells.LayerGather`) gathers each layer's leaves
+over the batch ranks inside the layer's (checkpointed) call, again at its
+recompute.
 
 Dtypes as in the reference: `rms_norm`, RoPE and attention compute in f32
 and cast back to the activations' dtype; the projections run in the
@@ -330,43 +347,165 @@ def _layer_at(stack: Params, name: str, i: int, fsdp=None) -> Params:
 # tensor parallelism: which blocks split over the model ranks
 # --------------------------------------------------------------------------
 
+# the replicated leaves `rms_norm` reads: under sequence parallelism they
+# enter through `copy` in f32, so that each rank's part of their gradient
+# is not rounded to the leaf's dtype before the sum
+_NORMS = ("ln1", "ln2", "q_normh", "k_normh", "q_norm", "kv_norm", "final_norm")
+
+
 def _split(tp, n: int) -> bool:
     """A dim of n entries splits over `tp`'s ranks (`ModelGroup.splits`)."""
     return tp is not None and tp.splits(n)
 
 
-def _whole(p: Params, shapes: Dict[str, Leaf], tp) -> Params:
+def _seq(tp, S: int) -> bool:
+    """Whether a step's layers hold the residual stream sequence-parallel
+    over `tp`: the reference's rule (`_make_layer_fn`: S % 8 == 0 under a
+    mesh), where S splits over the model ranks."""
+    return tp is not None and S % 8 == 0 and tp.splits(S)
+
+
+def _norm(w: torch.Tensor, tp, seq: bool) -> torch.Tensor:
+    """A replicated norm weight read on this rank's block of S (`seq`): its
+    gradient is this rank's part, summed by `copy` in f32."""
+    return tp.copy(w.to(torch.float32)) if seq else w
+
+
+@dataclasses.dataclass(frozen=True)
+class _Block:
+    """Where one block's work (an attention or an FFN) lies on the model
+    ranks `tp` (None: no 'model' group): `split`, its heads or hidden
+    units split over them, each rank computing its part, else it runs
+    whole on every rank; `seq`, the layer is sequence-parallel.
+
+    Without `seq` the block takes the whole residual stream and computes
+    the same on every rank; where it splits, the normed input enters this
+    rank's part through `copy` (`act`) and the partial outputs leave
+    through `sum` (`leave`).  With `seq` its input, this rank's block of S
+    normed, is all-gathered with `gather_sum` (`enter`): each rank's
+    gradient of it is then its part, so nothing inside is copied, a
+    replicated leaf read by code computed the same on every rank enters
+    through `copy` (`leaf`) and the output leaves as this rank's block of
+    S: the partial sums reduce-scattered, a whole block's output cut."""
+    tp: Any = None
+    split: bool = False
+    seq: bool = False
+
+    @property
+    def ranks(self):
+        """The group the block's work splits over, or None."""
+        return self.tp if self.split else None
+
+    def enter(self, h: torch.Tensor) -> torch.Tensor:
+        return self.tp.gather_sum(h, 1) if self.seq else h
+
+    def act(self, x: torch.Tensor) -> torch.Tensor:
+        """x, computed the same on every rank, into this rank's part."""
+        return self.tp.copy(x) if self.split and not self.seq else x
+
+    def leaf(self, w: torch.Tensor, own: bool = False) -> torch.Tensor:
+        """A replicated leaf of a split block, read by this rank's part
+        (`own`) or by code computed the same on every rank; a whole
+        block's leaves were taken by `_whole`."""
+        return self.tp.copy(w) if self.split and (own or self.seq) else w
+
+    def gather(self, y: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of y along `dim` (its columns of a split
+        projection's output) whole, for code computed the same on every
+        rank."""
+        return self.tp.gather_sum(y, dim) if self.seq else self.tp.gather(y, dim)
+
+    def fused(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """h @ w for a fused projection, whole on every rank: each rank's
+        block of the output columns is all-gathered; the ranks then take
+        pieces that do not follow the blocks, so the gradient is summed
+        over them and each takes its block of the sum (`gather_sum`)."""
+        return self.tp.gather_sum(self.act(h) @ w, -1) if self.split else h @ w
+
+    def norm(self, w: torch.Tensor) -> torch.Tensor:
+        """A replicated norm weight of a split block read by code computed
+        the same on every rank (`leaf`, in f32 as `_norm`)."""
+        return self.leaf(w.to(torch.float32)) if self.split and self.seq else w
+
+    def leave(self, y: torch.Tensor) -> torch.Tensor:
+        """The block's output (B, S, D): partial sums where it splits."""
+        if self.split:
+            return self.tp.scatter_sum(y, 1) if self.seq else self.tp.sum(y)
+        return self.tp.block(y, 1) if self.seq else y
+
+
+def _whole(p: Params, shapes: Dict[str, Leaf], tp, seq: bool) -> Params:
     """The leaves of a block that `tp`'s placement rule split, gathered
     whole (`dist.sharding._TP_FROM_END`): for a block whose heads or
     hidden units do not divide over the ranks, which then runs whole, the
-    same on every rank.  The only whole gathers of model-split leaves."""
+    same on every rank.  With `seq` each rank computes a part of every
+    leaf's gradient: the split leaves are gathered with `gather_sum` and
+    the replicated ones (but the layer norms, read outside the block)
+    enter through `copy`."""
     from repro_torch.dist.sharding import _TP_FROM_END
 
     out = dict(p)
     for name, (shape, _, _) in shapes.items():
+        if name not in p or name in ("ln1", "ln2"):
+            continue
         dim = _TP_FROM_END.get(name)
-        if dim is not None and name in p and tp.splits(shape[len(shape) - dim]):
-            out[name] = tp.gather(p[name], p[name].ndim - dim)
+        if dim is not None and tp.splits(shape[len(shape) - dim]):
+            gather = tp.gather_sum if seq else tp.gather
+            out[name] = gather(p[name], p[name].ndim - dim)
+        elif seq:
+            out[name] = tp.copy(p[name].to(torch.float32) if name in _NORMS else p[name])
     return out
 
 
-def _attn_tp(p: Params, cfg: LMConfig, tp):
-    """(leaves, tp) of one attention block: `tp` where every head count
-    splits over its ranks (each rank holds H/m query and Hkv/m KV heads);
-    else the cut leaves gathered whole and None."""
+def _kv_reads(cfg: LMConfig, tp) -> Optional[Tuple[int, int]]:
+    """(first, count) of the KV heads this rank's query heads read, where
+    the query heads split over `tp` and the KV heads do not
+    (`lm_param_specs` splits wq and wo by heads whatever Hkv is): local
+    query head j is global head r·H/m + j and reads KV head
+    (r·H/m + j) // (H/Hkv).  None where the grouping does not follow the
+    ranks' blocks (H/m and H/Hkv neither divides the other) or a fused
+    projection's columns do not split."""
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if not tp.splits(H) or (cfg.fuse_qkv and not tp.splits((H + 2 * Hkv) * dh)):
+        return None
+    per, G = H // tp.size, H // Hkv
+    if G % per and per % G:
+        return None
+    return tp.rank * per // G, max(1, per // G)
+
+
+def _attn_tp(p: Params, cfg: LMConfig, tp, seq: bool = False):
+    """(leaves, _Block, KV heads read) of one attention block.  Where every
+    head count splits over `tp` each rank holds H/m query and Hkv/m KV
+    heads (reads None).  Where only the query heads split, each rank
+    computes its H/m (column-parallel `wq`, row-parallel `wo`) and the KV
+    heads they read (`_kv_reads`) off `wk` / `wv` (and their biases)
+    gathered whole with `gather_sum`, or copied where the placement left
+    them whole: each rank reads other columns, so their gradients are
+    summed.  Else the cut leaves gathered whole and the block runs whole."""
     if tp is None:
-        return p, None
-    heads = (cfg.n_heads,) if cfg.mla is not None else (cfg.n_heads, cfg.n_kv_heads)
-    if all(tp.splits(h) for h in heads):
-        return p, tp
-    return _whole(p, _attn_leaves(cfg), tp), None
+        return p, _Block(), None
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if tp.splits(H) and (cfg.mla is not None or tp.splits(Hkv)):
+        return p, _Block(tp, True, seq), None
+    reads = None if cfg.mla is not None else _kv_reads(cfg, tp)
+    if reads is None:
+        return _whole(p, _attn_leaves(cfg), tp, seq), _Block(tp, False, seq), None
+    p = dict(p)
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in p:
+            p[name] = tp.gather_sum(p[name], -1) if tp.splits(Hkv * cfg.d_head) else \
+                tp.copy(p[name])
+    return p, _Block(tp, True, seq), reads
 
 
-def _ffn_tp(p: Params, cfg: LMConfig, tp):
-    """(leaves, tp) of one dense FFN: `tp` where d_ff splits; else whole."""
-    if tp is None or tp.splits(cfg.d_ff):
-        return p, tp
-    return _whole(p, _dense_ffn_leaves(cfg, cfg.d_ff), tp), None
+def _ffn_tp(p: Params, cfg: LMConfig, tp, seq: bool = False):
+    """(leaves, _Block) of one dense FFN: split where d_ff splits; else whole."""
+    if tp is None:
+        return p, _Block()
+    if tp.splits(cfg.d_ff):
+        return p, _Block(tp, True, seq)
+    return _whole(p, _dense_ffn_leaves(cfg, cfg.d_ff), tp, seq), _Block(tp, False, seq)
 
 
 def _blocks(y: torch.Tensor, sizes, tp) -> list:
@@ -381,26 +520,23 @@ def _blocks(y: torch.Tensor, sizes, tp) -> list:
     return out
 
 
-def _fused(h: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
-    """h @ w for a fused projection, whole on every rank: each rank's block
-    of the output columns is all-gathered.  The ranks then take pieces
-    that do not follow the blocks, so the gradient is summed over them
-    first (`copy`) and each takes its block of the sum."""
-    if tp is None:
-        return h @ w
-    return tp.copy(tp.gather(tp.copy(h) @ w, -1))
-
-
-def _embed(params: Params, cfg: LMConfig, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+def _embed(params: Params, cfg: LMConfig, tokens: torch.Tensor, tp=None,
+           seq: bool = False) -> torch.Tensor:
     """The embedding rows of `tokens`; vocab-parallel where the vocab splits:
-    each rank looks up the tokens its rows hold, zeros elsewhere, summed."""
+    each rank looks up the tokens its rows hold, zeros elsewhere, summed
+    (with `seq` reduce-scattered: this rank's block of S).  With `seq` and
+    a vocab that does not split, the rows of this rank's block of the
+    tokens, the table entering through `copy`."""
     table = params["embed"]
     if tp is None or not tp.splits(cfg.vocab):
+        if seq:
+            return tp.copy(table)[tp.block(tokens, 1).long()]
         return table[tokens.long()]
     V_r = table.shape[0]
     idx = tokens.long() - tp.rank * V_r
     own = (idx >= 0) & (idx < V_r)
-    return tp.sum(torch.where(own[..., None], table[idx.clamp(0, V_r - 1)], 0))
+    rows = torch.where(own[..., None], table[idx.clamp(0, V_r - 1)], 0)
+    return tp.scatter_sum(rows, 1) if seq else tp.sum(rows)
 
 
 def _vocab_tp(cfg: LMConfig, tp):
@@ -418,78 +554,89 @@ def _logits(h: torch.Tensor, head: torch.Tensor, cfg: LMConfig, tp) -> torch.Ten
 # forward (prefill)
 # --------------------------------------------------------------------------
 
-def _qkv(p: Params, cfg: LMConfig, h: torch.Tensor, tp=None):
+def _qkv(p: Params, cfg: LMConfig, h: torch.Tensor, blk: _Block,
+         kv: Optional[Tuple[int, int]] = None):
     """The dense attention's q, k, v projections of normed h (..., D), for
-    this rank's heads under `tp` (column-parallel)."""
+    this rank's heads where `blk` splits (column-parallel); `kv` (first,
+    count): the KV heads to compute out of all Hkv, whose leaves
+    `_attn_tp` gathered whole."""
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    kv_cols = None if kv is None else slice(kv[0] * dh, (kv[0] + kv[1]) * dh)
     if cfg.fuse_qkv:
-        q, k, v = _blocks(_fused(h, p["wqkv"], tp), [H * dh, Hkv * dh, Hkv * dh], tp)
+        y = blk.fused(h, p["wqkv"])
+        if kv_cols is None:
+            q, k, v = _blocks(y, [H * dh, Hkv * dh, Hkv * dh], blk.ranks)
+        else:
+            q = _blocks(y[..., :H * dh], [H * dh], blk.ranks)[0]
+            k, v = y[..., H * dh:][..., kv_cols], y[..., (H + Hkv) * dh:][..., kv_cols]
+        bk, bv = p.get("bk"), p.get("bv")
     else:
-        h = h if tp is None else tp.copy(h)
-        q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
+        h = blk.act(h)
+        wk, wv = p["wk"], p["wv"]
+        bk, bv = p.get("bk"), p.get("bv")
+        if kv_cols is not None:
+            wk, wv = wk[:, kv_cols], wv[:, kv_cols]
+        q, k, v = h @ p["wq"], h @ wk, h @ wv
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        if kv_cols is not None:
+            bk, bv = bk[kv_cols], bv[kv_cols]
+        q, k, v = q + p["bq"], k + bk, v + bv
     return q, k, v
 
 
-def _local_heads(cfg: LMConfig, tp) -> Tuple[int, int]:
-    """(query heads, KV heads) this rank computes."""
-    m = 1 if tp is None else tp.size
-    return cfg.n_heads // m, cfg.n_kv_heads // m
-
-
-def _row(y: torch.Tensor, tp) -> torch.Tensor:
-    """A row-parallel projection's partial output summed over the ranks."""
-    return y if tp is None else tp.sum(y)
-
-
-def _mla_q(p: Params, cfg: LMConfig, h: torch.Tensor, tp) -> torch.Tensor:
-    """MLA's queries (..., H_local · (d_nope + d_rope)).  `w_dq`'s columns
-    split, so each rank's block of the latent cq is gathered whole before
-    `q_norm`, which normalises over all of it; `w_uq` is column-parallel
-    on the whole cq."""
+def _mla_q(p: Params, cfg: LMConfig, h: torch.Tensor, blk: _Block) -> torch.Tensor:
+    """MLA's queries (..., H_local · (d_nope + d_rope)).  Where `w_dq`'s
+    columns split each rank's block of the latent cq is gathered whole
+    before `q_norm`, which normalises over all of it; `w_uq` is
+    column-parallel on the whole cq."""
     m = cfg.mla
-    if _split(tp, m.q_lora_rank):
-        cq = tp.gather(tp.copy(h) @ p["w_dq"], -1)
+    if blk.split and blk.tp.splits(m.q_lora_rank):
+        cq = blk.gather(blk.act(h) @ p["w_dq"], -1)
     else:
-        cq = h @ p["w_dq"]
-    cq = rms_norm(cq, p["q_norm"])
-    return (cq if tp is None else tp.copy(cq)) @ p["w_uq"]
+        cq = h @ blk.leaf(p["w_dq"])
+    cq = rms_norm(cq, blk.norm(p["q_norm"]))
+    return blk.act(cq) @ p["w_uq"]
 
 
-def _qk_norm(p: Params, q: torch.Tensor, k: torch.Tensor, tp):
+def _qk_norm(p: Params, q: torch.Tensor, k: torch.Tensor, blk: _Block):
     """qk-norm of this rank's heads.  The norms' weights are replicated but
     each rank's heads reach only its part of their gradient: they enter
     through `copy`, which sums it over the ranks, in f32 (`rms_norm`
     computes in f32 anyway), so that the parts, which cancel, are not each
     rounded to the weights' bf16 before the sum."""
     qn, kn = p["q_normh"], p["k_normh"]
-    if tp is not None:
-        qn, kn = tp.copy(qn.to(torch.float32)), tp.copy(kn.to(torch.float32))
+    if blk.split:
+        qn = blk.leaf(qn.to(torch.float32), own=True)
+        kn = blk.leaf(kn.to(torch.float32), own=True)
     return rms_norm(q, qn), rms_norm(k, kn)
 
 
 def _attn_forward(
-    p: Params, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor, tp=None
+    p: Params, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor, tp=None,
+    seq: bool = False, all_kv: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (residual update, kv-tensors-for-prefill).  Under `tp` the
     rank's heads (replicated `w_dkv`, `kv_norm` and MLA's latents, which
-    enter the per-head products through `copy`), the update summed."""
-    B, S, D = x.shape
-    p, tp = _attn_tp(p, cfg, tp)
-    H, Hkv = _local_heads(cfg, tp)
+    enter the per-head products through `copy`), the update summed; with
+    `seq` x is this rank's block of S (`_Block`).  Where only the query
+    heads split, each rank computes the KV heads they read, or all of them
+    with `all_kv` (the kv tensors fill a cache that holds every KV head)."""
+    B = x.shape[0]
+    p, blk, reads = _attn_tp(p, cfg, tp, seq)
+    h = blk.enter(rms_norm(x, _norm(p["ln1"], tp, seq)))
+    S = h.shape[1]
+    H = cfg.n_heads // (blk.tp.size if blk.split else 1)
     dh = cfg.d_head
-    h = rms_norm(x, p["ln1"])
     if cfg.mla is not None:
         m = cfg.mla
-        q = _mla_q(p, cfg, h, tp).reshape(B, S, H, m.d_nope + m.d_rope)
+        q = _mla_q(p, cfg, h, blk).reshape(B, S, H, m.d_nope + m.d_rope)
         q_nope, q_rope = q[..., : m.d_nope], q[..., m.d_nope:]
-        dkv = h @ p["w_dkv"]
-        ckv = rms_norm(dkv[..., : m.kv_lora_rank], p["kv_norm"])
+        dkv = h @ blk.leaf(p["w_dkv"])
+        ckv = rms_norm(dkv[..., : m.kv_lora_rank], blk.norm(p["kv_norm"]))
         k_rope = dkv[..., m.kv_lora_rank:][:, :, None, :]        # (B,S,1,dr)
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
         k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
-        ckv_h, k_rope_h = (ckv, k_rope) if tp is None else (tp.copy(ckv), tp.copy(k_rope))
+        ckv_h, k_rope_h = blk.act(ckv), blk.act(k_rope)
         k_nope = torch.einsum("bsr,hdr->bshd", ckv_h, p["w_uk"])
         v = torch.einsum("bsr,hrv->bshv", ckv_h, p["w_uv"])
         q_full = torch.cat([q_nope, q_rope], dim=-1)
@@ -499,61 +646,77 @@ def _attn_forward(
             scale=(m.d_nope + m.d_rope) ** -0.5,
         )
         kv = {"ckv": ckv, "krope": k_rope[:, :, 0, :]}
-        return _row(o.reshape(B, S, H * m.d_v) @ p["wo"], tp), kv
+        return blk.leave(o.reshape(B, S, H * m.d_v) @ p["wo"]), kv
 
-    q, k, v = _qkv(p, cfg, h, tp)
+    computes = None if reads is None else ((0, cfg.n_kv_heads) if all_kv else reads)
+    q, k, v = _qkv(p, cfg, h, blk, computes)
     q = q.reshape(B, S, H, dh)
-    k = k.reshape(B, S, Hkv, dh)
-    v = v.reshape(B, S, Hkv, dh)
+    k = k.reshape(B, S, -1, dh)
+    v = v.reshape(B, S, -1, dh)
     if cfg.qk_norm:
-        q, k = _qk_norm(p, q, k, tp)
+        q, k = _qk_norm(p, q, k, blk)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    kv = {"k": k, "v": v}
+    if computes is not None and computes != reads:
+        k, v = k[:, :, reads[0]:reads[0] + reads[1]], v[:, :, reads[0]:reads[0] + reads[1]]
     o = flash_attention(q, k, v, causal=True, window=cfg.window, chunk=cfg.attn_chunk)
-    return _row(o.reshape(B, S, H * dh) @ p["wo"], tp), {"k": k, "v": v}
+    return blk.leave(o.reshape(B, S, H * dh) @ p["wo"]), kv
 
 
-def _dense_ffn(p: Params, cfg: LMConfig, h: torch.Tensor, tp=None) -> torch.Tensor:
+def _dense_ffn(p: Params, cfg: LMConfig, h: torch.Tensor, tp=None,
+               seq: bool = False) -> torch.Tensor:
     """The dense FFN of normed h (..., D); under `tp` column-parallel
     `w1` / `w3` (`w13`: the rank's gate and up blocks) and row-parallel
-    `w2`, summed."""
-    p, tp = _ffn_tp(p, cfg, tp)
+    `w2`, summed; with `seq` h is this rank's block of S (`_Block`)."""
+    p, blk = _ffn_tp(p, cfg, tp, seq)
+    h = blk.enter(h)
     if cfg.act == "swiglu" and cfg.fuse_gate:
-        h1, h3 = _blocks(_fused(h, p["w13"], tp), [cfg.d_ff, cfg.d_ff], tp)
+        h1, h3 = _blocks(blk.fused(h, p["w13"]), [cfg.d_ff, cfg.d_ff], blk.ranks)
     else:
-        h = h if tp is None else tp.copy(h)
+        h = blk.act(h)
         h1 = h @ p["w1"]
         h3 = h @ p["w3"] if cfg.act == "swiglu" else None
-    return _row(_activation(h1, h3, cfg.act) @ p["w2"], tp)
+    return blk.leave(_activation(h1, h3, cfg.act) @ p["w2"])
 
 
 def _ffn_forward(
-    p: Params, cfg: LMConfig, x: torch.Tensor, is_moe: bool, dp=None, tp=None
+    p: Params, cfg: LMConfig, x: torch.Tensor, is_moe: bool, dp=None, tp=None,
+    seq: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (residual update, aux loss)."""
+    """Returns (residual update, aux loss); with `seq` x and the update are
+    this rank's block of S."""
     B, S, D = x.shape
-    h = rms_norm(x, p["ln2"])
+    h = rms_norm(x, _norm(p["ln2"], tp, seq))
     if is_moe:
-        out, metrics = moe_ffn(p, h.reshape(B * S, D), cfg.moe, cfg.act, dp=dp, tp=tp)
+        if seq:
+            h = tp.gather_sum(h, 1)
+        out, metrics = moe_ffn(p, h.reshape(-1, D), cfg.moe, cfg.act, dp=dp, tp=tp,
+                               seq=h.shape[:2] if seq else None)
         return out.reshape(B, S, D), metrics.aux_loss
-    return _dense_ffn(p, cfg, h, tp), torch.zeros((), dtype=torch.float32, device=x.device)
+    return (_dense_ffn(p, cfg, h, tp, seq),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _layer_forward(lp: Params, cfg: LMConfig, is_moe: bool, x: torch.Tensor,
-                   positions: torch.Tensor, dp=None, tp=None):
-    """One layer: returns (x after the layer, its aux loss, its kv tensors)."""
-    upd, kv = _attn_forward(lp["attn"], cfg, x, positions, tp)
+                   positions: torch.Tensor, dp=None, tp=None, seq: bool = False,
+                   all_kv: bool = False):
+    """One layer: returns (x after the layer, its aux loss, its kv tensors).
+    With `seq` x is this rank's block of S, as the layer's output."""
+    upd, kv = _attn_forward(lp["attn"], cfg, x, positions, tp, seq, all_kv)
     x = x + upd
-    upd, aux = _ffn_forward(lp["ffn"], cfg, x, is_moe, dp, tp)
+    upd, aux = _ffn_forward(lp["ffn"], cfg, x, is_moe, dp, tp, seq)
     return x + upd, aux, kv
 
 
 def _stack_layer(stack: Params, name: str, i: int, cfg: LMConfig, is_moe: bool,
-                 x: torch.Tensor, positions: torch.Tensor, dp=None, tp=None, fsdp=None):
+                 x: torch.Tensor, positions: torch.Tensor, dp=None, tp=None, fsdp=None,
+                 seq: bool = False, all_kv: bool = False):
     """Layer i of stack `name`, its leaves taken (with `fsdp`, gathered)
     inside the call, so that a checkpointed layer gathers them again at
     its recompute and holds them no longer than the layer runs."""
-    return _layer_forward(_layer_at(stack, name, i, fsdp), cfg, is_moe, x, positions, dp, tp)
+    return _layer_forward(_layer_at(stack, name, i, fsdp), cfg, is_moe, x, positions, dp, tp,
+                          seq, all_kv)
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -596,9 +759,14 @@ def forward(
     batch (the MoE layers route by the global batch); `tp`: the model
     ranks, `params` this rank's blocks of the leaves; `fsdp`: gathers each
     layer's leaves over the batch ranks as the layer runs (the caller
-    gathers the rest, `fsdp.top`).  The kv caches hold this rank's heads."""
+    gathers the rest, `fsdp.top`).  The kv caches hold this rank's heads
+    (every KV head where the query heads split and the KV heads do not).
+    Where `_seq` holds, the carry between layers (what remat keeps) is
+    this rank's block of S, and the final norm runs on it before h is
+    gathered whole."""
     B, S = tokens.shape
-    x = _embed(params, cfg, tokens, tp)
+    seq = _seq(tp, S)
+    x = _embed(params, cfg, tokens, tp, seq)
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = []
@@ -606,7 +774,7 @@ def forward(
     for name, stack, n, is_moe in _layer_stacks(params, cfg):
         layer_kvs = []
         for i in range(n):
-            args = (stack, name, i, cfg, is_moe, x, positions, dp, tp, fsdp)
+            args = (stack, name, i, cfg, is_moe, x, positions, dp, tp, fsdp, seq, collect_kv)
             if remat:
                 x, aux, kv = _checkpointed(cfg.remat_policy, _stack_layer, *args)
             else:
@@ -616,7 +784,9 @@ def forward(
                 layer_kvs.append(kv)
         if collect_kv:
             kvs.append({k: torch.stack([kv[k] for kv in layer_kvs]) for k in layer_kvs[0]})
-    h = rms_norm(x, params["final_norm"])
+    h = rms_norm(x, _norm(params["final_norm"], tp, seq))
+    if seq:
+        h = tp.gather(h, 1)
     return h, aux_total, (kvs if collect_kv else None)
 
 
@@ -784,8 +954,8 @@ def _decode_attn(
     `pos % ring` of `cache_l` (views of one layer's cache) and returns the
     residual update; under `tp` for this rank's heads, as `_attn_forward`."""
     B, D = x.shape
-    p, tp = _attn_tp(p, cfg, tp)
-    H, Hkv = _local_heads(cfg, tp)
+    p, blk, reads = _attn_tp(p, cfg, tp)
+    H = cfg.n_heads // (blk.tp.size if blk.split else 1)
     dh = cfg.d_head
     h = rms_norm(x, p["ln1"])
     idx = (pos % ring).long().view(1)      # ring slot for this absolute position
@@ -796,7 +966,7 @@ def _decode_attn(
 
     if cfg.mla is not None:
         m = cfg.mla
-        q = _mla_q(p, cfg, h, tp).reshape(B, H, m.d_nope + m.d_rope)
+        q = _mla_q(p, cfg, h, blk).reshape(B, H, m.d_nope + m.d_rope)
         q_nope, q_rope = q[..., : m.d_nope], q[..., m.d_nope:]
         dkv = h @ p["w_dkv"]
         ckv = rms_norm(dkv[..., : m.kv_lora_rank], p["kv_norm"])
@@ -810,21 +980,23 @@ def _decode_attn(
             q_nope, q_rope, ckv_c, kr_c, valid, p["w_uk"], p["w_uv"],
             scale=(m.d_nope + m.d_rope) ** -0.5,
         )
-        return _row(o.reshape(B, H * m.d_v) @ p["wo"], tp)
+        return blk.leave(o.reshape(B, H * m.d_v) @ p["wo"])
 
-    q, k, v = _qkv(p, cfg, h, tp)
+    q, k, v = _qkv(p, cfg, h, blk, None if reads is None else (0, cfg.n_kv_heads))
     q = q.reshape(B, H, dh)
-    k = k.reshape(B, Hkv, dh)
-    v = v.reshape(B, Hkv, dh)
+    k = k.reshape(B, -1, dh)
+    v = v.reshape(B, -1, dh)
     if cfg.qk_norm:
-        q, k = _qk_norm(p, q, k, tp)
+        q, k = _qk_norm(p, q, k, blk)
     q = apply_rope(q[:, None], pos1[None, :], cfg.rope_theta)[:, 0]
     k = apply_rope(k[:, None], pos1[None, :], cfg.rope_theta)[:, 0]
     k_c, v_c = cache_l["k"], cache_l["v"]
     k_c.index_copy_(1, idx, k[:, None].to(k_c.dtype))
     v_c.index_copy_(1, idx, v[:, None].to(v_c.dtype))
+    if reads is not None:           # every KV head written, this rank's read
+        k_c, v_c = k_c[:, :, reads[0]:reads[0] + reads[1]], v_c[:, :, reads[0]:reads[0] + reads[1]]
     o = decode_attention(q, k_c, v_c, valid)
-    return _row(o.reshape(B, H * dh) @ p["wo"], tp)
+    return blk.leave(o.reshape(B, H * dh) @ p["wo"])
 
 
 def decode_step(

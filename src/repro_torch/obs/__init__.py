@@ -8,12 +8,14 @@ Legs, importable independently:
 * `metrics`  — counters, gauges and histograms in named registries
                (`Solver.metrics`, `PlanCache.metrics`, the process-wide
                `REGISTRY`)
+* `bench`    — stamped bench snapshots (the card's name and power limit
+               in the stamp), the append-only `BENCH_history/` store, and
+               the `bench-diff` regression gate
 * `promtext` — Prometheus text exposition over a metrics snapshot
 * `report`   — the JSONL renderer behind
                `python -m repro_torch.obs report trace.jsonl [--json]`
 
-The reference's `bench` leg (stamped bench records, `bench-diff`) is not
-ported yet (ROADMAP.md, Queue 1 items 15 and 18).
+`python -m repro_torch.obs bench-diff <base> <head>` gates perf regressions.
 """
 from repro_torch.obs.rounds import (
     COL_ALIVE,
@@ -26,6 +28,14 @@ from repro_torch.obs.rounds import (
     TELEMETRY_COLS,
     TELEMETRY_FILL,
     RoundTrace,
+)
+from repro_torch.obs.bench import (
+    append_history,
+    bench_env,
+    diff,
+    load_records,
+    stamp,
+    write_bench,
 )
 from repro_torch.obs.metrics import REGISTRY, Counter, Gauge, Histogram, MetricsRegistry
 from repro_torch.obs.promtext import metric_name, to_promtext, write_promtext
@@ -42,6 +52,12 @@ __all__ = [
     "TELEMETRY_COLS",
     "TELEMETRY_FILL",
     "RoundTrace",
+    "append_history",
+    "bench_env",
+    "diff",
+    "load_records",
+    "stamp",
+    "write_bench",
     "REGISTRY",
     "Counter",
     "Gauge",

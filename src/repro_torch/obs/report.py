@@ -17,9 +17,9 @@ count/mean/p50/p95/p99.  ``--json`` gives one machine-readable document
 instead.  The exit code is 2 when the file holds no renderable record, so
 a smoke step catches an empty pipe.
 
-``bench-diff`` (the reference's regression gate over `obs/bench.py`) is
-not ported: it comes with the bench harness (ROADMAP.md, Queue 1 item
-18), and until then it exits 2.
+``bench-diff <base> <head>`` hands its arguments to `obs.bench.main`,
+the regression gate over two bench-history files (exit 0 ok, 1 a
+regression, 2 no common key), as the reference's front door does.
 """
 from __future__ import annotations
 
@@ -189,21 +189,29 @@ def report_json(path: str) -> Dict:
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "bench-diff":
-        print("bench-diff is not ported: it comes with the bench harness "
-              "(ROADMAP.md, Queue 1 item 18)", file=sys.stderr)
-        return 2
+        # the regression gate has its own argparse (thresholds, --json):
+        # hand the remaining argv straight over so its --help stays whole
+        from repro_torch.obs import bench
+
+        return bench.main(argv[1:])
 
     p = argparse.ArgumentParser(
         prog="python -m repro_torch.obs",
         description="render repro_torch.obs JSONL telemetry (trace tree, "
-                    "per-round series, metrics/health tables, bench history)",
+                    "per-round series, metrics/health tables, bench "
+                    "history); `bench-diff` compares two history files",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
     rp = sub.add_parser("report", help="render a JSONL telemetry file")
     rp.add_argument("path", help="JSONL file written by the service / solver")
     rp.add_argument("--json", action="store_true",
                     help="emit a machine-readable JSON digest instead")
+    sub.add_parser("bench-diff",
+                   help="compare two bench-history files (see bench-diff "
+                        "--help); exit 1 on regression")
     args = p.parse_args(argv)
+    if args.cmd != "report":
+        return 2
 
     if args.json:
         doc = report_json(args.path)

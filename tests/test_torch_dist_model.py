@@ -68,10 +68,19 @@ LM_CASES = {
     "qwen3-fused": ("qwen3-0.6b", {"fuse_qkv": True, "fuse_gate": True}, "22", False),
     "qwen3-cut-heads": ("qwen3-0.6b", {}, "14", False),
 }
-# case -> (arch, fsdp)
-SERVE_CASES = {"qwen3-0.6b": ("qwen3-0.6b", False), "deepseek-v3-671b": ("deepseek-v3-671b", False),
-               "mixtral-8x22b": ("mixtral-8x22b", False), "qwen3-fsdp": ("qwen3-0.6b", True)}
-SERVE = dict(batch=4, prompt=14, max_len=20, steps=4)   # mixtral's 16-slot ring wraps
+# case -> (arch, fsdp, mesh, prompt): 14 tokens keep the stream whole (14 % 8),
+# 16 take the sequence-parallel prefill; nemotron on (1, 4), whose two KV
+# heads do not split, computes its one query head a rank against a cache
+# of both KV heads
+SERVE_CASES = {"qwen3-0.6b": ("qwen3-0.6b", False, "22", 14),
+               "deepseek-v3-671b": ("deepseek-v3-671b", False, "22", 14),
+               "mixtral-8x22b": ("mixtral-8x22b", False, "22", 14),
+               "qwen3-fsdp": ("qwen3-0.6b", True, "22", 14),
+               "qwen3-seq": ("qwen3-0.6b", False, "22", 16),
+               "deepseek-seq": ("deepseek-v3-671b", False, "22", 16),
+               "mixtral-seq": ("mixtral-8x22b", False, "22", 16),
+               "nemotron-cut-heads": ("nemotron-4-340b", False, "14", 16)}
+SERVE = dict(batch=4, max_len=20, steps=4)   # mixtral's 16-slot ring wraps
 # case -> (mesh, the last field's rows): SMOKE's 1,248 rows split over all four
 # ranks; 1,250 over 'model' alone (they do not split four ways); 1,249 whole
 DEEPFM_CASES = {"22": ("22", 32), "14": ("14", 32), "22-model-rows": ("22", 34),
@@ -160,13 +169,40 @@ def spy(*a, **k):
     return y, metrics
 tf.moe_ffn = spy
 
+# the bytes autograd saves at each layer boundary (a checkpointed layer's
+# tensor inputs: the carry, and the positions), the heads each attention
+# computes, and whether the layers ran sequence-parallel
+carry, heads, seqs = [], set(), []
+checkpointed, flash, decode_attention, seq_rule = (tf._checkpointed, tf.flash_attention,
+                                                   tf.decode_attention, tf._seq)
+def counted(policy, fn, *args):
+    saved = []
+    def pack(t):
+        saved.append(t)
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = checkpointed(policy, fn, *args)
+    carry.append([[list(t.shape), t.element_size()] for t in saved if t.is_floating_point()])
+    return out
+def flash_spy(q, k, v, **kw):
+    heads.add((q.shape[2], k.shape[2]))
+    return flash(q, k, v, **kw)
+def decode_spy(q, k, v, valid):
+    heads.add((q.shape[1], k.shape[2]))
+    return decode_attention(q, k, v, valid)
+def seq_spy(tp, S):
+    seqs.append(seq_rule(tp, S))
+    return seqs[-1]
+tf._checkpointed, tf.flash_attention, tf.decode_attention, tf._seq = (
+    counted, flash_spy, decode_spy, seq_spy)
+
 # the train steps
 for name, (arch, changes, m, fsdp) in meta["lm"].items():
     cfg, mesh = config(arch, changes), meshes[m]
     params, opt = C.place_lm_state(tf.init_lm(torch.Generator().manual_seed(0), cfg), mesh,
                                    fsdp=fsdp)
     step = C.make_lm_train_step(cfg, OptConfig(**meta["opt"]), mesh=mesh, fsdp=fsdp)
-    drops.clear()
+    drops.clear(), carry.clear(), heads.clear(), seqs.clear()
     losses = []
     for i in range(meta["steps"]):
         batch = shard_batch((load(f"lm_tokens{i}"), load(f"lm_targets{i}")), mesh,
@@ -174,21 +210,22 @@ for name, (arch, changes, m, fsdp) in meta["lm"].items():
         params, opt, loss, xent = step(params, opt, *batch)
         losses.append([loss.item(), xent.item()])
     out[name] = {"losses": losses, "drops": drops[:], "coord": list(mesh.get_coordinate()),
-                 "mesh": list(mesh.shape),
+                 "mesh": list(mesh.shape), "carry": carry[:], "heads": sorted(heads),
+                 "seq": seqs[:],
                  **save_blocks(f"lm_{name}", T.leaves((params, opt.m, opt.v)))}
 
-# prefill and decode on (2, 2) under cache_specs
-mesh = meshes["22"]
+# prefill and decode under cache_specs
 s = meta["serve"]
-prompts = load("prompts")
-for name, (arch, fsdp) in meta["serve_cases"].items():
-    cfg = config(arch, {})
+for name, (arch, fsdp, m, prompt) in meta["serve_cases"].items():
+    cfg, mesh = config(arch, {}), meshes[m]
+    prompts = load(f"prompts{prompt}")
     params, _ = C.place_lm_state(tf.init_lm(torch.Generator().manual_seed(0), cfg), mesh,
                                  fsdp=fsdp)
+    heads.clear(), seqs.clear()
     logits, cache = C.prefill_step(params, cfg, shard_batch(prompts, mesh, batch_spec(mesh, 1)),
                                    s["max_len"], mesh=mesh, fsdp=fsdp)
     steps = [logits]
-    dec = load("decode_tokens")
+    dec = load(f"decode_tokens{prompt}")
     for i in range(s["steps"]):
         toks = shard_batch(dec[i], mesh, P(data_axes(mesh)))
         logits, cache = C.serve_step(params, cfg, cache, toks, mesh=mesh, fsdp=fsdp)
@@ -196,7 +233,9 @@ for name, (arch, fsdp) in meta["serve_cases"].items():
     save(f"serve_{name}.rank{rank}", torch.stack(steps))
     out["serve_" + name] = {"placements": {k: [str(q) for q in v.placements]
                                            for k, v in cache.data.items()},
-                            "pos": int(cache.pos)}
+                            "pos": int(cache.pos), "coord": list(mesh.get_coordinate()),
+                            "heads": sorted(heads), "seq": seqs[:],
+                            "cache_heads": next(iter(cache.data.values())).to_local().shape[-2]}
 
 # DeepFM on both meshes, and on (2, 2) with tables that do not split four ways
 for name, (m, last) in meta["deepfm"].items():
@@ -281,9 +320,9 @@ def _lm_batches():
     return out
 
 
-def _serve_inputs():
+def _serve_inputs(prompt: int):
     rng = np.random.default_rng(5)
-    return (rng.integers(0, 128, (SERVE["batch"], SERVE["prompt"])).astype(np.int32),
+    return (rng.integers(0, 128, (SERVE["batch"], prompt)).astype(np.int32),
             rng.integers(0, 128, (SERVE["steps"], SERVE["batch"])).astype(np.int32))
 
 
@@ -320,9 +359,10 @@ def ranks(tmp_path_factory):
         np.save(os.path.join(data, f"lm_tokens{i}.npy"), tok)
         np.save(os.path.join(data, f"lm_targets{i}.npy"), tgt)
     assert {LM_ARCHS[a].SMOKE.vocab for a, *_ in LM_CASES.values()} == {128}
-    prompts, dec = _serve_inputs()
-    np.save(os.path.join(data, "prompts.npy"), prompts)
-    np.save(os.path.join(data, "decode_tokens.npy"), dec)
+    for prompt in {c[3] for c in SERVE_CASES.values()}:
+        prompts, dec = _serve_inputs(prompt)
+        np.save(os.path.join(data, f"prompts{prompt}.npy"), prompts)
+        np.save(os.path.join(data, f"decode_tokens{prompt}.npy"), dec)
     batches, user, cands = _deepfm_inputs()
     for i, (f, lab) in enumerate(batches):
         np.save(os.path.join(data, f"fields{i}.npy"), f)
@@ -407,6 +447,31 @@ def test_lm_step_on_a_model_axis_equals_one_rank(ranks, case):
         _close(g, w.numpy(), f"{case} leaf {i}")
 
 
+@pytest.mark.parametrize("case", sorted(LM_CASES))
+def test_the_layer_boundary_carry_is_this_ranks_block_of_S(ranks, case):
+    """Under remat "full" autograd saves one float tensor at each layer
+    boundary, the layer's input: B_local x S/m x D, the reference's
+    P(dp, "model", None) carry (`_make_layer_fn`), on (2, 2) and (1, 4),
+    every layer of both steps."""
+    arch, changes, mesh, _ = LM_CASES[case]
+    cfg = _cfg(arch, changes)
+    B, S = LM_BATCH
+    n_data, n_model = (2, 2) if mesh == "22" else (1, 4)
+    want = [[[B // n_data, S // n_model, cfg.d_model], 4]]
+    for out in ranks[2]:
+        assert out[case]["seq"] == [True] * STEPS
+        assert out[case]["carry"] == [want] * (cfg.n_layers * STEPS), out[case]["carry"]
+
+
+def test_query_heads_split_where_the_kv_heads_do_not(ranks):
+    """qwen3 SMOKE on (1, 4): 4 query heads, 2 KV heads.  Each rank's
+    attention holds H/m = 1 query head and the 1 KV head it reads (ranks
+    0-1 KV head 0, ranks 2-3 KV head 1); its loss and every leaf equal one
+    rank's (`test_lm_step_on_a_model_axis_equals_one_rank`)."""
+    for out in ranks[2]:
+        assert out["qwen3-cut-heads"]["heads"] == [[1, 1]]
+
+
 def test_lm_step_on_a_model_axis_drops_as_one_rank(ranks):
     """mixtral at capacity factor 0.5: every MoE layer of every step drops
     assignments on every rank, the same fraction on every rank."""
@@ -435,25 +500,49 @@ def test_deepseek_gradients_on_a_model_axis_equal_the_reference(ranks):
 @pytest.mark.parametrize("case", sorted(SERVE_CASES))
 def test_serving_on_a_model_axis_equals_one_rank(ranks, case):
     data, _, outs = ranks
-    arch, _ = SERVE_CASES[case]
+    arch, _, mesh, prompt = SERVE_CASES[case]
     cfg = LM_ARCHS[arch].SMOKE
     params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
-    prompts, dec = _serve_inputs()
+    prompts, dec = _serve_inputs(prompt)
     logits, cache = C.prefill_step(params, cfg, torch.from_numpy(prompts), SERVE["max_len"])
     want = [logits]
     for i in range(SERVE["steps"]):
         logits, cache = C.serve_step(params, cfg, cache, torch.from_numpy(dec[i]))
         want.append(logits)
     want = torch.stack(want).numpy()
-    n = SERVE["batch"] // 2
-    heads = "R" if cfg.mla is not None else "S(3)"      # MLA's latents stay whole
+    n_data, n_model = (2, 2) if mesh == "22" else (1, 4)
+    n = SERVE["batch"] // n_data
+    # MLA's latents and KV heads that do not split stay whole
+    heads = "S(3)" if cfg.mla is None and cfg.n_kv_heads % n_model == 0 else "R"
     for r, out in enumerate(outs):
-        d = r // 2                      # (2, 2): rank r at (r // 2, r % 2)
+        d = out["serve_" + case]["coord"][0]
         got = np.load(os.path.join(data, f"serve_{case}.rank{r}.npy"))
         _close(got, want[:, d * n:(d + 1) * n], f"{case} rank {r} logits")
-        assert out["serve_" + case]["pos"] == SERVE["prompt"] + SERVE["steps"]
+        assert out["serve_" + case]["pos"] == prompt + SERVE["steps"]
         for k, pl in out["serve_" + case]["placements"].items():
             assert pl == ["S(1)", heads], (k, pl)
+
+
+@pytest.mark.parametrize("case", sorted(SERVE_CASES))
+def test_prefill_is_sequence_parallel_where_the_prompt_splits(ranks, case):
+    """Prefill runs its layers sequence-parallel where S % 8 == 0 and S
+    splits over the model ranks (the reference's rule): a prompt of 16
+    tokens does, one of 14 keeps the residual stream whole."""
+    _, _, mesh, prompt = SERVE_CASES[case]
+    for out in ranks[2]:
+        assert out["serve_" + case]["seq"] == [prompt % 8 == 0], out["serve_" + case]["seq"]
+
+
+def test_decode_where_the_kv_heads_do_not_split_reads_the_whole_cache(ranks):
+    """nemotron SMOKE on (1, 4): 4 query heads split one a rank, its 2 KV
+    heads do not.  Each rank writes both KV heads into its cache (whole,
+    replicated over 'model', as the reference's cache_specs places it) and
+    its prefill and decode attention read the one KV head its query head
+    reads; the logits equal one rank's
+    (`test_serving_on_a_model_axis_equals_one_rank`)."""
+    for out in ranks[2]:
+        assert out["serve_nemotron-cut-heads"]["heads"] == [[1, 1]]
+        assert out["serve_nemotron-cut-heads"]["cache_heads"] == 2
 
 
 # --------------------------------------------------------------------------

@@ -134,6 +134,44 @@ def test_argument_bytes_equal_the_references_on_a_2x4_mesh(monkeypatch):
     assert got["total_per_device"] >= got["argument_bytes"] + got["output_bytes"]
 
 
+def test_a_memory_pass_counts_the_carry_at_its_block_of_S(monkeypatch):
+    """The train cell at the small config above on a fake (data=2,
+    model=4) group: every layer input that remat saves (a checkpointed
+    layer's float tensor argument, seen by `saved_tensors_hooks`) is rank
+    0's block of S, (B/2, S/4, D): a quarter of its whole size.  This is
+    the term by which the dry run's records moved when the residual
+    stream became sequence-parallel."""
+    from repro_torch.models import transformer as tf
+
+    saved = []
+    checkpointed = tf._checkpointed
+
+    def counted(policy, fn, *args):
+        floats = []
+
+        def pack(t):
+            if t.is_floating_point():
+                floats.append((tuple(t.shape), t.element_size()))
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = checkpointed(policy, fn, *args)
+        saved.append(floats)
+        return out
+
+    monkeypatch.setattr(tf, "_checkpointed", counted)
+    monkeypatch.setitem(C.LM_SHAPES, "train_4k", SMALL_SHAPE)
+    cfg = dataclasses.replace(qwen3_0_6b.SMOKE, **SMALL_LM)
+    cell = C._lm_train_cell("qwen3-small", cfg, "train_4k")
+    with DR.fake_group((2, 4), ("data", "model")) as mesh:
+        DR.count_pass(cell, mesh, "memory")
+    B, S, D = SMALL_SHAPE["global_batch"], SMALL_SHAPE["seq_len"], SMALL_LM["d_model"]
+    assert len(saved) == cfg.n_layers
+    for floats in saved:
+        (shape, itemsize), = floats         # a quarter of the whole (B / 2, S, D)
+        assert shape == (B // 2, S // 4, D) and itemsize == 4
+
+
 # --------------------------------------------------------------------------
 # the counting mode
 # --------------------------------------------------------------------------

@@ -161,9 +161,14 @@ def test_report_cli_exit_codes_and_output_equal_reference(tmp_path, capsys, flag
         assert (got.out, got.err) == (want.out, want.err)
 
 
-def test_bench_diff_is_not_ported(capsys):
-    assert report.main(["bench-diff", "a.jsonl", "b.jsonl"]) == 2
-    assert "Queue 1 item 18" in capsys.readouterr().err
+def test_report_dispatches_bench_diff(tmp_path, capsys):
+    base = tmp_path / "base.jsonl"
+    base.write_text(json.dumps(dict(schema=1, bench="t", key="bench=t op=a",
+                                    metric="us_per_call", value_us=1000.0)) + "\n")
+    assert report.main(["bench-diff", str(base), str(base)]) == 0
+    assert capsys.readouterr().out.endswith("verdict: ok\n")
+    assert report.main(["bench-diff", str(base), str(tmp_path / "missing.jsonl")]) == 2
+    assert "cannot read history" in capsys.readouterr().err
 
 
 def test_obs_module_cli_runs_as_a_program(tmp_path):

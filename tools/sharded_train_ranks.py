@@ -62,7 +62,8 @@ rank (card), the group NCCL at tcp://localhost on a free port:
       154.7 GB of state fits no card), 2 x 4,096, drawn leaf by leaf onto
       its blocks (no rank holds the whole tree), one donated step with
       `fsdp=True` on (1, 4) and on (2, 2): ms, peak GiB and state bytes a
-      card; step 0's losses within 1e-3 relative of each other and of
+      card, then the device ms of NCCL's kernels in one more profiled
+      step as a share of the first's; step 0's losses within 1e-3 relative of each other and of
       rank 0's one-card forward of `lm_loss` on the same weights;
   (h) decode_tp: on (1, ranks), qwen3-0.6b whole, nemotron-4-340b one
       layer (2 KV heads a card) and deepseek-v3's 3 dense (MLA) layers:
@@ -707,8 +708,15 @@ def part_lm_fsdp(r: Rank) -> dict:
         batch = shard_batch((tok, tgt), mesh, batch_spec(mesh, 1))
         r.aligned()
         (params, opt, loss, _), ms = r.ms(lambda: step(params, opt, *batch))
+        peak = r.peak_gib()
+        # NCCL's kernels in one more (profiled) step, as a share of the first's time
+        r.aligned()
+        (params, opt, _, _), step_nccl_ms = nccl_ms(r, lambda: step(params, opt, *batch))
         out[f"{tuple(shape)}"] = {"loss0": float(loss), "step_ms": ms,
-                                  "peak_gib": r.gather(r.peak_gib()),
+                                  "step_nccl_ms": step_nccl_ms,
+                                  "step_nccl_share": None if step_nccl_ms is None else
+                                  step_nccl_ms / ms,
+                                  "peak_gib": r.gather(peak),
                                   "state_bytes_card": r.gather(state)}
         del params, opt, batch
         r.free()
