@@ -313,7 +313,18 @@ Phases, each fatal on failure:
                  no port kernel launched.  EGNN on molecule: its gradient
                  is not finite (the reference's sqrt at the masked
                  self-loops), so the loss must be finite, the non-finite
-                 leaves those of the CPU run, and no AdamW step runs.
+                 leaves those of the CPU run, and no AdamW step runs;
+             (d) after minibatch_lg's cells, its tables split over the flat
+                 mesh as the reference places them (`dist.lookup`), on a
+                 one-rank NCCL group and a (1, 1) mesh: gin-tu's
+                 `minibatch_step(mesh=, tables=)` on the blocks bit-equal
+                 (loss and every leaf of the parameters, m and v) to the
+                 step without a mesh on the whole tables, both under
+                 torch's deterministic algorithms (float atomics put two
+                 runs of one step apart on the card), the step without a
+                 mesh run twice bit-equal as the control; the lookup's ms
+                 (the tree and its rows read through `TableSplit.take`)
+                 beside whole-table indexing, median of 5.
 
  13. lm      LM serving (run after phase 12), every `[lm]` line beside the
              card's name and power limit; weights from a seeded generator
@@ -548,6 +559,7 @@ nvidia-smi gives them, and `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -3557,6 +3569,116 @@ def phase_gnn_cell(a, shape_name: str, shape: dict, step, args_at) -> None:
     torch.cuda.empty_cache()
 
 
+def bits_equal(x, y) -> bool:
+    """x and y of one shape and dtype with the same bits (-0.0 is not 0.0,
+    a NaN equals itself)."""
+    import torch
+
+    view = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return (x.shape == y.shape and x.dtype == y.dtype
+            and torch.equal(x.view(view.get(x.dtype, x.dtype)), y.view(view.get(y.dtype, y.dtype))))
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic algorithms, warn-only (an op that has none
+    warns): on the card `index_add_`, `index_put_(accumulate=True)` and
+    `scatter_add_` then sum in one order, not by float atomics, so two
+    runs of one step give the same bits."""
+    import torch
+
+    was, warn = (torch.are_deterministic_algorithms_enabled(),
+                 torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
+def phase_gnn_split_tables(shape: dict, mini, args) -> None:
+    """(d) minibatch_lg's tables split over the flat mesh as the reference
+    places them (`dist.lookup.TableSplit`), on a one-rank NCCL group and a
+    (1, 1) mesh: gin-tu's `minibatch_step(mesh=, tables=)` on the blocks
+    against the step without a mesh on the whole tables, from the same
+    state on the same seeds and draws (`args`): the loss and every leaf of
+    the parameters, m and v bit-equal.  Both run under
+    `deterministic_algorithms` (the segment sums' float atomics put two
+    runs of one step on the card a few ulps apart), and the step without a
+    mesh run twice is bit-equal there too, the control.  Then the lookup
+    alone, ms by CUDA events (median of 5): the tree sampled through
+    `take` and its rows read through it, beside the same reads from the
+    whole tables."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import GNN_ARCHS
+    from repro_torch.configs import gnn_cells as C
+    from repro_torch.dist.lookup import TableSplit
+    from repro_torch.dist.sharding import local
+    from repro_torch.train import adamw_init
+
+    t0 = time.perf_counter()
+    draws, indptr, *_, seeds = args
+    mesh = dist_mesh()
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"[gnn] (d) group {dist.get_backend()} of {dist.get_world_size()}")
+        tables = TableSplit.of(mesh)
+        blocks = [tables.block(x) for x in mini[1:]]
+        a = GNN_ARCHS["gin-tu"]
+        model = a.init(shape["d_feat"], shape["n_out"], seed=GNN_SEED, device="cuda")
+        p0 = C.train_params(model)
+
+        def values(new, opt, loss):
+            return [loss] + [local(t[k]) for t in (new, opt.m, opt.v) for k in sorted(t)]
+
+        with deterministic_algorithms():
+            want = values(*C.minibatch_step(a, model, p0, adamw_init(p0), *args))
+            again = values(*C.minibatch_step(a, model, p0, adamw_init(p0), *args))
+            params, opt = C.place_gnn_state(p0, mesh)
+            got = values(*C.minibatch_step(a, model, params, opt, draws, indptr, *blocks, seeds,
+                                           mesh=mesh, tables=tables))
+        for name, run in (("the control (the step without a mesh again)", again),
+                          ("split tables", got)):
+            differ = sum(not bits_equal(x, y) for x, y in zip(want, run))
+            check(not differ, f"[gnn] (d) {name}: {differ} of {len(want)} values differ from the "
+                              f"step without a mesh (loss {float(run[0])} vs {float(want[0])})")
+
+        def read(tabs, split):
+            tree = C.minibatch_tree(indptr, tabs[0], seeds, draws, split)
+            return C.minibatch_rows(tree, *tabs[1:], seeds, split)
+
+        rows0, rows1 = read(mini[1:], None), read(blocks, tables)
+        check(all(bits_equal(x, y) for x, y in zip(rows0, rows1)),
+              "[gnn] (d) the rows read through take differ from the whole tables'")
+        ms = {}
+        for name, tabs, split in (("whole", mini[1:], None), ("split", blocks, tables)):
+            runs = []
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                read(tabs, split)
+                end.record()
+                torch.cuda.synchronize()
+                runs.append(start.elapsed_time(end))
+            ms[name] = statistics.median(runs)
+        held = sum(b.numel() * b.element_size() for b in blocks)
+        print(f"[gnn] (d) minibatch_lg tables split over a one-rank NCCL (1, 1) mesh "
+              f"(dist.lookup.TableSplit, {held / 2**20:.1f} MiB of blocks): gin-tu's "
+              f"minibatch_step(mesh=, tables=) bit-equal to the step without a mesh under "
+              f"deterministic algorithms (loss {float(got[0]):.6g} and {len(got) - 1} leaves of "
+              f"params, m and v; the step without a mesh twice: bit-equal); lookup "
+              f"(the tree's {seeds.numel() * (1 + draws[1].shape[1] * (1 + draws[1].shape[2]))} "
+              f"rows) {ms['split']:.3f} ms through take against {ms['whole']:.3f} ms from the "
+              f"whole tables (median of 5); {time.perf_counter() - t0:.1f} s; card "
+              f"{card_line()}", flush=True)
+        del blocks, model, want, again, got, params, opt, rows0, rows1
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
 def phase_gnn(errs: dict) -> None:
     """Phase 12: the GNN family on the card (see the module docstring)."""
     import torch
@@ -3591,6 +3713,8 @@ def phase_gnn(errs: dict) -> None:
                                         inputs["minibatch_lg"])
         for a in GNN_ARCHS.values():
             phase_gnn_cell(a, shape_name, shape, step, args_at)
+        if shape_name == "minibatch_lg":
+            phase_gnn_split_tables(shape, inputs["minibatch_lg"], args_at(1))
     del inputs, indptr, indices, feats_tab, coords_tab, labels_tab, g, feats
     torch.cuda.empty_cache()
     print(f"[gnn] phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)

@@ -1,0 +1,50 @@
+"""Batched MIS serving on the port in ~25 lines: many graphs, ONE
+convergence loop, on the CUDA card by default.
+
+    PYTHONPATH=src python examples/torch_batch_mis.py [--device cpu]
+"""
+import argparse
+
+import numpy as np
+
+from repro_torch.api import Solver, SolveOptions
+from repro_torch.core import is_valid_mis
+from repro_torch.graphs.generators import erdos_renyi, grid2d, powerlaw
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+    dev = args.device
+
+    # 1. a heterogeneous batch of small graphs (the serving workload)
+    graphs = [grid2d(8, 8, device=dev), powerlaw(80, seed=1, device=dev),
+              erdos_renyi(50, seed=2, device=dev), grid2d(4, 12, device=dev),
+              erdos_renyi(30, avg_deg=3.0, seed=3, device=dev),
+              powerlaw(64, seed=4, device=dev), erdos_renyi(96, seed=5, device=dev),
+              grid2d(6, 6, device=dev)]
+
+    # 2. ONE loop solves the whole batch: the Solver plans each graph once
+    #    (content-hashed cache — repeats would be free), packs them
+    #    block-diagonally with per-graph priorities, and routes the bucket
+    solver = Solver(SolveOptions(heuristic="h3", engine="tiled_ref", tile_size=16), device=dev)
+    results = solver.solve_many(graphs)
+    first = results[0].stats      # the port compiles nothing: no cold / warm compile
+    print(f"packed {len(graphs)} graphs -> bucket {first['bucket']} "
+          f"({first['batch_size']} members, one dispatch)")
+
+    # 3. per-graph results are bit-identical to solo runs of each member —
+    #    members draw from content-derived generators, so a solo solve from
+    #    the same generator reproduces the member exactly
+    for i, (g, res) in enumerate(zip(graphs, results)):
+        solo = solver.solve(res.plan, generator=solver.request_generator(res.plan))
+        assert is_valid_mis(g, res.in_mis)
+        assert bool(np.all(res.in_mis == solo.in_mis))
+        assert res.rounds == solo.rounds   # per-MEMBER round counter
+        print(f"graph {i}: |V|={res.plan.n_nodes:3d} |MIS|={res.mis_size:3d} "
+              f"rounds={res.rounds} valid=True matches_solo=True")
+
+
+if __name__ == "__main__":
+    main()

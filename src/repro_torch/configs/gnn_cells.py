@@ -38,9 +38,11 @@ its `_pad512(2E) / R` half-edges; minibatch_lg and molecule through
 `minibatch_step(mesh=)` and `molecule_step(mesh=)` on this rank's block of
 the seeds or molecules (the batch split over the batch axes, as the
 reference's `P(d)`), the state placed by `place_gnn_state`, the gradients
-summed over the batch axes before AdamW.  Where the reference splits
-minibatch_lg's tables over the flat mesh, the port replicates them: they
-fit one card.
+summed over the batch axes before AdamW.  minibatch_lg's tables are placed
+as the reference's: `indptr` whole (`P()`), `indices`, the features, the
+coordinates and the labels split by rows over the flat mesh (`P(flat)`,
+`P(flat, None)`), each rank holding its block and reading every row the
+step needs through `dist.lookup.TableSplit.take` (`minibatch_step(tables=)`).
 """
 from __future__ import annotations
 
@@ -250,18 +252,19 @@ def products_part(mesh, n_nodes: Optional[int] = None, *, seed: int = 0):
 # sampled minibatch
 # --------------------------------------------------------------------------
 
-def minibatch_tree(indptr, indices, seeds, draws):
+def minibatch_tree(indptr, indices, seeds, draws, tables=None):
     """The reference cell's inline sampler and tree flattening: (ids,
     senders, receivers, edge_mask) over B + B·f1 + B·f1·f2 slots.  Unlike
     `NeighborSampler`, a second-hop slot of a masked parent keeps its draw
-    from vertex 0's row; only its edge is masked (m2 & m1)."""
+    from vertex 0's row; only its edge is masked (m2 & m1).  With `tables`
+    (a `dist.lookup.TableSplit`), `indices` is this rank's block."""
     u1, u2 = draws
     B, f1 = u1.shape
     f2 = u2.shape[-1]
     dev = seeds.device
-    l1, m1 = sample_neighbors(indptr, indices, seeds, u1)         # (B, f1)
+    l1, m1 = sample_neighbors(indptr, indices, seeds, u1, tables)     # (B, f1)
     l1 = torch.where(m1, l1, 0)
-    l2, m2 = sample_neighbors(indptr, indices, l1, u2)            # (B, f1, f2)
+    l2, m2 = sample_neighbors(indptr, indices, l1, u2, tables)        # (B, f1, f2)
     l2 = torch.where(m2, l2, 0)
     m2 = m2 & m1[..., None]
     ids = torch.cat([seeds, l1.reshape(-1), l2.reshape(-1)])
@@ -275,24 +278,45 @@ def minibatch_tree(indptr, indices, seeds, draws):
     return ids, snd, rcv, emask
 
 
+def minibatch_rows(tree, feats_tab, coords_tab, labels_tab, seeds, tables=None):
+    """The tree's feature and coordinate rows and the seeds' labels, read
+    from the whole tables or, with `tables` (a `dist.lookup.TableSplit`),
+    from this rank's blocks of them."""
+    ids = tree[0]
+    if tables is None:
+        idx = ids.long()
+        return feats_tab[idx], coords_tab[idx], labels_tab[seeds.long()]
+    return (tables.take(feats_tab, ids), tables.take(coords_tab, ids),
+            tables.take(labels_tab, seeds))
+
+
 def minibatch_loss(a: GNNArch, model, params: Optional[Params], tree, feats_tab, coords_tab,
-                   labels_tab, seeds) -> torch.Tensor:
+                   labels_tab, seeds, tables=None) -> torch.Tensor:
     """Cross-entropy of the seeds' logits on the sampled tree."""
-    ids, snd, rcv, emask = tree
-    idx = ids.long()
-    logits = a.node_logits(model, params, feats_tab[idx], coords_tab[idx], snd, rcv, emask)
-    return _xent(logits[: seeds.shape[0]], labels_tab[seeds.long()])
+    _, snd, rcv, emask = tree
+    feats, coords, labels = minibatch_rows(tree, feats_tab, coords_tab, labels_tab, seeds,
+                                           tables)
+    logits = a.node_logits(model, params, feats, coords, snd, rcv, emask)
+    return _xent(logits[: seeds.shape[0]], labels)
 
 
 def minibatch_step(a: GNNArch, model, params: Params, opt: AdamWState, draws, indptr, indices,
                    feats_tab, coords_tab, labels_tab, seeds, *,
-                   opt_cfg: OptConfig = TRAIN_OPT, mesh=None):
+                   opt_cfg: OptConfig = TRAIN_OPT, mesh=None, tables=None):
     """minibatch_lg: sample the tree from `draws` (`graphs.sampler.draws`
     at the shape's fanout; the reference takes a PRNG key) and take one step on it.
-    With `mesh`, `seeds` and `draws` are this rank's block (`_step`)."""
-    tree = minibatch_tree(indptr, indices, seeds, draws)
+    With `mesh`, `seeds` and `draws` are this rank's block (`_step`).  With
+    `tables` (`dist.lookup.TableSplit.of(mesh)`), the tables are split over
+    the mesh as the reference's cell places them: `indices`, `feats_tab`,
+    `coords_tab` and `labels_tab` are this rank's blocks
+    (`TableSplit.block`), `indptr` whole; every read of them is a
+    `TableSplit.take`, which returns the table's own bits, so the step is
+    the one on whole tables bit for bit."""
+    if tables is not None and mesh is None:
+        raise ValueError("tables split over a mesh need the step's mesh")
+    tree = minibatch_tree(indptr, indices, seeds, draws, tables)
     return _step(lambda p: minibatch_loss(a, model, p, tree, feats_tab, coords_tab,
-                                          labels_tab, seeds), params, opt, opt_cfg, mesh)
+                                          labels_tab, seeds, tables), params, opt, opt_cfg, mesh)
 
 
 # --------------------------------------------------------------------------
@@ -423,37 +447,40 @@ def _minibatch_cell(a: GNNArch) -> Cell:
     e_tree = B * (fanout[0] + fanout[0] * fanout[1])
 
     def build(mesh, variant: str = "memory"):
+        from repro_torch.dist.lookup import TableSplit, block_rows
         from repro_torch.dist.sharding import P, data_axes, mesh_device
 
         dev = mesh_device(mesh)
         b = _batch_block(mesh, B)
         model, whole = _fake_model(a, DF, NO, dev)
         params, opt = place_gnn_state(whole, mesh)
+        tables = TableSplit.of(mesh)
         NP, EP = _pad512(N + 1), _pad512(E)
+        nb, eb = block_rows(NP, tables.group.size), block_rows(EP, tables.group.size)
         f1, f2 = fanout
 
         def step(params, opt, u1, u2, indptr, indices, feats_tab, coords_tab, labels_tab,
                  seeds):
             return minibatch_step(a, model, params, opt, (u1, u2), indptr, indices, feats_tab,
-                                  coords_tab, labels_tab, seeds, mesh=mesh)
+                                  coords_tab, labels_tab, seeds, mesh=mesh, tables=tables)
 
         def i32(*shape):
             return torch.empty(shape, dtype=torch.int32, device=dev)
 
-        inputs = (params, opt, i32(b, f1), i32(b, f1, f2), i32(NP), i32(EP),
-                  torch.empty((NP, DF), device=dev), torch.empty((NP, 3), device=dev), i32(NP),
+        inputs = (params, opt, i32(b, f1), i32(b, f1, f2), i32(NP), i32(eb),
+                  torch.empty((nb, DF), device=dev), torch.empty((nb, 3), device=dev), i32(nb),
                   i32(b))
         d = data_axes(mesh)
+        flat = tuple(mesh.mesh_dim_names)
         p_specs = {k: P() for k in whole}
         specs = (p_specs, AdamWState(step=P(), m=p_specs, v=p_specs), P(d, None, None),
-                 P(d, None, None, None), P(), P(), P(), P(), P(), P(d))
+                 P(d, None, None, None), P(), P(flat), P(flat, None), P(flat, None), P(flat),
+                 P(d))
         return step, inputs, specs
 
     return Cell(arch=a.arch_id, shape="minibatch_lg", kind="train", build=build,
                 model_flops=3.0 * a.fwd_flops(n_tree, e_tree, DF),
-                note="fixed-fanout 15×10 neighbour sampling on device; the port replicates "
-                     "the tables (they fit one card), where the reference splits them over "
-                     "the flat mesh")
+                note="fixed-fanout 15×10 neighbour sampling on device")
 
 
 def _molecule_cell(a: GNNArch) -> Cell:

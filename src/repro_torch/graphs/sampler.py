@@ -54,14 +54,18 @@ def draws(generator: torch.Generator, batch: int, fanout: Sequence[int]
 
 
 def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor, frontier: torch.Tensor,
-                     u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                     u: torch.Tensor, tables=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """For each frontier vertex, the neighbours at offsets u % degree of
-    its CSR row, (frontier.shape + (fan,)), and where it has any."""
+    its CSR row, (frontier.shape + (fan,)), and where it has any.  With
+    `tables` (a `dist.lookup.TableSplit`), `indices` is this rank's block
+    of the whole array and the positions are read through `tables.take`."""
     f = frontier.long()
     start = indptr[f]
     deg = indptr[f + 1] - start
     offs = u.long() % torch.clamp(deg, min=1)[..., None]
-    nbr = indices[torch.clamp(start[..., None] + offs, max=indices.shape[0] - 1)]
+    n = indices.shape[0] if tables is None else tables.rows(indices)
+    pos = torch.clamp(start[..., None] + offs, max=n - 1)
+    nbr = indices[pos] if tables is None else tables.take(indices, pos)
     return nbr, (deg[..., None] > 0).expand(nbr.shape)
 
 

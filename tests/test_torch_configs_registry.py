@@ -21,12 +21,6 @@ from repro_torch.configs import common as C
 from repro_torch.configs import tcmis as PT
 from repro_torch.dist.sharding import MeshShape
 
-# the one note that differs, and why: the port replicates minibatch_lg's
-# tables (they fit one card), where the reference splits them over the
-# flat mesh; its note starts with the reference's and says so
-NOTE_EXTENDED = {("gin-tu", "minibatch_lg"), ("pna", "minibatch_lg"),
-                 ("egnn", "minibatch_lg"), ("mace", "minibatch_lg")}
-
 MESHES = [
     (("data", "model"), (1, 1)),
     (("data", "model"), (4, 1)),
@@ -55,10 +49,7 @@ def test_cells_match_the_reference(arch):
         assert math.isclose(pc.model_flops, rc.model_flops, rel_tol=1e-12), shape
         assert pc.skip_reason == rc.skip_reason, shape
         assert pc.extrapolate == rc.extrapolate, shape
-        if (arch, shape) in NOTE_EXTENDED:
-            assert pc.note.startswith(rc.note) and "replicates" in pc.note, shape
-        else:
-            assert pc.note == rc.note, shape
+        assert pc.note == rc.note, shape
 
 
 @pytest.mark.parametrize("arch", LM)

@@ -61,6 +61,7 @@ from repro.train import optimizer as RO
 from repro_torch.configs import GNN_ARCHS
 from repro_torch.configs import gnn_cells as C
 from repro_torch.dist.graph import split_edges, split_graph
+from repro_torch.dist.lookup import TableSplit, block_rows, row_block
 from repro_torch.graphs.generators import erdos_renyi
 from repro_torch.graphs.partition import partition_edges, partition_rows
 from repro_torch.models import gnn as G
@@ -81,6 +82,12 @@ WORLDS = {2: [("main", (2, 1))], 3: [("main", (3, 1))],
           4: [("main", (4, 1)), ("main", (2, 2)), ("edges", (4, 1))]}
 MAIN_N, MAIN_DEG = 50, 6.0
 EDGES_N = 40                      # four blocks of 10; the last gets no edge
+# minibatch_lg's tables split over the flat mesh: world size -> meshes
+MINI_MESHES = {2: [(2, 1)], 4: [(4, 1), (2, 2)]}
+MINI_ARCHS = ("gin-tu", "egnn")   # f32 rows summed as int32, f64 rows as int64
+MINI_CASES = ("mixed", "one_block")
+MINI_N, MINI_B, MINI_FANOUT = 50, 8, (3, 2)   # 50 rows: blocks of 25, 17 and 13 (padded)
+TAKE_KINDS = ("one_block", "every_block")
 
 
 def _main_graph():
@@ -121,6 +128,51 @@ def _graphs():
 
 def _dtype(arch):
     return np.float64 if arch in F64 else np.float32
+
+
+def _mini_inputs(case):
+    """A minibatch_lg batch on a CSR of MINI_N vertices (degrees 0-5: some
+    vertices have none), features of ogb_products' width with a fifth of
+    their entries -0.0, MINI_B seeds and their draws at MINI_FANOUT.
+    "mixed": seeds over every vertex; "one_block": every seed in [0, 13),
+    the first block on 4 ranks (and inside the first on 2)."""
+    from repro_torch.graphs.sampler import DRAW_HIGH
+
+    rng = np.random.default_rng(7 if case == "mixed" else 8)
+    deg = rng.integers(0, 6, MINI_N)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    feats, coords, labels = _rows(MINI_N, seed=9)
+    feats[rng.random(feats.shape) < 0.2] = -0.0
+    pool = 13 if case == "one_block" else MINI_N
+    f1, f2 = MINI_FANOUT
+    return dict(indptr=indptr, indices=rng.integers(0, MINI_N, int(indptr[-1])).astype(np.int32),
+                feats=feats, coords=coords, labels=labels,
+                seeds=rng.choice(pool, MINI_B, replace=False).astype(np.int32),
+                u1=rng.integers(0, DRAW_HIGH, (MINI_B, f1)).astype(np.int32),
+                u2=rng.integers(0, DRAW_HIGH, (MINI_B, f1, f2)).astype(np.int32))
+
+
+def _take_inputs():
+    """Tables of MINI_N rows for `TableSplit.take` (f32 with -0.0 and a NaN
+    of a set payload, f64 with -0.0, int32, bool) and each world's ids, a
+    row per rank: "one_block" every id in the second block, "every_block"
+    every row once and 20 more."""
+    rng = np.random.default_rng(10)
+    f32 = rng.standard_normal((MINI_N, 7)).astype(np.float32)
+    f32[::4, 1] = -0.0
+    f32.view(np.uint32)[3, 2] = 0x7FC12345
+    f64 = rng.standard_normal((MINI_N, 3))
+    f64[1::5, 0] = -0.0
+    out = dict(f32=f32, f64=f64, i32=rng.integers(-9, 9, MINI_N).astype(np.int32),
+               mask=rng.random(MINI_N) < 0.5)
+    for size in WORLDS:
+        blk = -(-MINI_N // size)
+        lo, hi = blk, min(2 * blk, MINI_N)
+        out[f"ids_one_block_{size}"] = rng.integers(lo, hi, (size, 24)).astype(np.int32)
+        out[f"ids_every_block_{size}"] = np.stack([
+            np.concatenate([rng.permutation(MINI_N), rng.integers(0, MINI_N, 20)])
+            for _ in range(size)]).astype(np.int64)
+    return out
 
 
 def _ref_weights(arch):
@@ -197,6 +249,79 @@ for graph, shape in meta["worlds"][str(size)]:
             for i, g in enumerate(grads):
                 arrays.update({f"g{i}/{k}": v for k, v in g.items()})
             np.savez(os.path.join(world, f"{name}.npz"), **arrays)
+
+# minibatch_lg's tables split over the flat mesh (dist.lookup): the
+# split step against the replicated step on the same mesh, bit for bit
+from repro_torch.dist.lookup import TableSplit
+from repro_torch.dist.sharding import local
+
+def bits(x):
+    return x.view({torch.float32: torch.int32, torch.float64: torch.int64}.get(x.dtype, x.dtype))
+
+def same(x, y):
+    return x.shape == y.shape and x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+
+for shape in meta["mini_meshes"].get(str(size), []):
+    mesh = DeviceMesh("cpu", torch.arange(size).reshape(shape), mesh_dim_names=("data", "model"))
+    tables = TableSplit.of(mesh)
+    dp = shape[0]
+    coord = mesh.get_coordinate()[0]
+    for case in meta["mini_cases"]:
+        inp = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(data, f"mini_{case}.npz")).items()}
+        whole = [inp[k] for k in ("indices", "feats", "coords", "labels")]
+        blocks = [tables.block(x) for x in whole]
+        seeds = inp["seeds"].chunk(dp)[coord]
+        draws = tuple(inp[k].chunk(dp)[coord] for k in ("u1", "u2"))
+        for arch in meta["mini_archs"]:
+            dt = torch.float64 if arch in meta["f64"] else torch.float32
+            a = GNN_ARCHS[arch]
+            model = a.init(meta["d_feat"], meta["n_out"], seed=0, device="cpu")
+            w = np.load(os.path.join(data, f"weights_{arch}.npz"))
+            model.load_state_dict({k: torch.from_numpy(w[k]) for k in w.files})
+            model.to(dt)
+            feats, coords = (x.to(dt) for x in whole[1:3])
+            fblocks = [blocks[0], *(x.to(dt) for x in blocks[1:3]), blocks[3]]
+            tree = C.minibatch_tree(inp["indptr"], whole[0], seeds, draws)
+            tree_s = C.minibatch_tree(inp["indptr"], fblocks[0], seeds, draws, tables)
+            rows = C.minibatch_rows(tree, feats, coords, whole[3], seeds)
+            rows_s = C.minibatch_rows(tree_s, *fblocks[1:], seeds, tables)
+            runs = {}
+            for name, tabs, split in (("replicated", [whole[0], feats, coords, whole[3]], None),
+                                      ("split", fblocks, tables)):
+                params, opt = C.place_gnn_state(C.train_params(model), mesh)
+                losses = []
+                for _ in range(meta["steps"]):
+                    params, opt, loss = C.minibatch_step(a, model, params, opt, draws,
+                                                         inp["indptr"], *tabs, seeds, mesh=mesh,
+                                                         tables=split)
+                    losses.append(loss)
+                leaves = {f"p/{k}": local(v) for k, v in params.items()}
+                leaves.update({f"m/{k}": local(v) for k, v in opt.m.items()})
+                leaves.update({f"v/{k}": local(v) for k, v in opt.v.items()})
+                runs[name] = (losses, leaves)
+            (lr, vr), (ls, vs) = runs["replicated"], runs["split"]
+            out[f"mini_{case}_{arch}_{shape[0]}x{shape[1]}"] = {
+                "losses": [x.item() for x in ls],
+                "losses_equal": all(same(x, y) for x, y in zip(lr, ls)),
+                "leaves_differ": sorted(k for k in vr if not same(vr[k], vs[k])),
+                "n_leaves": len(vr),
+                "tree_equal": all(same(x, y) for x, y in zip(tree, tree_s)),
+                "rows_equal": [same(x, y) for x, y in zip(rows, rows_s)],
+                "blocks": [list(b.shape) for b in blocks],
+            }
+
+# take(block, ids) against the whole table's rows, bit for bit
+if "take" in meta:
+    mesh = DeviceMesh("cpu", torch.arange(size).reshape(size, 1), mesh_dim_names=("data", "model"))
+    tables = TableSplit.of(mesh)
+    t = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(data, "take.npz")).items()}
+    for kind in meta["take"]:
+        ids = t[f"ids_{kind}_{size}"][rank]
+        got = {k: tables.take(tables.block(t[k]), ids) for k in ("f32", "f64", "i32", "mask")}
+        out[f"take_{kind}_{size}"] = {
+            "equal": {k: same(v, t[k][ids.long()]) for k, v in got.items()},
+            "owners": sorted(set((ids.long() // -(-t["f32"].shape[0] // size)).tolist())),
+        }
 json.dump(out, open(os.path.join(world, f"out.rank{rank}.json"), "w"))
 dist.destroy_process_group()
 """
@@ -216,9 +341,10 @@ def _finish(procs: list, size: int, data: str) -> dict:
         assert p.returncode == 0, log[-4000:]
     world = os.path.join(data, f"world{size}")
     outs = [json.load(open(os.path.join(world, f"out.rank{r}.json"))) for r in range(size)]
+    arrays = {name: os.path.join(world, f"{name}.npz") for name in outs[0]}
     return {name: dict(ranks=[o[name] for o in outs],
-                       arrays=dict(np.load(os.path.join(world, f"{name}.npz"))))
-            for name in outs[0]}
+                       arrays=dict(np.load(path)) if os.path.exists(path) else {})
+            for name, path in arrays.items()}
 
 
 # --------------------------------------------------------------------------
@@ -261,6 +387,23 @@ def _unsplit_steps(arch, tree, graph):
     return losses, grads, states
 
 
+def _mini_whole_losses(arch, tree, mini):
+    """STEPS minibatch steps without a mesh on the whole batch: the losses."""
+    a = GNN_ARCHS[arch]
+    model = _port_model(arch, tree)
+    dt = next(model.parameters()).dtype
+    t = {k: torch.from_numpy(v) for k, v in mini.items()}
+    params = C.train_params(model)
+    opt = O.adamw_init(params)
+    losses = []
+    for _ in range(STEPS):
+        params, opt, loss = C.minibatch_step(a, model, params, opt, (t["u1"], t["u2"]),
+                                             t["indptr"], t["indices"], t["feats"].to(dt),
+                                             t["coords"].to(dt), t["labels"], t["seeds"])
+        losses.append(float(loss))
+    return losses
+
+
 def _ref_step(arch, tree, graph):
     """One step of the reference's ogb_products cell (jitted, one device):
     (params, AdamW state, loss)."""
@@ -284,18 +427,27 @@ def runs(tmp_path_factory):
         graphs = _graphs()
         for name, arrays in graphs.items():
             np.savez(os.path.join(data, f"graph_{name}.npz"), **arrays)
+        minis = {case: _mini_inputs(case) for case in MINI_CASES}
+        for case, arrays in minis.items():
+            np.savez(os.path.join(data, f"mini_{case}.npz"), **arrays)
+        np.savez(os.path.join(data, "take.npz"), **_take_inputs())
         trees = {arch: _ref_weights(arch) for arch in ARCHS}
         for arch, tree in trees.items():
             np.savez(os.path.join(data, f"weights_{arch}.npz"),
                      **{k: v.numpy() for k, v in G.gnn_params_from_numpy(arch, tree).items()})
         meta = {"worlds": {str(k): v for k, v in WORLDS.items()}, "archs": list(ARCHS),
-                "f64": list(F64), "d_feat": D_FEAT, "n_out": N_OUT, "steps": STEPS}
+                "f64": list(F64), "d_feat": D_FEAT, "n_out": N_OUT, "steps": STEPS,
+                "mini_meshes": {str(k): v for k, v in MINI_MESHES.items()},
+                "mini_cases": list(MINI_CASES), "mini_archs": list(MINI_ARCHS),
+                "take": list(TAKE_KINDS)}
         with open(os.path.join(data, "meta.tmp"), "w") as f:
             json.dump(meta, f)
         os.replace(os.path.join(data, "meta.tmp"), os.path.join(data, "meta.json"))
         ref = {arch: _ref_step(arch, trees[arch], graphs["main"]) for arch in ARCHS}
         unsplit = {(g, arch): _unsplit_steps(arch, trees[arch], graphs[g])
                    for g in graphs for arch in ARCHS}
+        mini_whole = {(case, arch): _mini_whole_losses(arch, trees[arch], minis[case])
+                      for case in MINI_CASES for arch in MINI_ARCHS}
         placed = {}
         for size, ps in procs.items():
             placed.update(_finish(ps, size, data))
@@ -305,7 +457,7 @@ def runs(tmp_path_factory):
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-    return dict(trees=trees, ref=ref, unsplit=unsplit, placed=placed)
+    return dict(trees=trees, ref=ref, unsplit=unsplit, placed=placed, mini_whole=mini_whole)
 
 
 # --------------------------------------------------------------------------
@@ -429,6 +581,43 @@ def test_placed_loss_matches_the_reference_cell(runs, arch):
             np.testing.assert_allclose(rank["losses"][0], ref_loss, rtol=1e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("case", MINI_CASES)
+@pytest.mark.parametrize("shape", [(2, 1), (4, 1), (2, 2)])
+@pytest.mark.parametrize("arch", MINI_ARCHS)
+def test_split_tables_step_is_the_replicated_step_bit_for_bit(runs, arch, shape, case):
+    """minibatch_lg's step with `indices`, the features, coordinates and
+    labels split by rows over the flat mesh (`minibatch_step(tables=)`)
+    against the same step on whole tables on the same mesh, after 2 steps,
+    on every rank: the sampled tree, the rows read (features with -0.0
+    entries), both losses and every leaf of the parameters, m and v, bit
+    for bit; each rank's blocks ceil(50 / R) rows; the loss the whole
+    batch's step without a mesh gives (rtol 1e-5: the ranks sum the
+    batch's terms in another order)."""
+    name = f"mini_{case}_{arch}_{shape[0]}x{shape[1]}"
+    ranks = runs["placed"][name]["ranks"]
+    blk = -(-MINI_N // (shape[0] * shape[1]))
+    for r, rank in enumerate(ranks):
+        assert rank["tree_equal"] and rank["rows_equal"] == [True] * 3, (name, r)
+        assert rank["losses_equal"], (name, r, rank["losses"])
+        assert rank["leaves_differ"] == [] and rank["n_leaves"] > 0, (name, r)
+        assert rank["blocks"] == [[-(-len(_mini_inputs(case)["indices"]) // len(ranks))],
+                                  [blk, D_FEAT], [blk, 3], [blk]], (name, r)
+        np.testing.assert_allclose(rank["losses"], runs["mini_whole"][(case, arch)], rtol=1e-5,
+                                   err_msg=f"{name} rank {r}")
+
+
+@pytest.mark.parametrize("kind", TAKE_KINDS)
+@pytest.mark.parametrize("ranks", (2, 3, 4))
+def test_take_returns_the_tables_rows_bit_for_bit(runs, ranks, kind):
+    """`TableSplit.take` on (ranks, 1), each rank its own ids: ids all in
+    the second block (one rank holds every row asked for), and ids that
+    cover every block; f32 (-0.0, a NaN's payload), f64, int32 and bool
+    tables of 50 rows, which 3 and 4 ranks split into padded blocks."""
+    for r, rank in enumerate(runs["placed"][f"take_{kind}_{ranks}"]["ranks"]):
+        assert rank["equal"] == {"f32": True, "f64": True, "i32": True, "mask": True}, r
+        assert rank["owners"] == ([1] if kind == "one_block" else list(range(ranks))), r
+
+
 # --------------------------------------------------------------------------
 # the split on the host
 # --------------------------------------------------------------------------
@@ -518,3 +707,45 @@ def test_tiled_gin_refuses_a_split():
         model(torch.zeros((2, 4)), torch.zeros(1, dtype=torch.int32),
               torch.zeros(1, dtype=torch.int32), torch.ones(1, dtype=torch.bool),
               backend="tiled", split=object())
+
+
+@pytest.mark.parametrize("n, ranks", [(50, 4), (50, 3), (48, 4), (7, 4), (3, 4), (5, 1)])
+def test_row_block_cuts_equal_blocks_padded_with_zeros(n, ranks):
+    """Every rank's block has ceil(n / ranks) rows; the blocks in rank
+    order are the table, then zero rows (a whole block of them where the
+    table ends before it); each block in storage of its own."""
+    x = torch.arange(n * 3, dtype=torch.float32).reshape(n, 3) + 1
+    blk = block_rows(n, ranks)
+    assert blk == -(-n // ranks)
+    parts = [row_block(x, ranks, r) for r in range(ranks)]
+    assert all(p.shape == (blk, 3) and p.dtype == x.dtype for p in parts)
+    cat = torch.cat(parts)
+    assert torch.equal(cat[:n], x) and not cat[n:].any()
+    parts[0][0] = 0
+    assert x[0, 0] == 1
+
+
+def test_take_on_one_rank_is_indexing(one_rank_mesh):
+    """On one rank the block is the whole table (its own copy) and `take`
+    is indexing, bit for bit (-0.0 and a NaN's payload kept); a bf16 table
+    has no lookup (its rows would sum as int16, which NCCL lacks)."""
+    tables = TableSplit.of(one_rank_mesh)
+    x = torch.randn((9, 4))
+    x[2, 1] = -0.0
+    x.view(torch.int32)[5, 0] = 0x7FC12345
+    block = tables.block(x.numpy())
+    assert block.shape == x.shape and tables.rows(block) == 9
+    ids = torch.tensor([[2, 5], [5, 8], [0, 2]], dtype=torch.int32)
+    got = tables.take(block, ids)
+    assert got.shape == (3, 2, 4) and torch.equal(got.view(torch.int32),
+                                                 x[ids.long()].view(torch.int32))
+    with pytest.raises(ValueError, match="no lookup"):
+        tables.take(block.to(torch.bfloat16), ids)
+
+
+def test_split_tables_need_the_steps_mesh(one_rank_mesh):
+    """`minibatch_step(tables=)` without the mesh the tables are split over
+    refuses: its gradients would not be summed over the batch ranks."""
+    with pytest.raises(ValueError, match="need the step's mesh"):
+        C.minibatch_step(None, None, {}, None, None, None, None, None, None, None, None,
+                         tables=TableSplit.of(one_rank_mesh))

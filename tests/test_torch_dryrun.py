@@ -134,6 +134,48 @@ def test_argument_bytes_equal_the_references_on_a_2x4_mesh(monkeypatch):
     assert got["total_per_device"] >= got["argument_bytes"] + got["output_bytes"]
 
 
+SMALL_MINIBATCH = dict(n_nodes=1000, n_edges=5000, d_feat=16, n_out=5, batch_nodes=16,
+                      fanout=(3, 2))
+
+
+def test_minibatch_argument_bytes_equal_the_references_on_a_2x4_mesh(monkeypatch):
+    """Rank 0's arguments of egnn's minibatch_lg cell with the shape cut
+    to 1,000 vertices (`SMALL_MINIBATCH`, in both packages) on (data=2,
+    model=4): the tables split over the flat mesh as the reference places
+    them (`indptr` whole, `indices`, features, coordinates and labels an
+    eighth each), so the bytes are the reference's compiled cell's, less
+    its 8-byte PRNG key, plus the port's draws, which stand for the key:
+    b · f1 · (1 + f2) int32s for rank 0's b = 8 seeds.  egnn reads every
+    table (gin-tu reads no coordinates, and jax.jit drops an argument the
+    computation does not use from its count)."""
+    out = run_multidevice(f"""
+        import jax
+        from repro.configs import egnn
+        from repro.configs import gnn_cells as RG
+
+        RG.GNN_SHAPES["minibatch_lg"] = {SMALL_MINIBATCH!r}
+        mesh = jax.make_mesh((2, 4), ("data", "model"),
+                             axis_types=(jax.sharding.AxisType.Auto,) * 2)
+        cell = RG._minibatch_cell(egnn.GNN)
+        with mesh:
+            fn, inputs, shardings = cell.build(mesh, variant="memory")
+            compiled = jax.jit(fn, in_shardings=shardings).lower(*inputs).compile()
+        print("ARGUMENT_BYTES", compiled.memory_analysis().argument_size_in_bytes)
+    """)
+    want = int(out.split("ARGUMENT_BYTES")[1].split()[0])
+    from repro_torch.configs import GNN_ARCHS
+    from repro_torch.configs import gnn_cells as G
+
+    monkeypatch.setitem(G.GNN_SHAPES, "minibatch_lg", SMALL_MINIBATCH)
+    cell = G._minibatch_cell(GNN_ARCHS["egnn"])
+    with DR.fake_group((2, 4), ("data", "model")) as mesh:
+        got = DR.count_pass(cell, mesh, "memory")["memory"]
+    f1, f2 = SMALL_MINIBATCH["fanout"]
+    b = SMALL_MINIBATCH["batch_nodes"] // 2
+    assert got["argument_bytes"] == want - 8 + b * f1 * (1 + f2) * 4
+    assert got["total_per_device"] >= got["argument_bytes"] + got["output_bytes"]
+
+
 def test_a_memory_pass_counts_the_carry_at_its_block_of_S(monkeypatch):
     """The train cell at the small config above on a fake (data=2,
     model=4) group: every layer input that remat saves (a checkpointed

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: `repro_torch`, chip_smoke.py,
-tools/sharded_train_ranks.py, tools/products_probe.py and
-tools/profiler_drops.py import neither
+tools/sharded_train_ranks.py, tools/products_probe.py,
+tools/profiler_drops.py and the port's examples (examples/torch_*.py)
+import neither
 jax (nor `ml_dtypes`, its bf16 numpy dtype) nor anything of the JAX
 reference package `repro`."""
 import ast
@@ -14,7 +15,10 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "sharded_train_ranks.py",
-    REPO / "tools" / "products_probe.py", REPO / "tools" / "profiler_drops.py"]
+    REPO / "tools" / "products_probe.py", REPO / "tools" / "profiler_drops.py"] + [
+    REPO / "examples" / f"torch_{name}.py" for name in (
+        "quickstart", "solver_quickstart", "batch_mis", "dynamic_mis", "hybrid_mis",
+        "mis_heuristics", "distributed_mis", "health_dashboard", "serve_lm", "train_lm")]
 
 
 def _imported_modules(path):
@@ -59,6 +63,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.configs.deepseek_v3_671b, repro_torch.configs.nemotron4_340b\n"
         "import repro_torch.launch.serve, repro_torch.launch.train\n"
         "import repro_torch.dist, repro_torch.dist.graph, repro_torch.dist.collectives\n"
+        "import repro_torch.dist.lookup\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'ml_dtypes', 'repro'))\n"
         "assert not bad, bad\n"

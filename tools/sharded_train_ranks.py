@@ -4,7 +4,7 @@ rank (card), the group NCCL at tcp://localhost on a free port:
 
     python3 tools/sharded_train_ranks.py [--ranks 4] [--device cuda|cpu]
         [--only lm lm_moe deepfm moe ckpt lm_tp lm_tp_moe lm_fsdp decode_tp deepfm_tp
-                gnn_products]
+                gnn_products gnn_minibatch]
 
   (a) lm: qwen3-0.6b whole on a (ranks, 1) ("data", "model") mesh,
       train_4k's length S = 4,096 and a global batch of 16 (4 sequences a
@@ -100,7 +100,26 @@ rank (card), the group NCCL at tcp://localhost on a free port:
       sums over edges, over vertices and inside each GEMM, which the split
       changes too, a card's GEMMs running on its quarter of the rows), no
       less than twice 2^-23.  Rank 0 prints
-      each run's numbers as a `[gnn_products]` line when it ends.
+      each run's numbers as a `[gnn_products]` line when it ends;
+  (k) gnn_minibatch: minibatch_lg's step with its tables split over the
+      ranks as the reference places them (`dist.lookup.TableSplit`,
+      `minibatch_step(tables=)`) against the step on whole tables on the
+      same mesh: gin-tu on the Reddit-shaped stand-in that chip_smoke's
+      phase 12 (b) builds (`erdos_renyi` at 232,965 vertices and about
+      114.6 M half-edges, drawn on every rank's host; the CSR on the card;
+      a 602-wide feature table), B = 1,024 global seeds at fanout (15,
+      10), split over the batch ranks, on (ranks, 1) and (2, ranks / 2).
+      MINI_STEPS steps of each from the same state on the same seeds and
+      draws: every step's loss and every leaf of the parameters, m and v
+      bit-equal on every rank, both run under torch's deterministic
+      algorithms (the segment sums' float atomics would put two runs of
+      one step a few ulps apart), the timed steps after them in its
+      default mode.  The replicated steps run first with the
+      whole tables on the card; the blocks are then cut and the whole
+      tables dropped, so each run's peak is what its placement holds.  Per
+      card: the median ms of the steps after the first (CUDA events, every
+      rank aligned first), the peak GiB, the tables' bytes, and the lookup
+      alone (the tree sampled and its rows read, median of MINI_STEPS).
 
 With `--device cpu` the ranks are gloo processes on the CPU and every
 config is cut to a CPU size (`launch.train.small_variant`, DeepFM's
@@ -195,6 +214,10 @@ GNN_LOSS_TOL = 1e-5
 CHUNK_EDGES = 1 << 24
 SPREAD_FLOOR = 2.0 ** -23     # two runs that happen to round alike
 SPREAD_SEEDS = (0, 1, 2)      # the relabelled one-card runs behind a spread
+# gnn_minibatch: minibatch_lg's Reddit-shaped stand-in (the vertex count cut
+# to MINI_CPU_NODES, the batch to MINI_CPU_BATCH, on the CPU)
+MINI_STEPS = 4
+MINI_CPU_NODES, MINI_CPU_BATCH = 2048, 64
 
 
 def free_port() -> int:
@@ -1217,17 +1240,166 @@ def part_gnn_products(r: Rank) -> dict:
     return out
 
 
-def said(r: Rank, key: str, run: dict) -> None:
+def said(r: Rank, key: str, run: dict, part: str = "gnn_products") -> None:
     """Rank 0 prints a run's numbers as soon as it ends."""
     if r.rank == 0:
-        print(f"[gnn_products] {key} {json.dumps(run)}", flush=True)
+        print(f"[{part}] {key} {json.dumps(run)}", flush=True)
+
+
+def minibatch_inputs(r: Rank):
+    """minibatch_lg's stand-in, the same on every rank: (shape, indptr,
+    indices, feats, coords, labels on this rank's device, host seconds to
+    draw the graph)."""
+    import torch
+    from repro_torch.configs import gnn_cells as C
+    from repro_torch.graphs.generators import erdos_renyi
+    from repro_torch.graphs.sampler import NeighborSampler
+
+    shape = dict(C.GNN_SHAPES["minibatch_lg"])
+    avg_deg = shape["n_edges"] / shape["n_nodes"]
+    if not r.cuda:
+        shape.update(n_nodes=MINI_CPU_NODES, batch_nodes=MINI_CPU_BATCH)
+    t0 = time.perf_counter()
+    g = erdos_renyi(shape["n_nodes"], avg_deg=avg_deg, seed=GNN_SEED, device=r.dev)
+    host_s = time.perf_counter() - t0
+    sampler = NeighborSampler(g, shape["fanout"])
+    del g
+    n = sampler.indptr.numel() - 1
+    gen = torch.Generator(device=r.dev).manual_seed(GNN_SEED)
+    feats = torch.randn((n, shape["d_feat"]), generator=gen, device=r.dev)
+    coords = torch.randn((n, 3), generator=gen, device=r.dev)
+    labels = torch.randint(0, shape["n_out"], (n,), generator=gen, device=r.dev,
+                           dtype=torch.int32)
+    return shape, sampler.indptr, sampler.indices, feats, coords, labels, host_s
+
+
+def minibatch_batches(r: Rank, shape: dict, n: int, dp: int, coord: int) -> list:
+    """MINI_STEPS global batches (seeds and draws, the same on every rank),
+    each cut to this rank's block of the batch ranks."""
+    import torch
+    from repro_torch.graphs.sampler import draws
+
+    out = []
+    for i in range(MINI_STEPS):
+        gen = torch.Generator(device=r.dev).manual_seed(GNN_SEED + 1000 + i)
+        B = shape["batch_nodes"]
+        seeds = torch.randperm(n, generator=gen, device=r.dev)[:B].to(torch.int32)
+        u = draws(gen, B, shape["fanout"])
+        out.append((tuple(x.chunk(dp)[coord] for x in u), seeds.chunk(dp)[coord]))
+    return out
+
+
+def deterministic_algorithms(r: Rank, on: bool) -> None:
+    """torch's deterministic algorithms on or off (warn-only: an op that
+    has none warns).  On the card `index_add_`, `index_put_(accumulate=
+    True)` and `scatter_add_` then sum in one order, not by float atomics,
+    so two runs of one step give the same bits."""
+    r.torch.use_deterministic_algorithms(on, warn_only=on)
+
+
+def minibatch_run(r: Rank, shape: dict, mesh, indptr, tabs, tables) -> dict:
+    """MINI_STEPS steps of gin-tu from a fresh state on `tabs` (whole, or
+    this rank's blocks with `tables`) under deterministic algorithms: each
+    step's loss and the final leaves on the host.  Then, in torch's
+    default mode, the same batches again from that state: the median ms of
+    the steps after the first, this rank's peak GiB over them, and the
+    lookup alone (the tree and its rows, median of MINI_STEPS)."""
+    from repro_torch.configs import GNN_ARCHS
+    from repro_torch.configs import gnn_cells as C
+    from repro_torch.dist.sharding import local
+
+    a = GNN_ARCHS["gin-tu"]
+    dp = mesh.size(0)
+    batches = minibatch_batches(r, shape, indptr.numel() - 1, dp, mesh.get_coordinate()[0])
+    model = a.init(shape["d_feat"], shape["n_out"], seed=GNN_SEED, device=r.dev)
+    params, opt = C.place_gnn_state(C.train_params(model), mesh)
+
+    def step(params, opt, draws, seeds):
+        return C.minibatch_step(a, model, params, opt, draws, indptr, *tabs, seeds, mesh=mesh,
+                                tables=tables)
+
+    deterministic_algorithms(r, True)
+    try:
+        losses = []
+        for draws, seeds in batches:
+            params, opt, loss = step(params, opt, draws, seeds)
+            losses.append(loss.cpu())
+    finally:
+        deterministic_algorithms(r, False)
+    leaves = {f"p/{k}": local(v).cpu() for k, v in params.items()}
+    leaves.update({f"m/{k}": local(v).cpu() for k, v in opt.m.items()})
+    leaves.update({f"v/{k}": local(v).cpu() for k, v in opt.v.items()})
+    r.reset_peak()
+    took, lookup = [], []
+    for draws, seeds in batches:
+        r.aligned()
+        (params, opt, _), ms = r.ms(lambda: step(params, opt, draws, seeds))
+        took.append(ms)
+    peak = r.peak_gib()
+    for draws, seeds in batches:
+        r.aligned()
+        _, ms = r.ms(lambda: C.minibatch_rows(
+            C.minibatch_tree(indptr, tabs[0], seeds, draws, tables), *tabs[1:], seeds, tables))
+        lookup.append(ms)
+    del params, opt, model
+    r.free()
+    return {"losses": losses, "leaves": leaves, "step_ms": statistics.median(took[1:]),
+            "steps_ms": took, "lookup_ms": statistics.median(lookup), "peak_gib": peak,
+            "tables_bytes": sum(x.numel() * x.element_size() for x in tabs)}
+
+
+def part_gnn_minibatch(r: Rank) -> dict:
+    """minibatch_lg's tables split over the ranks (see the module
+    docstring, (k))."""
+    import torch
+    from repro_torch.dist.lookup import TableSplit
+
+    def same(x, y):
+        view = {torch.float32: torch.int32, torch.float64: torch.int64}
+        return x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+            x.view(view.get(x.dtype, x.dtype)), y.view(view.get(y.dtype, y.dtype)))
+
+    shapes = ((r.size, 1), (2, r.size // 2))
+    meshes = {shape: r.mesh(tuple(shape)) for shape in shapes}
+    shape, indptr, *whole, host_s = minibatch_inputs(r)
+    replicated = {k: minibatch_run(r, shape, mesh, indptr, whole, None)
+                  for k, mesh in meshes.items()}
+    tables = {k: TableSplit.of(mesh) for k, mesh in meshes.items()}
+    blocks = tables[shapes[0]].block
+    blocks = [blocks(x) for x in whole]       # the flat group's blocks: the same on every mesh
+    del whole
+    r.free()
+    out = {"vertices": int(indptr.numel() - 1), "half_edges": int(indptr[-1]),
+           "batch": shape["batch_nodes"], "fanout": list(shape["fanout"]),
+           "graph_host_s": host_s}
+    for k, mesh in meshes.items():
+        split = minibatch_run(r, shape, mesh, indptr, blocks, tables[k])
+        rep = replicated[k]
+        differ = sorted(n for n in rep["leaves"] if not same(rep["leaves"][n], split["leaves"][n]))
+        losses_equal = all(same(x, y) for x, y in zip(rep["losses"], split["losses"]))
+        run = {"losses": [float(x) for x in split["losses"]], "losses_equal": losses_equal,
+               "leaves": len(rep["leaves"]), "leaves_differ": differ}
+        for name, res in (("replicated", rep), ("split", split)):
+            run[name] = {key: r.gather(res[key]) for key in
+                         ("step_ms", "lookup_ms", "peak_gib", "tables_bytes")}
+            run[name]["steps_ms_rank0"] = res["steps_ms"]
+        if differ or not losses_equal:
+            fail(r, f"gnn_minibatch {k}: the split step differs from the replicated step: "
+                    f"losses equal {losses_equal}, leaves {differ}")
+        out[f"{k}"] = run
+        said(r, f"gin-tu {k}", {**run, **{x: out[x] for x in ("vertices", "half_edges")}},
+             "gnn_minibatch")
+        r.dist.barrier()
+    del blocks
+    r.free()
+    return out
 
 
 PARTS = {"lm": lambda r: part_lm(r, "lm"), "lm_moe": lambda r: part_lm(r, "lm_moe"),
          "deepfm": part_deepfm, "moe": part_moe, "ckpt": part_ckpt,
          "lm_tp": lambda r: part_lm(r, "lm_tp"), "lm_tp_moe": lambda r: part_lm(r, "lm_tp_moe"),
          "lm_fsdp": part_lm_fsdp, "decode_tp": part_decode_tp, "deepfm_tp": part_deepfm_tp,
-         "gnn_products": part_gnn_products}
+         "gnn_products": part_gnn_products, "gnn_minibatch": part_gnn_minibatch}
 
 
 def rank_main(args) -> None:
