@@ -76,6 +76,19 @@ Phases, each fatal on failure:
              TC-MIS's.  The G3 stand-in (`delaunay_like(524288)`) plans and
              solves with `SolveOptions()` and with `hybrid="off"`, to the
              same MIS; the generator, plan and partition seconds print.
+             The draws (`core.prng`, the reference's jax.random threefry
+             stream): the Threefry kernel bit-equal to its plain version for
+             n in {1, 2, 3, 1,023, 1,089,936, 2^24 + 1}, bits and uniforms,
+             under keys with high bits set, timed cold and warm beside its
+             bound; then from seed 0 alone, `Solver(SolveOptions())` on G2,
+             `luby_mis`, `ecl_mis` and a quarter-G2 `solve_many` member (its
+             solo solve under `request_key` too) each give the reference's
+             MIS: |MIS|, rounds and the SHA-256 of `np.packbits(in_mis)`
+             equal to `G2_SEED_MIS`, which tests/test_torch_g2_seed.py holds
+             to the reference on the CPU.  Every solve above counts its
+             Threefry launches too: one `make_priorities` is 1 under H3, 1 +
+             the permutation's sort rounds under H2 and ECL (3 on G2), one a
+             round under Luby (`draw_launches`).
   4. timing  CUDA-event times per launch (in the order plain, kernel,
              kernel, plain; the stream kept busy while a window's calls are
              enqueued) of each kernel and its plain version, at the round-1
@@ -118,7 +131,7 @@ Phases, each fatal on failure:
              once a round; the tiled phase ① two dense maxes a round: a batch
              counts rounds per vertex, so its frontier is dense); every member
              equals, in MIS and rounds, its solo solve under its own request
-             generator and is a valid MIS of its plan graph.  Before the G2
+             key and is a valid MIS of its plan graph.  Before the G2
              batch's solve, the six MIS kernels are held exactly against
              their plain versions on its round-1 inputs, with the column flags
              its `col_gate` zeroes.  Printed: ms per batch and per member
@@ -181,7 +194,7 @@ Phases, each fatal on failure:
              (b) G2 written as a SNAP edge list under build/serve/, parsed
                  alone and planned alone (a fresh cache), then submitted
                  plainly and with stream=True (plans "built", "mem"), one
-                 step equal to `Solver.solve` under the request generator;
+                 step equal to `Solver.solve` under the request key;
                  a 1 % update (phase 6's draw) valid, incremental, in fewer
                  rounds than a cold solve of the patched plan, launching
                  the covered pass once and the path's kernels per round
@@ -582,6 +595,20 @@ G2_PARTITIONS = {30: (67_338, 408_725, 2_441_660, 783), 68: (0, 476_063, 4_461_8
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM 32-bit rate outside the tensor cores
 CSRC = "src/repro_torch/csrc/"
+# G2's MIS from seed 0 alone as the reference computes it (JAX 0.9.0's
+# threefry stream; tests/test_torch_g2_seed.py holds these to the
+# reference): path -> (|MIS|, rounds, SHA-256 of np.packbits(in_mis)).
+# "member" is grid2d(522, 522, seed=0) under its request key.
+G2_SEED_MIS = {
+    "solve": (392658, 5, "33c3a9540c9dec76aefe6bf1a9af2de2788603b259326f383355c74962bc1ced"),
+    "luby": (382739, 5, "f771c6596f38021bac4ab29588760755393d008eaab52d42d3d61c84d32e6b4d"),
+    "ecl": (393823, 5, "28b8b25e603eb2fd4964c21463bc09cc1ee526da6d1e0bf19f74dd23c5a3948a"),
+    "member": (98347, 6, "452d3eda39a53db5e14208e47fb9207432ba163abdb274beaf706d8f68d588ec"),
+}
+# the Threefry kernel against its plain version: sizes and key words (the
+# high bit of each word set in some)
+DRAW_SIZES = (1, 2, 3, 1023, 1_089_936, (1 << 24) + 1)
+DRAW_KEYS = ((0, 0), (0x80000000, 0xFFFFFFFF), (0xDEADBEEF, 0x8BADF00D))
 # name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "tc_spmv_fused": (CSRC + "tc_spmv.cu", "src/repro/kernels/tc_spmv.py:137"),
@@ -596,6 +623,9 @@ KERNELS = {
     # no Pallas body: the reference's table gradient is jax.grad of the
     # gathers in deepfm_loss, XLA's scatter-add
     "embedding_bag_backward": (CSRC + "embedding_bag.cu", "src/repro/models/deepfm.py:92"),
+    # no Pallas body: the reference draws through jax.random, whose bits
+    # XLA's lowering of threefry2x32_p computes (first at Eq. 1's uniform)
+    "threefry": (CSRC + "threefry.cu", "src/repro/core/heuristics.py:62"),
 }
 # retrieval_cand scores the items of the first categorical field (10,000,000
 # rows); the 13 numeric fields hold 64 values each
@@ -626,6 +656,7 @@ def wrappers() -> dict:
     from repro_torch.hopper import embedding_bag as E
     from repro_torch.hopper import tc_neighbor_max as N
     from repro_torch.hopper import tc_spmv as S
+    from repro_torch.hopper import threefry as F
 
     return {
         "tc_spmv_fused": S.tc_spmv_fused, "tc_spmv": S.tc_spmv,
@@ -633,7 +664,32 @@ def wrappers() -> dict:
         "tc_spmv_fused_bits": S.tc_spmv_fused_bits, "tc_spmv_bits": S.tc_spmv_bits,
         "tc_neighbor_max_bits": N.tc_neighbor_max_bits,
         "embedding_bag": E.embedding_bag, "embedding_bag_backward": E.embedding_bag_backward,
+        "threefry": F.threefry_bits,
     }
+
+
+def draw_launches(heuristic: str, n: int) -> int:
+    """The Threefry launches of one `make_priorities` over n vertices:
+    Eq. 1's uniforms (all but H1), the permutation's sort keys (all but
+    H3, one launch a sort round); none over no vertex."""
+    from repro_torch.core.prng import permutation_rounds
+
+    if n == 0:
+        return 0
+    return int(heuristic != "h1") + (0 if heuristic == "h3" else permutation_rounds(n))
+
+
+def mis_digest(in_mis) -> tuple:
+    """(|MIS|, SHA-256 of np.packbits(in_mis)) of a host or device vector."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    if isinstance(in_mis, torch.Tensor):
+        in_mis = in_mis.cpu().numpy()
+    x = np.asarray(in_mis).astype(bool)
+    return int(x.sum()), hashlib.sha256(np.packbits(x).tobytes()).hexdigest()
 
 
 # cycles the stream spins before a timed window: ~50 ms at the H100's
@@ -874,6 +930,7 @@ def phase_kernels(g2) -> dict:
     """Kernel vs plain on the four G2 plans; returns max |err| per kernel."""
     import torch
     from repro_torch.api import Plan
+    from repro_torch.core import prng
     from repro_torch.core.heuristics import make_priorities
     from repro_torch.core.tiling import pack_frontier_words, pack_priority_planes
     from repro_torch.hopper import tc_neighbor_max as N
@@ -881,8 +938,7 @@ def phase_kernels(g2) -> dict:
 
     errs = {}
     for T in (16, 128):
-        gen = torch.Generator(device="cuda").manual_seed(T)
-        pri = make_priorities("h3", gen, g2.n_nodes, g2.degrees())
+        pri = make_priorities("h3", prng.key(T), g2.n_nodes, g2.degrees())
         for storage in ("int8", "bitpack"):
             t0 = time.perf_counter()
             plan = Plan.build(g2, tile_size=T, storage=storage)
@@ -945,7 +1001,8 @@ def phase_kernels(g2) -> dict:
                   f"SpMV on randn, max|err|={err:.3g} "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
             del plan, tiled
-    check(sorted(errs) == sorted(k for k in KERNELS if not k.startswith("embedding_bag")),
+    check(sorted(errs) == sorted(k for k in KERNELS
+                                 if not k.startswith("embedding_bag") and k != "threefry"),
           f"kernels held: {sorted(errs)}")
     return errs
 
@@ -955,6 +1012,7 @@ def phase_kernels_partition(g2, errs: dict) -> None:
     G2's compacted dense partitions (T = 16, both storages)."""
     import torch
     from repro_torch.api import Plan
+    from repro_torch.core import prng
     from repro_torch.core.heuristics import make_priorities
     from repro_torch.core.tiling import (
         pack_frontier_words, pack_priority_planes, partition_tiles)
@@ -966,7 +1024,7 @@ def phase_kernels_partition(g2, errs: dict) -> None:
         tiled = Plan.build(g2, tile_size=16, storage=storage).tiled
         T = tiled.tile_size
         gen = torch.Generator(device="cuda").manual_seed(30)
-        pri = make_priorities("h3", gen, n, g2.degrees())
+        pri = make_priorities("h3", prng.key(30), n, g2.degrees())
         p = torch.nn.functional.pad(pri.select, (0, tiled.n_padded - n), value=-(1 << 30))
         res = torch.nn.functional.pad(pri.resolve, (0, tiled.n_padded - n))
         for thr, want in G2_PARTITIONS.items():
@@ -1053,9 +1111,10 @@ def phase_paths(g2) -> dict:
         check(is_valid_mis(plan.g, torch.from_numpy(res.in_mis_plan).cuda()),
               f"{label}: MIS is not valid")
         want = {k: expect.get(k, 0) * res.rounds for k in KERNELS}
+        want["threefry"] = draw_launches(opts.heuristic, plan.n_nodes)
         check(counts == want, f"{label}: launches {counts}, expected {want}")
         if plan.tiled.partition is None:
-            for k in expect:
+            for k in (*expect, "threefry"):
                 launches.setdefault(k, counts[k])
         else:
             hybrid_launches[label] = {k: counts[k] for k in expect}
@@ -1154,14 +1213,15 @@ def phase_baselines(g2, paths: dict) -> dict:
     import numpy as np
     import torch
     from repro_torch.api import Solver, SolveOptions
-    from repro_torch.core import ecl_mis, is_valid_mis, luby_mis
+    from repro_torch.core import ecl_mis, is_valid_mis, luby_mis, prng
     from repro_torch.core.tiling import attach_partition
     from repro_torch.graphs import delaunay_like
 
     out = {}
-    e, counts = counted(lambda: ecl_mis(g2, torch.Generator(device="cuda").manual_seed(0)))
+    e, counts = counted(lambda: ecl_mis(g2, prng.key(0)))
     check(bool(e.converged) and is_valid_mis(g2, e.in_mis), "ecl_mis: no valid MIS")
-    check(not any(counts.values()), f"ecl_mis launched a kernel: {counts}")
+    want = {k: draw_launches("ecl", g2.n_nodes) if k == "threefry" else 0 for k in KERNELS}
+    check(counts == want, f"ecl_mis: launches {counts}, expected {want}")
     solver = Solver(SolveOptions(heuristic="ecl"), device="cuda", plans=paths["plans"])
     plan = solver.plan(g2)
     tc, counts = counted(lambda: solver.solve(plan))
@@ -1169,8 +1229,10 @@ def phase_baselines(g2, paths: dict) -> dict:
     check(tc.rounds == int(e.rounds) and np.array_equal(tc.in_mis, e.in_mis.cpu().numpy()),
           f"ecl_mis ({int(e.rounds)} rounds) differs from TC-MIS with heuristic='ecl' "
           f"({tc.rounds} rounds) on the same priorities")
-    lb = luby_mis(g2, torch.Generator(device="cuda").manual_seed(0))
+    lb, counts = counted(lambda: luby_mis(g2, prng.key(0)))
     check(bool(lb.converged) and is_valid_mis(g2, lb.in_mis), "luby_mis: no valid MIS")
+    want = {k: int(lb.rounds) if k == "threefry" else 0 for k in KERNELS}
+    check(counts == want, f"luby_mis: launches {counts}, expected {want} (one draw a round)")
     h3 = paths["default"][2]
     print(f"[baselines] G2: luby_mis {int(lb.rounds)} rounds, {int(lb.in_mis.sum())} vertices; "
           f"ecl_mis {int(e.rounds)} rounds, {int(e.in_mis.sum())} vertices, equal to TC-MIS "
@@ -1212,6 +1274,84 @@ def phase_baselines(g2, paths: dict) -> dict:
           f"rounds", flush=True)
     out["g3"] = g3_runs["default"]
     return out
+
+
+def phase_draws(g2, errs: dict, paths: dict) -> dict:
+    """(a) The Threefry kernel bit-equal to its plain version at DRAW_SIZES
+    under DRAW_KEYS, bits and uniforms, and across two launches; timed at
+    the main path's draw (G2's Eq. 1 uniforms) and at 2^24 + 1.  (b) From
+    seed 0 alone, on the card: the default solve of G2, `luby_mis`,
+    `ecl_mis` and a `solve_many` member, each held to the reference's MIS
+    (`G2_SEED_MIS`) and its Threefry launches counted.  Returns the
+    kernel's record."""
+    import torch
+    from repro_torch.api import Solver, SolveOptions
+    from repro_torch.core import ecl_mis, luby_mis, prng
+    from repro_torch.graphs import grid2d
+    from repro_torch.hopper import threefry as F
+
+    t0 = time.perf_counter()
+    for n in DRAW_SIZES:
+        for k0, k1 in DRAW_KEYS:
+            for mode in F.MODES:
+                got = F.threefry_bits(k0, k1, n, "cuda", mode)
+                want = F.threefry_bits_plain(k0, k1, torch.empty_like(got), mode)
+                exact(errs, "threefry", got.view(torch.int32), want.view(torch.int32),
+                      f"n={n}, key ({k0:#x}, {k1:#x}), {mode}")
+    big = DRAW_SIZES[-1]
+    exact(errs, "threefry", F.threefry_bits(*DRAW_KEYS[2], big, "cuda"),
+          F.threefry_bits(*DRAW_KEYS[2], big, "cuda"), "two launches")
+    torch.cuda.synchronize()
+    print(f"[draws] (a) threefry bit-equal to its plain version at n {list(DRAW_SIZES)}, "
+          f"keys {[(hex(a), hex(b)) for a, b in DRAW_KEYS]}, bits and uniforms, and across "
+          f"two launches ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    n = g2.n_nodes
+    kq = prng.split(prng.key(0))[0]          # H3's Eq. 1 key under seed 0
+
+    timing = time_pair(
+        lambda: F.threefry_bits(kq.k0, kq.k1, n, "cuda", "uniform"),
+        lambda: F.threefry_bits_plain(kq.k0, kq.k1, torch.empty(n, device="cuda"), "uniform"))
+    rec = record("threefry", paths["launches"], errs, timing,
+                 _bound(4 * n, F.OPS_PER_ELEMENT["uniform"] * n), None)
+    cold = time_ms(lambda: F.threefry_bits(kq.k0, kq.k1, big, "cuda", "uniform"), cold=True)
+    warm = time_ms(lambda: F.threefry_bits(kq.k0, kq.k1, big, "cuda", "uniform"))
+    bound = _bound(4 * big, F.OPS_PER_ELEMENT["uniform"] * big)
+    print(f"[draws] (a) threefry uniform n={big}: {cold:.4f} ms cold, {warm:.4f} ms warm, "
+          f"bound {bound[0]:.4f} ms by {bound[1]} ({bound[2]} B, {bound[3]} ops)", flush=True)
+
+    def hold(path, in_mis, rounds, counts, draws):
+        size, digest = mis_digest(in_mis)
+        want = G2_SEED_MIS[path]
+        check((size, rounds, digest) == want,
+              f"[draws] {path} from seed 0: {size} vertices in {rounds} rounds, sha256 "
+              f"{digest}; the reference's {want}")
+        check(counts["threefry"] == draws,
+              f"[draws] {path}: {counts['threefry']} threefry launches, expected {draws}")
+        print(f"[draws] (b) {path} from seed 0: {size} vertices in {rounds} rounds, sha256 "
+              f"{digest[:16]}..., the reference's; threefry launches {draws}", flush=True)
+
+    solver = Solver(SolveOptions(), device="cuda", plans=paths["plans"])
+    plan = solver.plan(g2)
+    res, counts = counted(lambda: solver.solve(plan))
+    hold("solve", res.in_mis, res.rounds, counts, draw_launches("h3", n))
+    lb, counts = counted(lambda: luby_mis(g2, prng.key(0)))
+    hold("luby", lb.in_mis, int(lb.rounds), counts, int(lb.rounds))
+    e, counts = counted(lambda: ecl_mis(g2, prng.key(0)))
+    hold("ecl", e.in_mis, int(e.rounds), counts, draw_launches("ecl", n))
+    members = [grid2d(*G2_MEMBER, seed=s, device="cuda") for s in (0, 1)]
+    batched = Solver(SolveOptions(), device="cuda")
+    results, counts = counted(lambda: batched.solve_many(members))
+    check([r.placement for r in results] == ["batched"] * 2,
+          "[draws] the members were not batched")
+    hold("member", results[0].in_mis, results[0].rounds, counts,
+         sum(draw_launches("h3", m.n_nodes) for m in members))
+    solo = batched.solve(results[0].plan, key=batched.request_key(results[0].plan))
+    check(mis_digest(solo.in_mis) == mis_digest(results[0].in_mis)
+          and solo.rounds == results[0].rounds,
+          "[draws] the member differs from its solo solve under its request key")
+    print(f"[draws] phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rec
 
 
 def _active_tiles(tiled, flags):
@@ -1348,14 +1488,15 @@ def timing_dense(main, launches: dict, errs: dict) -> list:
     """The two dense SpMV kernels at the main path's round-1 inputs, with
     one `torch.sparse_bsr_tensor @ rhs` as their yardstick."""
     import torch
+    from repro_torch.core import prng
     from repro_torch.core.tc_mis import _setup
     from repro_torch.core.tiling import dense_tile_mask
     from repro_torch.hopper import tc_spmv as K
 
     solver, plan, _ = main
     tiled = plan.tiled
-    gen = torch.Generator(device="cuda").manual_seed(solver.options.seed)
-    engine, ctx, pri, state0 = _setup(plan.g, tiled, gen, solver.options)
+    engine, ctx, pri, state0 = _setup(plan.g, tiled, prng.key(solver.options.seed),
+                                      solver.options)
     cand = engine.phase1_candidates(ctx, pri, state0.alive)
     flags = engine.col_flags(ctx, cand).contiguous()
     alive = state0.alive
@@ -1396,6 +1537,7 @@ def timing_packed(packed, launches: dict, errs: dict) -> list:
     inputs (G2, T = 16, bitpack): the select plane scan and the dense max
     on the all-alive mask, the packed SpMVs on round 1's candidates."""
     import torch
+    from repro_torch.core import prng
     from repro_torch.core.tc_mis import _setup
     from repro_torch.core.tiling import pack_frontier_words, unpack_frontier_words
     from repro_torch.hopper import tc_neighbor_max as N
@@ -1403,8 +1545,8 @@ def timing_packed(packed, launches: dict, errs: dict) -> list:
 
     solver, plan, _ = packed
     tiled, T = plan.tiled, plan.tile_size
-    gen = torch.Generator(device="cuda").manual_seed(solver.options.seed)
-    engine, ctx, pri, state0 = _setup(plan.g, tiled, gen, solver.options)
+    engine, ctx, pri, state0 = _setup(plan.g, tiled, prng.key(solver.options.seed),
+                                      solver.options)
     b = ctx.bits
     words, alive_w = b.tiles_bits, state0.alive
     cand_w = engine.phase1_candidates_bits(ctx, pri, alive_w)
@@ -1532,6 +1674,7 @@ def timing_solves(paths: dict) -> None:
     import numpy as np
     import torch
     from repro_torch.api import Solver
+    from repro_torch.core import prng
     from repro_torch.core.tc_mis import _setup
     from repro_torch.obs import Trace
 
@@ -1551,8 +1694,7 @@ def timing_solves(paths: dict) -> None:
         profile_call(lambda: on.solve(plan), f"{label} solve with telemetry")
 
         def setup():
-            gen = torch.Generator(device="cuda").manual_seed(solver.options.seed)
-            return _setup(plan.g, plan.tiled, gen, solver.options)
+            return _setup(plan.g, plan.tiled, prng.key(solver.options.seed), solver.options)
 
         med_setup, took_setup = median_ms(setup)
         print(f"[timing] solve set-up alone, {label}: median {med_setup:.3f} ms "
@@ -1593,13 +1735,13 @@ def timing_hybrid(g2, paths: dict, baselines: dict) -> None:
     nnz and the break-even they imply (printed, never read by the
     planner)."""
     import torch
-    from repro_torch.core import ecl_mis, luby_mis
+    from repro_torch.core import ecl_mis, luby_mis, prng
     from repro_torch.core.tc_mis import _setup
     from repro_torch.hopper import tc_spmv as K
     from repro_torch.perf import hybrid_density_threshold
 
     for label, fn in (("ecl_mis", ecl_mis), ("luby_mis", luby_mis)):
-        med, took = median_ms(lambda: fn(g2, torch.Generator(device="cuda").manual_seed(0)))
+        med, took = median_ms(lambda: fn(g2, prng.key(0)))
         print(f"[timing] warm {label} on G2: median {med:.3f} ms "
               f"of {[round(x, 3) for x in took]}", flush=True)
     solver, plan, res = baselines["g3"]
@@ -1609,8 +1751,8 @@ def timing_hybrid(g2, paths: dict, baselines: dict) -> None:
 
     solver, plan, _ = paths["hybrid30"]
     part = plan.tiled.partition
-    gen = torch.Generator(device="cuda").manual_seed(solver.options.seed)
-    engine, ctx, pri, state0 = _setup(plan.g, plan.tiled, gen, solver.options)
+    engine, ctx, pri, state0 = _setup(plan.g, plan.tiled, prng.key(solver.options.seed),
+                                      solver.options)
     dctx = dataclasses.replace(ctx, tiled=part.dense)
     alive = state0.alive
     cand = engine._hybrid_candidates(ctx, dctx, pri, alive)
@@ -2240,7 +2382,7 @@ def batch_launches(results, counts: dict, label: str) -> None:
     for r in results:
         if r.placement == "batched":
             want.add("tc_spmv" if ".h" in r.stats["bucket"] else "tc_spmv_fused")
-    got = {k for k, v in counts.items() if v}
+    got = {k for k, v in counts.items() if v and k != "threefry"}
     check(got == want, f"{label}: kernels launched {got}, expected {want}")
 
 
@@ -2290,13 +2432,13 @@ def hold_batch_kernels(batch, options, errs: dict, what: str) -> None:
 
 def check_members(solver, results, label: str) -> None:
     """Each member's MIS and rounds equal its solo solve under its own
-    request generator, and it is a valid MIS of its plan graph."""
+    request key, and it is a valid MIS of its plan graph."""
     import numpy as np
     import torch
     from repro_torch.core.validate import is_valid_mis
 
     for i, r in enumerate(results):
-        solo = solver.solve(r.plan, generator=solver.request_generator(r.plan))
+        solo = solver.solve(r.plan, key=solver.request_key(r.plan))
         check(solo.rounds == r.rounds and np.array_equal(solo.in_mis, r.in_mis),
               f"{label}: member {i} differs from its solo solve "
               f"({r.rounds} rounds against {solo.rounds})")
@@ -2340,19 +2482,21 @@ def phase_batched(g2, errs: dict) -> None:
         solver = Solver(opts, device="cuda")
         plans = [solver.plan(m) for m in members]
         if label != "off tiled":
-            pris = [member_priorities(p, solver.request_generator(p), opts.heuristic)
+            pris = [member_priorities(p, solver.request_key(p), opts.heuristic)
                     for p in plans]
             hold_batch_kernels(pack_batch(plans, pris), opts, errs, f"G2 batch, {label}")
         results, counts = counted(lambda: solver.solve_many(plans))
         rounds = max(r.rounds for r in results)
         want = {k: expect.get(k, 0) * rounds for k in KERNELS}
+        # a fresh solver's priority cache misses: one draw a member
+        want["threefry"] = sum(draw_launches(opts.heuristic, p.n_nodes) for p in plans)
         check(counts == want, f"G2 batch {label}: launches {counts}, expected {want}")
         check(all(r.placement == "batched" for r in results), f"G2 batch {label}: not batched")
         check_members(solver, results, f"G2 batch {label}")
         med, took = median_ms(lambda: solver.solve_many(plans))
-        gens = [solver.request_generator(p) for p in plans]
+        keys = [solver.request_key(p) for p in plans]
         solo_med, solo_took = median_ms(
-            lambda: [solver.solve(p, generator=gen) for p, gen in zip(plans, gens)])
+            lambda: [solver.solve(p, key=k) for p, k in zip(plans, keys)])
         r0 = results[0]
         print(f"[batched] G2 batch {label} (4 x grid2d{G2_MEMBER}, T={r0.plan.tile_size} "
               f"{r0.plan.storage}, bucket {r0.stats['bucket']}): rounds "
@@ -2441,9 +2585,11 @@ def phase_dynamic(g2, errs: dict) -> None:
         solver = Solver(opts, device="cuda", plans=plans)
         plan = solver.plan(g2)
         prior = solver.solve(plan)
+        # the repair draws the patched graph's priorities once
+        draws = draw_launches(opts.heuristic, g2.n_nodes)
         same, counts = counted(lambda: solver.update(prior, EdgeDelta.make()))
         check(same.rounds == 0 and np.array_equal(same.in_mis, prior.in_mis)
-              and counts == {k: int(k == cover) for k in KERNELS},
+              and counts == {k: int(k == cover) + draws * (k == "threefry") for k in KERNELS},
               f"dynamic {label}: an empty delta did not return the prior solution "
               f"after the covered pass alone (launches {counts})")
         for frac, delta in deltas.items():
@@ -2468,7 +2614,8 @@ def phase_dynamic(g2, errs: dict) -> None:
             hold_cover_kernels(cached, opts, prior, delta.touched(), errs,
                                f"G2 {label} {frac:.1%} covered pass")
             rep, counts = counted(lambda: solver.update(prior, delta))
-            want = {k: expect.get(k, 0) * rep.rounds + (k == cover) for k in KERNELS}
+            want = {k: expect.get(k, 0) * rep.rounds + (k == cover) + draws * (k == "threefry")
+                    for k in KERNELS}
             check(counts == want, f"dynamic {label} {frac:.1%}: launches {counts}, "
                                   f"expected {want}")
             check(rep.stats["repair"] == "incremental" and rep.stats["patch"] == "mem"
@@ -2558,6 +2705,7 @@ def phase_sharded(g2, errs: dict) -> None:
     import torch.distributed as dist
     from repro_torch.api import PlanCache, Solver, SolveOptions
     from repro_torch.core import distributed as D
+    from repro_torch.core import prng
     from repro_torch.core.engine import block_col_flags
     from repro_torch.core.heuristics import make_priorities
     from repro_torch.core.spmv import neighbor_max_tiled, spmv_tiled
@@ -2589,6 +2737,7 @@ def phase_sharded(g2, errs: dict) -> None:
                   and plan.tiled.partition is not None,
                   f"[sharded] {label}: planned T={plan.tile_size} {plan.storage}")
             want = {k: res.rounds if k == "tc_spmv" else 0 for k in KERNELS}
+            want["threefry"] = draw_launches(solver.options.heuristic, g2.n_nodes)
             check(counts == want, f"[sharded] {label}: launches {counts}, expected {want}")
             check(res.rounds == main.rounds and np.array_equal(res.in_mis, main.in_mis),
                   f"[sharded] {label}: MIS of {res.mis_size} in {res.rounds} rounds, the "
@@ -2599,15 +2748,15 @@ def phase_sharded(g2, errs: dict) -> None:
             ms, took = median_ms(lambda: solver.solve(plan))
             print(f"[sharded] {label}: G2 MIS {res.mis_size} in {res.rounds} rounds, equal to "
                   f"the hybrid=\"off\" main path's; launches {counts['tc_spmv']} tc_spmv "
-                  f"(once a round), every other kernel 0; valid; warm solve median "
+                  f"(once a round), {counts['threefry']} threefry (the draw), every other "
+                  f"kernel 0; valid; warm solve median "
                   f"{ms:.3f} ms (of {[round(t, 3) for t in took]}) against the main path's "
                   f"{main_ms:.3f} ms", flush=True)
 
             # the round's parts on round-1 inputs of the one-rank slab (warm,
             # CUDA events): the plain phase ①, a gather, the split SpMV
             if bitpack:
-                pri = make_priorities("h3", torch.Generator(device="cuda").manual_seed(0),
-                                      g2.n_nodes, g2.degrees())
+                pri = make_priorities("h3", prng.key(0), g2.n_nodes, g2.degrees())
                 sh1 = D.shard_tiled(plan.tiled, 1)
                 slab = sh1.slab(0)
                 check(slab.n_block_rows == slab.n_block_cols == plan.tiled.n_block_rows,
@@ -2642,8 +2791,7 @@ def phase_sharded(g2, errs: dict) -> None:
     # (b) the split SpMV on each non-square slab of a 4-way split, on the
     # round-1 RHS over the global columns
     tiled = main_plan.tiled
-    pri = make_priorities("h3", torch.Generator(device="cuda").manual_seed(0), g2.n_nodes,
-                          g2.degrees())
+    pri = make_priorities("h3", prng.key(0), g2.n_nodes, g2.degrees())
     sh = D.shard_tiled(tiled, SHARD_SPLIT)
     cand, alive = round1_frontier(tiled, pri, sh.n_padded)
     rhs = torch.zeros((sh.n_padded, 8), device="cuda")
@@ -2703,11 +2851,12 @@ SERVE_DIR = ROOT / "build" / "serve"
 FIXTURES = [ROOT / "tests" / "fixtures" / f for f in ("tiny.mtx", "tiny.edges", "tiny.dimacs")]
 
 
-def window_launches(responses, phase1: str) -> dict:
+def window_launches(responses, phase1: str, draws: int) -> dict:
     """The launches one service window must make: each batched group's
     loop runs the split SpMV (partitioned) or the fused SpMV once a round,
     with phase1="tiled" two dense maxes a round too (a batch's frontier is
-    dense); a group's rounds are its slowest member's."""
+    dense); a group's rounds are its slowest member's.  `draws` Threefry
+    launches: one a member whose priorities missed the cache (H3)."""
     rounds = {}
     for r in responses:
         check(r.stats["bucket"] != "local", f"service request {r.id} was not batched")
@@ -2717,13 +2866,15 @@ def window_launches(responses, phase1: str) -> dict:
         want["tc_spmv" if ".h" in bucket else "tc_spmv_fused"] += n
         if phase1 == "tiled":
             want["tc_neighbor_max"] += 2 * n
+    want["threefry"] = draws
     return want
 
 
 def update_launches(plan, options, rounds: int) -> dict:
     """An incremental update's launches: the covered pass once, then per
     repair round the path's ② (split SpMV, or the split packed SpMV on the
-    bitwise frontier) and its phase ① maxes (two under H3)."""
+    bitwise frontier) and its phase ① maxes (two under H3); the patched
+    graph's priorities drawn once."""
     from repro_torch.core.engine import get_engine, resolve_frontier
 
     want = {k: 0 for k in KERNELS}
@@ -2732,6 +2883,7 @@ def update_launches(plan, options, rounds: int) -> dict:
     want["tc_spmv_bits" if bitwise else "tc_spmv"] = rounds + 1
     if options.phase1 == "tiled":
         want["tc_neighbor_max_bits" if bitwise else "tc_neighbor_max"] = 2 * rounds
+    want["threefry"] = draw_launches(options.heuristic, plan.n_nodes)
     return want
 
 
@@ -2753,6 +2905,7 @@ def phase_serve_traffic() -> None:
     import numpy as np
     from repro_torch.api import Solver
     from repro_torch.obs import JsonlWriter
+    from repro_torch.obs import metrics as obs_metrics
     from repro_torch.serve_mis import MISService, ServeConfig
 
     SERVE_DIR.mkdir(parents=True, exist_ok=True)
@@ -2771,8 +2924,10 @@ def phase_serve_traffic() -> None:
             for g in mix:
                 svc.submit(g)
             while svc.pending:
+                misses = obs_metrics.counter("batcher.priority_cache.misses").value
                 out, counts = counted(svc.step)
-                want = window_launches(out, phase1)
+                misses = obs_metrics.counter("batcher.priority_cache.misses").value - misses
+                want = window_launches(out, phase1, misses)
                 check(counts == want, f"serve {phase1} {wave} window {len(windows)}: launches "
                                       f"{counts}, expected {want}")
                 windows.append(out)
@@ -2872,13 +3027,14 @@ def phase_serve_g2(g2) -> tuple:
         t0 = time.perf_counter()
         out, counts = counted(svc.step)
         step_ms = (time.perf_counter() - t0) * 1e3
+        draws = draw_launches(opts.heuristic, g2.n_nodes)   # the twin request hits the cache
         check(len(out) == 2 and all(r.valid for r in out), f"serve G2 {phase1}: invalid response")
         check([r.stats["plan_cache"] for r in out] == ["built", "mem"],
               f"serve G2 {phase1}: plan layers {[r.stats['plan_cache'] for r in out]}")
-        want = window_launches(out, phase1)
+        want = window_launches(out, phase1, draws)
         check(counts == want, f"serve G2 {phase1}: launches {counts}, expected {want}")
         plan = svc.planner.plan(parsed)[0]
-        solo = svc.solver.solve(plan, generator=svc.solver.request_generator(plan))
+        solo = svc.solver.solve(plan, key=svc.solver.request_key(plan))
         for r in out:
             check(r.rounds == solo.rounds and np.array_equal(r.in_mis, solo.in_mis),
                   f"serve G2 {phase1}: request {r.id} differs from its solo solve")
@@ -2888,7 +3044,7 @@ def phase_serve_g2(g2) -> tuple:
         (upd,), counts = counted(svc.step)
         upd_ms = (time.perf_counter() - t0) * 1e3
         patched = svc.planner.apply_delta(plan, delta)[0]
-        cold = svc.solver.solve(patched, generator=svc.solver.request_generator(patched))
+        cold = svc.solver.solve(patched, key=svc.solver.request_key(patched))
         check(upd.valid and upd.stats["repair"] == "incremental" and upd.stats["base_id"] == rid,
               f"serve G2 {phase1}: update response {upd.stats}")
         check(upd.rounds < cold.rounds, f"serve G2 {phase1}: update took {upd.rounds} rounds, "
@@ -4519,6 +4675,7 @@ def phase_dryrun_round() -> None:
     from repro_torch.configs.common import Cell
     from repro_torch.configs.tcmis import DRYRUN_LANES, round_step
     from repro_torch.core import distributed as D
+    from repro_torch.core import prng
     from repro_torch.core.heuristics import make_priorities
     from repro_torch.core.tiling import build_block_tiles
     from repro_torch.graphs import grid2d
@@ -4536,8 +4693,7 @@ def phase_dryrun_round() -> None:
 
     D.process_group(torch.device("cuda", torch.cuda.current_device()))
     try:
-        pri = make_priorities("h3", torch.Generator(device="cuda").manual_seed(0), g2.n_nodes,
-                              g2.degrees())
+        pri = make_priorities("h3", prng.key(0), g2.n_nodes, g2.degrees())
         select, resolve = (torch.nn.functional.pad(k, (0, n - g2.n_nodes), value=-(1 << 30))
                            for k in (pri.select, pri.resolve))
 
@@ -5704,8 +5860,10 @@ def main() -> None:
     phase_kernels_partition(g2, errs)
     paths = phase_paths(g2)
     baselines = phase_baselines(g2, paths)
+    draws = phase_draws(g2, errs, paths)
     records = timing_dense(paths["main"], paths["launches"], errs)
     records += timing_packed(paths["packed"], paths["launches"], errs)
+    records.append(draws)
     timing_solves(paths)
     timing_hybrid(g2, paths, baselines)
     plans = paths["plans"]             # phase 18 reuses phase 3's plans

@@ -35,10 +35,10 @@ def main(argv=None) -> None:
           f"({first['batch_size']} members, one dispatch)")
 
     # 3. per-graph results are bit-identical to solo runs of each member —
-    #    members draw from content-derived generators, so a solo solve from
-    #    the same generator reproduces the member exactly
+    #    members draw under content-derived keys, so a solo solve under
+    #    the same key reproduces the member exactly
     for i, (g, res) in enumerate(zip(graphs, results)):
-        solo = solver.solve(res.plan, generator=solver.request_generator(res.plan))
+        solo = solver.solve(res.plan, key=solver.request_key(res.plan))
         assert is_valid_mis(g, res.in_mis)
         assert bool(np.all(res.in_mis == solo.in_mis))
         assert res.rounds == solo.rounds   # per-MEMBER round counter

@@ -8,10 +8,9 @@ import argparse
 import dataclasses
 
 import numpy as np
-import torch
 
 from repro_torch.api import PlanCache, Solver, SolveOptions
-from repro_torch.core import cardinality, ecl_mis, is_valid_mis
+from repro_torch.core import cardinality, ecl_mis, is_valid_mis, prng
 from repro_torch.graphs.generators import powerlaw
 
 
@@ -28,7 +27,7 @@ def main(argv=None) -> None:
     g = powerlaw(args.nodes, avg_deg=4.0, seed=0, device=dev)
     plans = PlanCache(tile_size=64, device=dev)   # one BSR build serves every solver below
 
-    base = cardinality(ecl_mis(g, torch.Generator(device=g.device).manual_seed(0)).in_mis)
+    base = cardinality(ecl_mis(g, prng.key(0)).in_mis)
     print(f"ECL-MIS baseline: |MIS| = {base:,}")
     for h in ("h1", "h2", "h3"):
         res = Solver(SolveOptions(heuristic=h, engine="tiled_ref", tile_size=64),

@@ -6,10 +6,9 @@ lines of `repro_torch`'s public API, on the CUDA card by default.
 import argparse
 
 import numpy as np
-import torch
 
 from repro_torch.api import PlanCache, Solver, SolveOptions
-from repro_torch.core import cardinality, ecl_mis, engine_names, is_valid_mis, luby_mis
+from repro_torch.core import cardinality, ecl_mis, engine_names, is_valid_mis, luby_mis, prng
 from repro_torch.graphs.generators import GRAPH_SUITE
 
 
@@ -25,9 +24,10 @@ def main(argv=None) -> None:
     g = GRAPH_SUITE["G3"].make(args.nodes, 0, args.device)
     print(f"graph: |V|={g.n_nodes:,} half-edges={g.n_edges:,}")
 
-    # 1. baselines on the edge list, priorities from a seeded generator
+    # 1. baselines on the edge list, priorities under a seeded key (the
+    #    reference's jax.random.key(0), bit for bit)
     for name, fn in [("luby", luby_mis), ("ecl ", ecl_mis)]:
-        res = fn(g, torch.Generator(device=g.device).manual_seed(0))
+        res = fn(g, prng.key(0))
         assert is_valid_mis(g, res.in_mis)
         print(f"{name}  : |MIS|={cardinality(res.in_mis):,} "
               f"rounds={int(res.rounds)} valid=True")

@@ -58,8 +58,9 @@ class SolveOptions:
     repair_threshold (auto's largest touched-vertex share for
     incremental).  Observability: telemetry
     (a per-round `obs.RoundTrace` in `SolveResult.telemetry`).
-    Reproducibility / caching: seed (seeds the `torch.Generator` of
-    `Solver.solve`, and batched members' `request_generator`s), cache_dir
+    Reproducibility / caching: seed (`core.prng.key(seed)`, the reference's
+    `jax.random.key(seed)`: the key of `Solver.solve`, from which batched
+    members' `request_key`s fold), cache_dir
     (the plan cache's `.npz` directory), plan_cache_entries.
     """
 

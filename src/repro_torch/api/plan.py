@@ -190,7 +190,7 @@ class Plan:
     def graph_key(self) -> str:
         """The content hash of the graph alone, without build parameters:
         batched members draw their priorities from it
-        (`serve_mis.batcher.request_generator`), so one graph draws the same
+        (`serve_mis.batcher.request_key`), so one graph draws the same
         priorities whatever its tile size or storage."""
         return graph_content_key(self.g)
 

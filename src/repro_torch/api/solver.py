@@ -12,7 +12,7 @@
                          batches (`serve_mis.batcher`), one convergence loop
                          per (tile size, storage) group, each member's MIS
                          and rounds those of its solo solve under its own
-                         `request_generator`; sharded-routed members peel
+                         `request_key`; sharded-routed members peel
                          off to their own sharded solve
     profile(graph)       the phase-timed twin (`core.tc_mis.run_phases`),
                          local plans only
@@ -24,10 +24,12 @@
 
 `Solver(options, device="cuda")` runs on the CUDA device and raises where
 there is none; `device="cpu"` must be asked for.  A graph handed in is
-moved to the solver's device.  `solve` draws priorities from a
-`torch.Generator` seeded with `options.seed`; batched members draw from
-`request_generator(options.seed, plan)`, derived from the graph's content,
-so a member's solution never depends on its batch, slot or arrival order.
+moved to the solver's device.  `solve` draws priorities under
+`core.prng.key(options.seed)`, the reference's `jax.random.key(seed)` bit
+for bit; batched members draw under `request_key(plan)`, folded from it and
+the graph's content, so a member's solution never depends on its batch,
+slot or arrival order.  One seed gives the reference's MIS on every route,
+on the CPU and on the card alike.
 `metrics` is the solver's `MetricsRegistry`; `stats` its legacy view.
 
 The sharded route runs on every rank of the default group together (each
@@ -49,7 +51,9 @@ import torch
 from repro_torch.api.options import SolveOptions
 from repro_torch.api.plan import Plan, PlanCache, choose_tile_size, resolve_storage
 from repro_torch.core.engine import get_engine, resolve_frontier
+from repro_torch.core import prng
 from repro_torch.core.heuristics import make_priorities
+from repro_torch.core.prng import Key
 from repro_torch.core.tc_mis import run_phases, run_tc_mis
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.graph import Graph
@@ -114,8 +118,9 @@ class Solver:
             max_mem_entries=options.plan_cache_entries,
             device=self.device,
         )
+        self._base_key = prng.key(options.seed)
         # batched members' priorities by plan content, for the default
-        # request generators only (custom generators bypass it)
+        # request keys only (custom keys bypass it)
         self._priority_cache: Dict = {}
         # plan key -> this rank's sharded run (slab built), LRU
         self._dist_runs: "OrderedDict[str, object]" = OrderedDict()
@@ -162,13 +167,13 @@ class Solver:
                                   hybrid_threshold=self.options.hybrid_threshold)
         return plan
 
-    def request_generator(self, plan: Plan) -> torch.Generator:
-        """The content-derived generator a batched member draws from
-        (`serve_mis.batcher.request_generator`): a member's solo
-        reproduction is `solve(plan, generator=solver.request_generator(plan))`."""
-        from repro_torch.serve_mis.batcher import request_generator
+    def request_key(self, plan: Plan) -> Key:
+        """The content-derived key a batched member draws under
+        (`serve_mis.batcher.request_key`): a member's solo reproduction is
+        `solve(plan, key=solver.request_key(plan))`."""
+        from repro_torch.serve_mis.batcher import request_key
 
-        return request_generator(self.options.seed, plan, self.device)
+        return request_key(self._base_key, plan)
 
     def route(self, plan: Plan) -> str:
         """The placement policy: "auto" gives "sharded" when the padded
@@ -189,16 +194,13 @@ class Solver:
             )
         return plan
 
-    def _solve_routed(self, plan: Plan, generator: torch.Generator,
-                      trace: Optional[Trace]) -> SolveResult:
+    def _solve_routed(self, plan: Plan, key: Key, trace: Optional[Trace]) -> SolveResult:
         if self.route(plan) == "sharded":
-            return self._solve_sharded(plan, generator, trace)
-        return self._solve_local(plan, generator, trace)
+            return self._solve_sharded(plan, key, trace)
+        return self._solve_local(plan, key, trace)
 
-    def _generator(self, generator: Optional[torch.Generator]) -> torch.Generator:
-        if generator is not None:
-            return generator
-        return torch.Generator(device=self.device).manual_seed(self.options.seed)
+    def _key(self, key: Optional[Key]) -> Key:
+        return self._base_key if key is None else key
 
     # -- execution ---------------------------------------------------------
 
@@ -206,12 +208,11 @@ class Solver:
         self,
         graph: GraphLike,
         *,
-        generator: Optional[torch.Generator] = None,
+        key: Optional[Key] = None,
         trace: Optional[Trace] = None,
     ) -> SolveResult:
-        """Solve one graph.  Priorities draw from `generator`, by default a
-        `torch.Generator` on the solver's device seeded with
-        `options.seed`.
+        """Solve one graph.  Priorities draw under `key` (a `core.prng.Key`),
+        by default `prng.key(options.seed)`.
 
         `trace` (`repro_torch.obs.Trace`, default None: no clock read)
         records the spans `solver.solve` ⊃ `solver.plan`, `solver.execute`;
@@ -224,12 +225,11 @@ class Solver:
         with trace_span(trace, "solver.solve"):
             with trace_span(trace, "solver.plan"):
                 plan = self._check_device(self.plan(graph))
-            return self._solve_routed(plan, self._generator(generator), trace)
+            return self._solve_routed(plan, self._key(key), trace)
 
-    def _solve_local(self, plan: Plan, generator: torch.Generator,
-                     trace: Optional[Trace]) -> SolveResult:
+    def _solve_local(self, plan: Plan, key: Key, trace: Optional[Trace]) -> SolveResult:
         return self._execute(
-            plan, lambda: run_tc_mis(plan.g, plan.tiled, generator, self.options),
+            plan, lambda: run_tc_mis(plan.g, plan.tiled, key, self.options),
             trace, "solve")
 
     def _execute(self, plan: Plan, run, trace: Optional[Trace], scope: str) -> SolveResult:
@@ -262,7 +262,7 @@ class Solver:
         self,
         graphs: Iterable[GraphLike],
         *,
-        generators: Optional[Sequence[torch.Generator]] = None,
+        keys: Optional[Sequence[Key]] = None,
         trace: Optional[Trace] = None,
     ) -> List[SolveResult]:
         """Solve a workload, batching where it pays.
@@ -273,34 +273,34 @@ class Solver:
         size, storage), as a batch shares both; a group of two or more
         packs into one block-diagonal batch and one convergence loop, a
         group of one solves alone.  Results keep the input order.  Members
-        draw from `request_generator(plan)` unless `generators` gives one
-        per graph (then the priority cache is bypassed)."""
+        draw under `request_key(plan)` unless `keys` gives one per graph
+        (then the priority cache is bypassed)."""
         with trace_span(trace, "solver.plan"):
             plans = [self._check_device(self.plan(g)) for g in graphs]
         if not plans:
             return []
-        default = generators is None
+        default = keys is None
         if default:
-            generators = [self.request_generator(p) for p in plans]
-        elif len(generators) != len(plans):
-            raise ValueError(f"{len(plans)} graphs but {len(generators)} generators")
+            keys = [self.request_key(p) for p in plans]
+        elif len(keys) != len(plans):
+            raise ValueError(f"{len(plans)} graphs but {len(keys)} keys")
         if len(plans) == 1:
-            return [self.solve(plans[0], generator=generators[0], trace=trace)]
+            return [self.solve(plans[0], key=keys[0], trace=trace)]
 
         out: List[Optional[SolveResult]] = [None] * len(plans)
         groups: "OrderedDict[tuple, List[int]]" = OrderedDict()
         for i, p in enumerate(plans):
             if self.route(p) == "sharded":
-                out[i] = self._solve_sharded(p, generators[i], trace)
+                out[i] = self._solve_sharded(p, keys[i], trace)
             else:
                 groups.setdefault((p.tile_size, p.tiled.storage), []).append(i)
         for idxs in groups.values():
             if len(idxs) == 1:
                 i = idxs[0]
-                out[i] = self._solve_local(plans[i], generators[i], trace)
+                out[i] = self._solve_local(plans[i], keys[i], trace)
                 continue
             solved = self._solve_batched(
-                [plans[i] for i in idxs], [generators[i] for i in idxs],
+                [plans[i] for i in idxs], [keys[i] for i in idxs],
                 use_priority_cache=default, trace=trace,
             )
             for i, r in zip(idxs, solved):
@@ -310,7 +310,7 @@ class Solver:
     def _solve_batched(
         self,
         plans: Sequence[Plan],
-        generators: Sequence[torch.Generator],
+        keys: Sequence[Key],
         use_priority_cache: bool = True,
         trace: Optional[Trace] = None,
     ) -> List[SolveResult]:
@@ -319,8 +319,8 @@ class Solver:
         cache = self._priority_cache if use_priority_cache else None
         t0 = time.perf_counter()
         with trace_span(trace, "solver.pack", batch_size=len(plans)):
-            pris = [member_priorities(p, gen, self.options.heuristic, cache)
-                    for p, gen in zip(plans, generators)]
+            pris = [member_priorities(p, k, self.options.heuristic, cache)
+                    for p, k in zip(plans, keys)]
             batch = pack_batch(plans, pris)
         pack_ms = (time.perf_counter() - t0) * 1e3
         self.metrics.counter("solver.batches").inc()
@@ -366,7 +366,7 @@ class Solver:
         prior: SolveResult,
         delta,
         *,
-        generator: Optional[torch.Generator] = None,
+        key: Optional[Key] = None,
         trace: Optional[Trace] = None,
     ) -> SolveResult:
         """Apply an `EdgeDelta` (original vertex ids) to a solved graph and
@@ -388,8 +388,9 @@ class Solver:
 
         `prior` must be a converged result for the plan the delta applies
         to (chain updates by passing each result to the next).  Both modes
-        draw the patched graph's priorities from the same generator, so an
-        empty delta returns the prior solution bit for bit either way.
+        draw the patched graph's priorities under the same key (`key`, by
+        default the seed's), so an empty delta returns the prior solution
+        bit for bit either way.
         Stats gain `repair` (the mode taken), `patch` (the cache layer of
         the patched plan), `patch_ms`, `plan_epoch`, `delta_add` and
         `delta_remove`."""
@@ -411,10 +412,10 @@ class Solver:
         if mode == "incremental" and self.route(plan2) == "sharded":
             mode = "cold"
         note_repair(mode, dirty_frac=dirty_frac)
-        generator = self._generator(generator)
+        key = self._key(key)
         if mode == "cold":
             with trace_span(trace, "solver.update", mode="cold"):
-                res = self._solve_routed(plan2, generator, trace)
+                res = self._solve_routed(plan2, key, trace)
             return dataclasses.replace(res, stats=dict(res.stats, repair="cold", **extra))
 
         with trace_span(trace, "solver.update", mode="incremental"):
@@ -423,7 +424,7 @@ class Solver:
             prior_plan = torch.from_numpy(
                 plan2.to_plan_ids(prior.in_mis).astype(bool)).to(self.device)
             res = self._execute(plan2, lambda: repair_solution(
-                plan2.g, plan2.tiled, generator, self.options, prior_plan, dirty),
+                plan2.g, plan2.tiled, key, self.options, prior_plan, dirty),
                 trace, "repair")
         return dataclasses.replace(res, stats=dict(res.stats, repair="incremental", **extra))
 
@@ -431,14 +432,14 @@ class Solver:
         self,
         graph: GraphLike,
         *,
-        generator: Optional[torch.Generator] = None,
+        key: Optional[Key] = None,
         trace: Optional[Trace] = None,
     ):
         """The instrumented twin (`core.tc_mis.run_phases`): rounds stepped
         from Python with a clock around each phase, synced on the card.
         Returns `(SolveResult, times)` with times keyed phase1 / phase2 /
         phase3 (seconds summed over the rounds) and rounds; the result
-        bit-matches `solve` on the same graph and generator seed.  `trace`
+        bit-matches `solve` on the same graph and key.  `trace`
         records `solver.profile` ⊃ `solver.plan` and each round's
         `rounds.phase1` / `rounds.phase2` / `rounds.phase3`.  The twin
         steps the local round engine: a plan that routes sharded raises."""
@@ -448,7 +449,7 @@ class Solver:
             if self.route(plan) == "sharded":
                 raise NotImplementedError(
                     "profile has no sharded twin: it steps the local round engine")
-            result, times = run_phases(plan.g, plan.tiled, self._generator(generator),
+            result, times = run_phases(plan.g, plan.tiled, self._key(key),
                                        self.options, trace=trace)
         self.metrics.counter("solver.solves").inc()
         in_mis_plan = result.in_mis.cpu().numpy().astype(bool)
@@ -462,10 +463,11 @@ class Solver:
         )
         return res, times
 
-    def _solve_sharded(self, plan: Plan, generator: torch.Generator,
+    def _solve_sharded(self, plan: Plan, key: Key,
                        trace: Optional[Trace] = None) -> SolveResult:
         """One sharded solve on this rank (every rank of the group calls it
-        with the same plan and generator state).  Dense-only: the slabs
+        with the same plan and key, so every rank draws the same
+        priorities).  Dense-only: the slabs
         take the plan's whole tile list and its hybrid partition goes
         unused, as the reference's shard_map loop has no sparse-tail seam.
         The plan's slab is built once and kept (LRU of
@@ -497,7 +499,7 @@ class Solver:
         else:
             self._dist_runs.move_to_end(plan.key)
 
-        pri = make_priorities(self.options.heuristic, generator, plan.g.n_nodes,
+        pri = make_priorities(self.options.heuristic, key, plan.g.n_nodes,
                               plan.g.degrees())
         t0 = time.perf_counter()
         with trace_span(trace, "solver.execute", placement="sharded"):

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.heuristics import Priorities, make_priorities
+from repro_torch.core.prng import Key
 from repro_torch.core.luby import MISResult, luby_round, retire
 from repro_torch.core.spmv import neighbor_max_segment
 from repro_torch.graphs.graph import Graph
@@ -39,8 +40,8 @@ def ecl_rounds(g: Graph, pri: Priorities, *, max_rounds: int = 1024) -> MISResul
 
 
 def ecl_mis(
-    g: Graph, gen: torch.Generator, *, heuristic: str = "ecl", max_rounds: int = 1024
+    g: Graph, key: Key, *, heuristic: str = "ecl", max_rounds: int = 1024
 ) -> MISResult:
-    """ECL-MIS on `g`'s device with priorities drawn once from `gen`."""
-    pri = make_priorities(heuristic, gen, g.n_nodes, g.degrees())
+    """ECL-MIS on `g`'s device with priorities drawn once under `key`."""
+    pri = make_priorities(heuristic, key, g.n_nodes, g.degrees())
     return ecl_rounds(g, pri, max_rounds=max_rounds)

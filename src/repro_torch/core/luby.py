@@ -4,9 +4,9 @@ baseline, and the MIS result record (counterpart of `repro.core.luby`).
 Fresh uniform priorities every round, then the paper's three phases on the
 edge list.  The reference runs the loop as one `lax.while_loop`; here it is
 a Python loop that syncs once per round on `alive.any()`, so it runs the
-rounds the reference runs.  The draws come from an explicit
-`torch.Generator`, not `jax.random`, so parity tests feed the reference's
-draws to `luby_round`.
+rounds the reference runs.  Round r draws under `fold_in(key, r)` with
+`core.prng`, the reference's draw bit for bit, so one key gives the
+reference's MIS.
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core import prng
+from repro_torch.core.prng import Key
 from repro_torch.core.spmv import neighbor_any_segment, neighbor_max_segment
 from repro_torch.graphs.graph import Graph
 
@@ -44,17 +46,17 @@ def retire(
     return alive & ~cand & ~hit, in_mis | cand
 
 
-def luby_mis(g: Graph, gen: torch.Generator, *, max_rounds: int = 1024) -> MISResult:
-    """Luby's MIS on `g`'s device: each round draws fresh int32 priorities
-    uniform in [0, 2^31 - 1) from `gen` (a tie delays both vertices a
-    round, never breaks independence)."""
+def luby_mis(g: Graph, key: Key, *, max_rounds: int = 1024) -> MISResult:
+    """Luby's MIS on `g`'s device: round r draws fresh int32 priorities
+    uniform in [0, 2^31 - 1) under `fold_in(key, r)` (a tie delays both
+    vertices a round, never breaks independence)."""
     n = g.n_nodes
     dev = g.senders.device
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     in_mis = torch.zeros((n,), dtype=torch.bool, device=dev)
     rounds = 0
     while rounds < max_rounds and bool(alive.any()):
-        p = torch.randint(0, _INT32_MAX, (n,), generator=gen, dtype=torch.int32, device=dev)
+        p = prng.randint(prng.fold_in(key, rounds), n, 0, _INT32_MAX, dev)
         alive, in_mis = luby_round(g, p, alive, in_mis)
         rounds += 1
     return MISResult(in_mis=in_mis, rounds=torch.tensor(rounds, dtype=torch.int32),

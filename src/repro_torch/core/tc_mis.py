@@ -36,6 +36,7 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.heuristics import Priorities, make_priorities
 from repro_torch.core.luby import MISResult
+from repro_torch.core.prng import Key
 from repro_torch.core.spmv import _NEG
 from repro_torch.core.tiling import (
     BlockTiledGraph,
@@ -62,7 +63,7 @@ def _pad_priorities(pri: Priorities, tiled: BlockTiledGraph) -> Priorities:
 def _setup(
     g: Graph,
     tiled: BlockTiledGraph,
-    generator: torch.Generator | None,
+    key: Key | None,
     config,
     priorities: Priorities | None = None,
     alive0: torch.Tensor | None = None,
@@ -73,7 +74,7 @@ def _setup(
     """Run prologue: engine, context, padded priorities, state₀.
 
     The seams are the reference's: `priorities` replaces the heuristic's
-    draw (then `generator` is unused), `alive0` starts some vertices dead,
+    draw under `key` (then `key` is unused), `alive0` starts some vertices dead,
     `col_gate` pins block-columns off, `member_rounds` counts rounds per
     vertex, and `in_mis0` warm-starts the MIS set (callers guarantee it is
     independent and disjoint from `alive0`).  Vectors may be `n_nodes`- or
@@ -86,9 +87,9 @@ def _setup(
     partition these are built over its dense half."""
     engine = get_engine(config.engine)
     if priorities is None:
-        if generator is None:
-            raise ValueError("pass a torch.Generator or explicit priorities")
-        priorities = make_priorities(config.heuristic, generator, g.n_nodes, g.degrees())
+        if key is None:
+            raise ValueError("pass a key (core.prng) or explicit priorities")
+        priorities = make_priorities(config.heuristic, key, g.n_nodes, g.degrees())
     pri = _pad_priorities(priorities, tiled)
     frontier = resolve_frontier(
         config, engine, storage=tiled.storage, member_rounds=member_rounds
@@ -143,7 +144,7 @@ def _result(final: MISRoundState, g: Graph, tiled: BlockTiledGraph) -> MISResult
 def run_tc_mis(
     g: Graph,
     tiled: BlockTiledGraph,
-    generator: torch.Generator | None,
+    key: Key | None,
     config,
     *,
     priorities: Priorities | None = None,
@@ -165,7 +166,7 @@ def run_tc_mis(
     device index, with no host read, and the return becomes
     `(result, buffer)`, as the reference's `_tc_mis_impl` returns it."""
     engine, ctx, pri, state = _setup(
-        g, tiled, generator, config, priorities, alive0, col_gate,
+        g, tiled, key, config, priorities, alive0, col_gate,
         member_rounds, in_mis0,
     )
     if not getattr(config, "telemetry", False):
@@ -204,7 +205,7 @@ def _converge(engine, ctx: EngineContext, pri: Priorities, state: MISRoundState,
 def run_phases(  # repro-lint: disable=RPT005,RPT010,RPT011 host-stepped profiler twin: per-phase wall timing requires sync
     g: Graph,
     tiled: BlockTiledGraph,
-    generator: torch.Generator | None,
+    key: Key | None,
     config,
     *,
     priorities: Priorities | None = None,
@@ -227,7 +228,7 @@ def run_phases(  # repro-lint: disable=RPT005,RPT010,RPT011 host-stepped profile
     `rounds.phase3`, sync included.  Under a tile partition the round is
     the hybrid one, ② split even on the fused engine, as `step` runs it:
     phase ② is the dense half's SpMV and the tail's, merged."""
-    engine, ctx, pri, state0 = _setup(g, tiled, generator, config, priorities)
+    engine, ctx, pri, state0 = _setup(g, tiled, key, config, priorities)
     dev = tiled.device
 
     def sync():

@@ -45,6 +45,7 @@ from repro_torch.core.engine import (
     tile_spmv_bits,
 )
 from repro_torch.core.heuristics import Priorities
+from repro_torch.core.prng import Key
 from repro_torch.core.tc_mis import run_tc_mis
 from repro_torch.core.tiling import (
     BlockTiledGraph,
@@ -145,7 +146,7 @@ def warm_start(
 def repair_solution(
     g: Graph,                     # the patched graph (plan ids)
     tiled: BlockTiledGraph,       # its patched tiling
-    generator: Optional[torch.Generator],
+    key: Optional[Key],
     config,
     prior_in_mis: torch.Tensor,   # (n_nodes,) bool, the pre-delta solution
     dirty: torch.Tensor,          # (n_nodes,) bool, the delta's endpoints
@@ -154,10 +155,10 @@ def repair_solution(
 ):
     """Warm-started solve of the mutated graph on the configured engine
     (counterpart of `repair_mis`).  Priorities default to those a cold
-    solve of the patched graph draws from `generator` (the same heuristic,
+    solve of the patched graph draws under `key` (the same heuristic,
     the new degrees), so an empty delta repairs to exactly the cold
     answer.  With `config.telemetry` the return is `run_tc_mis`'s
     `(result, buffer)` pair, row 0 being the first repair round."""
     alive0, in_mis0 = warm_start(g, tiled, config, prior_in_mis, dirty)
-    return run_tc_mis(g, tiled, generator, config, priorities=priorities,
+    return run_tc_mis(g, tiled, key, config, priorities=priorities,
                       alive0=alive0, in_mis0=in_mis0)

@@ -11,7 +11,8 @@ kernel wrappers (`callgraph.DEFAULT_SEEDS`).
 The invariants are the reference's, read for eager PyTorch on a card: one
 host sync a round, no 64-bit creep, packed stays packed, no hidden
 fallback.  Where the reference's jit freezes impure values at trace time,
-the port's invariant is its rule of explicit generators.
+the port's invariant is its rule of explicit keys: the hot path draws
+only through `core.prng`, the reference's threefry stream.
 
 Adding a rule: write a generator over `LintContext` yielding `Finding`s,
 wrap it in a `Rule` with an unused RPT0xx id, and append it to ALL_RULES.
@@ -73,7 +74,8 @@ TENSOR_VALUE_METHODS = (
     "squeeze", "reshape", "view", "flatten", "to", "float", "long", "int",
     "bool", "double", "cumsum", "dot", "clone",
 )
-# RPT011: draws of the global generator unless `generator=` is given
+# RPT011: torch's own draws, with or without `generator=` (the hot path
+# draws only through `core.prng`, under a key)
 TORCH_DRAWS = ("rand", "randn", "randint", "randperm", "bernoulli",
                "multinomial", "normal", "poisson")
 TORCH_LIKE_DRAWS = ("rand_like", "randn_like", "randint_like")
@@ -427,7 +429,7 @@ def _check_reproducibility(ctx: LintContext) -> Iterator[Finding]:
             yield _mk(
                 mi, "RPT011", Severity.ERROR, anchor, fi.qualname,
                 f"global/nonlocal write in hot `{fi.qualname}` — a round "
-                f"depends only on its inputs and its explicit generator",
+                f"depends only on its inputs and its key",
             )
         for call in fi.calls:
             if call.chain is None:
@@ -435,23 +437,19 @@ def _check_reproducibility(ctx: LintContext) -> Iterator[Finding]:
             dotted = ".".join(call.chain)
             name = call.chain[-1]
             if len(call.chain) >= 2 and _is_torch_rooted(mi, call.chain[0]):
-                if name in TORCH_LIKE_DRAWS or (
-                    name in TORCH_DRAWS and _keyword(call.node, "generator") is None
-                ):
+                if name in TORCH_LIKE_DRAWS or name in TORCH_DRAWS:
                     yield _mk(
                         mi, "RPT011", Severity.ERROR, call.node, fi.qualname,
-                        f"`{dotted}` draws from the global generator in hot "
-                        f"`{fi.qualname}` — pass generator= (a solve draws "
-                        f"from the torch.Generator its caller gives)",
+                        f"`{dotted}` draws from a torch generator in hot "
+                        f"`{fi.qualname}` — draw through core.prng under the "
+                        f"solve's key (the reference's jax.random bits)",
                     )
                 continue
-            if len(call.chain) >= 2 and name in TENSOR_DRAWS and (
-                _keyword(call.node, "generator") is None
-            ):
+            if len(call.chain) >= 2 and name in TENSOR_DRAWS:
                 yield _mk(
                     mi, "RPT011", Severity.ERROR, call.node, fi.qualname,
-                    f"`.{name}()` draws from the global generator in hot "
-                    f"`{fi.qualname}` — pass generator=",
+                    f"`.{name}()` draws from a torch generator in hot "
+                    f"`{fi.qualname}` — draw through core.prng under a key",
                 )
             elif len(call.chain) >= 2:
                 tgt = _import_target(mi, call.chain[0])
@@ -470,7 +468,7 @@ def _check_reproducibility(ctx: LintContext) -> Iterator[Finding]:
                     yield _mk(
                         mi, "RPT011", Severity.ERROR, call.node, fi.qualname,
                         f"`{dotted}` in hot `{fi.qualname}` — numpy's RNG is "
-                        f"not the solve's generator",
+                        f"not the solve's key",
                     )
             elif call.chain == ("print",):
                 yield _mk(
@@ -801,11 +799,12 @@ ALL_RULES: Tuple[Rule, ...] = (
     ),
     Rule(
         id="RPT011", name="reproducibility", severity=Severity.ERROR,
-        summary="draws without generator=, stdlib random/time, np.random, "
-                "print, global writes on the hot path",
-        rationale="a solve is a function of its inputs and the generator its "
-                  "caller gives; eager torch has no trace-time freeze, so "
-                  "this is the port's form of trace purity (RPR011)",
+        summary="torch draws (core.prng only, under a key), stdlib "
+                "random/time, np.random, print, global writes on the hot path",
+        rationale="a solve is a function of its inputs and the key its "
+                  "caller gives, drawn as the reference draws it; eager torch "
+                  "has no trace-time freeze, so this is the port's form of "
+                  "trace purity (RPR011)",
         escapes="suppress on the def line for host-stepped loops",
         check=_check_reproducibility,
     ),

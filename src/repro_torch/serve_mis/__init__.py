@@ -22,7 +22,7 @@ from repro_torch.serve_mis.batcher import (
     bucket_for,
     member_priorities,
     pack_batch,
-    request_generator,
+    request_key,
 )
 from repro_torch.serve_mis.service import (
     MISService,
@@ -36,6 +36,6 @@ __all__ = [
     "GraphParseError", "detect_format", "load_graph",
     "PlanCache", "TilePlan", "build_plan", "plan_cache_key",
     "Bucket", "PackedBatch", "bucket_for", "member_priorities", "pack_batch",
-    "request_generator",
+    "request_key",
     "MISService", "Request", "Response", "ServeConfig", "UpdateRequest",
 ]

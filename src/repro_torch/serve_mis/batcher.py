@@ -8,7 +8,7 @@ packing concatenates cached plans block-diagonally:
 * every member's vertex range is padded to whole T-blocks before it is
   offset, so no tile spans two graphs and each member's neighbourhoods
   are untouched;
-* priorities are each member's own (its own generator and degree
+* priorities are each member's own (its own key and degree
   statistics: Eq. 1's d̄ is a per-graph mean), placed at its offset, so
   each slot's rounds are those of a solo solve of the member with the
   same priorities: the batch returns every member's solo MIS and rounds;
@@ -31,16 +31,17 @@ member.
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.heuristics import Priorities, make_priorities
+from repro_torch.core.prng import Key
 from repro_torch.core.spmv import _NEG
 from repro_torch.core.tiling import BlockTiledGraph, next_pow2, partition_tiles
-from repro_torch.device import DeviceLike, resolve_device, to_torch
+from repro_torch.device import to_torch
 from repro_torch.graphs.graph import Graph
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serve_mis.planner import TilePlan
@@ -69,16 +70,13 @@ def bucket_for(plans: Sequence[TilePlan], tile_size: int) -> Bucket:
     )
 
 
-def request_generator(seed: int, plan: TilePlan, device: DeviceLike = "cuda") -> torch.Generator:
-    """A member's own `torch.Generator`, seeded from `seed` and the graph's
-    content (`plan.graph_key`), so its priorities depend on neither its
-    batch, nor its slot, nor the arrival order, nor the plan's tile size
-    or storage: the int8 and bitpack plans of one graph draw alike.  (The
-    reference folds the graph key into a `jax.random` key; the port draws
-    other bits, so parity tests hand the reference's priorities over.)"""
-    digest = hashlib.sha256(f"tcmis-request|{int(seed)}|{plan.graph_key}".encode()).digest()
-    gen = torch.Generator(device=resolve_device(device))
-    return gen.manual_seed(int.from_bytes(digest[:8], "little") >> 1)
+def request_key(base_key: Key, plan: TilePlan) -> Key:
+    """A member's own key, folded from `base_key` and the graph's content
+    (`plan.graph_key`, the build-parameter-free hash), so its priorities
+    depend on neither its batch, nor its slot, nor the arrival order, nor
+    the plan's tile size or storage: the int8 and bitpack plans of one
+    graph draw alike.  The reference's `request_key`, bit for bit."""
+    return prng.fold_in(base_key, int(plan.graph_key[:8], 16) & 0x7FFFFFFF)
 
 
 # Priorities by plan content hash.  Bounded FIFO: priority vectors are
@@ -90,20 +88,20 @@ PRIORITY_CACHE_CAP = 4096
 
 def member_priorities(
     plan: TilePlan,
-    generator: Optional[torch.Generator],
+    key: Key,
     heuristic: str,
     cache: Optional[PriorityCache] = None,
 ) -> Priorities:
     """One member's priorities, through `cache` when given (keyed by the
-    plan's content hash: a cache serves one base seed and heuristic, and
-    callers with their own generators pass none).  A hit skips the
+    plan's content hash: a cache serves one base key and heuristic, and
+    callers with their own keys pass none).  A hit skips the
     degrees and the draw."""
     if cache is not None and plan.key in cache:
         obs_metrics.counter("batcher.priority_cache.hits").inc()
         return cache[plan.key]
     if cache is not None:
         obs_metrics.counter("batcher.priority_cache.misses").inc()
-    pri = make_priorities(heuristic, generator, plan.n_nodes, plan.g.degrees())
+    pri = make_priorities(heuristic, key, plan.n_nodes, plan.g.degrees())
     if cache is not None:
         cache[plan.key] = pri
         while len(cache) > PRIORITY_CACHE_CAP:

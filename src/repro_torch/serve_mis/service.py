@@ -349,12 +349,12 @@ class MISService:
         )
 
     def _run_update(self, r: UpdateRequest, trace: Optional[Trace] = None):
-        """One update's repair, drawing from the CONTENT-DERIVED generator
-        of the patched graph: the one a fresh submission of that graph
-        would be solved with (`Solver.request_generator`), and for an empty
-        delta exactly the base response's.  That keeps update responses
+        """One update's repair, drawing under the CONTENT-DERIVED key of
+        the patched graph: the one a fresh submission of that graph would
+        be solved under (`Solver.request_key`), and for an empty delta
+        exactly the base response's.  That keeps update responses
         consistent with the service's own solves in every repair mode (a
-        bare `Solver.update` draws from the seed's generator instead)."""
+        bare `Solver.update` draws under the seed's key instead)."""
         if r.base_id not in self._results:
             raise KeyError(
                 f"update {r.id} targets request {r.base_id}, whose result aged out "
@@ -366,7 +366,7 @@ class MISService:
         # stat would always read 'mem': overwrite it with the real layer
         plan2, patch_status = self.solver.plans.apply_delta(prior.plan, r.delta)
         res = self.solver.update(prior, r.delta,
-                                 generator=self.solver.request_generator(plan2), trace=trace)
+                                 key=self.solver.request_key(plan2), trace=trace)
         res.stats["patch"] = patch_status
         return res
 

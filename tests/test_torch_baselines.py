@@ -1,11 +1,12 @@
 """The port's Luby and ECL-MIS baselines against the reference's.
 
-The port draws from a `torch.Generator`, not `jax.random`, so parity
-cases feed the reference's draws: for Luby, each round's
+From the key alone (`core.prng.key(seed)`, the reference's
+`jax.random.key(seed)`), `luby_mis` and `ecl_mis` must give the
+reference's MIS, rounds and convergence, exactly.  The round bodies are
+also held apart from the draws: for Luby, each round's
 `jax.random.randint(fold_in(key, round), (n,), 0, int32 max)` as
-`luby.py` makes it, into the port's `luby_round`; for ECL-MIS, the
-reference's priorities into `ecl_rounds`.  Both must give the same MIS,
-rounds and convergence, exactly.  Then the reference's own property, that
+`luby.py` makes it, fed into the port's `luby_round`; for ECL-MIS, the
+reference's priorities into `ecl_rounds`.  Then the reference's own property, that
 ECL-MIS is TC-MIS with `heuristic="ecl"` on the same priorities, and the
 properties of tests/test_mis_properties.py: valid, maximal, converged,
 and the `max_rounds` cap."""
@@ -22,7 +23,7 @@ from repro.graphs.generators import grid2d as ref_grid2d
 from repro.graphs.generators import powerlaw as ref_powerlaw
 from repro.graphs.graph import from_edges as ref_from_edges
 from repro_torch.api import Plan, SolveOptions
-from repro_torch.core import ecl_mis, ecl_rounds, luby_mis, luby_round, run_tc_mis
+from repro_torch.core import ecl_mis, ecl_rounds, luby_mis, luby_round, prng, run_tc_mis
 from repro_torch.core.heuristics import Priorities
 from repro_torch.core.validate import cardinality, is_independent, is_maximal
 from repro_torch.graphs import powerlaw
@@ -76,6 +77,28 @@ def test_luby_matches_reference_fed_its_draws(kind, max_rounds):
     assert converged or rounds == max_rounds
 
 
+@pytest.mark.parametrize("max_rounds", [1024, 2])
+@pytest.mark.parametrize("kind", ["grid", "powerlaw", "random"])
+def test_luby_matches_reference_from_the_key(kind, max_rounds):
+    ref_g = _ref_graph(kind)
+    want = ref_luby_mis(ref_g, jax.random.key(11), max_rounds=max_rounds)
+    got = luby_mis(_port_graph(ref_g), prng.key(11), max_rounds=max_rounds)
+    np.testing.assert_array_equal(got.in_mis.numpy(), np.asarray(want.in_mis))
+    assert int(got.rounds) == int(want.rounds)
+    assert bool(got.converged) == bool(want.converged)
+
+
+@pytest.mark.parametrize("heuristic", ["ecl", "h3"])
+@pytest.mark.parametrize("kind", ["grid", "powerlaw", "random"])
+def test_ecl_matches_reference_from_the_key(kind, heuristic):
+    ref_g = _ref_graph(kind)
+    want = ref_ecl_mis(ref_g, jax.random.key(5), heuristic=heuristic)
+    got = ecl_mis(_port_graph(ref_g), prng.key(5), heuristic=heuristic)
+    np.testing.assert_array_equal(got.in_mis.numpy(), np.asarray(want.in_mis))
+    assert int(got.rounds) == int(want.rounds)
+    assert bool(got.converged) and bool(want.converged)
+
+
 @pytest.mark.parametrize("heuristic", ["ecl", "h3"])
 @pytest.mark.parametrize("kind", ["grid", "powerlaw", "random"])
 def test_ecl_matches_reference_fed_its_priorities(kind, heuristic):
@@ -96,8 +119,8 @@ def test_ecl_mis_equals_tc_mis_with_the_ecl_heuristic(engine):
     for seed in range(3):
         g = from_edges(*_random_edges(300, 0.05, seed), device="cpu")
         plan = Plan.build(g, tile_size=32)
-        e = ecl_mis(g, torch.Generator().manual_seed(seed))
-        t = run_tc_mis(plan.g, plan.tiled, torch.Generator().manual_seed(seed),
+        e = ecl_mis(g, prng.key(seed))
+        t = run_tc_mis(plan.g, plan.tiled, prng.key(seed),
                        SolveOptions(engine=engine, heuristic="ecl"))
         np.testing.assert_array_equal(e.in_mis.numpy(), t.in_mis.numpy())
         assert int(e.rounds) == int(t.rounds)
@@ -109,7 +132,7 @@ def test_ecl_mis_equals_tc_mis_with_the_ecl_heuristic(engine):
 def test_baseline_is_a_maximal_independent_set(baseline, n, density, seed):
     g = from_edges(*_random_edges(n, density, seed), device="cpu")
     run = luby_mis if baseline == "luby" else ecl_mis
-    res = run(g, torch.Generator().manual_seed(seed))
+    res = run(g, prng.key(seed))
     assert bool(res.converged) and res.in_mis.dtype == torch.bool
     assert is_independent(g, res.in_mis) and is_maximal(g, res.in_mis)
 
@@ -117,13 +140,13 @@ def test_baseline_is_a_maximal_independent_set(baseline, n, density, seed):
 def test_baselines_on_empty_and_complete_graphs_and_the_round_cap():
     empty = from_edges(np.array([], np.int64), np.array([], np.int64), 10, device="cpu")
     for run in (luby_mis, ecl_mis):
-        assert cardinality(run(empty, torch.Generator().manual_seed(0)).in_mis) == 10
+        assert cardinality(run(empty, prng.key(0)).in_mis) == 10
     src, dst = np.triu_indices(12, 1)
     complete = from_edges(src, dst, 12, device="cpu")
     for run in (luby_mis, ecl_mis):
-        assert cardinality(run(complete, torch.Generator().manual_seed(0)).in_mis) == 1
+        assert cardinality(run(complete, prng.key(0)).in_mis) == 1
     g = powerlaw(400, avg_deg=6.0, seed=2, device="cpu")
     for run in (luby_mis, ecl_mis):
-        capped = run(g, torch.Generator().manual_seed(0), max_rounds=1)
+        capped = run(g, prng.key(0), max_rounds=1)
         assert int(capped.rounds) == 1 and not bool(capped.converged)
         assert is_independent(g, capped.in_mis)

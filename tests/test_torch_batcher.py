@@ -7,7 +7,8 @@ from one convergence loop, on every engine and both storages, then
 tests/test_hybrid.py's batched cases) on the port.
 
 The reference's `pack_batch` runs with its content-derived keys; the port's
-takes the reference's member priorities as numpy.  Everything is exact.
+takes the reference's member priorities as numpy, and `solve_many` from
+the seed alone gives the reference's members.  Everything is exact.
 The reference's Pallas engines run in interpret mode, as its own tests run
 them on the CPU."""
 import dataclasses
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from repro.api import SolveOptions as RefOptions
+from repro.api import Solver as RefSolver
 from repro.api.plan import Plan as RefPlan
 from repro.core.tc_mis import _tc_mis_impl
 from repro.graphs.generators import erdos_renyi as ref_erdos_renyi
@@ -28,11 +30,13 @@ from repro.serve_mis.batcher import _member_priorities
 from repro.serve_mis.batcher import pack_batch as ref_pack_batch
 from repro.serve_mis.batcher import request_key
 from repro_torch.api import Plan, Solver, SolveOptions
+from repro_torch.core import prng
 from repro_torch.core.heuristics import Priorities
 from repro_torch.core.tc_mis import run_tc_mis
 from repro_torch.core.validate import is_valid_mis
 from repro_torch.obs import metrics
-from repro_torch.serve_mis import Bucket, bucket_for, pack_batch, request_generator
+from repro_torch.serve_mis import Bucket, bucket_for, pack_batch
+from repro_torch.serve_mis import request_key as port_request_key
 from test_torch_hybrid import _assert_partition_equal, _assert_tiling_equal, _port_graph
 
 # (engine, phase1): every engine on the segment max, the tile engines on
@@ -170,8 +174,7 @@ def test_bucket_rounding_is_stable_across_similar_batches(T, seeds):
 def _first_pri(plan):
     from repro_torch.core.heuristics import make_priorities
 
-    return make_priorities("h3", torch.Generator().manual_seed(0), plan.n_nodes,
-                           plan.g.degrees())
+    return make_priorities("h3", prng.key(0), plan.n_nodes, plan.g.degrees())
 
 
 def test_pack_batch_rejects_what_the_reference_rejects():
@@ -243,7 +246,7 @@ def test_solve_many_members_equal_solo_with_own_rounds(engine):
     assert [r.placement for r in results] == ["batched"] * len(graphs)
     assert len({r.stats["bucket"] for r in results}) == 1
     for g, res in zip(graphs, results):
-        solo = solver.solve(res.plan, generator=solver.request_generator(res.plan))
+        solo = solver.solve(res.plan, key=solver.request_key(res.plan))
         np.testing.assert_array_equal(res.in_mis, solo.in_mis)
         assert res.rounds == solo.rounds
         assert is_valid_mis(g, torch.from_numpy(res.in_mis))
@@ -286,7 +289,7 @@ def test_solve_many_groups_by_tile_size_and_storage_in_input_order():
         want = "batched" if len(members) > 1 else "local"
         assert {r.placement for r in members} == {want}
     for r in results:
-        solo = solver.solve(r.plan, generator=solver.request_generator(r.plan))
+        solo = solver.solve(r.plan, key=solver.request_key(r.plan))
         np.testing.assert_array_equal(r.in_mis, solo.in_mis)
 
 
@@ -301,14 +304,14 @@ def test_solve_many_priority_cache_and_custom_generators():
     assert metrics.counter("batcher.priority_cache.hits").value == hits + 2
     for a, b in zip(first, again):
         np.testing.assert_array_equal(a.in_mis, b.in_mis)
-    gens = [torch.Generator().manual_seed(101), torch.Generator().manual_seed(202)]
-    custom = solver.solve_many([g, h], generators=gens)
+    keys = [prng.key(101), prng.key(202)]
+    custom = solver.solve_many([g, h], keys=keys)
     assert metrics.counter("batcher.priority_cache.hits").value == hits + 2
     for res, seed in zip(custom, (101, 202)):
-        solo = solver.solve(res.plan, generator=torch.Generator().manual_seed(seed))
+        solo = solver.solve(res.plan, key=prng.key(seed))
         np.testing.assert_array_equal(res.in_mis, solo.in_mis)
-    with pytest.raises(ValueError, match="generators"):
-        solver.solve_many([g, h], generators=gens[:1])
+    with pytest.raises(ValueError, match="keys"):
+        solver.solve_many([g, h], keys=keys[:1])
 
 
 def test_request_generator_ignores_tile_size_and_storage():
@@ -316,15 +319,41 @@ def test_request_generator_ignores_tile_size_and_storage():
     batched solution is the same whatever the storage."""
     g = _port_graph(ref_powerlaw(90, avg_deg=4.0, seed=4))
     plans = [Plan.build(g, tile_size=T, storage=st) for T in (8, 16) for st in ("int8", "bitpack")]
-    draws = [torch.rand(5, generator=request_generator(3, p, "cpu")) for p in plans]
-    for d in draws[1:]:
-        assert torch.equal(d, draws[0])
-    other = torch.rand(5, generator=request_generator(4, plans[0], "cpu"))
-    assert not torch.equal(other, draws[0])
+    keys = [port_request_key(prng.key(3), p) for p in plans]
+    assert keys == [keys[0]] * len(keys)
+    assert port_request_key(prng.key(4), plans[0]) != keys[0]
     mis = {st: Solver(SolveOptions(engine="tiled_ref", tile_size=8, storage=st),
                       device="cpu").solve_many([g, _port_graph(ref_grid2d(5, 5))])[0].in_mis
            for st in ("int8", "bitpack")}
     np.testing.assert_array_equal(mis["int8"], mis["bitpack"])
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_request_key_matches_reference(seed):
+    """The content-derived key folds the reference's way: equal key words
+    for the same graph and base seed."""
+    for ref_g in _hetero(seed):
+        plan = Plan.build(_port_graph(ref_g), tile_size=8)
+        ref_plan = RefPlan.build(ref_g, tile_size=8)
+        want = request_key(jax.random.key(seed), ref_plan)
+        got = port_request_key(prng.key(seed), plan)
+        assert tuple(got) == tuple(int(w) for w in jax.random.key_data(want))
+
+
+@pytest.mark.parametrize("heuristic", ["h3", "ecl"])
+def test_solve_many_members_match_reference_from_the_seed(heuristic):
+    """One batch, member by member, from `options.seed` alone: the port's
+    members are the reference's (MIS and rounds), no priorities handed
+    over."""
+    ref_graphs = _hetero(1)
+    want = RefSolver(RefOptions(engine="tiled_ref", tile_size=8, heuristic=heuristic,
+                                seed=7)).solve_many(ref_graphs)
+    got = Solver(SolveOptions(engine="tiled_ref", tile_size=8, heuristic=heuristic, seed=7),
+                 device="cpu").solve_many([_port_graph(g) for g in ref_graphs])
+    assert [r.placement for r in got] == [r.placement for r in want] == ["batched"] * 6
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.in_mis, np.asarray(b.in_mis))
+        assert a.rounds == b.rounds
 
 
 def test_solve_many_hybrid_equals_off():
@@ -358,7 +387,7 @@ def test_solve_many_refuses_the_sharded_route():
     """The route once refused here now runs: with `placement="sharded"`
     every member peels off to its own sharded solve (a one-rank gloo group
     in this process), equal to its local solve under the same request
-    generator."""
+    key."""
     import torch.distributed as dist
 
     graphs = _graphs()[:2]
@@ -372,6 +401,6 @@ def test_solve_many_refuses_the_sharded_route():
     assert solver.stats == {"solves": 2, "batches": 0, "compiles": 2}
     for res in results:
         assert res.stats["n_shards"] == 1 and res.converged
-        want = local.solve(res.plan, generator=local.request_generator(res.plan))
+        want = local.solve(res.plan, key=local.request_key(res.plan))
         np.testing.assert_array_equal(res.in_mis, want.in_mis)
         assert res.rounds == want.rounds

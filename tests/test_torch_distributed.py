@@ -34,9 +34,7 @@ from repro.dyngraph import random_delta as ref_random_delta
 from repro.graphs.generators import powerlaw as ref_powerlaw
 from repro.graphs.graph import from_edges as ref_from_edges
 from repro_torch.api import Solver, SolveOptions
-from repro_torch.api import solver as port_solver
 from repro_torch.core import distributed as D
-from repro_torch.core import tc_mis as port_tc_mis
 from repro_torch.core.engine import block_col_flags
 from repro_torch.core.heuristics import Priorities
 from repro_torch.core.tc_mis import run_tc_mis
@@ -271,24 +269,16 @@ def test_group_backend_must_take_the_device():
         D.build_distributed_mis(sharded)
 
 
-def _feed(monkeypatch, ref_pri):
-    """The port's Solver draws the reference's priorities, on both routes."""
-    draw = lambda *a: _pri(ref_pri)
-    monkeypatch.setattr(port_solver, "make_priorities", draw)
-    monkeypatch.setattr(port_tc_mis, "make_priorities", draw)
-
-
 @pytest.mark.parametrize("storage", ["int8", "bitpack"])
-def test_solver_sharded_equals_reference_solver(storage, monkeypatch):
+def test_solver_sharded_equals_reference_solver(storage):
     """tests/test_storage.py's sharded case on one rank: tiled_ref, T = 32,
     both storages, against the reference's Solver on its one device and
-    the local route."""
+    the local route, from the seed alone: the port draws the reference's
+    priorities."""
     ref_g = ref_powerlaw(1024, avg_deg=5.0, seed=11)
     kw = dict(engine="tiled_ref", tile_size=32, storage=storage, placement="sharded")
     want = RefSolver(RefOptions(**kw)).solve(ref_g)
     assert want.placement == "sharded" and want.stats["n_shards"] == 1
-    _feed(monkeypatch, ref_make_priorities("h3", jax.random.key(0), ref_g.n_nodes,
-                                           ref_g.degrees()))
     solver = Solver(SolveOptions(**kw), device="cpu")
     g = _port_graph(ref_g)
     got = solver.solve(g)
@@ -354,12 +344,12 @@ def test_solve_many_peels_sharded_members_off(monkeypatch):
     assert [r.placement for r in out] == ["sharded", "batched", "batched"]
     big = out[0]
     assert big.stats["n_shards"] == 1 and big.stats["batch_size"] == 1
-    solo = solver.solve(graphs[0], generator=solver.request_generator(big.plan))
+    solo = solver.solve(graphs[0], key=solver.request_key(big.plan))
     assert solo.placement == "sharded" and solo.stats["compile"] == "reused"
     np.testing.assert_array_equal(solo.in_mis, big.in_mis)
     assert solo.rounds == big.rounds
     for r in out[1:]:
-        alone = solver.solve(r.plan, generator=solver.request_generator(r.plan))
+        alone = solver.solve(r.plan, key=solver.request_key(r.plan))
         assert alone.placement == "local"
         np.testing.assert_array_equal(alone.in_mis, r.in_mis)
     forced = Solver(SolveOptions(tile_size=8, placement="sharded"), device="cpu")

@@ -406,6 +406,28 @@ def test_repair_valid_and_empty_delta_bit_identical(engine, storage):
     np.testing.assert_array_equal(res0.in_mis, prior.in_mis)
 
 
+@pytest.mark.parametrize("repair", ["incremental", "cold"])
+@pytest.mark.parametrize("engine", ["tiled_ref", "fused_pallas"])
+def test_solver_update_matches_reference_from_the_seed(engine, repair):
+    """A solve and two chained updates, each from the seed alone: the
+    port's results are the reference Solver's, MIS and rounds."""
+    from repro.api import Solver as RefSolver
+
+    ref_g = _ref_graph("powerlaw")
+    kw = dict(engine=engine, tile_size=16, repair=repair, seed=5)
+    ref_solver, solver = RefSolver(RefOptions(**kw)), _solver(**kw)
+    want, got = ref_solver.solve(ref_g), solver.solve(_port_graph(ref_g))
+    for seed in (21, 22):
+        np.testing.assert_array_equal(got.in_mis, np.asarray(want.in_mis))
+        assert got.rounds == want.rounds
+        d = random_delta(got.plan.g, n_add=5, n_remove=5, seed=seed)   # no reorder: original ids
+        want = ref_solver.update(want, _ref_delta(d))
+        got = solver.update(got, d)
+        assert got.stats["repair"] == want.stats["repair"] == repair
+    np.testing.assert_array_equal(got.in_mis, np.asarray(want.in_mis))
+    assert got.rounds == want.rounds
+
+
 def test_repair_empty_delta_matches_cold_mode_exactly():
     g = _port_graph(ref_erdos_renyi(90, avg_deg=5.0, seed=14))
     inc = _solver(engine="tiled_ref", tile_size=8, repair="incremental")

@@ -29,7 +29,9 @@ against the CPU's (loss, parameters and moments within 1e-5), remat
 "full", "dots" and off agreeing within 1e-6 on the card, and the
 attention recurrence's out-of-place forward (autograd recording) equal to
 the in-place one bit for bit; and, without a card, the LM's entry points
-raising on CUDA."""
+raising on CUDA.  The Threefry kernel's bits and uniforms equal its plain
+version's exactly, and a draw made on the card equals the same draw made
+on the CPU."""
 import dataclasses
 
 import numpy as np
@@ -1046,9 +1048,10 @@ def test_kernels_on_a_dense_partition_on_card(cuda_device, T, storage, kind):
 def _card_batch(device, T, storage, hybrid="off"):
     """A block-diagonal batch of five members (an edgeless one among them)
     on the card, whose bucket leaves padding block-columns that `col_gate`
-    zeroes, with each member's H3 priorities from its request generator."""
+    zeroes, with each member's H3 priorities under its request key."""
     from repro_torch.api import Plan
-    from repro_torch.serve_mis.batcher import member_priorities, pack_batch, request_generator
+    from repro_torch.core import prng
+    from repro_torch.serve_mis.batcher import member_priorities, pack_batch, request_key
 
     rng = np.random.default_rng(T)
     graphs = [grid2d(40, 30, device=device), grid2d(7, 9, device=device),
@@ -1058,7 +1061,7 @@ def _card_batch(device, T, storage, hybrid="off"):
                                  device=device))
     plans = [Plan.build(g, tile_size=T, storage=storage, hybrid=hybrid, hybrid_threshold=8)
              for g in graphs]
-    pris = [member_priorities(p, request_generator(0, p, device), "h3") for p in plans]
+    pris = [member_priorities(p, request_key(prng.key(0), p), "h3") for p in plans]
     batch = pack_batch(plans, pris)
     gate = batch.col_gate
     assert 0 < int(gate.sum()) < gate.numel(), "the bucket should leave gated columns"
@@ -1592,3 +1595,51 @@ def test_lm_entry_points_raise_on_cuda_without_a_card():
         serve.main([])
     with pytest.raises(RuntimeError, match="CUDA"):
         tf.init_lm(torch.Generator(device="cuda"), cfg)
+
+
+# --------------------------------------------------------------------------
+# the Threefry draws
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bits", "uniform"])
+@pytest.mark.parametrize("n", [1, 2, 3, 1023, 300_000, (1 << 20) + 17])
+def test_threefry_matches_plain_on_card(cuda_device, n, mode):
+    from repro_torch.hopper import threefry as TF
+
+    for k0, k1 in ((0, 0), (0, 0xFFFFFFFF), (0x9E3779B9, 0x7F4A7C15)):
+        before = TF.threefry_bits.launches
+        got = TF.threefry_bits(k0, k1, n, cuda_device, mode)
+        torch.cuda.synchronize()
+        assert TF.threefry_bits.launches == before + 1
+        want = TF.threefry_bits(k0, k1, n, "cpu", mode)
+        assert got.dtype == want.dtype and got.shape == (n,)
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_threefry_empty_draw_launches_nothing_on_card(cuda_device):
+    from repro_torch.hopper import threefry as TF
+
+    before = TF.threefry_bits.launches
+    assert TF.threefry_bits(1, 2, 0, cuda_device).shape == (0,)
+    assert TF.threefry_bits.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heuristic", ["h1", "h2", "h3", "ecl"])
+def test_priorities_on_card_equal_the_cpu_draw(cuda_device, heuristic):
+    """One key gives one draw on either device: the priorities (through
+    the kernel, the permutation's sorts on the card) and Luby's integers."""
+    from repro_torch.core import prng
+    from repro_torch.core.heuristics import make_priorities
+
+    g = grid2d(70, 40, device="cpu")
+    key = prng.fold_in(prng.key(9), 4)
+    want = make_priorities(heuristic, key, g.n_nodes, g.degrees())
+    got = make_priorities(heuristic, key, g.n_nodes, g.degrees().to(cuda_device))
+    assert torch.equal(got.select.cpu(), want.select)
+    if heuristic == "h3":
+        assert torch.equal(got.resolve.cpu(), want.resolve)
+    assert torch.equal(prng.randint(key, 5000, 0, (1 << 31) - 1, cuda_device).cpu(),
+                       prng.randint(key, 5000, 0, (1 << 31) - 1, "cpu"))

@@ -329,8 +329,9 @@ def test_rpt010_transitive_through_an_engine(tmp_path):
     ("torch.rand_like(x)", True), ("x.bernoulli_()", True), ("x.uniform_()", True),
     ("random.random()", True), ("time.perf_counter()", True), ("np.random.rand(n)", True),
     ("print(x)", True),
-    ("torch.rand(n, generator=gen)", False), ("torch.randperm(n, generator=gen, dtype=torch.int32)", False),
-    ("x.uniform_(generator=gen)", False), ("torch.zeros(n)", False),
+    ("torch.rand(n, generator=gen)", True), ("torch.randperm(n, generator=gen, dtype=torch.int32)", True),
+    ("x.uniform_(generator=gen)", True), ("torch.zeros(n)", False),
+    ("prng.uniform(prng.key(0), n, d)", False),
 ])
 def test_rpt011_reproducibility(tmp_path, expr, flagged):
     _, fs = lint(tmp_path, hot_loop(f"y = {expr}\n"))

@@ -3,11 +3,10 @@ cache's hybrid defaults, the fused validity check, `MISService` (queue,
 batched windows, updates, retention, metrics, the JSONL sink), its CLI
 with the `update` verb, and the `serve_graphs` launcher.
 
-`MISService` runs on both packages over the same request stream; with the
-reference's member priorities fed to the port (a test-only patch of the
-port's priority source, keyed by each request's content-derived
-generator seed), every response is equal field for field and its MIS and
-rounds bit for bit.  The reference's own service tests then run on the
+`MISService` runs on both packages over the same request stream from the
+same seed; the port draws the reference's member priorities under the
+same content-derived keys, so every response is equal field for field and
+its MIS and rounds bit for bit.  The reference's own service tests then run on the
 port.  The reference's Pallas engines run in interpret mode, as its own
 tests run them on the CPU."""
 import json
@@ -34,10 +33,7 @@ from repro.graphs.graph import from_edges as ref_from_edges
 from repro.serve_mis import MISService as RefService
 from repro.serve_mis import ServeConfig as RefConfig
 from repro.serve_mis import load_graph as ref_load_graph
-from repro.serve_mis.batcher import _member_priorities, request_key
 from repro_torch.api import PlanCache, Solver, SolveOptions
-from repro_torch.core import tc_mis as port_tc_mis
-from repro_torch.core.heuristics import Priorities
 from repro_torch.core.validate import is_independent, is_maximal, is_valid_mis_checks
 from repro_torch.dyngraph import EdgeDelta, random_delta
 from repro_torch.graphs import erdos_renyi, grid2d
@@ -45,8 +41,7 @@ from repro_torch.graphs.graph import from_edges
 from repro_torch.launch.serve_graphs import main as serve_graphs_main
 from repro_torch.obs import REGISTRY
 from repro_torch.obs.report import main as report_main
-from repro_torch.serve_mis import MISService, ServeConfig, load_graph, request_generator
-from repro_torch.serve_mis import batcher as port_batcher
+from repro_torch.serve_mis import MISService, ServeConfig, load_graph
 from repro_torch.serve_mis.__main__ import main as serve_main
 from test_torch_hybrid import _assert_partition_equal, _assert_tiling_equal, _port_graph
 
@@ -177,26 +172,6 @@ def _drive(svc, graphs, delta, files):
     return out + svc.drain()
 
 
-def _feed_reference_priorities(monkeypatch, ref_svc, seed, heuristic):
-    """Patch the port's priority source: each draw looks up the reference's
-    priorities of the graph whose content-derived generator it was handed
-    (`request_generator` seeds from `plan.graph_key`, equal in both
-    packages)."""
-    table = {}
-    for res in ref_svc._results.values():
-        p = res.plan
-        sel, res_key = _member_priorities(p, request_key(ref_svc._base_key, p), heuristic, None)
-        pri = Priorities(torch.tensor(np.asarray(sel)),
-                         None if res_key is None else torch.tensor(np.asarray(res_key)))
-        table[request_generator(seed, p, "cpu").initial_seed()] = pri
-
-    def draw(heuristic, gen, n, deg):
-        return table[gen.initial_seed()]
-
-    monkeypatch.setattr(port_batcher, "make_priorities", draw)
-    monkeypatch.setattr(port_tc_mis, "make_priorities", draw)
-
-
 # the two first cases at T = 8, then ROADMAP.md Queue 3's re-anchor probe:
 # h1/h2/h3 x segment/tiled phase 1 x int8/bitpack at T = 16 on fused_pallas,
 # RCM on tiled_pallas, T = 32 with three lanes on tiled_ref, and segment
@@ -215,7 +190,7 @@ _SERVICE_CONFIGS = [
 
 
 @pytest.mark.parametrize("config", _SERVICE_CONFIGS)
-def test_service_responses_equal_reference(config, monkeypatch):
+def test_service_responses_equal_reference(config):
     kw = dict(config, max_batch=4, seed=1)
     pairs = _stream_graphs()
     ref_delta = ref_random_delta(pairs[0][0], n_add=1, n_remove=1, seed=4)
@@ -223,7 +198,6 @@ def test_service_responses_equal_reference(config, monkeypatch):
                            ref_delta.remove[:, 0], ref_delta.remove[:, 1])
     ref_svc = RefService(RefConfig(**kw))
     want = _drive(ref_svc, [r for r, _ in pairs], ref_delta, FIXTURE_FILES)
-    _feed_reference_priorities(monkeypatch, ref_svc, kw["seed"], kw.get("heuristic", "h3"))
     svc = _service(**kw)
     got = _drive(svc, [g for _, g in pairs], delta, FIXTURE_FILES)
 
@@ -265,7 +239,7 @@ def _hetero(seed=0):
 
 
 def _solo(svc, plan):
-    return svc.solver.solve(plan, generator=svc.solver.request_generator(plan))
+    return svc.solver.solve(plan, key=svc.solver.request_key(plan))
 
 
 def test_service_end_to_end_with_cache_reuse(tmp_path):
@@ -325,7 +299,7 @@ def test_unconverged_member_does_not_poison_batchmates():
     plan, _ = svc.planner.plan(big)
     assert _solo(svc, plan).rounds == 1 and not _solo(svc, plan).converged
     full = Solver(SolveOptions(engine="tiled_ref", tile_size=8), device="cpu")
-    assert full.solve(plan, generator=full.request_generator(plan)).rounds > 1
+    assert full.solve(plan, key=full.request_key(plan)).rounds > 1
     iso, cut = svc.drain()
     assert not iso.converged and iso.valid       # the batch's flag, the member's verdict
     assert not cut.maximal and not cut.valid

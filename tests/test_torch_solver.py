@@ -1,7 +1,8 @@
 """The port's convergence loop, engines, heuristics, plan and Solver against
-the JAX reference.  The two packages draw priorities from different
-generators, so every MIS parity case hands the reference's priorities (and
-its plan arrays) over as numpy and demands identical `in_mis` and `rounds`.
+the JAX reference.  The engine cases hand the reference's priorities (and
+its plan arrays) over as numpy and demand identical `in_mis` and `rounds`;
+`Solver.solve` on the suite graphs is held to the reference's from the
+seed alone (the port draws the reference's bits, `core.prng`).
 The reference side runs its `tiled_ref` / `segment` engines here;
 tests/test_engine.py holds the reference's Pallas engines to those, and
 test_torch_spmv.py holds the port's kernels' plain versions to the Pallas
@@ -26,11 +27,14 @@ from repro.core import engine as ref_engine
 from repro.core import heuristics as ref_heur
 from repro.core import spmv as ref_spmv
 from repro.core.tc_mis import _tc_mis_impl
+from repro.api import Solver as RefSolver
+from repro.graphs.generators import GRAPH_SUITE as REF_SUITE
 from repro.graphs.graph import from_edges as ref_from_edges
 from repro_torch.api import Solver, SolveOptions, plan_from_arrays
 from repro_torch.api import plan as port_plan
 from repro_torch.core import engine as port_engine
 from repro_torch.core import heuristics as heur
+from repro_torch.core import prng
 from repro_torch.core import spmv
 from repro_torch.core.heuristics import Priorities
 from repro_torch.core.tc_mis import _setup, run_tc_mis
@@ -387,7 +391,7 @@ def test_h3_resolve_is_bit_exact_including_wraparound():
     # degrees large enough that -deg·n overflows int32 and wraps
     deg = rng.integers(0, 5_000_000, n).astype(np.int32)
     want = ref_heur.h3_priorities(jax.random.key(0), n, jnp.asarray(deg))
-    got = heur.h3_priorities(torch.Generator().manual_seed(0), n, torch.from_numpy(deg))
+    got = heur.h3_priorities(prng.key(0), n, torch.from_numpy(deg))
     assert (-deg.astype(np.int64) * n).min() < np.iinfo(np.int32).min
     np.testing.assert_array_equal(got.resolve.numpy(), np.asarray(want.resolve))
     assert got.resolve.dtype == torch.int32
@@ -397,7 +401,7 @@ def test_h3_resolve_is_bit_exact_including_wraparound():
 def test_priorities_lie_in_eq1_range(heuristic, bits):
     n = 500
     deg = torch.from_numpy(np.random.default_rng(1).integers(0, 12, n).astype(np.int32))
-    pri = heur.make_priorities(heuristic, torch.Generator().manual_seed(2), n, deg)
+    pri = heur.make_priorities(heuristic, prng.key(2), n, deg)
     sel = pri.select.to(torch.int64)
     assert pri.select.dtype == torch.int32 and pri.select.shape == (n,)
     q, low = sel >> 23, sel & ((1 << 23) - 1)
@@ -409,7 +413,7 @@ def test_priorities_lie_in_eq1_range(heuristic, bits):
         assert torch.equal(torch.sort(low).values, torch.arange(n))
         assert torch.unique(pri.select).numel() == n
     with pytest.raises(ValueError, match="unknown heuristic"):
-        heur.make_priorities("h9", torch.Generator(), n, deg)
+        heur.make_priorities("h9", prng.key(0), n, deg)
 
 
 # --------------------------------------------------------------------------
@@ -482,7 +486,7 @@ def test_solver_solve_equals_the_loop(engine, reorder):
     assert res.placement == "local" and res.converged
     plan = res.plan
     assert plan.storage == port_plan.resolve_storage("auto", n, g.n_edges, plan.tile_size)
-    loop = run_tc_mis(plan.g, plan.tiled, torch.Generator().manual_seed(0), opts)
+    loop = run_tc_mis(plan.g, plan.tiled, prng.key(0), opts)
     np.testing.assert_array_equal(res.in_mis_plan, loop.in_mis.numpy())
     assert res.rounds == int(loop.rounds)
     mis = torch.from_numpy(res.in_mis)
@@ -493,6 +497,21 @@ def test_solver_solve_equals_the_loop(engine, reorder):
     assert solver.solve(g).plan is plan     # the memory cache hit
     assert solver.plans.stats == {"mem_hits": 1, "disk_hits": 0, "misses": 1,
                                   "evicted_stale": 0}
+
+
+@pytest.mark.parametrize("gid", sorted(REF_SUITE))
+def test_solver_solve_matches_reference_from_the_seed(gid):
+    """`SolveOptions()` as it is (fused_pallas, h3, auto tile size, storage
+    and hybrid) on each suite graph at 3,000 vertices: the same MIS and
+    rounds as the reference's Solver from `seed` alone."""
+    ref_g = REF_SUITE[gid].make(3000, 1)
+    want = RefSolver(RefOptions(seed=3)).solve(ref_g)
+    E = ref_g.n_edges
+    g = from_edges(np.asarray(ref_g.senders)[:E], np.asarray(ref_g.receivers)[:E],
+                   ref_g.n_nodes, device="cpu")
+    got = Solver(SolveOptions(seed=3), device="cpu").solve(g)
+    np.testing.assert_array_equal(got.in_mis, np.asarray(want.in_mis))
+    assert (got.rounds, got.converged) == (want.rounds, want.converged)
 
 
 def test_solver_refuses_what_is_not_ported():

@@ -101,6 +101,7 @@ def round1_inputs(g2, tile_size: int):
     dense max."""
     import torch
     from repro_torch.api import Solver, SolveOptions
+    from repro_torch.core import prng
     from repro_torch.core.tc_mis import _setup
     from repro_torch.core.tiling import pack_frontier_words, unpack_frontier_words
     from repro_torch.hopper import tc_neighbor_max as N
@@ -109,8 +110,7 @@ def round1_inputs(g2, tile_size: int):
                                  storage="bitpack"), device="cuda")
     plan = solver.plan(g2)
     tiled, T = plan.tiled, plan.tile_size
-    gen = torch.Generator(device="cuda").manual_seed(solver.options.seed)
-    _, ctx, pri, state0 = _setup(plan.g, tiled, gen, solver.options)
+    _, ctx, pri, state0 = _setup(plan.g, tiled, prng.key(solver.options.seed), solver.options)
     b = ctx.bits
     alive_w = state0.alive
     max_np = N.tc_neighbor_max_bits(tiled, b.select_planes, alive_w, tiles_words=b.tiles_bits)

@@ -16,6 +16,7 @@ import chip_smoke as cs  # noqa: E402  (puts src/ on the path)
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.tc_mis import _setup  # noqa: E402
 from repro_torch.graphs import grid2d  # noqa: E402
 
@@ -42,8 +43,7 @@ for key in ("default", "hybrid30", "hybrid30_packed", "main", "packed"):
     solver, plan, res = paths[key]
 
     def setup():
-        gen = torch.Generator(device="cuda").manual_seed(solver.options.seed)
-        return _setup(plan.g, plan.tiled, gen, solver.options)
+        return _setup(plan.g, plan.tiled, prng.key(solver.options.seed), solver.options)
 
     for what, fn in (("solve", lambda: solver.solve(plan)), ("set-up", setup)):
         got = [events(fn) for _ in range(25)]

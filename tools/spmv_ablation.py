@@ -135,13 +135,14 @@ def round1_inputs(g2, tile_size: int, storage: str):
     """The G2 plan and the fused engine's round-1 (rhs, cand, alive, flags)."""
     import torch
     from repro_torch.api import Solver, SolveOptions
+    from repro_torch.core import prng
     from repro_torch.core.tc_mis import _setup
 
     solver = Solver(SolveOptions(hybrid="off", tile_size=tile_size, storage=storage),
                     device="cuda")
     plan = solver.plan(g2)
-    gen = torch.Generator(device="cuda").manual_seed(solver.options.seed)
-    engine, ctx, pri, state0 = _setup(plan.g, plan.tiled, gen, solver.options)
+    engine, ctx, pri, state0 = _setup(plan.g, plan.tiled, prng.key(solver.options.seed),
+                                      solver.options)
     cand = engine.phase1_candidates(ctx, pri, state0.alive)
     flags = engine.col_flags(ctx, cand).contiguous()
     alive = state0.alive

@@ -77,13 +77,14 @@ def round1_inputs(g2, tile_size: int):
     tiles, the candidate and alive words and the column flags."""
     import torch
     from repro_torch.api import Solver, SolveOptions
+    from repro_torch.core import prng
     from repro_torch.core.tc_mis import _setup
 
     solver = Solver(SolveOptions(hybrid="off", phase1="tiled", tile_size=tile_size,
                                  storage="bitpack"), device="cuda")
     plan = solver.plan(g2)
-    gen = torch.Generator(device="cuda").manual_seed(solver.options.seed)
-    engine, ctx, pri, state0 = _setup(plan.g, plan.tiled, gen, solver.options)
+    engine, ctx, pri, state0 = _setup(plan.g, plan.tiled, prng.key(solver.options.seed),
+                                      solver.options)
     cand_w = engine.phase1_candidates_bits(ctx, pri, state0.alive)
     flags = engine.col_flags_bits(ctx, cand_w).contiguous()
     return dict(tiled=plan.tiled, words=ctx.bits.tiles_bits, cand_w=cand_w,

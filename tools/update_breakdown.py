@@ -55,6 +55,7 @@ def main() -> None:
     import numpy as np
     import torch
     from repro_torch.api import PlanCache, Solver, SolveOptions, patch_plan
+    from repro_torch.core import prng
     from repro_torch.core.tc_mis import run_tc_mis
     from repro_torch.dyngraph import apply_delta, apply_graph_delta, random_delta
     from repro_torch.dyngraph.repair import dirty_mask, warm_start
@@ -86,8 +87,7 @@ def main() -> None:
             patched.g, patched.tiled, solver.options, prior_t, dirty))
 
         def loop(**kw):
-            gen = torch.Generator(device="cuda").manual_seed(0)
-            return run_tc_mis(patched.g, patched.tiled, gen, solver.options, **kw)
+            return run_tc_mis(patched.g, patched.tiled, prng.key(0), solver.options, **kw)
 
         timed("warm loop", lambda: loop(alive0=alive0, in_mis0=in_mis0))
         timed("cold loop", loop)
