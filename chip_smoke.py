@@ -609,6 +609,65 @@ G2_SEED_MIS = {
 # high bit of each word set in some)
 DRAW_SIZES = (1, 2, 3, 1023, 1_089_936, (1 << 24) + 1)
 DRAW_KEYS = ((0, 0), (0x80000000, 0xFFFFFFFF), (0xDEADBEEF, 0x8BADF00D))
+# the new modes and the start counter against the plain version (phase 3
+# (c)): sizes, starts crossing and past the counter's high word; the
+# normals within DRAW_NORMAL_ULPS, every other draw bit for bit
+DRAW_MODE_SIZES = (1, 1023, (1 << 24) + 1)
+DRAW_STARTS = (0, (1 << 32) - 5, 3 << 32)
+DRAW_RANGES = ((0.0, 1.0), (-3.5, 2.25))
+DRAW_NORMAL_ULPS = 4
+DRAW_TIMED_NORMALS = 1 << 26
+# From seed 0 alone, the reference's first elements of every normal leaf
+# of qwen3-0.6b's `init_lm(key(0))` (a stacked leaf's layers 0 and 27),
+# DeepFM's `deepfm_init(key(0), CONFIG)` and GIN's init at minibatch_lg's
+# widths (602 -> 41): leaf -> (bits' kind, the leaf's scale, the first 8
+# flat elements' bf16 / f32 bits as ints; MLP weights as the reference's
+# (in, out)).  Element j of a leaf depends on its key and j alone, so
+# tests/test_torch_init_seed.py computes these with the reference at tiny
+# widths of each structure and holds them here; phase 3 (d) holds the
+# card's full-width inits to them within one bf16 / INIT_F32_ULPS f32 ulps.
+INIT_F32_ULPS = 4
+INIT_SEED_LEAVES = {
+    'qwen3-0.6b': {
+        'dense_layers/attn/wk@0': ('bf16', 0.02, [15521, -17201, -17244, -17944, -17362, -17275, 15549, 15641]),
+        'dense_layers/attn/wk@27': ('bf16', 0.02, [15544, 15490, -17129, 15634, 15468, 15264, -17231, -17249]),
+        'dense_layers/attn/wo@0': ('bf16', 0.002672612419124244, [-17903, -17534, 15042, 15214, 15222, 15160, 15062, -18031]),
+        'dense_layers/attn/wo@27': ('bf16', 0.002672612419124244, [-18138, 15042, -17486, 15308, -17721, 15217, -17524, -17922]),
+        'dense_layers/attn/wq@0': ('bf16', 0.02, [-17862, 15064, -17065, 15256, -17669, 15405, 15316, -18159]),
+        'dense_layers/attn/wq@27': ('bf16', 0.02, [-17514, 15476, -17208, -17368, 15463, -17266, -17249, -17147]),
+        'dense_layers/attn/wv@0': ('bf16', 0.02, [15620, 15141, -17486, -17196, 15561, -17926, 15457, -17472]),
+        'dense_layers/attn/wv@27': ('bf16', 0.02, [15361, -17235, -17202, -17111, -17244, -17137, 15072, 15429]),
+        'dense_layers/ffn/w1@0': ('bf16', 0.02, [-17824, 15375, -17149, -17265, 15602, -17227, 15528, 14974]),
+        'dense_layers/ffn/w1@27': ('bf16', 0.02, [-17204, 15127, 15431, 15321, 15462, 15296, 15258, -17402]),
+        'dense_layers/ffn/w2@0': ('bf16', 0.002672612419124244, [14749, 14877, 15244, 15152, -17629, 15080, -17562, -17785]),
+        'dense_layers/ffn/w2@27': ('bf16', 0.002672612419124244, [14919, 15122, -17455, 15134, -17734, -17891, -17678, -17934]),
+        'dense_layers/ffn/w3@0': ('bf16', 0.02, [15639, -17400, -17306, -17314, -17695, -17237, -17231, 15501]),
+        'dense_layers/ffn/w3@27': ('bf16', 0.02, [-17458, -17599, 15527, -17287, 15529, -17415, -17382, 15419]),
+        'embed': ('bf16', 0.02, [15524, -17260, -17291, -17216, -17265, 15425, 15469, -17240]),
+        'head': ('bf16', 0.02, [-17080, -17113, 15239, -17432, -17286, -17215, -17220, 15299]),
+    },
+    'deepfm': {
+        'embed': ('f32', 0.01, [1009024873, -1139507575, -1141561028, -1136661840, -1139884505, 1002500946, 1005402021, -1138227020]),
+        'linear': ('f32', 0.01, [-1127737854, -1129921712, 990295193, -1150831647, -1141264637, -1136584693, -1136910382, 994230309]),
+        'mlp/0': ('f32', 0.07161148740394328, [-1109806086, -1115921320, -1119490244, -1148176956, -1140809418, 1033080204, -1116081139, -1115363224]),
+        'mlp/1': ('f32', 0.07071067811865475, [1027567774, -1125713625, 1027837152, -1120725658, -1107990635, 1032115221, -1140590981, -1106425792]),
+        'mlp/2': ('f32', 0.07071067811865475, [1027390255, -1117194562, -1145184842, -1132987963, -1136322601, 1023563028, -1156748923, 1032948679]),
+        'mlp/3': ('f32', 0.07071067811865475, [1009936810, 1036398021, -1114044023, -1131410986, 1023778195, 1046693470, 1037269884, 1029129302]),
+    },
+    'gin-tu': {
+        'layers/0/mlp/0': ('f32', 0.0576390417704235, [-1123568873, 1027396930, -1133172370, 1034471932, -1124641765, -1110573732, -1119026708, 1011238148]),
+        'layers/0/mlp/1': ('f32', 0.1767766952966369, [-1100767051, -1114544778, -1102381852, 1042219228, -1105461621, 1031464718, 1042955527, -1129239532]),
+        'layers/1/mlp/0': ('f32', 0.1767766952966369, [1024460349, -1106548036, -1100752159, -1114331695, -1103754451, 1028619395, 1043597722, 1035233258]),
+        'layers/1/mlp/1': ('f32', 0.1767766952966369, [-1099839966, -1115731860, 1029717994, -1103810358, -1134529285, -1104886282, 1027679578, 1050943733]),
+        'layers/2/mlp/0': ('f32', 0.1767766952966369, [-1098491309, -1105476931, -1108062644, -1137574217, -1130445891, 1043734268, -1105575562, -1104934013]),
+        'layers/2/mlp/1': ('f32', 0.1767766952966369, [1039092933, -1114612808, 1039429654, -1109402945, -1097244484, 1042680089, -1130040295, -1095722417]),
+        'layers/3/mlp/0': ('f32', 0.1767766952966369, [1050163355, 1039209707, -1122781957, 1041798250, 1048972554, 1051287413, 1041113820, -1098721007]),
+        'layers/3/mlp/1': ('f32', 0.1767766952966369, [1044044455, 1020864047, -1116793881, 1036744767, 1036719071, 1042117406, 1042207883, 1035649019]),
+        'layers/4/mlp/0': ('f32', 0.1767766952966369, [1042067181, -1100555179, -1120818861, -1097224311, -1112509608, 1039221690, -1126383679, -1101696461]),
+        'layers/4/mlp/1': ('f32', 0.1767766952966369, [1028215862, 1038093053, -1101180353, 1043969733, -1104176286, -1101772240, -1106574536, 1037649479]),
+        'head/0': ('f32', 0.1767766952966369, [1000931521, -1110124363, -1100741397, -1135863437, -1098098044, -1122370245, -1105894732, -1096845038]),
+    },
+}
 # name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "tc_spmv_fused": (CSRC + "tc_spmv.cu", "src/repro/kernels/tc_spmv.py:137"),
@@ -1276,14 +1335,175 @@ def phase_baselines(g2, paths: dict) -> dict:
     return out
 
 
+def ordered_bits(t):
+    """A bf16 or f32 tensor's bits as int64 in the floats' order (so that
+    their difference counts ulps)."""
+    import torch
+
+    if t.dtype == torch.bfloat16:
+        b = t.contiguous().view(torch.int16).long()
+        return torch.where(b < 0, -(b & 0x7FFF), b)
+    b = t.float().contiguous().view(torch.int32).long()
+    return torch.where(b < 0, -(b & 0x7FFFFFFF), b)
+
+
+def draws_modes(errs: dict) -> None:
+    """(c) The kernel's modes from a start counter against the plain
+    version on the card (`threefry_bits_plain` as torch ops there): at
+    DRAW_MODE_SIZES from DRAW_STARTS (a draw that crosses the counter's
+    high word, one past it) under DRAW_KEYS (the largest size under the
+    last key alone), bits and uniforms over DRAW_RANGES bit for bit,
+    normals within DRAW_NORMAL_ULPS (the share bit-equal printed); then
+    one normal launch of DRAW_TIMED_NORMALS, cold and warm, beside its
+    bound."""
+    import torch
+    from repro_torch.hopper import threefry as F
+
+    t0 = time.perf_counter()
+    cases = [("bits", 0.0, 1.0)] + [("uniform", lo, hi) for lo, hi in DRAW_RANGES] + [
+        ("normal", 0.0, 1.0)]
+    worst, same, total = 0, 0, 0
+    for n in DRAW_MODE_SIZES:
+        for start in DRAW_STARTS:
+            for k0, k1 in (DRAW_KEYS if n < 1 << 20 else DRAW_KEYS[-1:]):
+                for mode, lo, hi in cases:
+                    got = F.threefry_bits(k0, k1, n, "cuda", mode, start=start, minval=lo,
+                                          maxval=hi)
+                    want = F.threefry_bits_plain(k0, k1, torch.empty_like(got), mode,
+                                                 start=start, minval=lo, maxval=hi)
+                    what = f"n={n}, start {start}, key ({k0:#x}, {k1:#x}), {mode} [{lo}, {hi})"
+                    if mode != "normal":
+                        exact(errs, "threefry", got.view(torch.int32), want.view(torch.int32),
+                              what)
+                        continue
+                    ulps = (ordered_bits(got) - ordered_bits(want)).abs()
+                    worst = max(worst, int(ulps.max()))
+                    same += int((ulps == 0).sum())
+                    total += n
+                    check(worst <= DRAW_NORMAL_ULPS and bool(torch.isfinite(got).all()),
+                          f"threefry normal kernel vs plain, {what}: {worst} ulps")
+                    errs["threefry"] = max(errs.get("threefry", 0.0), max_err(got, want))
+    torch.cuda.synchronize()
+    print(f"[draws] (c) threefry from start counters {list(DRAW_STARTS)} at n "
+          f"{list(DRAW_MODE_SIZES)}: bits and uniforms on {[list(r) for r in DRAW_RANGES]} "
+          f"bit-equal to the plain version on the card; normals within {worst} ulps "
+          f"(limit {DRAW_NORMAL_ULPS}), {same / total:.6f} of {total} bit-equal "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    n = DRAW_TIMED_NORMALS
+    cold = time_ms(lambda: F.threefry_bits(7, 9, n, "cuda", "normal"), cold=True)
+    warm = time_ms(lambda: F.threefry_bits(7, 9, n, "cuda", "normal"))
+    bound = _bound(4 * n, F.OPS_PER_ELEMENT["normal"] * n)
+    print(f"[draws] (c) threefry normal n={n}: {cold:.4f} ms cold, {warm:.4f} ms warm, "
+          f"bound {bound[0]:.4f} ms by {bound[1]} ({bound[2]} B, {bound[3]} ops)", flush=True)
+
+
+def init_leaves(name: str, built) -> dict:
+    """{leaf: tensor} of a model built from key(0), named and laid out as
+    `INIT_SEED_LEAVES` holds them (a stacked LM leaf's layers 0 and n - 1,
+    MLP weights transposed to the reference's (in, out))."""
+    from repro_torch.models import transformer as tf
+
+    if name == "qwen3-0.6b":
+        params, cfg = built
+        out = {}
+        for path, _, _, init in tf._walk(tf._tree_spec(cfg)):
+            if isinstance(init, str):
+                continue
+            leaf, key = tf._get(params, path), "/".join(path)
+            if path[0].endswith("_layers"):
+                out.update({f"{key}@{i}": leaf[i] for i in (0, leaf.shape[0] - 1)})
+            else:
+                out[key] = leaf
+        return out
+    if name == "deepfm":
+        out = {"embed": built.embed.detach(), "linear": built.linear.detach()}
+        out.update({f"mlp/{i}": m.weight.detach().T for i, m in enumerate(built.mlp.layers)})
+        return out
+    out = {f"layers/{l}/mlp/{i}": m.weight.detach().T
+           for l, layer in enumerate(built.layers) for i, m in enumerate(layer.mlp.layers)}
+    out.update({f"head/{i}": m.weight.detach().T for i, m in enumerate(built.head.layers)})
+    return out
+
+
+def draws_inits() -> None:
+    """(d) From key(0) alone, at full width on the card: qwen3-0.6b's
+    `init_lm`, DeepFM's CONFIG and GIN at minibatch_lg's widths, each
+    leaf's first elements held to the reference's (`INIT_SEED_LEAVES`:
+    one bf16 ulp, INIT_F32_ULPS f32 ulps) and its mean and std to 0 and its
+    scale (within 1 %, or 5 / sqrt(size) where a leaf is too small for
+    1 % to be a test); the wall time of each init and its Threefry
+    launches (one a leaf, a layer's slice of a stacked leaf, or a 2^26
+    block of either)."""
+    import math
+
+    import torch
+    from repro_torch.configs import GNN_ARCHS, LM_ARCHS
+    from repro_torch.configs import deepfm as DC
+    from repro_torch.configs import gnn_cells as GC
+    from repro_torch.core import prng
+    from repro_torch.hopper import threefry as F
+    from repro_torch.models import deepfm as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import tree as T
+
+    def build(name):
+        if name == "qwen3-0.6b":
+            cfg = LM_ARCHS[name].CONFIG
+            return tf.init_lm(prng.key(0), cfg, device="cuda"), cfg
+        if name == "deepfm":
+            return M.DeepFM(DC.CONFIG, seed=0, device="cuda")
+        lg = GC.GNN_SHAPES["minibatch_lg"]
+        return GNN_ARCHS[name].init(lg["d_feat"], lg["n_out"], seed=0, device="cuda")
+
+    for name, pins in INIT_SEED_LEAVES.items():
+        torch.cuda.synchronize()
+        before = F.threefry_bits.launches
+        t0 = time.perf_counter()
+        built = build(name)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = F.threefry_bits.launches - before
+        leaves = init_leaves(name, built)
+        check(sorted(leaves) == sorted(pins), f"[draws] (d) {name}: leaves {sorted(leaves)}")
+        worst, stats = {"bf16": 0, "f32": 0}, 0.0
+        for leaf, (kind, scale, want) in pins.items():
+            t = leaves[leaf]
+            check({"bf16": torch.bfloat16, "f32": torch.float32}[kind] == t.dtype,
+                  f"[draws] (d) {name} {leaf}: dtype {t.dtype}")
+            ref = torch.tensor(want, dtype=torch.int16 if kind == "bf16" else torch.int32,
+                               device="cuda").view(t.dtype)
+            ulps = int((ordered_bits(t.reshape(-1)[:len(want)]) - ordered_bits(ref)).abs().max())
+            limit = 1 if kind == "bf16" else INIT_F32_ULPS
+            check(ulps <= limit, f"[draws] (d) {name} {leaf}: first elements {ulps} ulps "
+                  f"from the reference's (limit {limit})")
+            worst[kind] = max(worst[kind], ulps)
+            x = t.float()
+            tol = max(0.01, 5 / math.sqrt(x.numel()))
+            mean, std = float(x.mean()) / scale, float(x.std()) / scale
+            check(abs(mean) <= tol and abs(std - 1) <= tol,
+                  f"[draws] (d) {name} {leaf}: mean {mean:.4g} and std {std:.4g} of its scale "
+                  f"{scale} (tolerance {tol:.3g})")
+            stats = max(stats, abs(mean) / tol, abs(std - 1) / tol)
+        n_params = (sum(x.numel() for x in T.leaves(built[0])) if name == "qwen3-0.6b" else
+                    sum(p.numel() for p in built.parameters()))
+        print(f"[draws] (d) {name} from key(0) at full width on the card: {n_params:,} "
+              f"parameters in {secs:.3f} s, {launches} threefry launches; the first elements of "
+              f"its {len(pins)} normal leaves the reference's within {worst['bf16']} bf16 / "
+              f"{worst['f32']} f32 ulps, means and stds at most {stats:.3f} of their "
+              f"tolerances", flush=True)
+        del built, leaves
+        torch.cuda.empty_cache()
+
+
 def phase_draws(g2, errs: dict, paths: dict) -> dict:
     """(a) The Threefry kernel bit-equal to its plain version at DRAW_SIZES
     under DRAW_KEYS, bits and uniforms, and across two launches; timed at
-    the main path's draw (G2's Eq. 1 uniforms) and at 2^24 + 1.  (b) From
-    seed 0 alone, on the card: the default solve of G2, `luby_mis`,
-    `ecl_mis` and a `solve_many` member, each held to the reference's MIS
-    (`G2_SEED_MIS`) and its Threefry launches counted.  Returns the
-    kernel's record."""
+    the main path's draw (G2's Eq. 1 uniforms) and at 2^24 + 1.  (c) Its
+    new modes and start counter (`draws_modes`), (d) the full-width inits
+    from the seed alone (`draws_inits`).  (b) From seed 0 alone, on the
+    card: the default solve of G2, `luby_mis`, `ecl_mis` and a
+    `solve_many` member, each held to the reference's MIS (`G2_SEED_MIS`)
+    and its Threefry launches counted.  Returns the kernel's record."""
     import torch
     from repro_torch.api import Solver, SolveOptions
     from repro_torch.core import ecl_mis, luby_mis, prng
@@ -1293,7 +1513,7 @@ def phase_draws(g2, errs: dict, paths: dict) -> dict:
     t0 = time.perf_counter()
     for n in DRAW_SIZES:
         for k0, k1 in DRAW_KEYS:
-            for mode in F.MODES:
+            for mode in ("bits", "uniform"):
                 got = F.threefry_bits(k0, k1, n, "cuda", mode)
                 want = F.threefry_bits_plain(k0, k1, torch.empty_like(got), mode)
                 exact(errs, "threefry", got.view(torch.int32), want.view(torch.int32),
@@ -1319,6 +1539,9 @@ def phase_draws(g2, errs: dict, paths: dict) -> dict:
     bound = _bound(4 * big, F.OPS_PER_ELEMENT["uniform"] * big)
     print(f"[draws] (a) threefry uniform n={big}: {cold:.4f} ms cold, {warm:.4f} ms warm, "
           f"bound {bound[0]:.4f} ms by {bound[1]} ({bound[2]} B, {bound[3]} ops)", flush=True)
+
+    draws_modes(errs)
+    draws_inits()
 
     def hold(path, in_mis, rounds, counts, draws):
         size, digest = mis_digest(in_mis)
@@ -3439,15 +3662,40 @@ def phase_gin_forward(g, feats, tilings: dict) -> None:
     print("[gnn] (a) GIN tiled under grad: raises (no gradient through the launch)", flush=True)
 
 
+@contextlib.contextmanager
+def plain_draws():
+    """Every `core.prng` draw through `threefry_bits_plain` on the card
+    (torch ops there) in place of the kernel: the plain version's side of
+    a comparison on a whole path."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.hopper import threefry as F
+
+    def plain(k0, k1, n, device, mode="bits", **kw):
+        out = torch.empty(n, dtype=torch.int32 if mode == "bits" else torch.float32,
+                          device=device)
+        return F.threefry_bits_plain(k0, k1, out, mode, **kw)
+
+    kernel, prng.threefry_bits = prng.threefry_bits, plain
+    try:
+        yield
+    finally:
+        prng.threefry_bits = kernel
+
+
 def phase_gnn_sampler(shape: dict):
     """(b) The minibatch_lg stand-in: erdos_renyi at Reddit's 232,965
     vertices and about its 114.6 M half-edges, the CSR by a stable sort on
-    the card, one NeighborSampler draw and one cell tree of 1,024 seeds at
-    fanout (15, 10): every masked-in child a CSR neighbour of its parent.
-    Returns (indptr, indices)."""
+    the card, one NeighborSampler sample and one cell tree of 1,024 seeds
+    at fanout (15, 10) under one key: every masked-in child a CSR
+    neighbour of its parent, and (e) both samples, whose draws the Threefry
+    kernel makes, bit-equal to the same samples through the plain version
+    on the card (`plain_draws`).  Returns (indptr, indices)."""
     import torch
     from repro_torch.configs import gnn_cells as C
-    from repro_torch.graphs.sampler import NeighborSampler, draws
+    from repro_torch.core import prng
+    from repro_torch.graphs.sampler import NeighborSampler
+    from repro_torch.hopper import threefry as F
 
     t0 = time.perf_counter()
     g = gnn_graph(shape, shape["n_edges"] / shape["n_nodes"])
@@ -3476,13 +3724,32 @@ def phase_gnn_sampler(shape: dict):
     gen = torch.Generator(device="cuda").manual_seed(GNN_SEED)
     B = shape["batch_nodes"]
     seeds = torch.randperm(n, generator=gen, device="cuda")[:B].to(torch.int32)
-    sub = sampler.sample(seeds, draws(gen, B, sampler.fanout))
+    key = prng.key(GNN_SEED)
+
+    def sample():
+        sub = sampler.sample(key, seeds)
+        tree = C.minibatch_tree(indptr, indices, seeds,
+                                C.minibatch_draws(key, B, shape["fanout"], "cuda"))
+        return sub.layers + sub.masks, tree
+
+    before = F.threefry_bits.launches
+    sub, tree = sample()
+    torch.cuda.synchronize()
+    launches = F.threefry_bits.launches - before
+    with plain_draws():
+        plain = sample()
+    check(launches == 2 * len(shape["fanout"]),
+          f"[gnn] (e) {launches} threefry launches for the two samples, expected "
+          f"{2 * len(shape['fanout'])}")
+    check(all(torch.equal(x, y) for x, y in zip(sub + tree, plain[0] + plain[1])),
+          "[gnn] (e) the samples from the key differ from the plain version's")
+    del plain
     checked = 0
-    for k in range(1, len(sub.layers)):
-        parent = sub.layers[k - 1][..., None].expand(sub.layers[k].shape)
-        checked += neighbours(parent, sub.layers[k], sub.masks[k])
-    ids, snd, rcv, emask = C.minibatch_tree(indptr, indices, seeds,
-                                            draws(gen, B, shape["fanout"]))
+    half = len(sub) // 2
+    for k in range(1, half):
+        parent = sub[k - 1][..., None].expand(sub[k].shape)
+        checked += neighbours(parent, sub[k], sub[half + k])
+    ids, snd, rcv, emask = tree
     checked += neighbours(ids[rcv.long()], ids[snd.long()], emask)
     del keys
     print(f"[gnn] (b) minibatch_lg stand-in: n={n} half-edges={indices.numel()} "
@@ -3490,7 +3757,9 @@ def phase_gnn_sampler(shape: dict):
           f"(host symmetrise, copy to the card), CSR on the card in {csr_s:.3f} s; "
           f"NeighborSampler fanout {shape['fanout']} and the cell's tree ({ids.numel()} slots, "
           f"{snd.numel()} edges): all {checked} masked-in slots are CSR neighbours of their "
-          f"parents", flush=True)
+          f"parents; (e) both sampled under key({GNN_SEED}) through {launches} threefry "
+          f"launches, bit-equal to the same samples through the plain version on the card",
+          flush=True)
     return indptr, indices
 
 
@@ -3498,12 +3767,14 @@ def gnn_cell_inputs(shape_name: str, shape: dict, full, mini):
     """(step, args_at): the port's train step for the shape
     (`C.full_graph_step`, `C.minibatch_step`, `C.molecule_step`), called
     step(a, model, params, opt, *args), and step i -> its args on the
-    card: the whole graph every step; a fresh draw of seeds and fanout
-    slots; `GraphBatchStream` batch i."""
+    card: the whole graph every step; fresh seeds and a fresh key, under
+    which the step draws its fanout slots (`minibatch_step` takes the key
+    as the reference's step takes its key data); `GraphBatchStream` batch
+    i."""
     import torch
     from repro_torch.configs import gnn_cells as C
+    from repro_torch.core import prng
     from repro_torch.data.pipeline import GraphBatchStream
-    from repro_torch.graphs.sampler import draws
 
     if shape_name == "full_graph_sm":
         g, feats, coords, labels = full
@@ -3517,8 +3788,8 @@ def gnn_cell_inputs(shape_name: str, shape: dict, full, mini):
             B = shape["batch_nodes"]
             seeds = torch.randperm(indptr.numel() - 1, generator=gen,
                                    device="cuda")[:B].to(torch.int32)
-            return (draws(gen, B, shape["fanout"]), indptr, indices, feats_tab, coords_tab,
-                    labels_tab, seeds)
+            return (prng.fold_in(prng.key(GNN_SEED), 1000 + i), indptr, indices, feats_tab,
+                    coords_tab, labels_tab, seeds)
         return C.minibatch_step, mini_args
     stream = GraphBatchStream(shape["batch"], shape["n_nodes"], shape["n_edges"],
                               shape["d_feat"], seed=GNN_SEED)
@@ -3533,7 +3804,9 @@ def step_loss(a, model, shape_name: str, args):
     if shape_name == "full_graph_sm":
         return lambda p: C.full_graph_loss(a, model, p, *args)
     if shape_name == "minibatch_lg":
-        draws, indptr, indices, feats_tab, coords_tab, labels_tab, seeds = args
+        key, indptr, indices, feats_tab, coords_tab, labels_tab, seeds = args
+        draws = C.minibatch_draws(key, seeds.numel(), C.GNN_SHAPES["minibatch_lg"]["fanout"],
+                                  seeds.device)
         tree = C.minibatch_tree(indptr, indices, seeds, draws)
         return lambda p: C.minibatch_loss(a, model, p, tree, feats_tab, coords_tab,
                                           labels_tab, seeds)
@@ -3548,6 +3821,10 @@ def nonfinite_leaves(grads: dict) -> list:
 
 def on_device(x, device, dtype):
     """A tensor, or a tuple of them, on `device`, floats as `dtype`."""
+    from repro_torch.core import prng
+
+    if isinstance(x, prng.Key):
+        return x
     if isinstance(x, tuple):
         return tuple(on_device(y, device, dtype) for y in x)
     return x.to(device, dtype) if x.is_floating_point() else x.to(device)
@@ -3556,7 +3833,8 @@ def on_device(x, device, dtype):
 def hold_to_cpu(a, state: dict, shape_name: str, shape: dict, args, label: str) -> tuple:
     """Step 0's loss and gradients on the card against the CPU's for the
     same state dict (`state`) and inputs (minibatch_lg: the step's first
-    GNN_CPU_SEEDS seeds and their draws).  The loss and each leaf's
+    GNN_CPU_SEEDS seeds under its key, whose draws are the first rows of
+    the whole batch's).  The loss and each leaf's
     gradient norm within GNN_CPU_TOL, relative; the non-finite leaves the
     same set; a leaf the loss does not reach zero on both.  The archs of
     GNN_CPU_F64 run the comparison in f64 on both sides: their f32
@@ -3570,10 +3848,9 @@ def hold_to_cpu(a, state: dict, shape_name: str, shape: dict, args, label: str) 
     import torch
     from repro_torch.configs import gnn_cells as C
 
-    if shape_name == "minibatch_lg":
-        draws, *rest, seeds = args
-        k = GNN_CPU_SEEDS
-        args = (tuple(u[:k] for u in draws), *rest, seeds[:k])
+    if shape_name == "minibatch_lg":     # the first seeds' draws are the key's first rows
+        *rest, seeds = args
+        args = (*rest, seeds[:GNN_CPU_SEEDS])
     dtype = torch.float64 if a.arch_id in GNN_CPU_F64 else torch.float32
     n_out = 1 if shape_name == "molecule" else shape["n_out"]
     runs = []
@@ -3699,7 +3976,10 @@ def phase_gnn_cell(a, shape_name: str, shape: dict, step, args_at) -> None:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     timed = [float(x) for x in timed]
     check(all(np.isfinite(timed)), f"{label}: timed losses {timed}")
-    check(not counts, f"{label}: a train step launched port kernels {counts}")
+    # a minibatch step draws its two hops' slots under its key: one launch each
+    want = {"threefry": 2 * GNN_TIMED_STEPS} if shape_name == "minibatch_lg" else {}
+    check(counts == want, f"{label}: a train step launched port kernels {counts}, "
+                          f"expected {want}")
     parts = marks.medians()
     n_leaves = len(params)
     del model, params, opt, marks
@@ -3720,7 +4000,7 @@ def phase_gnn_cell(a, shape_name: str, shape: dict, step, args_at) -> None:
           f"{parts['step']:.3f} ({sample}forward {parts['forward']:.3f}, backward "
           f"{parts['backward']:.3f}, optimizer {parts['optimizer']:.3f}"
           f"{', none taken' if nan_cell else ''}); peak device memory {peak:.3f} GiB; "
-          f"port kernel launches 0", flush=True)
+          f"port kernel launches {counts or 0}", flush=True)
     del state0, args0
     torch.cuda.empty_cache()
 
@@ -3757,7 +4037,7 @@ def phase_gnn_split_tables(shape: dict, mini, args) -> None:
     places them (`dist.lookup.TableSplit`), on a one-rank NCCL group and a
     (1, 1) mesh: gin-tu's `minibatch_step(mesh=, tables=)` on the blocks
     against the step without a mesh on the whole tables, from the same
-    state on the same seeds and draws (`args`): the loss and every leaf of
+    state on the same seeds and key (`args`): the loss and every leaf of
     the parameters, m and v bit-equal.  Both run under
     `deterministic_algorithms` (the segment sums' float atomics put two
     runs of one step on the card a few ulps apart), and the step without a
@@ -3774,7 +4054,8 @@ def phase_gnn_split_tables(shape: dict, mini, args) -> None:
     from repro_torch.train import adamw_init
 
     t0 = time.perf_counter()
-    draws, indptr, *_, seeds = args
+    key, indptr, *_, seeds = args
+    draws = C.minibatch_draws(key, seeds.numel(), shape["fanout"], "cuda")
     mesh = dist_mesh()
     try:
         check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
@@ -3792,7 +4073,7 @@ def phase_gnn_split_tables(shape: dict, mini, args) -> None:
             want = values(*C.minibatch_step(a, model, p0, adamw_init(p0), *args))
             again = values(*C.minibatch_step(a, model, p0, adamw_init(p0), *args))
             params, opt = C.place_gnn_state(p0, mesh)
-            got = values(*C.minibatch_step(a, model, params, opt, draws, indptr, *blocks, seeds,
+            got = values(*C.minibatch_step(a, model, params, opt, key, indptr, *blocks, seeds,
                                            mesh=mesh, tables=tables))
         for name, run in (("the control (the step without a mesh again)", again),
                           ("split tables", got)):
@@ -3925,10 +4206,10 @@ def lm_tree_params(cfg, params) -> tuple:
 
 
 def lm_init(cfg):
-    import torch
+    from repro_torch.core import prng
     from repro_torch.models import transformer as tf
 
-    return tf.init_lm(torch.Generator(device="cuda").manual_seed(LM_SEED), cfg)
+    return tf.init_lm(prng.key(LM_SEED), cfg, device="cuda")
 
 
 class MoEDrops:
@@ -4176,11 +4457,12 @@ def phase_lm_cpu() -> None:
     """(e): the SMOKE configs on the card against the CPU, same weights."""
     import torch
     from repro_torch.configs import LM_ARCHS
+    from repro_torch.core import prng
     from repro_torch.models import transformer as tf
 
     for arch, mod in sorted(LM_ARCHS.items()):
         cfg = mod.SMOKE
-        params = tf.init_lm(torch.Generator().manual_seed(LM_SEED), cfg)
+        params = tf.init_lm(prng.key(LM_SEED), cfg, device="cpu")
         card = tf.lm_params_from_numpy(lm_numpy_tree(params), cfg, device="cuda")
         toks = lm_prompts(cfg, 2, 16, device="cpu")
         want, want_e = lm_serve_trace(params, cfg, toks[:, :12], toks[:, 12:])
@@ -4494,12 +4776,13 @@ def phase_lm_train_cpu() -> None:
     """(d): one SMOKE train step on the card against the CPU, same weights."""
     import torch
     from repro_torch.configs import LM_ARCHS
+    from repro_torch.core import prng
     from repro_torch.models import transformer as tf
     from repro_torch.train.optimizer import adamw_init
 
     for arch, mod in sorted(LM_ARCHS.items()):
         cfg = mod.SMOKE
-        params = tf.init_lm(torch.Generator().manual_seed(LM_SEED), cfg)
+        params = tf.init_lm(prng.key(LM_SEED), cfg, device="cpu")
         card = tf.lm_params_from_numpy(lm_numpy_tree(params), cfg, device="cuda")
         toks = lm_prompts(cfg, 2, 17, device="cpu")
         want_loss, want, want_e = lm_train_trace(params, adamw_init(params), cfg,

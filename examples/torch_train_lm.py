@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.configs import LM_ARCHS
 from repro_torch.configs.lm_cells import make_lm_train_step
+from repro_torch.core import prng
 from repro_torch.data.pipeline import TokenStream
 from repro_torch.launch.train import small_variant
 from repro_torch.models import transformer as tf
@@ -31,7 +32,7 @@ def main(argv=None) -> dict:
 
     dev = torch.device(args.device)
     cfg = small_variant(LM_ARCHS[args.arch].CONFIG)
-    params = tf.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    params = tf.init_lm(prng.key(0), cfg, device=dev)
     n = sum(x.numel() for x in T.leaves(params))
     print(f"{args.arch} (reduced): {n/1e6:.1f}M params")
 

@@ -82,10 +82,12 @@ def register(arch: ArchDef) -> ArchDef:
 
 
 def fake_module(make: Callable[[], torch.nn.Module], device) -> torch.nn.Module:
-    """A module for the dry run: `make()` builds it for real on the host,
-    outside the fake mode (a module built under one cannot move its fake
-    parameters: `Module._apply` swaps them), and its parameters and buffers
-    are then replaced by empty tensors on `device`, fake under the mode."""
+    """A module for the dry run: `make()` builds it outside the fake mode
+    (a module built under one cannot move its fake parameters:
+    `Module._apply` swaps them), on the "meta" device, which gives the
+    shapes and dtypes and draws nothing (the reference's `jax.eval_shape`),
+    and its parameters and buffers are then replaced by empty tensors on
+    `device`, fake under the mode."""
     from repro_torch.hopper.launch import outside_fake_mode
 
     with outside_fake_mode():

@@ -33,6 +33,7 @@ import torch
 from torch.func import functional_call
 
 from repro_torch.configs.common import ArchDef, Cell, placed, register
+from repro_torch.core import prng
 from repro_torch.device import DeviceLike
 from repro_torch.dist.collectives import data_group
 from repro_torch.dist.sharding import data_axes, deepfm_specs, distribute, local
@@ -207,14 +208,22 @@ def place_deepfm_state(params: Params, mesh) -> Tuple[Params, AdamWState]:
     return placed, adamw_init_placed(placed, specs, mesh)
 
 
+def smoke_inputs(device: DeviceLike = "cuda"):
+    """`smoke`'s model and batch under the reference's keys: the model from
+    `key(0)`, fields (16, 39) `randint(key(1), .., 0, 32)`, labels
+    `uniform(key(2), (16,)) > 0.5` as f32."""
+    model = DeepFM(SMOKE_CONFIG, key=prng.key(0), device=device)
+    dev = model.embed.device
+    fields = prng.randint(prng.key(1), (16, 39), 0, 32, dev)
+    labels = (prng.uniform(prng.key(2), 16, dev) > 0.5).float()
+    return model, fields, labels
+
+
 def smoke(device: DeviceLike = "cuda") -> None:
     """Forward, loss, gradients and retrieval of the smoke config: finite,
     of the right shapes."""
-    model = DeepFM(SMOKE_CONFIG, seed=0, device=device)
+    model, fields, labels = smoke_inputs(device)
     dev = model.embed.device
-    gen = torch.Generator(device=dev).manual_seed(1)
-    fields = torch.randint(0, 32, (16, 39), generator=gen, device=dev, dtype=torch.int32)
-    labels = (torch.rand((16,), generator=gen, device=dev) > 0.5).float()
     params = train_params(model)
     loss, grads = loss_and_grads(model, params, fields, labels)
     if not bool(torch.isfinite(loss)) or any(
@@ -240,7 +249,7 @@ def _placed_model(mesh):
     from repro_torch.configs.common import fake_module
     from repro_torch.dist.sharding import mesh_device
 
-    model = fake_module(lambda: DeepFM(CONFIG, seed=0, device="cpu"), mesh_device(mesh))
+    model = fake_module(lambda: DeepFM(CONFIG, seed=0, device="meta"), mesh_device(mesh))
     whole = train_params(model)
     params, opt = place_deepfm_state(whole, mesh)
     return model, params, opt, deepfm_specs(whole, mesh)

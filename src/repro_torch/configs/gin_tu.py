@@ -9,8 +9,8 @@ from repro_torch.models.gnn.gin import GIN
 D_HIDDEN, N_LAYERS = 64, 5
 
 
-def _init(d_in, n_out, *, seed=0, device="cuda"):
-    return GIN(d_in, d_hidden=D_HIDDEN, n_layers=N_LAYERS, n_out=n_out, seed=seed,
+def _init(d_in, n_out, *, seed=0, key=None, device="cuda"):
+    return GIN(d_in, d_hidden=D_HIDDEN, n_layers=N_LAYERS, n_out=n_out, seed=seed, key=key,
                device=device)
 
 

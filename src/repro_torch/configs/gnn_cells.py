@@ -2,7 +2,7 @@
 assigned shapes and the train steps the reference's cell builders wrap.
 
 Each arch file (`gin_tu`, `pna`, `egnn`, `mace`) supplies a `GNNArch`:
-  init(d_in, n_out, *, seed, device) -> nn.Module
+  init(d_in, n_out, *, seed, key, device) -> nn.Module   (key: prng.key(seed) if None)
   node_logits(model, params, feats, coords, s, r, mask, split=None) -> (N, n_out)
   graph_energy(model, params, feats, coords, s, r, mask, n_graphs) -> (n_graphs,)
   fwd_flops(n_nodes, n_edges, d_feat) -> float
@@ -54,7 +54,8 @@ from torch.func import functional_call
 
 from repro_torch.configs.common import Cell
 from repro_torch.device import DeviceLike
-from repro_torch.graphs.sampler import sample_neighbors
+from repro_torch.core import prng
+from repro_torch.graphs.sampler import hop_draws, sample_neighbors
 from repro_torch.train.optimizer import AdamWState, OptConfig, adamw_update
 
 GNN_SHAPES = {
@@ -80,7 +81,7 @@ Params = Dict[str, torch.Tensor]
 @dataclasses.dataclass(frozen=True)
 class GNNArch:
     arch_id: str
-    init: Callable          # (d_in, n_out, *, seed, device) -> nn.Module
+    init: Callable          # (d_in, n_out, *, seed, key, device) -> nn.Module
     node_logits: Callable   # (model, params, feats, coords, s, r, mask, split=None) -> (N, n_out)
     graph_energy: Callable  # (model, params, feats, coords, s, r, mask, n_graphs) -> (n_graphs,)
     fwd_flops: Callable     # (n_nodes, n_edges, d_feat) -> float
@@ -252,6 +253,16 @@ def products_part(mesh, n_nodes: Optional[int] = None, *, seed: int = 0):
 # sampled minibatch
 # --------------------------------------------------------------------------
 
+def minibatch_draws(key: prng.Key, batch: int, fanout, device, *, row0: int = 0):
+    """The reference cell's inline sampler's draws (its `k1, k2 =
+    split(key)`): (u1 (batch, f1), u2 (batch, f1, f2)) int32 in [0, 2^31 -
+    1), rows row0 on of the global batch's draw."""
+    k1, k2 = prng.split(key)
+    f1, f2 = (int(f) for f in fanout)
+    return (hop_draws(k1, (batch, f1), device, row0),
+            hop_draws(k2, (batch, f1, f2), device, row0))
+
+
 def minibatch_tree(indptr, indices, seeds, draws, tables=None):
     """The reference cell's inline sampler and tree flattening: (ids,
     senders, receivers, edge_mask) over B + B·f1 + B·f1·f2 slots.  Unlike
@@ -300,12 +311,16 @@ def minibatch_loss(a: GNNArch, model, params: Optional[Params], tree, feats_tab,
     return _xent(logits[: seeds.shape[0]], labels)
 
 
-def minibatch_step(a: GNNArch, model, params: Params, opt: AdamWState, draws, indptr, indices,
+def minibatch_step(a: GNNArch, model, params: Params, opt: AdamWState, key, indptr, indices,
                    feats_tab, coords_tab, labels_tab, seeds, *,
                    opt_cfg: OptConfig = TRAIN_OPT, mesh=None, tables=None):
-    """minibatch_lg: sample the tree from `draws` (`graphs.sampler.draws`
-    at the shape's fanout; the reference takes a PRNG key) and take one step on it.
-    With `mesh`, `seeds` and `draws` are this rank's block (`_step`).  With
+    """minibatch_lg: sample the tree under `key` and take one step on it.
+    `key` is a `prng.Key`, as the reference's step takes its key data
+    (drawn at the shape's fanout), or the draws it gives
+    (`minibatch_draws`) as (u1, u2).  With `mesh`,
+    `seeds` (and given draws) are this rank's block of the batch (`_step`:
+    equal blocks over the batch ranks), and a key draws this rank's rows
+    of the global draw.  With
     `tables` (`dist.lookup.TableSplit.of(mesh)`), the tables are split over
     the mesh as the reference's cell places them: `indices`, `feats_tab`,
     `coords_tab` and `labels_tab` are this rank's blocks
@@ -314,6 +329,16 @@ def minibatch_step(a: GNNArch, model, params: Params, opt: AdamWState, draws, in
     the one on whole tables bit for bit."""
     if tables is not None and mesh is None:
         raise ValueError("tables split over a mesh need the step's mesh")
+    draws = key
+    if isinstance(key, prng.Key):
+        b = seeds.shape[0]
+        row0 = 0
+        if mesh is not None:
+            from repro_torch.dist.collectives import data_group
+
+            row0 = data_group(mesh, "a GNN train step")[0].rank * b
+        draws = minibatch_draws(key, b, GNN_SHAPES["minibatch_lg"]["fanout"], seeds.device,
+                                row0=row0)
     tree = minibatch_tree(indptr, indices, seeds, draws, tables)
     return _step(lambda p: minibatch_loss(a, model, p, tree, feats_tab, coords_tab,
                                           labels_tab, seeds, tables), params, opt, opt_cfg, mesh)
@@ -349,6 +374,13 @@ def molecule_step(a: GNNArch, model, params: Params, opt: AdamWState, feats, coo
                                          mask, energy), params, opt, opt_cfg, mesh)
 
 
+def smoke_inputs(n: int, device):
+    """`gnn_smoke`'s features (n, 8), coordinates (n, 3) f32 and labels
+    (n,) int32 in [0, 4), under the reference's keys 0, 1 and 2."""
+    return (prng.normal(prng.key(0), (n, 8), device), prng.normal(prng.key(1), (n, 3), device),
+            prng.randint(prng.key(2), n, 0, 4, device))
+
+
 def gnn_smoke(a: GNNArch, device: DeviceLike = "cuda") -> None:
     """A reduced full-graph forward, loss, gradients and energy: finite,
     of the right shapes."""
@@ -359,11 +391,8 @@ def gnn_smoke(a: GNNArch, device: DeviceLike = "cuda") -> None:
     mask = g.edge_mask
     s = torch.where(mask, g.senders, 0)
     r = torch.where(mask, g.receivers, 0)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    feats = torch.randn((g.n_nodes, 8), generator=gen, device=dev)
-    coords = torch.randn((g.n_nodes, 3), generator=gen, device=dev)
-    labels = torch.randint(0, 4, (g.n_nodes,), generator=gen, device=dev, dtype=torch.int32)
-    model = a.init(8, 4, seed=3, device=dev)
+    feats, coords, labels = smoke_inputs(g.n_nodes, dev)
+    model = a.init(8, 4, key=prng.key(3), device=dev)
     with torch.no_grad():
         logits = a.node_logits(model, None, feats, coords, s, r, mask)
     if logits.shape != (g.n_nodes, 4) or not bool(torch.isfinite(logits).all()):
@@ -389,7 +418,7 @@ def _fake_model(a: GNNArch, d_in: int, n_out: int, device):
     (`configs.common.fake_module`) and those as `train_params` gives them."""
     from repro_torch.configs.common import fake_module
 
-    model = fake_module(lambda: a.init(d_in, n_out, seed=0, device="cpu"), device)
+    model = fake_module(lambda: a.init(d_in, n_out, seed=0, device="meta"), device)
     return model, train_params(model)
 
 

@@ -20,10 +20,11 @@ passes' unrolled variants).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.lm_config import LMConfig
@@ -290,16 +291,21 @@ def serve_step(params, cfg: LMConfig, cache: tf.DecodeCache, tokens: torch.Tenso
     return logits, tf.DecodeCache(data=cache.data, pos=after.pos, length=cache.length)
 
 
+def smoke_inputs(cfg_small: LMConfig, device) -> Tuple[tf.Params, torch.Tensor]:
+    """`lm_smoke`'s weights `init_lm(key(0))` and (2, 32) tokens
+    `randint(key(1), (2, 32), 0, vocab)`, the reference's."""
+    return (tf.init_lm(prng.key(0), cfg_small, device=device),
+            prng.randint(prng.key(1), (2, 32), 0, cfg_small.vocab, device))
+
+
 def lm_smoke(cfg_small: LMConfig, device: DeviceLike = "cuda") -> None:
     """One train step on a reduced config, then a prefill and a decode step
     of the updated weights; raises unless the loss and the last logits are
     finite and the tree and the logits keep their shapes."""
     dev = resolve_device(device)
-    params = tf.init_lm(torch.Generator(device=dev).manual_seed(0), cfg_small)
+    params, tokens = smoke_inputs(cfg_small, dev)
     opt = adamw_init(params)
-    B, S = 2, 32
-    tokens = torch.randint(0, cfg_small.vocab, (B, S), dtype=torch.int32, device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(1))
+    B, S = tokens.shape
     targets = torch.roll(tokens, -1, dims=1)
     step = make_lm_train_step(cfg_small, OptConfig(total_steps=100))
     params2, _, loss, _ = step(params, opt, tokens, targets)

@@ -1,7 +1,8 @@
 """mace [arXiv:2206.07697]: 2 layers, 128 channels, l_max=2, correlation
 order 3, n_rbf=8, E(3)-ACE product basis (counterpart of
 `repro.configs.mace`).  A classification cell (n_out != 1) widens the
-readout to C -> 16 -> n_out, where the reference draws a new readout."""
+readout to C -> 16 -> n_out, drawn under `fold_in(key, 99)` as the
+reference draws its new readout."""
 from repro_torch.configs.common import ArchDef, register
 from repro_torch.configs.gnn_cells import GNNArch, call, gnn_cells, gnn_smoke, per_graph_sum
 from repro_torch.models.gnn.mace import MACE, coupling_tensors
@@ -9,9 +10,9 @@ from repro_torch.models.gnn.mace import MACE, coupling_tensors
 CHANNELS, N_LAYERS, N_RBF = 128, 2, 8
 
 
-def _init(d_in, n_out, *, seed=0, device="cuda"):
+def _init(d_in, n_out, *, seed=0, key=None, device="cuda"):
     return MACE(d_in, channels=CHANNELS, n_layers=N_LAYERS, n_rbf=N_RBF, n_out=n_out,
-                seed=seed, device=device)
+                seed=seed, key=key, device=device)
 
 
 def _node_logits(model, params, feats, coords, s, r, mask, split=None):

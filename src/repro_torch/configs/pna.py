@@ -8,8 +8,8 @@ from repro_torch.models.gnn.pna import PNA
 D_HIDDEN, N_LAYERS = 75, 4
 
 
-def _init(d_in, n_out, *, seed=0, device="cuda"):
-    return PNA(d_in, d_hidden=D_HIDDEN, n_layers=N_LAYERS, n_out=n_out, seed=seed,
+def _init(d_in, n_out, *, seed=0, key=None, device="cuda"):
+    return PNA(d_in, d_hidden=D_HIDDEN, n_layers=N_LAYERS, n_out=n_out, seed=seed, key=key,
                device=device)
 
 

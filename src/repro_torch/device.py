@@ -2,7 +2,9 @@
 
 Device rule: an entry point runs on the device its caller names, "cuda" by
 default.  Asking for CUDA where there is none raises; nothing chooses the
-CPU on its own.  Only the CPU parity tests ask for `device="cpu"`.
+CPU on its own.  Only the CPU parity tests ask for `device="cpu"`.  A
+model built on "meta" has its shapes and dtypes only and draws nothing
+(the dry run's modules).
 
 Packed words: the reference keeps packed tiles and frontiers as uint32.
 torch lacks `~`, `>>`, `<<` and `amax` for uint32, so the port carries the
@@ -29,7 +31,7 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
             f"device {str(dev)!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or 'cpu'")
     if dev.type == "cuda" and dev.index is None:
         # "cuda" names the current card; tensors report it with its index

@@ -7,20 +7,24 @@ with replacement, masked for isolated vertices, so every shape is static.
 
 The sampler holds the CSR on the graph's device, built there by a stable
 sort (`device_csr`, the arrays of `graphs.graph.build_csr`).  Drawing and
-sampling are separate: `draws` makes one uniform int32 in [0, 2^31 - 1)
-per slot from a `torch.Generator`, and `NeighborSampler.sample` turns
-draws into layers and masks, a pure function of (draws, seeds); the
-reference draws with
-`jax.random.randint`, which the port does not reproduce, so its tests feed
-the reference's draws to `sample`.
+sampling are separate: `NeighborSampler.draws` makes one uniform int32 in
+[0, 2^31 - 1) per slot under the reference's key schedule (per hop `key,
+sub = split(key)`, then `randint(sub, (B, f1, ..., fk), 0, 2^31 - 1)`,
+through `core.prng`: the reference's integers bit for bit), and
+`sample_draws` turns draws into layers and masks, a pure function of
+(seeds, draws).  `sample(key, seeds)` is the two, the reference's
+`NeighborSampler.sample`.  A block of rows of the batch draws its rows of
+the global draw (`row0`, through the draws' start counter).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.graphs.graph import Graph
 
 DRAW_HIGH = (1 << 31) - 1      # jnp.iinfo(jnp.int32).max, exclusive
@@ -39,18 +43,12 @@ def device_csr(g: Graph) -> Tuple[torch.Tensor, torch.Tensor]:
     return indptr, indices
 
 
-def draws(generator: torch.Generator, batch: int, fanout: Sequence[int]
-          ) -> Tuple[torch.Tensor, ...]:
-    """One draw tensor per hop, (batch, fanout[0], …, fanout[k]): a uniform
-    int32 in [0, DRAW_HIGH) per slot, on the generator's device.  Both
-    `NeighborSampler.sample` and the minibatch cell's inline sampler
-    (`configs.gnn_cells.minibatch_tree`) take these."""
-    out, shape = [], (batch,)
-    for f in fanout:
-        shape = shape + (int(f),)
-        out.append(torch.randint(0, DRAW_HIGH, shape, generator=generator,
-                                 device=generator.device, dtype=torch.int32))
-    return tuple(out)
+def hop_draws(key: prng.Key, shape: Sequence[int], device, row0: int = 0) -> torch.Tensor:
+    """One hop's draw of the rows from `row0` on of a global (R, *rest)
+    draw: `randint(key, shape, 0, DRAW_HIGH)`, int32, where `shape` is
+    (rows, *rest), from the counter row0 * prod(rest)."""
+    per_row = int(np.prod(shape[1:], dtype=np.int64))
+    return prng.randint(key, tuple(shape), 0, DRAW_HIGH, device, start=row0 * per_row)
 
 
 def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor, frontier: torch.Tensor,
@@ -93,7 +91,29 @@ class NeighborSampler:
         self.fanout = tuple(int(f) for f in fanout)
         self.n_nodes = g.n_nodes
 
-    def sample(self, seeds: torch.Tensor, draws: Sequence[torch.Tensor]) -> SampledSubgraph:
+    def draws(self, key: prng.Key, batch: int, device=None, *, row0: int = 0
+              ) -> Tuple[torch.Tensor, ...]:
+        """The reference's draws for a batch of `batch` seeds (rows row0
+        on of the global batch), on `device` (the CSR's by default): per
+        hop `key, sub = split(key)`, then (batch, fanout[0], ...,
+        fanout[k]) integers under `sub`."""
+        device = self.indptr.device if device is None else device
+        out, shape = [], (batch,)
+        for f in self.fanout:
+            key, sub = prng.split(key)
+            shape = shape + (f,)
+            out.append(hop_draws(sub, shape, device, row0))
+        return tuple(out)
+
+    def sample(self, key: prng.Key, seeds: torch.Tensor, *, row0: int = 0) -> SampledSubgraph:
+        """The reference's `NeighborSampler.sample(key, seeds)`: seeds
+        rows row0 on of the batch the key draws for."""
+        return self.sample_draws(seeds, self.draws(key, seeds.shape[0], seeds.device,
+                                                   row0=row0))
+
+    def sample_draws(self, seeds: torch.Tensor, draws: Sequence[torch.Tensor]
+                     ) -> SampledSubgraph:
+        """The sample given the draws (`draws`, or the reference's)."""
         layers = [seeds]
         masks = [torch.ones(seeds.shape, dtype=torch.bool, device=seeds.device)]
         frontier, fmask = seeds, masks[0]

@@ -13,8 +13,8 @@ Presets:
 
 The loop is the fault-tolerant TrainLoop over `TokenStream` (checkpoint
 and restart, retries, straggler deadlines); each step is
-`lm_cells.make_lm_train_step`.  Weights come from a generator seeded 0 on
-the device.  The default checkpoint directory lies under the temporary
+`lm_cells.make_lm_train_step`.  Weights come from `init_lm(prng.key(0))`
+on the device, the reference's.  The default checkpoint directory lies under the temporary
 directory; a directory that holds a checkpoint resumes from it.
 """
 from __future__ import annotations
@@ -79,6 +79,7 @@ def main(argv=None) -> dict:
 
     from repro_torch.configs import LM_ARCHS
     from repro_torch.configs.lm_cells import make_lm_train_step
+    from repro_torch.core import prng
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.device import resolve_device
     from repro_torch.models import transformer as tf
@@ -89,7 +90,7 @@ def main(argv=None) -> dict:
     full = LM_ARCHS[args.arch].CONFIG
     cfg = full if args.preset == "production" else small_variant(full)
 
-    params = tf.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    params = tf.init_lm(prng.key(0), cfg, device=dev)
     opt = adamw_init(params)
     n_params = sum(x.numel() for x in T.leaves(params))
     print(f"{args.arch} [{args.preset}]: {n_params/1e6:.1f}M params")

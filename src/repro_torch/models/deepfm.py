@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import prng
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.hopper.embedding_bag import SlotPlan, embedding_bag
 from repro_torch.models.gnn.common import MLP
@@ -89,25 +90,24 @@ class DeepFMConfig:
 class DeepFM(nn.Module):
     """`embed` (V, d), `linear` (V,), `bias` () and the deep tower
     `mlp` (F·d → mlp_dims → 1, ReLU), all f32, drawn as the reference's
-    `deepfm_init` draws them (normal · 0.01 tables, zero bias, He-scaled
-    MLP) from a generator seeded with `seed` on `device` (the card unless
-    the caller asks for the CPU)."""
+    `deepfm_init(key)` draws them under `split(key, 3)`: normal · 0.01
+    tables (`embed`, then `linear`), zero bias, the He-scaled MLP under
+    the third key, on `device` (the card unless the caller asks for the
+    CPU; "meta" builds the shapes and draws nothing).  `key` defaults to
+    `prng.key(seed)`."""
 
-    def __init__(self, cfg: DeepFMConfig, *, seed: int = 0, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: DeepFMConfig, *, seed: int = 0, key: Optional[prng.Key] = None,
+                 device: DeviceLike = "cuda"):
         super().__init__()
         dev = resolve_device(device)
-        generator = torch.Generator(device=dev).manual_seed(seed)
+        k1, k2, k3 = prng.split(prng.key(seed) if key is None else key, 3)
         V, d = cfg.total_vocab, cfg.embed_dim
         self.cfg = cfg
-
-        def normal(shape):
-            return torch.randn(shape, generator=generator, device=dev) * 0.01
-
-        self.embed = nn.Parameter(normal((V, d)))
-        self.linear = nn.Parameter(normal((V,)))
+        self.embed = nn.Parameter(prng.normal_into(k1, torch.empty((V, d), device=dev), 0.01))
+        self.linear = nn.Parameter(prng.normal_into(k2, torch.empty((V,), device=dev), 0.01))
         self.bias = nn.Parameter(torch.zeros((), device=dev))
-        self.mlp = MLP((cfg.n_fields * d,) + tuple(cfg.mlp_dims) + (1,),
-                       generator=generator, device=dev, act=torch.relu)
+        self.mlp = MLP((cfg.n_fields * d,) + tuple(cfg.mlp_dims) + (1,), key=k3, device=dev,
+                       act=torch.relu)
         self.register_buffer("offsets", cfg.offsets.to(dev), persistent=False)
 
     def forward(self, fields: torch.Tensor, *, bag: Bag = embedding_bag, tp=None) -> torch.Tensor:

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import prng
 from repro_torch.device import DeviceLike, resolve_device
 
 Activation = Callable[[torch.Tensor], torch.Tensor]
@@ -34,21 +35,25 @@ Activation = Callable[[torch.Tensor], torch.Tensor]
 class MLP(nn.Module):
     """f32 linear layers with `act` between them and none after the last
     (SiLU by default, as the reference's `mlp_apply`).  Initialised as the
-    reference's `mlp_init`: weights normal with the He scale (2 / in)^0.5,
-    biases zero, drawn from `generator`."""
+    reference's `mlp_init(key, dims)`: layer i's weight under the i-th key
+    of `split(key, len(dims) - 1)`, drawn (in, out) as the reference holds
+    it, times the He scale (2 / in)^0.5, and stored transposed; biases
+    zero."""
 
-    def __init__(self, dims: Sequence[int], *, generator: torch.Generator,
-                 device: DeviceLike = "cuda", act: Activation = F.silu):
+    def __init__(self, dims: Sequence[int], *, key: prng.Key, device: DeviceLike = "cuda",
+                 act: Activation = F.silu):
         super().__init__()
         dev = resolve_device(device)
         self.act = act
         self.layers = nn.ModuleList()
-        for i, o in zip(dims[:-1], dims[1:]):
-            layer = nn.utils.skip_init(nn.Linear, i, o, device=dev)
-            with torch.no_grad():
-                layer.weight.copy_(torch.randn((o, i), generator=generator, device=dev)
-                                   * (2.0 / i) ** 0.5)
-                layer.bias.zero_()
+        for k, i, o in zip(prng.split(key, len(dims) - 1), dims[:-1], dims[1:]):
+            # shapes on "meta", then the drawn parameters: `nn.utils.skip_init`'s
+            # `to_empty` imports torch's symbolic-shape machinery (sympy) the first
+            # time a process calls it, seconds on the card's host
+            layer = nn.Linear(i, o, device="meta")
+            w = prng.normal(k, (i, o), dev) * (2.0 / i) ** 0.5
+            layer.weight = nn.Parameter(w.T.contiguous())
+            layer.bias = nn.Parameter(torch.zeros(o, device=dev))
             self.layers.append(layer)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

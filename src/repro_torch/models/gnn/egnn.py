@@ -17,39 +17,41 @@ computes and adds no epsilon of its own.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+from repro_torch.core import prng
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.gnn.common import MLP, segment_sum
 
 
 class EGNNLayer(nn.Module):
-    def __init__(self, d_in: int, d_hidden: int, *, generator: torch.Generator,
-                 device: torch.device):
+    def __init__(self, d_in: int, d_hidden: int, *, keys, device: torch.device):
         super().__init__()
-        self.phi_e = MLP((2 * d_in + 1, d_hidden, d_hidden), generator=generator, device=device)
-        self.phi_x = MLP((d_hidden, d_hidden, 1), generator=generator, device=device)
-        self.phi_h = MLP((d_in + d_hidden, d_hidden, d_hidden), generator=generator,
-                         device=device)
+        self.phi_e = MLP((2 * d_in + 1, d_hidden, d_hidden), key=keys[0], device=device)
+        self.phi_x = MLP((d_hidden, d_hidden, 1), key=keys[1], device=device)
+        self.phi_h = MLP((d_in + d_hidden, d_hidden, d_hidden), key=keys[2], device=device)
 
 
 class EGNN(nn.Module):
     """`layers[i]` (`phi_e`, `phi_x`, `phi_h`) and `head`, f32, He-scaled
-    as `egnn_init` draws them, from a generator seeded with `seed` on
-    `device`."""
+    as `egnn_init(key)` draws them (layer i's MLPs under keys 3i to 3i + 2
+    of `split(key, 3 n_layers + 2)`, the head under the last) on `device`.
+    `key` defaults to `prng.key(seed)`."""
 
     def __init__(self, d_in: int, d_hidden: int = 64, n_layers: int = 4, n_out: int = 1,
-                 *, seed: int = 0, device: DeviceLike = "cuda"):
+                 *, seed: int = 0, key: Optional[prng.Key] = None,
+                 device: DeviceLike = "cuda"):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        ks = prng.split(prng.key(seed) if key is None else key, 3 * n_layers + 2)
         dims = [d_in] + [d_hidden] * n_layers
         self.layers = nn.ModuleList(
-            EGNNLayer(d, d_hidden, generator=gen, device=dev) for d in dims[:-1])
-        self.head = MLP((d_hidden, n_out), generator=gen, device=dev)
+            EGNNLayer(d, d_hidden, keys=ks[3 * i:3 * i + 3], device=dev)
+            for i, d in enumerate(dims[:-1]))
+        self.head = MLP((d_hidden, n_out), key=ks[-1], device=dev)
 
     def forward(self, h: torch.Tensor, x: torch.Tensor, senders: torch.Tensor,
                 receivers: torch.Tensor, mask: torch.Tensor, *, split=None

@@ -19,11 +19,12 @@ nn.Module's own `apply` recursively applies a function to submodules).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+from repro_torch.core import prng
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.gnn.common import MLP, gather_scatter_sum
 
@@ -31,27 +32,28 @@ BACKENDS = ("segment", "tiled")
 
 
 class GINLayer(nn.Module):
-    def __init__(self, d_in: int, d_hidden: int, *, generator: torch.Generator,
-                 device: torch.device):
+    def __init__(self, d_in: int, d_hidden: int, *, key: prng.Key, device: torch.device):
         super().__init__()
-        self.mlp = MLP((d_in, d_hidden, d_hidden), generator=generator, device=device)
+        self.mlp = MLP((d_in, d_hidden, d_hidden), key=key, device=device)
         self.eps = nn.Parameter(torch.zeros((), device=device))
 
 
 class GIN(nn.Module):
-    """`layers[i]` (`mlp`, `eps`) and `head`, f32, drawn as `gin_init`
-    draws them (He-scaled MLPs, ε = 0) from a generator seeded with `seed`
-    on `device`."""
+    """`layers[i]` (`mlp`, `eps`) and `head`, f32, drawn as `gin_init(key)`
+    draws them (He-scaled MLPs, ε = 0; layer i under the i-th key of
+    `split(key, n_layers + 1)`, the head under the last) on `device`.
+    `key` defaults to `prng.key(seed)`."""
 
     def __init__(self, d_in: int, d_hidden: int = 64, n_layers: int = 5, n_out: int = 7,
-                 *, seed: int = 0, device: DeviceLike = "cuda"):
+                 *, seed: int = 0, key: Optional[prng.Key] = None,
+                 device: DeviceLike = "cuda"):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        ks = prng.split(prng.key(seed) if key is None else key, n_layers + 1)
         dims = [d_in] + [d_hidden] * n_layers
         self.layers = nn.ModuleList(
-            GINLayer(d, d_hidden, generator=gen, device=dev) for d in dims[:-1])
-        self.head = MLP((d_hidden, n_out), generator=gen, device=dev)
+            GINLayer(d, d_hidden, key=k, device=dev) for k, d in zip(ks, dims[:-1]))
+        self.head = MLP((d_hidden, n_out), key=ks[-1], device=dev)
 
     def forward(self, h: torch.Tensor, senders: torch.Tensor, receivers: torch.Tensor,
                 mask: torch.Tensor, *, tiled=None, backend: str = "segment", split=None

@@ -21,12 +21,13 @@ product basis.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core import prng
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.gnn.common import MLP, segment_sum
 
@@ -143,44 +144,53 @@ def bessel_rbf(r: torch.Tensor, n_rbf: int, r_cut: float) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 class MACELayer(nn.Module):
-    def __init__(self, channels: int, n_rbf: int, n_paths: int, *,
-                 generator: torch.Generator, device: torch.device):
+    def __init__(self, channels: int, n_rbf: int, n_paths: int, *, keys,
+                 device: torch.device):
         super().__init__()
         C = channels
+        k0, k1, k2, k3 = keys
 
-        def normal(shape, scale):
-            return nn.Parameter(torch.randn(shape, generator=generator, device=device) * scale)
+        def normal(k, shape, scale):
+            return nn.Parameter(prng.normal(k, shape, device) * scale)
 
-        self.radial = MLP((n_rbf, 64, n_paths * C), generator=generator, device=device)
+        self.radial = MLP((n_rbf, 64, n_paths * C), key=k0, device=device)
         # per-path channel mixers for the ACE products
-        self.w_b2 = normal((n_paths, C), C ** -0.5)
-        self.w_b3 = normal((n_paths, C), C ** -0.5)
+        self.w_b2 = normal(k1, (n_paths, C), C ** -0.5)
+        self.w_b3 = normal(k2, (n_paths, C), C ** -0.5)
         # message mix (A ‖ B2 ‖ B3 -> C) and residual, per l (keys str(l))
         self.mix = nn.ParameterDict(
-            {str(l): normal((3 * C, C), (3 * C) ** -0.5) for l in range(LMAX + 1)})
+            {str(l): normal(prng.fold_in(k3, l), (3 * C, C), (3 * C) ** -0.5)
+             for l in range(LMAX + 1)})
         self.res = nn.ParameterDict(
-            {str(l): normal((C, C), C ** -0.5) for l in range(LMAX + 1)})
+            {str(l): normal(prng.fold_in(k3, 10 + l), (C, C), C ** -0.5)
+             for l in range(LMAX + 1)})
 
 
 class MACE(nn.Module):
     """`embed`, `layers[i]` (`radial`, `w_b2`, `w_b3`, `mix`, `res`) and
-    `readout` (C -> 16 -> n_out), f32, drawn as `mace_init` draws them from
-    a generator seeded with `seed` on `device`.  n_out = 1 is the energy
-    readout; the configs' classification cells widen it."""
+    `readout` (C -> 16 -> n_out), f32, drawn as `mace_init(key)` draws them
+    on `device`: layer t under keys 4t to 4t + 3 of `split(key, 4 n_layers
+    + 2)` (`mix` / `res` of l under `fold_in` of the fourth by l / 10 +
+    l), `embed` under the second last.  n_out = 1 is the energy readout,
+    under the last key; the configs' classification cells widen it, and
+    draw it under `fold_in(key, 99)` as the reference's `configs.mace`
+    does.  `key` defaults to `prng.key(seed)`."""
 
     def __init__(self, d_in: int, channels: int = 128, n_layers: int = 2, n_rbf: int = 8,
                  r_cut: float = 5.0, n_out: int = 1, *, seed: int = 0,
-                 device: DeviceLike = "cuda"):
+                 key: Optional[prng.Key] = None, device: DeviceLike = "cuda"):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        key = prng.key(seed) if key is None else key
+        ks = prng.split(key, 4 * n_layers + 2)
         self.n_rbf, self.r_cut = n_rbf, r_cut
         n_paths = len(coupling_tensors())
         self.layers = nn.ModuleList(
-            MACELayer(channels, n_rbf, n_paths, generator=gen, device=dev)
-            for _ in range(n_layers))
-        self.embed = MLP((d_in, channels), generator=gen, device=dev)
-        self.readout = MLP((channels, 16, n_out), generator=gen, device=dev)
+            MACELayer(channels, n_rbf, n_paths, keys=ks[4 * t:4 * t + 4], device=dev)
+            for t in range(n_layers))
+        self.embed = MLP((d_in, channels), key=ks[-2], device=dev)
+        self.readout = MLP((channels, 16, n_out),
+                           key=ks[-1] if n_out == 1 else prng.fold_in(key, 99), device=dev)
         for p, (*_, K) in enumerate(coupling_tensors()):
             self.register_buffer(f"coupling_{p}", torch.from_numpy(K).to(dev), persistent=False)
 

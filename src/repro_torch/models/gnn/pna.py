@@ -11,11 +11,12 @@ paper; a block-diagonal batch of `n_graphs` equal graphs takes it per graph
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+from repro_torch.core import prng
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.gnn.common import MLP, degrees_from_edges, segment_max, segment_sum
 
@@ -23,26 +24,29 @@ _NEG = -1e9
 
 
 class PNALayer(nn.Module):
-    def __init__(self, d_in: int, d_hidden: int, *, generator: torch.Generator,
-                 device: torch.device):
+    def __init__(self, d_in: int, d_hidden: int, *, keys, device: torch.device):
         super().__init__()
-        self.msg = MLP((2 * d_in, d_hidden), generator=generator, device=device)
-        self.mix = MLP((12 * d_hidden + d_in, d_hidden), generator=generator, device=device)
+        self.msg = MLP((2 * d_in, d_hidden), key=keys[0], device=device)
+        self.mix = MLP((12 * d_hidden + d_in, d_hidden), key=keys[1], device=device)
 
 
 class PNA(nn.Module):
-    """`layers[i]` (`msg`, `mix`) and `head`, f32, He-scaled as `pna_init`
-    draws them, from a generator seeded with `seed` on `device`."""
+    """`layers[i]` (`msg`, `mix`) and `head`, f32, He-scaled as
+    `pna_init(key)` draws them (layer i's MLPs under keys 2i and 2i + 1 of
+    `split(key, 2 n_layers + 2)`, the head under the last) on `device`.
+    `key` defaults to `prng.key(seed)`."""
 
     def __init__(self, d_in: int, d_hidden: int = 75, n_layers: int = 4, n_out: int = 7,
-                 *, seed: int = 0, device: DeviceLike = "cuda"):
+                 *, seed: int = 0, key: Optional[prng.Key] = None,
+                 device: DeviceLike = "cuda"):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        ks = prng.split(prng.key(seed) if key is None else key, 2 * n_layers + 2)
         dims = [d_in] + [d_hidden] * n_layers
         self.layers = nn.ModuleList(
-            PNALayer(d, d_hidden, generator=gen, device=dev) for d in dims[:-1])
-        self.head = MLP((d_hidden, n_out), generator=gen, device=dev)
+            PNALayer(d, d_hidden, keys=ks[2 * i:2 * i + 2], device=dev)
+            for i, d in enumerate(dims[:-1]))
+        self.head = MLP((d_hidden, n_out), key=ks[-1], device=dev)
 
     def forward(self, h: torch.Tensor, senders: torch.Tensor, receivers: torch.Tensor,
                 mask: torch.Tensor, *, n_graphs: int = 1, split=None

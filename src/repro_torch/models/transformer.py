@@ -97,6 +97,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch.core import prng
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (
     apply_rope,
@@ -110,9 +111,6 @@ from repro_torch.models.moe import _activation, moe_ffn
 Params = Dict[str, Any]
 # a leaf's spec: (shape, dtype, init), init "ones", "zeros" or a normal's std
 Leaf = Tuple[Tuple[int, ...], torch.dtype, Union[str, float]]
-# normal draws are made in f32 this many elements at a time and cast into
-# the leaf, so that no full-width leaf needs its whole f32 copy at once
-_DRAW_BLOCK = 1 << 26
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -255,23 +253,47 @@ def param_shapes(cfg: LMConfig) -> Params:
     return out
 
 
-def _draw_into(gen: torch.Generator, out: torch.Tensor, std: float) -> None:
-    flat = out.view(-1)
-    for lo in range(0, flat.numel(), _DRAW_BLOCK):
-        hi = min(lo + _DRAW_BLOCK, flat.numel())
-        draw = torch.randn(hi - lo, generator=gen, device=out.device, dtype=torch.float32)
-        flat[lo:hi] = draw.mul_(std)
+# each normal leaf's index in its block's key split, and the split's size
+# (the reference's `_init_attn`, `_init_dense_ffn`, `_init_moe_ffn`)
+_ATTN_KEYS = {"wqkv": 0, "wq": 0, "wk": 1, "wv": 2, "wo": 3}
+_MLA_KEYS = {"w_dq": 0, "w_uq": 1, "w_dkv": 2, "w_uk": 3, "w_uv": 4, "wo": 5}
+_DENSE_FFN_KEYS = {"w1": 0, "w13": 0, "w2": 1, "w3": 2}
+_MOE_FFN_KEYS = {"router": 0, "we1": 1, "we2": 2, "we3": 3, "ws1": 4, "ws2": 5, "ws3": 6}
 
 
-def init_lm(gen: torch.Generator, cfg: LMConfig) -> Params:
-    """Random weights on the generator's device: N(0, 0.02²) projections
-    (output projections scaled by 1/sqrt(2·n_layers)), ones for the norms,
-    zeros for the QKV biases, as the reference's `init_lm`.  Each layer of
-    a stack is drawn into its slice of the stacked leaf, a block of
-    `_DRAW_BLOCK` elements at a time."""
-    dev = gen.device
+def _leaf_key(cfg: LMConfig, layer: prng.Key, block: str, name: str, is_moe: bool) -> prng.Key:
+    """The key of leaf `name` of a layer's `block` ("attn" or "ffn") under
+    the layer's key: `ka, kf = split(k)`, then `split(ka, 12)`,
+    `split(kf, 3)` (dense) or `split(kf, 8)` (MoE) at the leaf's index."""
+    ka, kf = prng.split(layer)
+    if block == "attn":
+        index = (_MLA_KEYS if cfg.mla is not None else _ATTN_KEYS)[name]
+        return prng.split(ka, 12)[index]
+    if is_moe:
+        return prng.split(kf, 8)[_MOE_FFN_KEYS[name]]
+    return prng.split(kf, 3)[_DENSE_FFN_KEYS[name]]
+
+
+def init_lm(key: prng.Key, cfg: LMConfig, *, device: DeviceLike = "cuda") -> Params:
+    """Random weights on `device` as the reference's `init_lm(key, cfg)`
+    draws them: N(0, 0.02²) projections (output projections scaled by
+    1/sqrt(2·n_layers)), ones for the norms, zeros for the QKV biases.
+    Every normal leaf is drawn under the reference's key for it:
+    `split(key, n_layers + 4)` gives `embed` key 0, `head` key 1, layer
+    i (dense layers first, then MoE) key 2 + i and MTP the last, split in
+    3 (`proj` under 0, `block` under 1); a layer's leaves follow
+    `_leaf_key`.  Each leaf, and each layer of a stacked leaf, is drawn
+    in f32 blocks of `prng.FILL_BLOCK` elements and cast (`normal_into`),
+    as the reference's `_dense` computes it.  On "meta" nothing is drawn."""
+    dev = resolve_device(device)
+    n_moe = (cfg.n_layers - cfg.n_dense_layers) if cfg.moe else 0
+    keys = prng.split(key, cfg.n_layers + 4)
+    mtp = prng.split(keys[-1], 3)
+    layer_keys = {"dense_layers": keys[2:2 + cfg.n_layers - n_moe],
+                  "moe_layers": keys[2 + cfg.n_layers - n_moe:2 + cfg.n_layers],
+                  "mtp": [mtp[1]]}
+    top = {("embed",): keys[0], ("head",): keys[1], ("mtp", "proj"): mtp[0]}
     params: Params = {}
-    normals = []
     for path, shape, dt, init in _walk(_tree_spec(cfg)):
         if init == "ones":
             leaf = torch.ones(shape, dtype=dt, device=dev)
@@ -279,20 +301,16 @@ def init_lm(gen: torch.Generator, cfg: LMConfig) -> Params:
             leaf = torch.zeros(shape, dtype=dt, device=dev)
         else:
             leaf = torch.empty(shape, dtype=dt, device=dev)
-            normals.append((path, leaf, init))
+            if path in top:
+                prng.normal_into(top[path], leaf, init)
+            elif path[0] == "mtp":              # ("mtp", "block", block, name)
+                prng.normal_into(_leaf_key(cfg, layer_keys["mtp"][0], path[2], path[3], False),
+                                 leaf, init)
+            else:                               # (stack, block, name), layer i at leaf[i]
+                for i, lk in enumerate(layer_keys[path[0]]):
+                    prng.normal_into(_leaf_key(cfg, lk, path[1], path[2],
+                                               path[0] == "moe_layers"), leaf[i], init)
         _set(params, path, leaf)
-    # leaves outside the stacks in tree order, then each stack layer by
-    # layer, leaf by leaf within a layer
-    stacks = {"dense_layers": [], "moe_layers": []}
-    for path, leaf, std in normals:
-        if path[0] in stacks:
-            stacks[path[0]].append((leaf, std))
-        else:
-            _draw_into(gen, leaf, std)
-    for group in stacks.values():
-        for i in range(group[0][0].shape[0] if group else 0):
-            for leaf, std in group:
-                _draw_into(gen, leaf[i], std)
     return params
 
 

@@ -15,6 +15,7 @@ from repro.configs import deepfm as ref_configs
 from repro.data.pipeline import ClickStream as RefClickStream
 from repro.models import deepfm as R
 from repro_torch.configs import deepfm as C
+from repro_torch.core import prng
 from repro_torch.data.pipeline import ClickStream
 from repro_torch.hopper.embedding_bag import embedding_bag, embedding_bag_plain
 from repro_torch.models import deepfm as M
@@ -185,7 +186,7 @@ def test_model_and_mlp_init_follow_the_reference():
     assert w0.shape == (400, 20)
     assert abs(float(w0.std()) - (2 / 20) ** 0.5) < 0.02
     assert all(float(layer.bias.abs().max()) == 0.0 for layer in a.mlp.layers)
-    mlp = MLP((3, 5, 2), generator=torch.Generator().manual_seed(0), device="cpu")
+    mlp = MLP((3, 5, 2), key=prng.key(0), device="cpu")
     assert [tuple(layer.weight.shape) for layer in mlp.layers] == [(5, 3), (2, 5)]
 
 
@@ -195,6 +196,6 @@ def test_entry_points_raise_on_cuda_without_a_card():
     with pytest.raises(RuntimeError, match="cuda"):
         M.DeepFM(C.SMOKE_CONFIG)
     with pytest.raises(RuntimeError, match="cuda"):
-        MLP((4, 2), generator=torch.Generator())
+        MLP((4, 2), key=prng.key(0))
     with pytest.raises(RuntimeError, match="cuda"):
         C.smoke()

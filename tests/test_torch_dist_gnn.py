@@ -15,7 +15,10 @@ rendezvous under the module's temporary directory:
 * the step without a split, and the placed step's loss, against the
   reference's own `_full_graph_cell(ref_a, "ogb_products")` step (jitted
   on a one-device mesh, the weights drawn by the reference's `init` and
-  carried by `gnn_params_from_numpy`).
+  carried by `gnn_params_from_numpy`);
+* minibatch_lg's step on (2, 1), (4, 1) and (2, 2) given the key: each
+  rank's draws are its data block's rows of the reference cell's draw
+  for the whole batch.
 
 pna and egnn run in f64 in both packages, as `chip_smoke.py`'s
 GNN_CPU_F64 does (their f32 gradients are ill-conditioned); gin-tu and
@@ -60,6 +63,7 @@ from repro.configs import pna as ref_pna_cfg
 from repro.train import optimizer as RO
 from repro_torch.configs import GNN_ARCHS
 from repro_torch.configs import gnn_cells as C
+from repro_torch.core import prng
 from repro_torch.dist.graph import split_edges, split_graph
 from repro_torch.dist.lookup import TableSplit, block_rows, row_block
 from repro_torch.graphs.generators import erdos_renyi
@@ -87,6 +91,7 @@ MINI_MESHES = {2: [(2, 1)], 4: [(4, 1), (2, 2)]}
 MINI_ARCHS = ("gin-tu", "egnn")   # f32 rows summed as int32, f64 rows as int64
 MINI_CASES = ("mixed", "one_block")
 MINI_N, MINI_B, MINI_FANOUT = 50, 8, (3, 2)   # 50 rows: blocks of 25, 17 and 13 (padded)
+MINI_KEY = 31                     # the step from a key draws at the cell's own fanout
 TAKE_KINDS = ("one_block", "every_block")
 
 
@@ -152,6 +157,16 @@ def _mini_inputs(case):
                 u2=rng.integers(0, DRAW_HIGH, (MINI_B, f1, f2)).astype(np.int32))
 
 
+def _mini_key_draws():
+    """The reference cell's draws under key(MINI_KEY) for the whole
+    batch (its `k1, k2 = split(key)`, at minibatch_lg's fanout)."""
+    k1, k2 = jax.random.split(jax.random.key(MINI_KEY))
+    f1, f2 = ref_cells.GNN_SHAPES["minibatch_lg"]["fanout"]
+    hi = np.iinfo(np.int32).max
+    return dict(u1=np.asarray(jax.random.randint(k1, (MINI_B, f1), 0, hi, dtype=np.int32)),
+                u2=np.asarray(jax.random.randint(k2, (MINI_B, f1, f2), 0, hi, dtype=np.int32)))
+
+
 def _take_inputs():
     """Tables of MINI_N rows for `TableSplit.take` (f32 with -0.0 and a NaN
     of a set payload, f64 with -0.0, int32, bool) and each world's ids, a
@@ -199,6 +214,7 @@ world = os.path.join(data, f"world{size}")
 dist.init_process_group("gloo", init_method="file://" + os.path.join(world, "rendezvous"),
                         rank=rank, world_size=size)
 from repro_torch.configs import GNN_ARCHS, gnn_cells as C
+from repro_torch.core import prng
 from repro_torch.dist.graph import split_graph
 from repro_torch.train import optimizer as O
 import torch.distributed.tensor
@@ -309,6 +325,37 @@ for shape in meta["mini_meshes"].get(str(size), []):
                 "rows_equal": [same(x, y) for x, y in zip(rows, rows_s)],
                 "blocks": [list(b.shape) for b in blocks],
             }
+    # the step from a key: this rank's rows of the reference's draw
+    inp = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(data, "mini_mixed.npz")).items()}
+    want = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(data, "mini_key.npz")).items()}
+    seeds = inp["seeds"].chunk(dp)[coord]
+    rows = tuple(want[k].chunk(dp)[coord] for k in ("u1", "u2"))
+    arch = meta["mini_archs"][0]
+    a = GNN_ARCHS[arch]
+    model = a.init(meta["d_feat"], meta["n_out"], seed=0, device="cpu")
+    w = np.load(os.path.join(data, f"weights_{arch}.npz"))
+    model.load_state_dict({k: torch.from_numpy(w[k]) for k in w.files})
+    seen, tree_fn = [], C.minibatch_tree
+    def capture(indptr, indices, seeds, draws, tables=None):
+        seen.append(draws)
+        return tree_fn(indptr, indices, seeds, draws, tables)
+    runs = {}
+    for name, arg in (("key", prng.Key(*meta["mini_key"])), ("rows", rows)):
+        params, opt = C.place_gnn_state(C.train_params(model), mesh)
+        losses = []
+        C.minibatch_tree = capture if name == "key" else tree_fn
+        for _ in range(meta["steps"]):
+            params, opt, loss = C.minibatch_step(a, model, params, opt, arg, inp["indptr"],
+                                                 inp["indices"], inp["feats"], inp["coords"],
+                                                 inp["labels"], seeds, mesh=mesh)
+            losses.append(loss)
+        runs[name] = losses
+    C.minibatch_tree = tree_fn
+    out[f"mini_key_{shape[0]}x{shape[1]}"] = {
+        "draws_equal": [all(same(x, y) for x, y in zip(d, rows)) for d in seen],
+        "row_shapes": [list(x.shape) for x in rows],
+        "losses_equal": all(same(x, y) for x, y in zip(runs["key"], runs["rows"])),
+    }
 
 # take(block, ids) against the whole table's rows, bit for bit
 if "take" in meta:
@@ -430,6 +477,7 @@ def runs(tmp_path_factory):
         minis = {case: _mini_inputs(case) for case in MINI_CASES}
         for case, arrays in minis.items():
             np.savez(os.path.join(data, f"mini_{case}.npz"), **arrays)
+        np.savez(os.path.join(data, "mini_key.npz"), **_mini_key_draws())
         np.savez(os.path.join(data, "take.npz"), **_take_inputs())
         trees = {arch: _ref_weights(arch) for arch in ARCHS}
         for arch, tree in trees.items():
@@ -439,6 +487,7 @@ def runs(tmp_path_factory):
                 "f64": list(F64), "d_feat": D_FEAT, "n_out": N_OUT, "steps": STEPS,
                 "mini_meshes": {str(k): v for k, v in MINI_MESHES.items()},
                 "mini_cases": list(MINI_CASES), "mini_archs": list(MINI_ARCHS),
+                "mini_key": list(prng.key(MINI_KEY)),
                 "take": list(TAKE_KINDS)}
         with open(os.path.join(data, "meta.tmp"), "w") as f:
             json.dump(meta, f)
@@ -604,6 +653,21 @@ def test_split_tables_step_is_the_replicated_step_bit_for_bit(runs, arch, shape,
                                   [blk, D_FEAT], [blk, 3], [blk]], (name, r)
         np.testing.assert_allclose(rank["losses"], runs["mini_whole"][(case, arch)], rtol=1e-5,
                                    err_msg=f"{name} rank {r}")
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (4, 1), (2, 2)])
+def test_minibatch_step_from_a_key_draws_its_rows_of_the_reference_draw(runs, shape):
+    """minibatch_lg's step on a mesh, given the key: every rank, model ranks
+    included, samples its block of seeds from its data block's rows of the
+    reference cell's draw for the whole batch (the key's draw from the
+    block's start counter), at each of 2 steps, and its losses are bit for
+    bit those of the step given those rows."""
+    dp = shape[0]
+    for r, rank in enumerate(runs["placed"][f"mini_key_{shape[0]}x{shape[1]}"]["ranks"]):
+        assert rank["draws_equal"] == [True] * STEPS, (shape, r)
+        f1, f2 = ref_cells.GNN_SHAPES["minibatch_lg"]["fanout"]
+        assert rank["row_shapes"] == [[MINI_B // dp, f1], [MINI_B // dp, f1, f2]], (shape, r)
+        assert rank["losses_equal"], (shape, r)
 
 
 @pytest.mark.parametrize("kind", TAKE_KINDS)

@@ -43,6 +43,7 @@ import torch.distributed as dist
 from _lm_parity import configs as lm_configs
 from repro.models import transformer as rtf
 from repro_torch.configs import LM_ARCHS
+from repro_torch.core import prng
 from repro_torch.configs import deepfm as DF
 from repro_torch.configs import lm_cells as C
 from repro_torch.models import transformer as tf
@@ -143,6 +144,7 @@ def save_blocks(name, leaves):
             "shapes": [list(x.shape) for x in leaves]}
 
 from repro_torch.configs import LM_ARCHS, deepfm as DF, lm_cells as C
+from repro_torch.core import prng
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.dist import P, batch_spec, data_axes
 from repro_torch.dist.collectives import data_group
@@ -199,7 +201,7 @@ tf._checkpointed, tf.flash_attention, tf.decode_attention, tf._seq = (
 # the train steps
 for name, (arch, changes, m, fsdp) in meta["lm"].items():
     cfg, mesh = config(arch, changes), meshes[m]
-    params, opt = C.place_lm_state(tf.init_lm(torch.Generator().manual_seed(0), cfg), mesh,
+    params, opt = C.place_lm_state(tf.init_lm(prng.key(0), cfg, device="cpu"), mesh,
                                    fsdp=fsdp)
     step = C.make_lm_train_step(cfg, OptConfig(**meta["opt"]), mesh=mesh, fsdp=fsdp)
     drops.clear(), carry.clear(), heads.clear(), seqs.clear()
@@ -219,7 +221,7 @@ s = meta["serve"]
 for name, (arch, fsdp, m, prompt) in meta["serve_cases"].items():
     cfg, mesh = config(arch, {}), meshes[m]
     prompts = load(f"prompts{prompt}")
-    params, _ = C.place_lm_state(tf.init_lm(torch.Generator().manual_seed(0), cfg), mesh,
+    params, _ = C.place_lm_state(tf.init_lm(prng.key(0), cfg, device="cpu"), mesh,
                                  fsdp=fsdp)
     heads.clear(), seqs.clear()
     logits, cache = C.prefill_step(params, cfg, shard_batch(prompts, mesh, batch_spec(mesh, 1)),
@@ -431,7 +433,7 @@ def test_lm_step_on_a_model_axis_equals_one_rank(ranks, case):
     data, _, outs = ranks
     arch, changes, _, _ = LM_CASES[case]
     cfg = _cfg(arch, changes)
-    params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+    params = tf.init_lm(prng.key(0), cfg, device="cpu")
     opt = adamw_init(params)
     step = C.make_lm_train_step(cfg, OptConfig(**OPT))
     losses = []
@@ -502,7 +504,7 @@ def test_serving_on_a_model_axis_equals_one_rank(ranks, case):
     data, _, outs = ranks
     arch, _, mesh, prompt = SERVE_CASES[case]
     cfg = LM_ARCHS[arch].SMOKE
-    params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+    params = tf.init_lm(prng.key(0), cfg, device="cpu")
     prompts, dec = _serve_inputs(prompt)
     logits, cache = C.prefill_step(params, cfg, torch.from_numpy(prompts), SERVE["max_len"])
     want = [logits]

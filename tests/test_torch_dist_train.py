@@ -39,6 +39,7 @@ import torch.distributed as dist
 from repro.models.lm_config import MoEConfig as RefMoEConfig
 from repro.models.moe import moe_ffn as ref_moe_ffn
 from repro_torch.configs import LM_ARCHS
+from repro_torch.core import prng
 from repro_torch.configs import deepfm as DF
 from repro_torch.configs import lm_cells as C
 from repro_torch.models import transformer as tf
@@ -88,6 +89,7 @@ def save(name, x):
 
 _EIGHT = _PRELUDE + """
 from repro_torch.configs import LM_ARCHS, deepfm as DF, lm_cells as C
+from repro_torch.core import prng
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.dist import distribute, reshard_checkpoint
 from repro_torch.dist.sharding import P, batch_spec
@@ -143,7 +145,7 @@ from repro_torch.dist import data_axes
 from repro_torch.models import transformer as tf
 from repro_torch.models.deepfm import DeepFM
 cfg = LM_ARCHS["qwen3-0.6b"].SMOKE
-lm_params, lm_opt = C.place_lm_state(tf.init_lm(torch.Generator().manual_seed(0), cfg), mesh)
+lm_params, lm_opt = C.place_lm_state(tf.init_lm(prng.key(0), cfg, device="cpu"), mesh)
 step = C.make_lm_train_step(cfg, OptConfig(**meta["opt"]), mesh=mesh)
 batch = shard_batch((load("lm_tokens0"), load("lm_targets0")), mesh, batch_spec(mesh, 1))
 out["model_axis_lm"] = step(lm_params, lm_opt, *batch)[2].item()
@@ -159,6 +161,7 @@ out["model_axis_deepfm"] = DF.train_step(
 _FOUR = """
 import dataclasses
 from repro_torch.configs import LM_ARCHS, deepfm as DF, lm_cells as C
+from repro_torch.core import prng
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.dist.sharding import P, batch_spec, data_axes
 from repro_torch.models import moe as M
@@ -186,7 +189,7 @@ for arch, factor in (meta["lm"].items() if rank < 4 else ()):
     cfg = LM_ARCHS[arch].SMOKE
     if factor is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=factor))
-    params, opt = C.place_lm_state(tf.init_lm(torch.Generator().manual_seed(0), cfg), mesh)
+    params, opt = C.place_lm_state(tf.init_lm(prng.key(0), cfg, device="cpu"), mesh)
     step = C.make_lm_train_step(cfg, OptConfig(**meta["opt"]), mesh=mesh)
     drops.clear()
     losses = []
@@ -407,7 +410,7 @@ def test_steps_refuse_a_model_axis(ranks, which):
     (2, 4) return the loss of the step without a mesh on every rank."""
     if which == "lm":
         cfg = LM_ARCHS["qwen3-0.6b"].SMOKE
-        params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+        params = tf.init_lm(prng.key(0), cfg, device="cpu")
         tok, tgt = _lm_batches(cfg)[0]
         want = C.make_lm_train_step(cfg, OptConfig(**OPT))(
             params, adamw_init(params), torch.from_numpy(tok), torch.from_numpy(tgt))[2]
@@ -435,7 +438,7 @@ def _close(got, want, what):
 def test_data_parallel_lm_step_equals_one_rank(ranks, arch):
     data, outs = ranks[0], ranks[3][:4]
     cfg = _lm_cfg(arch)
-    params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+    params = tf.init_lm(prng.key(0), cfg, device="cpu")
     opt = adamw_init(params)
     step = C.make_lm_train_step(cfg, OptConfig(**OPT))
     losses = []

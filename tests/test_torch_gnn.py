@@ -50,6 +50,7 @@ from repro.models.gnn import pna as ref_pna
 from repro.train import optimizer as RO
 from repro_torch.configs import GNN_ARCHS
 from repro_torch.configs import gnn_cells as C
+from repro_torch.core import prng
 from repro_torch.core.tiling import build_block_tiles
 from repro_torch.data.pipeline import GraphBatchStream
 from repro_torch.graphs import sampler as S
@@ -209,7 +210,7 @@ def test_mlp_defaults_to_silu_as_mlp_apply(act):
     reference's); nothing after the last layer."""
     tree = jax.tree.map(np.asarray, ref_common.mlp_init(jax.random.key(0), (6, 7, 5)))
     kw, ref_kw = ({}, {}) if act == "default" else ({"act": torch.relu}, {"act": jax.nn.relu})
-    mlp = G.MLP((6, 7, 5), generator=torch.Generator().manual_seed(0), device="cpu", **kw)
+    mlp = G.MLP((6, 7, 5), key=prng.key(0), device="cpu", **kw)
     mlp.load_state_dict(_mlp_state(tree))
     x = np.random.default_rng(1).standard_normal((11, 6)).astype(np.float32)
     want = np.asarray(ref_common.mlp_apply(tree, x, **ref_kw))
@@ -493,11 +494,15 @@ def _run_both(arch, shape, dtype=np.float32):
         new, new_opt, loss = C.molecule_step(a, model, params, opt, *t)
     else:
         indptr, indices, feats, coords, labels, seeds = t
-        tree_port = C.minibatch_tree(indptr, indices, seeds, draws)
+        pkey = prng.Key(*(int(w) for w in jax.random.key_data(key)))
+        port_draws = C.minibatch_draws(pkey, MINI_B, MINI_FANOUT, "cpu")
+        for u, v in zip(port_draws, draws):
+            assert torch.equal(u, v)
+        tree_port = C.minibatch_tree(indptr, indices, seeds, port_draws)
         loss_fn = lambda p: C.minibatch_loss(a, model, p, tree_port, feats, coords,  # noqa: E731
                                              labels, seeds)
-        new, new_opt, loss = C.minibatch_step(a, model, params, opt, draws, indptr, indices,
-                                              feats, coords, labels, seeds)
+        new, new_opt, loss = C.minibatch_step(a, model, params, opt, port_draws, indptr,
+                                              indices, feats, coords, labels, seeds)
         ids, snd, rcv, emask = tree_port
         want = captured["tree"]
         np.testing.assert_array_equal(coords[ids.long()].numpy(), want[1])
@@ -516,7 +521,8 @@ CELLS = [(a, s) for a in ARCHS for s in SHAPES]
 def test_cell_gradients_match_jax_grad(arch, shape, small_minibatch_cell):
     """The cell's loss and every gradient leaf against jax.grad of the
     reference cell's loss; the minibatch cell's tree, sampled from the
-    reference's draws, equal to the one its step built."""
+    reference's draws and by the port from the same key, equal to the one
+    its step built."""
     out = _run_both(arch, shape, np.float64)
     assert out["loss"] == out["port_loss"]
     np.testing.assert_allclose(out["loss"], out["ref_loss"], rtol=1e-5)
@@ -687,7 +693,7 @@ def test_sampler_fed_the_reference_draws_matches(seed):
     key = jax.random.key(seed)
     want = ref_sampler.NeighborSampler(ref_g, fanout).sample(key, jnp.asarray(seeds))
     sampler = S.NeighborSampler(g, fanout)
-    sub = sampler.sample(torch.from_numpy(seeds), _t(*_ref_sampler_draws(key, 8, fanout)))
+    sub = sampler.sample_draws(torch.from_numpy(seeds), _t(*_ref_sampler_draws(key, 8, fanout)))
     assert sub.batch == want.batch == 8
     assert any(not bool(m.all()) for m in sub.masks[1:]), "no masked slot in the case"
     for got_l, want_l in zip(sub.layers + sub.masks, want.layers + want.masks):
@@ -703,10 +709,10 @@ def test_sampler_fed_the_reference_draws_matches(seed):
 
 
 def test_draws_have_the_reference_shapes_and_range():
-    gen = torch.Generator().manual_seed(0)
-    u1, u2 = S.draws(gen, 6, (4, 3))
+    u1, u2 = C.minibatch_draws(prng.key(0), 6, (4, 3), "cpu")
     assert u1.shape == (6, 4) and u2.shape == (6, 4, 3)
-    draws = S.draws(gen, 6, (4, 3, 2))
+    sampler = S.NeighborSampler(erdos_renyi(20, avg_deg=2.0, seed=0, device="cpu"), (4, 3, 2))
+    draws = sampler.draws(prng.key(0), 6)
     assert [tuple(u.shape) for u in draws] == [(6, 4), (6, 4, 3), (6, 4, 3, 2)]
     for u in (u1, u2) + draws:
         assert u.dtype == torch.int32 and int(u.min()) >= 0 and int(u.max()) < S.DRAW_HIGH

@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.engine import block_col_flags, live_bits
 from repro_torch.core.tiling import (
     build_block_tiles,
@@ -1422,7 +1423,8 @@ def test_sampler_on_card(cuda_device):
     from repro_torch.configs import gnn_cells as C
     from repro_torch.graphs.generators import erdos_renyi
     from repro_torch.graphs.graph import build_csr
-    from repro_torch.graphs.sampler import NeighborSampler, draws
+    from repro_torch.core import prng
+    from repro_torch.graphs.sampler import NeighborSampler
 
     g = erdos_renyi(5000, avg_deg=3.0, seed=1, device=cuda_device)
     sampler = NeighborSampler(g, (15, 10))
@@ -1432,14 +1434,15 @@ def test_sampler_on_card(cuda_device):
     nbrs = [set(indices[indptr[v]:indptr[v + 1]].tolist()) for v in range(g.n_nodes)]
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     seeds = torch.randperm(g.n_nodes, generator=gen, device=cuda_device)[:64].to(torch.int32)
-    sub = sampler.sample(seeds, draws(gen, 64, sampler.fanout))
+    sub = sampler.sample(prng.key(0), seeds)
     pairs = []
     for k in range(1, len(sub.layers)):
         parent = sub.layers[k - 1][..., None].expand(sub.layers[k].shape)
         m = sub.masks[k]
         pairs += zip(parent[m].tolist(), sub.layers[k][m].tolist())
     ids, snd, rcv, emask = C.minibatch_tree(sampler.indptr, sampler.indices, seeds,
-                                            draws(gen, 64, (15, 10)))
+                                            C.minibatch_draws(prng.key(1), 64, (15, 10),
+                                                              cuda_device))
     pairs += zip(ids[rcv.long()][emask].tolist(), ids[snd.long()][emask].tolist())
     assert pairs and all(c in nbrs[p] for p, c in pairs)
 
@@ -1480,7 +1483,7 @@ def test_lm_serving_on_card_equals_cpu(cuda_device, arch, monkeypatch):
 
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     cfg = LM_ARCHS[arch].SMOKE
-    params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+    params = tf.init_lm(prng.key(0), cfg, device="cpu")
     tree = {}
 
     def to_numpy(src, dst):
@@ -1524,7 +1527,7 @@ def test_lm_train_step_on_card_equals_cpu(cuda_device, monkeypatch):
 
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     cfg = dataclasses.replace(LM_ARCHS["qwen3-0.6b"].CONFIG, n_layers=2, dtype=torch.float32)
-    params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+    params = tf.init_lm(prng.key(0), cfg, device="cpu")
     card = T.tree_map(lambda t: t.to(cuda_device), params)
     toks, tgts = (torch.from_numpy(a)
                   for a in TokenStream(cfg.vocab, 1, 128, seed=17).batch_at(0))
@@ -1548,7 +1551,7 @@ def test_lm_remat_modes_agree_on_card(cuda_device, arch):
     from repro_torch.models import transformer as tf
 
     cfg = dataclasses.replace(LM_ARCHS[arch].SMOKE, dtype=torch.bfloat16)
-    params = tf.init_lm(torch.Generator(device=cuda_device).manual_seed(0), cfg)
+    params = tf.init_lm(prng.key(0), cfg, device=cuda_device)
     toks, tgts = (torch.from_numpy(a).to(cuda_device)
                   for a in TokenStream(cfg.vocab, 2, 64, seed=17).batch_at(0))
     runs = [C.lm_loss_and_grads(params, dataclasses.replace(cfg, remat=r, remat_policy=p),
@@ -1583,6 +1586,7 @@ def test_lm_entry_points_raise_on_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from repro_torch.configs import LM_ARCHS
+    from repro_torch.core import prng
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
 
@@ -1593,8 +1597,8 @@ def test_lm_entry_points_raise_on_cuda_without_a_card():
         tf.lm_params_from_numpy({}, cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main([])
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tf.init_lm(torch.Generator(device="cuda"), cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tf.init_lm(prng.key(0), cfg)
 
 
 # --------------------------------------------------------------------------
@@ -1615,6 +1619,44 @@ def test_threefry_matches_plain_on_card(cuda_device, n, mode):
         want = TF.threefry_bits(k0, k1, n, "cpu", mode)
         assert got.dtype == want.dtype and got.shape == (n,)
         assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def _ordered_f32(t: torch.Tensor) -> torch.Tensor:
+    b = t.cpu().view(torch.int32).long()
+    return torch.where(b < 0, -(b & 0x7FFFFFFF), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [0, (1 << 32) - 5, 3 << 32])
+@pytest.mark.parametrize("n", [1, 1023, (1 << 20) + 17])
+def test_threefry_modes_from_a_start_match_plain_on_card(cuda_device, n, start):
+    """The kernel's bits, ranged uniforms and normals from a start counter
+    against the plain version as torch ops on the card and on the host:
+    bit for bit, the normals within 4 ulp; written into a slice of a larger
+    tensor (`out=`), the same bits and nothing outside it."""
+    from repro_torch.hopper import threefry as TF
+
+    for mode, lo, hi in (("bits", 0.0, 1.0), ("uniform", 0.0, 1.0), ("uniform", -3.5, 2.25),
+                         ("normal", 0.0, 1.0)):
+        before = TF.threefry_bits.launches
+        got = TF.threefry_bits(0x9E3779B9, 0x7F4A7C15, n, cuda_device, mode, start=start,
+                               minval=lo, maxval=hi)
+        torch.cuda.synchronize()
+        assert TF.threefry_bits.launches == before + 1
+        on_card = TF.threefry_bits_plain(0x9E3779B9, 0x7F4A7C15, torch.empty_like(got), mode,
+                                         start=start, minval=lo, maxval=hi)
+        on_host = TF.threefry_bits(0x9E3779B9, 0x7F4A7C15, n, "cpu", mode, start=start,
+                                   minval=lo, maxval=hi)
+        for want in (on_card.cpu(), on_host):
+            if mode == "normal":
+                assert int((_ordered_f32(got) - _ordered_f32(want)).abs().max()) <= 4
+            else:
+                assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+        into = torch.zeros(n + 2, dtype=got.dtype, device=cuda_device)
+        TF.threefry_bits(0x9E3779B9, 0x7F4A7C15, n, cuda_device, mode, start=start, minval=lo,
+                         maxval=hi, out=into[1:-1])
+        assert torch.equal(into[1:-1].view(torch.int32), got.view(torch.int32))
+        assert int(into[0]) == int(into[-1]) == 0
 
 
 @pytest.mark.gpu

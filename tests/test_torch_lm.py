@@ -28,6 +28,7 @@ from repro.launch.train import small_variant as ref_small_variant
 from repro.models import transformer as rtf
 from repro_torch.configs import LM_ARCHS
 from repro_torch.configs import lm_cells as C
+from repro_torch.core import prng
 from repro_torch.launch.train import small_variant
 from repro_torch.models import transformer as tf
 from repro_torch.models.lm_config import LMConfig
@@ -123,7 +124,7 @@ def test_param_tree_matches_the_reference(arch, variant):
 def test_init_lm_makes_that_tree_with_the_reference_s_scales(arch):
     _, cfg = configs(arch)
     cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers + 2)   # two more layers
-    params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+    params = tf.init_lm(prng.key(0), cfg, device="cpu")
     want = _port_shapes(tf.param_shapes(cfg))
     got = {}
 
@@ -148,9 +149,9 @@ def test_init_lm_makes_that_tree_with_the_reference_s_scales(arch):
             assert abs(float(v.float().std()) / std - 1) < 0.2, path
             if path[0] in ("dense_layers", "moe_layers") and v.shape[0] > 1:
                 assert not torch.equal(v[0], v[1]), path     # layers drawn apart
-    again = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+    again = tf.init_lm(prng.key(0), cfg, device="cpu")
     assert torch.equal(again["embed"], params["embed"])
-    other = tf.init_lm(torch.Generator().manual_seed(1), cfg)
+    other = tf.init_lm(prng.key(1), cfg, device="cpu")
     assert not torch.equal(other["embed"], params["embed"])
 
 

@@ -23,6 +23,7 @@ from _lm_parity import (
 )
 from repro.models.lm_config import LMConfig as RefLMConfig
 from repro_torch.configs import lm_cells as C
+from repro_torch.core import prng
 from repro_torch.launch import serve
 from repro_torch.models import transformer as tf
 from repro_torch.models.lm_config import LMConfig
@@ -133,7 +134,7 @@ def test_decode_matches_forward(arch):
     """The reference's keystone on the port: teacher-forced decode from a
     prefill of S - 4 tokens reproduces the forward's logits."""
     _, port = wide_capacity(*configs(arch))
-    params = tf.init_lm(torch.Generator().manual_seed(0), port)
+    params = tf.init_lm(prng.key(0), port, device="cpu")
     B, S, k = 2, 24, 4
     tk = t(tokens(port.vocab, B, S))
     h, _, _ = tf.forward(params, port, tk)
@@ -148,7 +149,7 @@ def test_decode_matches_forward(arch):
 
 def test_decode_consumes_the_cache_in_place():
     _, port = configs("qwen3-0.6b")
-    params = tf.init_lm(torch.Generator().manual_seed(0), port)
+    params = tf.init_lm(prng.key(0), port, device="cpu")
     _, cache = tf.prefill(params, port, t(tokens(port.vocab, 2, 5)), max_len=8)
     k_before = cache.data["k"].clone()
     _, nxt = tf.decode_step(params, port, cache, torch.tensor([1, 2]))

@@ -28,6 +28,7 @@ from repro.train import OptConfig as RefOptConfig
 from repro.train import adamw_init as ref_adamw_init
 from repro_torch.configs import LM_ARCHS
 from repro_torch.configs import lm_cells as C
+from repro_torch.core import prng
 from repro_torch.data.pipeline import TokenStream
 from repro_torch.launch import train as launch_train
 from repro_torch.models import attention as A
@@ -175,7 +176,7 @@ def test_train_step_matches_reference():
 def test_donated_step_equals_the_out_of_place_step():
     """`donate` writes the same bits into the state it is given."""
     cfg = LM_ARCHS["mixtral-8x22b"].SMOKE
-    params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+    params = tf.init_lm(prng.key(0), cfg, device="cpu")
     tk = torch.from_numpy(tokens(cfg.vocab, 2, 24))
     tg = torch.roll(tk, -1, dims=1)
     opt_cfg = OptConfig(total_steps=100, warmup_steps=2)
@@ -200,7 +201,7 @@ def test_remat_invariance(arch):
     """Remat "full", "dots" and off give the same loss and gradients (the
     port's counterpart of test_models_lm.py's unroll invariance)."""
     cfg = LM_ARCHS[arch].SMOKE
-    params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+    params = tf.init_lm(prng.key(0), cfg, device="cpu")
     tk = torch.from_numpy(tokens(cfg.vocab, 2, 32))
     tg = torch.roll(tk, -1, dims=1)
     runs = {}
@@ -221,7 +222,7 @@ def test_remat_checkpoints_each_layer():
     """Under remat "full" the forward keeps no tensor of a layer's inside:
     what autograd saves is at most the width of a layer's carry."""
     cfg = dataclasses.replace(LM_ARCHS["qwen3-0.6b"].SMOKE, n_layers=3)
-    params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+    params = tf.init_lm(prng.key(0), cfg, device="cpu")
     weights = {p.requires_grad_().untyped_storage().data_ptr() for p in T.leaves(params)}
     tk = torch.from_numpy(tokens(cfg.vocab, 2, 32))
     biggest = {}
@@ -252,7 +253,7 @@ def test_dots_policy_saves_the_2d_matmuls_only():
 
 def test_unknown_remat_policy_raises():
     cfg = dataclasses.replace(LM_ARCHS["qwen3-0.6b"].SMOKE, remat_policy="everything")
-    params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+    params = tf.init_lm(prng.key(0), cfg, device="cpu")
     tk = torch.from_numpy(tokens(cfg.vocab, 1, 8))
     with pytest.raises(ValueError, match="remat_policy"):
         C.lm_loss_and_grads(params, cfg, tk, tk)
@@ -271,7 +272,7 @@ def test_train_loop_end_to_end_lm(tmp_path):
     """tests/test_system.py's driver test on the port: a tiny LM trains
     through the TrainLoop and its loss falls below uniform."""
     cfg = LM_ARCHS["qwen1.5-0.5b"].SMOKE
-    params = tf.init_lm(torch.Generator().manual_seed(0), cfg)
+    params = tf.init_lm(prng.key(0), cfg, device="cpu")
     raw = C.make_lm_train_step(cfg, OptConfig(lr=3e-3, warmup_steps=5, total_steps=100))
 
     def step_fn(state, batch):

@@ -388,6 +388,7 @@ def lm_run(r: Rank, run) -> dict:
     import torch
     from repro_torch.configs import LM_ARCHS
     from repro_torch.configs import lm_cells as C
+    from repro_torch.core import prng
     from repro_torch.data.pipeline import TokenStream, shard_batch
     from repro_torch.dist import batch_spec
     from repro_torch.launch.train import small_variant
@@ -411,7 +412,7 @@ def lm_run(r: Rank, run) -> dict:
     stream = TokenStream(cfg.vocab, B, S, seed=17)
 
     def init():
-        return tf.init_lm(torch.Generator(device=r.dev).manual_seed(0), cfg)
+        return tf.init_lm(prng.key(0), cfg, device=r.dev)
 
     params, opt = C.place_lm_state(init(), mesh)
     step = C.make_lm_train_step(cfg, opt_cfg, donate=donate, mesh=mesh)
@@ -644,13 +645,14 @@ def part_deepfm_tp(r: Rank) -> dict:
 
 
 def seeded_lm(cfg, dev, specs=None, mesh=None):
-    """An LM tree at `cfg`'s widths drawn leaf by leaf, each leaf from its
-    own generator (seeded by its path) with `init_lm`'s kinds of values:
+    """An LM tree at `cfg`'s widths drawn leaf by leaf, each leaf under its
+    own key (seeded by its path) with `init_lm`'s kinds of values:
     with `specs` each rank keeps its block of each leaf as a DTensor and
     frees the whole leaf at once, so no rank ever holds the whole tree."""
     import zlib
 
     import torch
+    from repro_torch.core import prng
     from repro_torch.dist.sharding import Sharding
     from repro_torch.models import transformer as tf
 
@@ -662,8 +664,7 @@ def seeded_lm(cfg, dev, specs=None, mesh=None):
             leaf = torch.zeros(shape, dtype=dt, device=dev)
         else:
             leaf = torch.empty(shape, dtype=dt, device=dev)
-            g = torch.Generator(device=dev).manual_seed(zlib.crc32("/".join(path).encode()))
-            tf._draw_into(g, leaf, init)
+            prng.normal_into(prng.key(zlib.crc32("/".join(path).encode())), leaf, init)
         if specs is not None:
             node = specs
             for k in path:
@@ -789,6 +790,7 @@ def decode_run(r: Rank, arch: str) -> dict:
     import torch
     from repro_torch.configs import LM_ARCHS
     from repro_torch.configs import lm_cells as C
+    from repro_torch.core import prng
     from repro_torch.data.pipeline import TokenStream, shard_batch
     from repro_torch.dist import batch_spec, distribute, lm_param_specs
     from repro_torch.launch.train import small_variant
@@ -805,7 +807,7 @@ def decode_run(r: Rank, arch: str) -> dict:
         cfg, P, L = small_variant(cfg), 16, 48
     mesh = r.mesh((1, r.size))
     prompts = torch.from_numpy(TokenStream(cfg.vocab, B, P, seed=17).batch_at(0)[0]).to(r.dev)
-    whole = tf.init_lm(torch.Generator(device=r.dev).manual_seed(0), cfg)
+    whole = tf.init_lm(prng.key(0), cfg, device=r.dev)
     placed = distribute(whole, lm_param_specs(whole, mesh), mesh)
     feed = None
     if r.rank == 0:         # one card: greedy, then one prefill of every token fed
@@ -1277,14 +1279,16 @@ def minibatch_batches(r: Rank, shape: dict, n: int, dp: int, coord: int) -> list
     """MINI_STEPS global batches (seeds and draws, the same on every rank),
     each cut to this rank's block of the batch ranks."""
     import torch
-    from repro_torch.graphs.sampler import draws
+    from repro_torch.configs.gnn_cells import minibatch_draws
+    from repro_torch.core import prng
 
     out = []
     for i in range(MINI_STEPS):
         gen = torch.Generator(device=r.dev).manual_seed(GNN_SEED + 1000 + i)
         B = shape["batch_nodes"]
         seeds = torch.randperm(n, generator=gen, device=r.dev)[:B].to(torch.int32)
-        u = draws(gen, B, shape["fanout"])
+        u = minibatch_draws(prng.fold_in(prng.key(GNN_SEED), 1000 + i), B, shape["fanout"],
+                            r.dev)
         out.append((tuple(x.chunk(dp)[coord] for x in u), seeds.chunk(dp)[coord]))
     return out
 
